@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases, in order:
+Phases, in order (each path runs with the launch counts set to 0 just
+before it and read just after; each kernel wrapper keeps the operands of
+its first launch in the path):
   1. the card: its name and power limit;
-  2. the build of the CUDA kernels from dgen_tpu_torch/csrc (nvcc, sm_90a);
-  3. the main path: ercot-all-sector at 8,192 agents for 3 model years,
-     with launch counts, per-year wall time and agent-years/s, and the
-     port on the card against the port on the CPU at a small size; each
-     kernel wrapper keeps the operands of its first launch;
-  4. the rate-switch path (1,024 agents, 2 model years) through the pair
-     kernel;
-  5. each kernel against its plain PyTorch version on the operands the
+  2. the build of the CUDA kernels from dgen_tpu_torch/csrc (one nvcc per
+     source, all started together, sm_90a) and each kernel's registers,
+     spills and shared memory;
+  3. the main path: ercot-all-sector at 8,192 agents for 3 model years
+     (month kernel), with per-year wall time and agent-years/s, and the
+     port on the card against the port on the CPU at a small size;
+  4. the gated main path: the same world with daylight_compact, pack_once
+     and stream_segments (stream kernel, no month kernel), its national
+     curves against the main path's;
+  5. the rate-switch path (1,024 agents, 2 model years) through the pair
+     kernel, then the same with the three knobs (pair kernel on
+     daylight-compacted lanes);
+  6. the daylight path (1,024 agents, 1 model year, daylight_compact
+     alone): the month kernel on compacted lanes, its national curves
+     against the same world's without the knob;
+  7. the dot path: one model year at 512 agents through
+     year_step(..., sizing_impl="dot"), its national curves against the
+     month engine's on the same world;
+  8. each kernel against its plain PyTorch version on the operands the
      paths gave it, with a check that the comparison would catch a
-     kernel that drops one TOU period of any agent;
-  6. each kernel's time on those operands beside its plain version's
-     and the card's bound for the same work, and the first year's
-     sizing call broken down;
-  7. a JSON line with every ported kernel, then the result line.
+     kernel that drops one TOU period of any agent, and each kernel's
+     time beside its plain version's and the card's bound for the same
+     work; the month kernel against the stream kernel on the stream
+     kernel's operands (logged only); the first year's sizing call broken
+     down;
+  9. a JSON line with every ported kernel, the card, the result line.
 
 Exits non-zero, printing no result, without a CUDA device, when the
 package is not beside this script, or when any phase fails.
@@ -35,22 +49,38 @@ import time
 #: tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-HOURS = 8760
 
 MAIN_AGENTS = 8192
 MAIN_END_YEAR = 2018          # model years 2014, 2016, 2018
 SWITCH_AGENTS = 1024
 SWITCH_END_YEAR = 2016        # model years 2014, 2016
+DAYLIGHT_AGENTS = 1024
+DOT_AGENTS = 512
+GATED = dict(daylight_compact=True, pack_once=True, stream_segments=True)
 #: kernel vs plain version: rtol 1e-4, atol 1e-3 x the agent's largest
 #: |plain| value in that output (the two sum float32 terms in different
 #: orders; per agent, because loads span 4 MWh/yr homes to GWh/yr plants)
 RTOL = 1e-4
 ATOL_FRAC = 1e-3
+#: the dot kernel multiplies in TF32: the JAX package's bound for its dot
+#: engine (rtol 5e-3, atol 2.0) and the per-agent atol at that rtol
+DOT_RTOL = 5e-3
+DOT_ATOL = 2.0
 #: a dropped period must be caught in every agent where it carries at
 #: least this share of the agent's largest bucket
 DROPPED_SHARE = 1e-2
-#: port on the card vs on the CPU, national curves (the golden contract)
+#: national curves: port on the card vs on the CPU, and the gated path
+#: vs the default one (the golden contract)
 CURVE_RTOL = 1e-3
+#: national curves of the dot engine vs the month engine
+#: (tests/test_golden_e2e.py's envelope for a lower-precision engine)
+DOT_CURVE_RTOL = 2e-2
+
+SOURCES = {
+    "month": "dgen_tpu_torch/csrc/bucket_sums.cu",
+    "stream": "dgen_tpu_torch/csrc/bucket_sums_stream.cu",
+    "dot": "dgen_tpu_torch/csrc/bucket_sums_dot.cu",
+}
 
 
 def log(msg: str) -> None:
@@ -80,26 +110,57 @@ def year0_envs(sim):
 
 
 def kernel_specs(bk) -> dict:
-    """JSON name -> (LAUNCHES key, wrapper, plain version, float32
-    operations per (agent, scale, hour), [N, 8760] streams read)."""
+    """JSON name -> (capture, wrapper, plain version, float32 operations
+    per (agent, scale, lane), [N, L] lane arrays read, rtol, source,
+    TPU kernel replaced). A capture is (path, LAUNCHES key) of the run
+    whose first-launch operands the kernel is checked and timed on."""
+    month = (bk.month_sums, bk.month_sums_plain)
+    stream = (bk.stream_sums, bk.month_sums_plain)
+    pair = (bk.month_pair_sums, bk.month_pair_sums_plain)
+    dot = (bk.dot_sums, bk.dot_sums_plain)
+    bp = "dgen_tpu/ops/billpallas.py"
     return {
-        "bucket_sums_month": ("month", bk.month_sums, bk.month_sums_plain, 6, 4),
-        "bucket_sums_month_signed": ("month_signed", bk.month_sums,
-                                     bk.month_sums_plain, 9, 4),
-        "bucket_sums_month_pair": ("month_pair", bk.month_pair_sums,
-                                   bk.month_pair_sums_plain, 9, 6),
+        "bucket_sums_month": (("main", "month"), *month, 6, 4, RTOL, "month",
+                              f"{bp}:343"),
+        "bucket_sums_month_signed": (("main", "month_signed"), *month, 9, 4, RTOL,
+                                     "month", f"{bp}:343"),
+        "bucket_sums_month_pair": (("switch", "month_pair"), *pair, 9, 6, RTOL,
+                                   "month", f"{bp}:427"),
+        "bucket_sums_stream": (("gated", "stream"), *stream, 6, 4, RTOL, "stream",
+                               f"{bp}:840"),
+        "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9, 4,
+                                      RTOL, "stream", f"{bp}:840"),
+        "bucket_sums_month_compacted": (("daylight", "month"), *month, 6, 4, RTOL,
+                                        "month", f"{bp}:343"),
+        "bucket_sums_month_signed_daylight": (("daylight", "month_signed"), *month,
+                                              9, 4, RTOL, "month", f"{bp}:343"),
+        "bucket_sums_month_pair_compacted": (("switch_gated", "month_pair"), *pair,
+                                             9, 6, RTOL, "month", f"{bp}:427"),
+        "bucket_sums_dot": (("dot", "dot"), *dot, 6, 4, DOT_RTOL, "dot",
+                            f"{bp}:296"),
+        "bucket_sums_dot_signed": (("dot", "dot_signed"), *dot, 9, 4, DOT_RTOL,
+                                   "dot", f"{bp}:296"),
     }
 
 
-def bad_agents(got, ref):
-    """[N] bool: agents with an element outside rtol RTOL + atol
-    ATOL_FRAC x that agent's largest |ref| in this output."""
+def ab_specs(bk) -> dict:
+    """As :func:`kernel_specs`, for the A/B of the month kernel on the
+    stream kernel's uniform compacted operands: the gated path launches
+    no month kernel, so it is logged and not a row of the kernels line."""
+    return {"bucket_sums_month_on_stream_operands": (
+        ("gated", "stream"), bk.month_sums, bk.month_sums_plain, 6, 4, RTOL,
+        "month", "dgen_tpu/ops/billpallas.py:343")}
+
+
+def bad_agents(got, ref, rtol=RTOL):
+    """[N] bool: agents with an element outside rtol + atol ATOL_FRAC x
+    that agent's largest |ref| in this output."""
     row_max = ref.abs().flatten(1).amax(1).view(-1, *[1] * (ref.ndim - 1))
-    tol = RTOL * ref.abs() + ATOL_FRAC * row_max
+    tol = rtol * ref.abs() + ATOL_FRAC * row_max
     return ((got - ref).abs() > tol).flatten(1).any(1)
 
 
-def dropped_period_caught(ref) -> tuple[int, int, int]:
+def dropped_period_caught(ref, rtol=RTOL) -> tuple[int, int, int]:
     """Holds a copy of the bucket sums ``ref`` [N, R, 12P] with the last
     period zeroed (a kernel that drops it) against ``ref``. Returns the
     agents where that period carries >= DROPPED_SHARE of the agent's
@@ -111,8 +172,8 @@ def dropped_period_caught(ref) -> tuple[int, int, int]:
     row_max = ref.abs().flatten(1).amax(1)
     col_max = ref[..., p - 1::p].abs().flatten(1).amax(1)
     must = (col_max >= DROPPED_SHARE * row_max) & (row_max > 0)
-    flagged = bad_agents(mutant, ref)
-    whole = RTOL * ref.abs() + ATOL_FRAC * ref.abs().max()
+    flagged = bad_agents(mutant, ref, rtol)
+    whole = rtol * ref.abs() + ATOL_FRAC * ref.abs().max()
     flagged_whole = ((mutant - ref).abs() > whole).flatten(1).any(1)
     return (int(must.sum()), int((flagged & must).sum()),
             int((flagged_whole & must).sum()))
@@ -136,61 +197,79 @@ def time_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound_ms(n: int, r: int, n_periods: int, ops_per_elem: int, n_streams: int,
-             n_outs: int) -> tuple[float, str]:
-    """Least time for the work: operations over the float32 peak vs bytes
-    moved (each stream read once, each output written once) over HBM."""
-    ops = float(n) * r * HOURS * ops_per_elem
-    nbytes = 4.0 * (n * HOURS * n_streams + n * r
+def bound_ms(n: int, r: int, n_lanes: int, work_lanes: int, n_periods: int,
+             ops_per_elem: int, n_streams: int, n_outs: int) -> tuple[float, str]:
+    """Least time for the work: operations on the ``work_lanes`` that hold
+    an hour (a compacted layout's padding lanes do no work) over the
+    float32 peak vs bytes moved (each of the ``n_lanes`` lanes of each
+    array read once, each output written once) over HBM."""
+    ops = float(n) * r * work_lanes * ops_per_elem
+    nbytes = 4.0 * (n * n_lanes * n_streams + n * r
                     + n_outs * n * r * (12 * n_periods + 1))
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_and_time(captured: dict) -> list:
-    """Each kernel against its plain version, and both timed, on the
-    operands the main path (or the rate-switch path) gave it."""
+def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
+    """Each kernel of ``specs`` against its plain version, and both timed,
+    on the operands a path gave it. ``hour_lanes``: path -> lanes of its
+    daylight layout that hold an hour (None without a layout)."""
     import torch
 
-    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops.tariff import HOURS
 
     rows = []
-    for name, (key, kernel, plain, ops, n_streams) in kernel_specs(bk).items():
-        args = captured[key]
+    for name, (cap, kernel, plain, ops, n_streams, rtol, src,
+               replaces) in specs.items():
+        args = captures[cap[0]][cap[1]]
         got = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         for i, (g, r) in enumerate(zip(got, ref)):
-            bad = bad_agents(g, r)
+            bad = bad_agents(g, r, rtol)
             if bool(bad.any()):
                 raise AssertionError(
                     f"{name}: output {i} disagrees with the plain version for "
                     f"{int(bad.sum())} agents (max abs err {err:.3e})")
-        must, caught, caught_whole = dropped_period_caught(ref[0])
+            if rtol == DOT_RTOL and not torch.allclose(g, r, rtol=DOT_RTOL,
+                                                       atol=DOT_ATOL):
+                raise AssertionError(f"{name}: output {i} is outside rtol "
+                                     f"{DOT_RTOL} / atol {DOT_ATOL}")
+        must, caught, caught_whole = dropped_period_caught(ref[0], rtol)
         if caught != must:
             raise AssertionError(f"{name}: a dropped period passes the check "
                                  f"for {must - caught} of {must} agents")
         n, r = got[1].shape
+        n_lanes = args[0].shape[1]
+        work_lanes = n_lanes if n_lanes == HOURS else hour_lanes[cap[0]]
         p = got[0].shape[-1] // 12
         n_outs = len(got) // 2
         del got, ref
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
-        b_ms, b_by = bound_ms(n, r, p, ops, n_streams, n_outs)
-        log(f"  {name}: N={n} R={r} P={p} max_abs_err={err:.3e} kernel {ms:.3f} ms"
-            f" | plain {plain_ms:.3f} ms | bound {b_ms:.3f} ms ({b_by}); a dropped "
-            f"period is caught in {caught} of {must} agents (one atol over the "
-            f"whole output: {caught_whole})")
-        rows.append(dict(name=name, err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, shape=(n, r)))
+        b_ms, b_by = bound_ms(n, r, n_lanes, work_lanes, p, ops, n_streams, n_outs)
+        log(f"  {name}: N={n} R={r} lanes={n_lanes} ({work_lanes} hours) P={p} "
+            f"max_abs_err={err:.3e} "
+            f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.3f} ms "
+            f"({b_by}); a dropped period is caught in {caught} of {must} agents "
+            f"(one atol over the whole output: {caught_whole})")
+        rows.append(dict(name=name, source=SOURCES[src], replaces=replaces,
+                         path=cap[0], err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, shape=(n, r, n_lanes),
+                         work_lanes=work_lanes))
+        torch.cuda.empty_cache()
     return rows
 
 
-def run_timed(sim):
-    """Run every model year; returns (results, per-year seconds)."""
+def run_path(sim) -> dict:
+    """Run every model year of ``sim`` with the launch counts set to 0
+    before and read after; returns the results, per-year seconds, wall,
+    launch counts and first-launch operands."""
     import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
 
     seconds = []
     orig = sim.step
@@ -203,15 +282,54 @@ def run_timed(sim):
         return out
 
     sim.step = step
-    res = sim.run()
-    return res, seconds
+    bk.CAPTURE = {}
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = sim.run()
+    finally:
+        launches = dict(bk.LAUNCHES)
+        capture, bk.CAPTURE = bk.CAPTURE, None
+    wall = time.perf_counter() - t0
+    check_outputs(res, sim.table.n_agents)
+    lay = sim._daylight
+    return dict(res=res, year_s=seconds, wall=wall, launches=launches,
+                capture=capture, n_real=int(sim.host_mask.sum()),
+                hour_lanes=None if lay is None else int(lay.valid.sum()))
 
 
-def breakdown(sim, rows) -> dict:
-    """Seconds of the first year's sizing call and of its battery
-    dispatch loop on the main path's shapes, each timed alone after a
-    synchronize, beside the sum of the isolated launch medians of the
-    year's three kernel launches (not timed inside the sizing call)."""
+def report_path(tag: str, title: str, run: dict) -> None:
+    res = run["res"]
+    n_years = len(res.years)
+    log(f"[{tag}] {title}: {run['n_real']} agents x {n_years} years {res.years}; "
+        f"per-year s {[round(s, 3) for s in run['year_s']]}, run wall "
+        f"{run['wall']:.3f} s, {run['n_real'] * n_years / run['wall']:.1f} "
+        f"agent-years/s")
+    log(f"    launches {run['launches']}")
+
+
+def need_launches(path: str, launches: dict, keys: tuple, zero: tuple = ()) -> None:
+    missing = [k for k in keys if launches[k] == 0]
+    extra = [k for k in zero if launches[k] != 0]
+    if missing or extra:
+        raise AssertionError(f"{path}: kernels {missing} never launched or "
+                             f"{extra} launched: {launches}")
+
+
+def curves_gap(a: dict, b: dict, keys=("adopters", "system_kw_cum",
+                                       "batt_kwh_cum")) -> float:
+    import numpy as np
+
+    return max(float(np.max(np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1e-6)))
+               for k in keys)
+
+
+def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
+    """Seconds of the first year's sizing call (with the run's knobs)
+    and of its battery dispatch loop on the main path's shapes, each
+    timed alone after a synchronize, beside the sum of the isolated
+    launch medians of the year's three kernel launches (not timed inside
+    the sizing call)."""
     import torch
 
     from dgen_tpu_torch.ops import dispatch, sizing
@@ -228,15 +346,14 @@ def breakdown(sim, rows) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    ms = {r["name"]: r["ms"] for r in rows}
     return dict(
         sizing_s=timed(lambda: sizing.size_agents(
             envs, n_periods=sim.tariffs.max_periods, n_years=sim.econ_years,
             n_iters=sim.run_config.sizing_iters, keep_hourly=sim.with_hourly,
-            net_billing=sim._net_billing)),
+            net_billing=sim._net_billing, **knobs)),
         dispatch_s=timed(lambda: dispatch.dispatch_battery(
             envs.load, gen, batt_kw, batt_kwh, envs.batt_rt_eff)),
-        kernel_medians_s=(2 * ms["bucket_sums_month"] + ms["bucket_sums_month_signed"]) / 1e3,
+        kernel_medians_s=kernel_ms / 1e3,
     )
 
 
@@ -249,6 +366,42 @@ def check_outputs(res, n_agents: int) -> None:
     if res.state_hourly_net_mw is not None and not np.all(
             np.isfinite(res.state_hourly_net_mw)):
         raise AssertionError("non-finite state-hourly net load")
+
+
+def dot_path(presets) -> tuple:
+    """One model year at DOT_AGENTS through year_step with the month
+    engine and with sizing_impl="dot" from the same carry; returns the
+    dot run's launches and first-launch operands, the largest relative
+    gap of the national sums, and both runs' national sums."""
+    import numpy as np
+
+    from dgen_tpu_torch.models.simulation import year_step
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    sim, _, _ = presets.build("ercot-all-sector", n_agents=DOT_AGENTS,
+                              end_year=2014, device="cuda")
+    mask = sim.host_mask
+
+    def national(out) -> dict:
+        return {k: np.array([float((getattr(out, f).cpu().numpy() * mask).sum())])
+                for k, f in (("adopters", "number_of_adopters"),
+                             ("system_kw_cum", "system_kw_cum"),
+                             ("batt_kwh_cum", "batt_kwh_cum"))}
+
+    def one_year(impl: str):
+        kwargs = dict(sim.step_kwargs(True), sizing_impl=impl)
+        return year_step(sim.table, sim.profiles, sim.tariffs, sim.inputs,
+                         sim.init_carry(), 0, **kwargs)[1]
+
+    ref = national(one_year("auto"))
+    bk.CAPTURE = {}
+    bk.reset_launches()
+    try:
+        dot = national(one_year("dot"))
+    finally:
+        launches = dict(bk.LAUNCHES)
+        capture, bk.CAPTURE = bk.CAPTURE, None
+    return launches, capture, curves_gap(dot, ref), dot, ref
 
 
 def main() -> int:
@@ -265,6 +418,7 @@ def main() -> int:
         from dgen_tpu_torch.config import RunConfig
         from dgen_tpu_torch.ops import _build
         from dgen_tpu_torch.ops import billkernels as bk
+        from dgen_tpu_torch.ops.tariff import HOURS
     except ImportError as e:
         print(f"the dgen_tpu_torch package is not beside this script: {e}",
               file=sys.stderr)
@@ -279,111 +433,161 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     path, secs, build_log = _build.build()
-    log(f"[2] built {path} in {secs:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"    {line.strip()}")
+    log(f"[2] built {path} from {len(_build.sources())} sources in {secs:.1f} s")
+    for row in _build.kernel_resources(build_log):
+        log(f"    {row['kernel']}: {row['registers']} registers, "
+            f"{row['spill_bytes']} bytes spilled, {row['smem_bytes']} bytes static "
+            "shared memory")
     _build.library()
 
-    sim, _, _ = presets.build("ercot-all-sector", n_agents=MAIN_AGENTS,
-                              end_year=MAIN_END_YEAR, device="cuda")
-    sim_rs, _, _ = presets.build("ercot-all-sector", n_agents=SWITCH_AGENTS,
-                                 end_year=SWITCH_END_YEAR, rate_switch_frac=0.4,
-                                 device="cuda")
-    if not sim._net_billing or sim._rate_switch or not sim_rs._rate_switch:
-        raise AssertionError("the preset worlds do not take the kernel paths")
+    def build(n_agents, end_year, knobs=None, **kw):
+        return presets.build("ercot-all-sector", n_agents=n_agents,
+                             end_year=end_year, device="cuda",
+                             run_config=RunConfig(**(knobs or {})), **kw)[0]
 
+    runs = {}
     # --- 3: the main path ---
-    bk.reset_launches()
-    bk.CAPTURE = {}
+    sim = build(MAIN_AGENTS, MAIN_END_YEAR)
+    if not sim._net_billing or sim._rate_switch:
+        raise AssertionError("the preset world does not take the kernel paths")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res, year_s = run_timed(sim)
-    wall = time.perf_counter() - t0
-    main_launches = dict(bk.LAUNCHES)
-    captured = {k: bk.CAPTURE[k] for k in ("month", "month_signed") if k in bk.CAPTURE}
-    bk.CAPTURE = None
-    n_real = int(sim.host_mask.sum())
-    check_outputs(res, sim.table.n_agents)
-    curve = res.summary(sim.host_mask)
-    if not curve["adopters"][-1] > 0:
+    runs["main"] = run = run_path(sim)
+    report_path("3", "main path ercot-all-sector", run)
+    need_launches("main path", run["launches"], ("month", "month_signed"))
+    main_curve = run["res"].summary(sim.host_mask)
+    if not main_curve["adopters"][-1] > 0:
         raise AssertionError("no national adoption on the main path")
-    if main_launches["month"] == 0 or main_launches["month_signed"] == 0:
-        raise AssertionError(f"main path skipped the month kernel: {main_launches}")
-    log(f"[3] main path ercot-all-sector: {n_real} agents x {len(res.years)} years "
-        f"{res.years}")
-    for y, s in zip(res.years, year_s):
-        log(f"    year {y}: {s:.3f} s")
-    log(f"    run wall {wall:.3f} s, {n_real * len(res.years) / wall:.1f} agent-years/s;"
-        f" launches {main_launches}; adopters {curve['adopters'].tolist()}")
-    log(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(the first launches' operands held from the first year on), modeled "
-        f"year step {sim.modeled_step_bytes / 2**30:.2f} GiB")
+    log(f"    adopters {main_curve['adopters'].tolist()}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the first launches' "
+        f"operands held from the first year on), modeled year step "
+        f"{sim.modeled_step_bytes / 2**30:.2f} GiB")
 
     # the port on the card against the port on the CPU (plain versions)
-    small = dict(n_agents=64, end_year=2016, run_config=RunConfig(sizing_iters=4))
-    gpu_sim, _, _ = presets.build("ercot-all-sector", device="cuda", **small)
-    cpu_sim, _, _ = presets.build("ercot-all-sector", device="cpu", **small)
-    g_curve = gpu_sim.run().summary(gpu_sim.host_mask)
-    c_curve = cpu_sim.run().summary(cpu_sim.host_mask)
-    for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
-        np.testing.assert_allclose(g_curve[k], c_curve[k], rtol=CURVE_RTOL,
-                                   err_msg=f"card vs CPU {k}")
-    log(f"    card vs CPU at 64 agents x 2 years: curves agree within rtol "
-        f"{CURVE_RTOL} (adopters {g_curve['adopters'].tolist()} vs "
-        f"{c_curve['adopters'].tolist()})")
+    small = dict(n_agents=64, end_year=2016)
+    for knobs in ({}, GATED):
+        rc = RunConfig(sizing_iters=4, **knobs)
+        gpu_sim, _, _ = presets.build("ercot-all-sector", device="cuda",
+                                      run_config=rc, **small)
+        cpu_sim, _, _ = presets.build("ercot-all-sector", device="cpu",
+                                      run_config=rc, **small)
+        g_curve = gpu_sim.run().summary(gpu_sim.host_mask)
+        c_curve = cpu_sim.run().summary(cpu_sim.host_mask)
+        for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
+            np.testing.assert_allclose(g_curve[k], c_curve[k], rtol=CURVE_RTOL,
+                                       err_msg=f"card vs CPU {k} {knobs}")
+        log(f"    card vs CPU at 64 agents x 2 years{' (gated)' if knobs else ''}: "
+            f"curves agree within rtol {CURVE_RTOL} (adopters "
+            f"{g_curve['adopters'].tolist()} vs {c_curve['adopters'].tolist()})")
 
-    # --- 4: the rate-switch path ---
-    bk.reset_launches()
-    bk.CAPTURE = {}
-    t0 = time.perf_counter()
-    res_rs, year_rs = run_timed(sim_rs)
-    wall_rs = time.perf_counter() - t0
-    switch_launches = dict(bk.LAUNCHES)
-    if "month_pair" in bk.CAPTURE:
-        captured["month_pair"] = bk.CAPTURE["month_pair"]
-    bk.CAPTURE = None
-    check_outputs(res_rs, sim_rs.table.n_agents)
-    if switch_launches["month_pair"] == 0:
-        raise AssertionError(f"rate-switch path skipped the pair kernel: "
-                             f"{switch_launches}")
-    n_rs = int(sim_rs.host_mask.sum())
-    log(f"[4] rate-switch path: {n_rs} agents x {len(res_rs.years)} years, "
-        f"years {[round(s, 3) for s in year_rs]} s, "
-        f"{n_rs * len(res_rs.years) / wall_rs:.1f} agent-years/s; "
-        f"launches {switch_launches}")
+    # --- 4: the gated main path ---
+    gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
+    lay = gsim._daylight
+    if lay is None:
+        raise AssertionError("the preset's generation bank did not compact")
+    log(f"[4] daylight layout: {lay.n_lanes} compacted lanes (months "
+        f"{list(lay.seg_lens)}), {lay.uniform().n_lanes} uniform "
+        f"({lay.uniform().seg_lens[0]} per month) of {HOURS} hours")
+    runs["gated"] = run = run_path(gsim)
+    report_path("4", "gated main path (daylight_compact, pack_once, "
+                "stream_segments)", run)
+    need_launches("gated main path", run["launches"], ("stream", "stream_signed"),
+                  zero=("month", "month_signed", "dot", "dot_signed"))
+    gap = curves_gap(run["res"].summary(gsim.host_mask), main_curve)
+    if gap > CURVE_RTOL:
+        raise AssertionError(f"gated curves differ from the main path's by {gap:.3e}")
+    log(f"    national curves within {gap:.3e} (relative) of the main path's")
+    if run["capture"]["stream"][0].shape[1] != lay.uniform().n_lanes:
+        raise AssertionError("the stream kernel did not run the uniform lanes")
 
-    # --- 5-6: the kernels on the paths' operands ---
-    log(f"[5-6] kernels vs plain versions on the first launch's operands (rtol "
-        f"{RTOL}, atol {ATOL_FRAC} x the agent's max|plain|) and times (median of "
-        f"5 CUDA-event launches after a warm-up):")
-    rows = check_and_time(captured)
-    del captured
+    # --- 5: the rate-switch paths ---
+    for key, knobs, title in (("switch", None, "rate-switch path"),
+                              ("switch_gated", GATED, "gated rate-switch path")):
+        rs = build(SWITCH_AGENTS, SWITCH_END_YEAR, knobs, rate_switch_frac=0.4)
+        if not rs._rate_switch:
+            raise AssertionError("the rate-switch world has no switch")
+        runs[key] = run = run_path(rs)
+        report_path("5", title, run)
+        need_launches(title, run["launches"], ("month_pair",),
+                      zero=("month", "stream"))
+    if runs["switch_gated"]["capture"]["month_pair"][0].shape[1] == HOURS:
+        raise AssertionError("the gated pair kernel ran full-hour lanes")
+
+    # --- 6: daylight_compact alone, and the same world without it ---
+    dsim = build(DAYLIGHT_AGENTS, 2014, dict(daylight_compact=True))
+    runs["daylight"] = run = run_path(dsim)
+    report_path("6", "daylight path (daylight_compact alone)", run)
+    need_launches("daylight path", run["launches"], ("month", "month_signed"),
+                  zero=("stream", "stream_signed"))
+    if run["capture"]["month"][0].shape[1] != dsim._daylight.n_lanes:
+        raise AssertionError("the daylight path's month kernel ran full-hour lanes")
+    full = run_path(build(DAYLIGHT_AGENTS, 2014))
+    full.pop("capture")
+    gap = curves_gap(run["res"].summary(dsim.host_mask),
+                     full["res"].summary(dsim.host_mask))
+    if gap > CURVE_RTOL:
+        raise AssertionError(f"daylight curves differ from full-hour by {gap:.3e}")
+    log(f"    national curves within {gap:.3e} (relative) of the same world "
+        f"without daylight_compact")
+
+    # --- 7: the dot engine ---
+    dot_launches, dot_capture, dot_gap, dot_c, ref_c = dot_path(presets)
+    runs["dot"] = dict(launches=dot_launches, capture=dot_capture)
+    log(f"[7] dot path: {DOT_AGENTS} agents x 1 year through "
+        f"year_step(sizing_impl='dot'); launches {dot_launches}; national sums "
+        f"within {dot_gap:.3e} (relative) of the month engine's (adopters "
+        f"{dot_c['adopters'].tolist()} vs {ref_c['adopters'].tolist()})")
+    need_launches("dot path", dot_launches, ("dot", "dot_signed"),
+                  zero=("month", "month_signed", "stream"))
+    if dot_gap > DOT_CURVE_RTOL:
+        raise AssertionError(f"dot curves differ by {dot_gap:.3e} > {DOT_CURVE_RTOL}")
+
+    # --- 8: the kernels on the paths' operands ---
+    log(f"[8] kernels vs plain versions on the first launch's operands (rtol "
+        f"{RTOL}, {DOT_RTOL} for dot, atol {ATOL_FRAC} x the agent's max|plain|) "
+        f"and times (median of 5 CUDA-event launches after a warm-up):")
+    captures = {k: v["capture"] for k, v in runs.items()}
+    hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
+    rows = check_and_time(captures, kernel_specs(bk), hour_lanes)
+    log("  A/B, not in the kernels line (the gated path launches no month kernel):")
+    ab = check_and_time(captures, ab_specs(bk), hour_lanes)[0]
+    del captures
+    for v in runs.values():
+        v.pop("capture", None)
     torch.cuda.empty_cache()
-    parts = breakdown(sim, rows)
-    log(f"    first-year sizing call {parts['sizing_s']:.3f} s, of which the "
-        f"battery dispatch loop {parts['dispatch_s']:.3f} s; the year's three "
-        f"kernel launches, as the sum of their isolated medians, "
-        f"{parts['kernel_medians_s']:.4f} s")
+    ms = {r["name"]: r["ms"] for r in rows}
+    log(f"    on the stream kernel's operands: month kernel {ab['ms']:.3f} ms, "
+        f"stream kernel {ms['bucket_sums_stream']:.3f} ms")
+    for tag, s, knobs, names in (
+            ("main", sim, {}, ("bucket_sums_month",) * 2 + ("bucket_sums_month_signed",)),
+            ("gated", gsim, dict(impl="stream", daylight=lay, pack_once=True),
+             ("bucket_sums_stream",) * 2 + ("bucket_sums_stream_signed",))):
+        parts = breakdown(s, knobs, sum(ms[n] for n in names))
+        log(f"    {tag}: first-year sizing call {parts['sizing_s']:.3f} s, of which "
+            f"the battery dispatch loop {parts['dispatch_s']:.3f} s; the year's "
+            f"three kernel launches, as the sum of their isolated medians, "
+            f"{parts['kernel_medians_s']:.4f} s")
 
-    # --- 7: the kernel line, the card, the result ---
-    launches = {
-        "bucket_sums_month": main_launches["month"],
-        "bucket_sums_month_signed": main_launches["month_signed"],
-        "bucket_sums_month_pair": switch_launches["month_pair"],
-    }
-    replaces = {
-        "bucket_sums_month": "dgen_tpu/ops/billpallas.py:343",
-        "bucket_sums_month_signed": "dgen_tpu/ops/billpallas.py:343",
-        "bucket_sums_month_pair": "dgen_tpu/ops/billpallas.py:427",
-    }
-    kernels = [dict(
-        name=r["name"], route="cuda", source="dgen_tpu_torch/csrc/bucket_sums.cu",
-        replaces=replaces[r["name"]], launches=launches[r["name"]],
-        max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-        shape_n_r=list(r["shape"]),
-    ) for r in rows]
+    # --- 9: the kernel line, the card, the result ---
+    path_launches = {"main": runs["main"]["launches"],
+                     "gated": runs["gated"]["launches"],
+                     "switch": runs["switch"]["launches"],
+                     "switch_gated": runs["switch_gated"]["launches"],
+                     "daylight": runs["daylight"]["launches"],
+                     "dot": runs["dot"]["launches"]}
+    specs = kernel_specs(bk)
+    kernels = []
+    for r in rows:
+        path_key, key = specs[r["name"]][0]
+        kernels.append(dict(
+            name=r["name"], route="cuda", source=r["source"],
+            replaces=r["replaces"], launches=path_launches[path_key][key],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            shape_n_r_lanes=list(r["shape"]), hour_lanes=r["work_lanes"],
+            path=path_key,
+        ))
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel of its path never launched: {kernels}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

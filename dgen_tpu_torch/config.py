@@ -3,8 +3,10 @@
 A copy of the settings of ``dgen_tpu/config.py`` that the model-year
 path reads (the JAX package is never imported here: importing any of
 its modules imports jax). ``ScenarioConfig`` is mirrored whole;
-``RunConfig`` carries only ``sizing_iters``, the one run setting the
-ported path reads. Other knobs arrive with the slices that port them.
+``RunConfig`` carries the run settings of the ported paths: the sizing
+search's candidate count and the gated kernel paths (daylight
+compaction, pack-once, the stream engine). Other knobs arrive with the
+slices that port them.
 """
 
 from __future__ import annotations
@@ -65,6 +67,26 @@ class RunConfig:
 
     #: candidates per refine round of the sizing search
     sizing_iters: int = 12
+    #: daylight-compacted bill kernels (ops.layout.DaylightLayout): the
+    #: sizing search's candidate kernels run only over the union daylight
+    #: lanes of the generation bank (~half the hour axis for rooftop
+    #: solar); night-hour bucket sums do not depend on the candidate and
+    #: are added back exactly. Off by default: the full-hour path is the
+    #: parity oracle; results agree to float32 re-association.
+    daylight_compact: bool = False
+    #: build the sizing search's candidate lanes ONCE per size_agents
+    #: call (billkernels.PackedStreams) instead of once per bucket-sums
+    #: engine call: one gather (and one night-sums pass under
+    #: daylight_compact) per year instead of up to three. Off by default.
+    pack_once: bool = False
+    #: run the candidate kernels on the segment-streaming kernel
+    #: (csrc/bucket_sums_stream.cu): several agents share a block and the
+    #: copy of month segment m + 1 overlaps the sums over segment m.
+    #: Under daylight_compact the layout is padded to uniform segments,
+    #: as the JAX package pads it. Off by default. Kept for parity with
+    #: the JAX package's knob: on an H100 the stream kernel is not yet
+    #: faster than the month kernel on the same lanes (PERF.md).
+    stream_segments: bool = False
 
     def __post_init__(self) -> None:
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")

@@ -5,11 +5,13 @@
 //   bucket_sums_month_pair  <- _kernel_month_pair (billpallas.py:427)
 //
 // For every agent n and every net-load scale s = scales[n, r] they reduce
-// net = load - s * gen over the 8760 hours into per-(month, TOU period)
-// sums of relu(net) (and of net when signed), month-major with
+// net = load - s * gen over the agent's lanes into per-(month, TOU
+// period) sums of relu(net) (and of net when signed), month-major with
 // n_periods <= 10 periods per month, plus the sell-rate-weighted sums.
 // The pair kernel prices two tariff structures (sell rate, period map)
-// over one shared relu(net).
+// over one shared relu(net). Lanes follow lanes.cuh: the plain 8760-hour
+// order or a daylight-compacted layout, months given by 13 lane offsets;
+// the period lanes carry bucket % n_periods.
 //
 // Bound on an H100: per (agent, scale, hour) the work is a fused
 // multiply-add for net, a max for relu, a multiply-add for the sell sum
@@ -19,52 +21,53 @@
 // operations against ~1.2 GB of streams read once, so the kernel is
 // bound by FP32 ALU throughput, not by memory.
 //
-// What the design does about it: the hour streams of one agent are read
+// What the design does about it: the lane streams of one agent are read
 // from device memory once per block and staged month by month into
-// shared memory as one float4 per hour (load, gen, sell, period), so
+// shared memory as one float4 per lane (load, gen, sell, period), so
 // every thread reads an hour with a single broadcast 16-byte load and
 // spends the rest of its instructions on arithmetic. One thread owns one
 // scale and keeps its accumulators in registers; the period index
 // selects its accumulator through predicated adds unrolled over the
 // compile-time kMaxPeriods = 10, so no accumulator array spills to local
 // memory. A block is kThreads = 128 threads (scales); a warp whose scales
-// all lie past R helps stage the hours and skips the arithmetic. Months
-// are contiguous in the plain 8760-hour order, so a month is a slice and
-// no repacked layout is needed. Each period is summed directly (no last
+// all lie past R helps stage the hours and skips the arithmetic. A month
+// is a contiguous slice of lanes in both layouts, so no month-padded
+// repack is needed. Each period is summed directly (no last
 // period by subtraction from the month total), and the sell sums are
 // taken per month and then added, which keeps float32 rounding small.
 
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr int kMonths = 12;
-constexpr int kHours = 8760;
-constexpr int kMaxMonthHours = 744;
-constexpr int kMaxPeriods = 10;
-constexpr int kThreads = 128;
+using lanes::kMaxPeriods;
+using lanes::kMaxSegLanes;
+using lanes::kMonths;
+using lanes::MonthOffsets;
 
-__constant__ int kMonthHours[kMonths + 1] = {
-    0, 744, 1416, 2160, 2880, 3624, 4344, 5088, 5832, 6552, 7296, 8016, 8760};
+constexpr int kThreads = 128;
 
 template <bool SIGNED>
 __global__ void month_kernel(const float* __restrict__ load,
                              const float* __restrict__ gen,
                              const float* __restrict__ sell,
-                             const int* __restrict__ bucket,
+                             const int* __restrict__ period,
                              const float* __restrict__ scales,
                              float* __restrict__ out_imp,
                              float* __restrict__ out_sell_imp,
                              float* __restrict__ out_sgn,
                              float* __restrict__ out_sell_sgn,
-                             int r, int n_periods, int r_blocks) {
-  __shared__ float4 hour[kMaxMonthHours];  // load, gen, sell, period bits
+                             int r, int n_lanes, int n_periods, int r_blocks,
+                             MonthOffsets offs) {
+  __shared__ float4 hour[kMaxSegLanes];  // load, gen, sell, period bits
 
   const int agent = blockIdx.x / r_blocks;
   const int ri = (blockIdx.x % r_blocks) * kThreads + threadIdx.x;
   const bool live = ri < r;
   const bool warp_live = ri - static_cast<int>(threadIdx.x % 32) < r;
-  const size_t row = static_cast<size_t>(agent) * kHours;
+  const size_t row = static_cast<size_t>(agent) * n_lanes;
   const size_t out_row = static_cast<size_t>(agent) * r + ri;
   const int nb = kMonths * n_periods;
   const float s = live ? scales[out_row] : 0.f;
@@ -72,13 +75,13 @@ __global__ void month_kernel(const float* __restrict__ load,
   float sell_imp = 0.f;
   float sell_sgn = 0.f;
   for (int m = 0; m < kMonths; ++m) {
-    const int h0 = kMonthHours[m];
-    const int len = kMonthHours[m + 1] - h0;
+    const int h0 = offs.o[m];
+    const int len = offs.o[m + 1] - h0;
     __syncthreads();  // every thread is done with the previous month
     for (int h = threadIdx.x; h < len; h += kThreads) {
       const size_t g = row + h0 + h;
-      const int p = bucket[g] % n_periods;
-      hour[h] = make_float4(load[g], gen[g], sell[g], __int_as_float(p));
+      hour[h] = make_float4(load[g], gen[g], sell[g],
+                            __int_as_float(period[g]));
     }
     __syncthreads();
     if (!warp_live) continue;  // no scale of this warp lies below R
@@ -131,23 +134,24 @@ __global__ void month_kernel(const float* __restrict__ load,
 __global__ void month_pair_kernel(const float* __restrict__ load,
                                   const float* __restrict__ gen,
                                   const float* __restrict__ sell_a,
-                                  const int* __restrict__ bucket_a,
+                                  const int* __restrict__ period_a,
                                   const float* __restrict__ sell_b,
-                                  const int* __restrict__ bucket_b,
+                                  const int* __restrict__ period_b,
                                   const float* __restrict__ scales,
                                   float* __restrict__ out_a,
                                   float* __restrict__ out_sell_a,
                                   float* __restrict__ out_b,
                                   float* __restrict__ out_sell_b,
-                                  int r, int n_periods, int r_blocks) {
-  __shared__ float4 hour[kMaxMonthHours];   // load, gen, sell_a, sell_b
-  __shared__ int2 period[kMaxMonthHours];   // period_a, period_b
+                                  int r, int n_lanes, int n_periods,
+                                  int r_blocks, MonthOffsets offs) {
+  __shared__ float4 hour[kMaxSegLanes];   // load, gen, sell_a, sell_b
+  __shared__ int2 period[kMaxSegLanes];   // period_a, period_b
 
   const int agent = blockIdx.x / r_blocks;
   const int ri = (blockIdx.x % r_blocks) * kThreads + threadIdx.x;
   const bool live = ri < r;
   const bool warp_live = ri - static_cast<int>(threadIdx.x % 32) < r;
-  const size_t row = static_cast<size_t>(agent) * kHours;
+  const size_t row = static_cast<size_t>(agent) * n_lanes;
   const size_t out_row = static_cast<size_t>(agent) * r + ri;
   const int nb = kMonths * n_periods;
   const float s = live ? scales[out_row] : 0.f;
@@ -155,13 +159,13 @@ __global__ void month_pair_kernel(const float* __restrict__ load,
   float sell_sum_a = 0.f;
   float sell_sum_b = 0.f;
   for (int m = 0; m < kMonths; ++m) {
-    const int h0 = kMonthHours[m];
-    const int len = kMonthHours[m + 1] - h0;
+    const int h0 = offs.o[m];
+    const int len = offs.o[m + 1] - h0;
     __syncthreads();
     for (int h = threadIdx.x; h < len; h += kThreads) {
       const size_t g = row + h0 + h;
       hour[h] = make_float4(load[g], gen[g], sell_a[g], sell_b[g]);
-      period[h] = make_int2(bucket_a[g] % n_periods, bucket_b[g] % n_periods);
+      period[h] = make_int2(period_a[g], period_b[g]);
     }
     __syncthreads();
     if (!warp_live) continue;  // no scale of this warp lies below R
@@ -208,10 +212,12 @@ __global__ void month_pair_kernel(const float* __restrict__ load,
   }
 }
 
-// Grid (N x ceil(R / kThreads)) blocks; false for shapes the kernels do
-// not take.
-bool grid_for(int n, int r, int n_periods, int* r_blocks, unsigned* blocks) {
-  if (n <= 0 || r <= 0 || n_periods < 1 || n_periods > kMaxPeriods)
+// Grid (N x ceil(R / kThreads)) blocks and the month offsets; false for
+// shapes or offsets the kernels do not take.
+bool grid_for(int n, int r, int n_lanes, int n_periods, const int* offsets,
+              MonthOffsets* offs, int* r_blocks, unsigned* blocks) {
+  if (n <= 0 || r <= 0 || n_periods < 1 || n_periods > kMaxPeriods ||
+      !lanes::read_offsets(offsets, n_lanes, 1, offs))
     return false;
   *r_blocks = (r + kThreads - 1) / kThreads;
   const long long total = static_cast<long long>(n) * *r_blocks;
@@ -223,45 +229,49 @@ bool grid_for(int n, int r, int n_periods, int* r_blocks, unsigned* blocks) {
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue for shapes the kernel does not take.
+// cudaErrorInvalidValue for shapes or offsets the kernel does not take.
+// `offsets` is a host array of 13 lane offsets.
 extern "C" int bucket_sums_month(const float* load, const float* gen,
-                                 const float* sell, const int* bucket,
-                                 const float* scales, float* out_imp,
-                                 float* out_sell_imp, float* out_sgn,
-                                 float* out_sell_sgn, int n, int r,
-                                 int n_periods, int with_signed,
-                                 void* stream) {
+                                 const float* sell, const int* period,
+                                 const float* scales, const int* offsets,
+                                 float* out_imp, float* out_sell_imp,
+                                 float* out_sgn, float* out_sell_sgn, int n,
+                                 int r, int n_lanes, int n_periods,
+                                 int with_signed, void* stream) {
+  MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
-  if (!grid_for(n, r, n_periods, &r_blocks, &blocks))
+  if (!grid_for(n, r, n_lanes, n_periods, offsets, &offs, &r_blocks, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (with_signed) {
     month_kernel<true><<<blocks, kThreads, 0, st>>>(
-        load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, n_periods, r_blocks);
+        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
+        out_sell_sgn, r, n_lanes, n_periods, r_blocks, offs);
   } else {
     month_kernel<false><<<blocks, kThreads, 0, st>>>(
-        load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, n_periods, r_blocks);
+        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
+        out_sell_sgn, r, n_lanes, n_periods, r_blocks, offs);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bucket_sums_month_pair(const float* load, const float* gen,
-                                      const float* sell_a, const int* bucket_a,
-                                      const float* sell_b, const int* bucket_b,
-                                      const float* scales, float* out_a,
-                                      float* out_sell_a, float* out_b,
-                                      float* out_sell_b, int n, int r,
-                                      int n_periods, void* stream) {
+                                      const float* sell_a, const int* period_a,
+                                      const float* sell_b, const int* period_b,
+                                      const float* scales, const int* offsets,
+                                      float* out_a, float* out_sell_a,
+                                      float* out_b, float* out_sell_b, int n,
+                                      int r, int n_lanes, int n_periods,
+                                      void* stream) {
+  MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
-  if (!grid_for(n, r, n_periods, &r_blocks, &blocks))
+  if (!grid_for(n, r, n_lanes, n_periods, offsets, &offs, &r_blocks, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   month_pair_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      load, gen, sell_a, bucket_a, sell_b, bucket_b, scales, out_a,
-      out_sell_a, out_b, out_sell_b, r, n_periods, r_blocks);
+      load, gen, sell_a, period_a, sell_b, period_b, scales, out_a,
+      out_sell_a, out_b, out_sell_b, r, n_lanes, n_periods, r_blocks, offs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,7 @@ are allocated, and the state-hourly net load is aggregated.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,9 +31,12 @@ from dgen_tpu_torch.models.market import (
 )
 from dgen_tpu_torch.models.scenario import ScenarioInputs, YearAgentInputs, apply_year
 from dgen_tpu_torch.ops import bill as bill_ops
+from dgen_tpu_torch.ops import layout as layout_ops
 from dgen_tpu_torch.ops import sizing as sizing_ops
 from dgen_tpu_torch.ops.tariff import HOURS, NET_BILLING, TariffBank
 from dgen_tpu_torch.tree import to_device
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,10 +223,16 @@ def year_step(
     year_step_len: float,
     rate_switch: bool = False,
     net_billing: bool = True,
+    sizing_impl: str = "auto",
+    daylight: Optional[layout_ops.DaylightLayout] = None,
+    pack_once: bool = False,
 ) -> tuple[SimCarry, YearOutputs]:
     """One model year: trajectory application -> NEM gate -> sizing ->
     max market share -> (initial shares | diffusion) -> anchoring ->
-    battery allocation -> state-hourly aggregate -> carry."""
+    battery allocation -> state-hourly aggregate -> carry.
+
+    ``sizing_impl`` (``"auto"``, ``"stream"`` or ``"dot"``), ``daylight``
+    and ``pack_once`` go to :func:`sizing_ops.size_agents`."""
     n_states = table.n_states
     n_groups = table.n_groups
     g = table.group_idx.long()
@@ -241,7 +251,8 @@ def year_step(
                              table.incentives, rate_switch=rate_switch)
     res = sizing_ops.size_agents(
         envs, n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
-        keep_hourly=with_hourly, net_billing=net_billing,
+        keep_hourly=with_hourly, net_billing=net_billing, impl=sizing_impl,
+        daylight=daylight, pack_once=pack_once,
     )
 
     # --- market step ---
@@ -477,9 +488,25 @@ class Simulation:
         self.inputs = to_device(inputs, self.device)
         self._rate_switch, self._net_billing = run_static_flags(
             self.table, self.tariffs, self.inputs, self.years)
+        self._daylight = self._build_daylight(profiles)
         self.modeled_step_bytes = self._check_memory()
         self.host_agent_id = self.table.agent_id.cpu().numpy()
         self.host_mask = self.table.mask.cpu().numpy()
+
+    def _build_daylight(self, profiles: ProfileBank):
+        """The daylight layout of the generation bank when the run asks
+        for compacted kernels, else None."""
+        if not self.run_config.daylight_compact:
+            return None
+        lay = layout_ops.daylight_layout(profiles.solar_cf.cpu().numpy())
+        if lay is None:
+            logger.info("daylight_compact requested but the generation bank "
+                        "has no compactable night hours; full-hour kernels")
+        else:
+            logger.info("daylight-compacted kernels: %d of %d hour lanes "
+                        "(%.2fx fewer candidate lane-ops)", lay.n_lanes, HOURS,
+                        HOURS / lay.n_lanes)
+        return lay
 
     def _check_memory(self) -> int:
         """Modeled year-step bytes; raises when they exceed the card's
@@ -513,6 +540,9 @@ class Simulation:
             year_step_len=float(self.scenario.year_step),
             rate_switch=self._rate_switch,
             net_billing=self._net_billing,
+            sizing_impl="stream" if self.run_config.stream_segments else "auto",
+            daylight=self._daylight,
+            pack_once=self.run_config.pack_once,
         )
 
     def init_carry(self) -> SimCarry:

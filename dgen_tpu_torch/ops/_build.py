@@ -1,44 +1,60 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/bucket_sums.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface at first use, and loaded with
-``ctypes``. The library lands in ``build/`` beside the package (one file
-per source hash, so an edited source is rebuilt), written to a temporary
-name and renamed, so a concurrent or interrupted build never leaves a
-half-written library behind.
+Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` at first
+use, one ``nvcc`` per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library lands in ``build/`` beside the package, one file
+per hash of the sources, headers and flags (an edited source is
+rebuilt), written to a temporary name and renamed, so a concurrent or
+interrupted build never leaves a half-written library behind.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
+import logging
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 
+logger = logging.getLogger(__name__)
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "bucket_sums.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 
-NVCC_FLAGS = [
+COMPILE_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_OFFS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
+    # load, gen, sell, period, scales, offsets[13], out_imp, out_sell_imp,
+    # out_sgn, out_sell_sgn, n, r, n_lanes, n_periods, with_signed, stream
+    "bucket_sums_month": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 5 + [_P],
+    "bucket_sums_stream": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 5 + [_P],
+    # load, gen, sell_a, period_a, sell_b, period_b, scales, offsets[13],
+    # out_a, out_sell_a, out_b, out_sell_b, n, r, n_lanes, n_periods, stream
+    "bucket_sums_month_pair": [_P] * 7 + [_OFFS] + [_P] * 4 + [_I] * 4 + [_P],
     # load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-    # out_sell_sgn, n, r, n_periods, with_signed, stream
-    "bucket_sums_month": [_P] * 9 + [_I] * 4 + [_P],
-    # load, gen, sell_a, bucket_a, sell_b, bucket_b, scales, out_a,
-    # out_sell_a, out_b, out_sell_b, n, r, n_periods, stream
-    "bucket_sums_month_pair": [_P] * 11 + [_I] * 3 + [_P],
+    # out_sell_sgn, n, r, hours, n_periods, with_signed, stream
+    "bucket_sums_dot": [_P] * 9 + [_I] * 5 + [_P],
 }
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -49,35 +65,79 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"bucket_sums-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"bucket_sums-{h.hexdigest()[:12]}.so")
+
+
+def kernel_resources(log: str) -> list[dict]:
+    """Per kernel, from ``ptxas -v`` output: its name (template flag
+    included), registers, spill bytes (stores + loads) and static shared
+    memory bytes."""
+    rows: list[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", entry.group(1))
+            label = entry.group(1)
+            if name:
+                label = name.group(1) + ({"1": "<signed>", "0": ""}
+                                         .get(name.group(3), ""))
+            rows.append(dict(kernel=label, registers=None, spill_bytes=0,
+                             smem_bytes=0))
+            continue
+        if not rows:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            rows[-1]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows[-1]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> tuple[str, float, str]:
     """(library path, build seconds, compiler log). Compiles only when the
-    library for this source is missing; seconds is 0.0 then."""
+    library for these sources is missing; seconds is 0.0 then."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
+        nvcc = _nvcc()
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in sources()]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", src, "-o", obj],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [src for src, p in zip(sources(), procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+        shutil.rmtree(work, ignore_errors=True)
+    for row in kernel_resources(log):
+        logger.info("%s: %s registers, %d bytes spilled, %d bytes static shared "
+                    "memory", row["kernel"], row["registers"], row["spill_bytes"],
+                    row["smem_bytes"])
+    return path, time.perf_counter() - t0, log
 
 
 @functools.lru_cache(maxsize=None)

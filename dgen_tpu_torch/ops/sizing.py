@@ -8,6 +8,10 @@ round 1's winner. NEM bills use the linear identity; net-billing bills
 the import-sums kernel (the pair kernel when a DG-rate switch is live).
 One forward run with a battery at the fixed PV ratio follows, priced
 by the full bucket-sums kernel, then the 25-year cashflow.
+
+``impl`` picks the bucket-sums engine (``billkernels.IMPLS``);
+``daylight`` runs the refine rounds on daylight-compacted lanes;
+``pack_once`` builds the candidate lanes once per call.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from dgen_tpu_torch.ops import billkernels as bk
 from dgen_tpu_torch.ops import dispatch as dispatch_ops
 from dgen_tpu_torch.ops.bill import AgentTariff
+from dgen_tpu_torch.ops.layout import DaylightLayout
 from dgen_tpu_torch.ops.cashflow import (
     FinanceParams,
     IncentiveParams,
@@ -146,13 +151,23 @@ def size_agents(
     n_iters: int = 14,
     keep_hourly: bool = True,
     net_billing: bool = True,
+    impl: str = "auto",
+    daylight: Optional[DaylightLayout] = None,
+    pack_once: bool = False,
 ) -> SizingResult:
     """Size every agent of the table (leading axis).
 
     ``net_billing=False`` asserts that no agent prices on a net-billing
     tariff, so search-round bills reduce to the linear NEM identity and
-    no bucket-sums kernel runs in the rounds."""
+    no bucket-sums kernel runs in the rounds. ``daylight``: the refine
+    rounds' import sums run on the layout's compacted lanes (padded to
+    uniform segments under the stream engine, as the JAX package pads
+    them). ``pack_once``: one :func:`billkernels.pack_streams` feeds both
+    rounds, and the battery run too when its lanes match (full-hour, one
+    tariff structure)."""
     envs = _fill_env_defaults(envs)
+    if impl == "stream" and daylight is not None:
+        daylight = daylight.uniform()
     n = envs.load.shape[0]
     dev = envs.load.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -216,6 +231,21 @@ def size_agents(
         otc = torch.where(_switch_active(envs, kw), unsq(envs.one_time_charge), 0.0)
         return unsq(envs.system_capex_per_kw) * kw * unsq(envs.cap_cost_multiplier) + otc
 
+    # one pack of the candidate lanes feeds both refine rounds (skipped
+    # when no candidate kernel runs)
+    packed = None
+    if pack_once and net_billing:
+        packed = bk.pack_streams(
+            envs.load, gen_shape, sell, bucket, n_buckets, layout=daylight,
+            sell_b=sell_wo if has_switch else None,
+            bucket_b=bucket_wo if has_switch else None,
+        )
+    engine = dict(impl=impl, layout=daylight, packed=packed)
+
+    def raw(a):
+        """A raw stream argument, None when the pack carries it."""
+        return None if packed is not None else a
+
     def candidate_bills(scales):
         """[N, R] packed (candidate, year) scales -> with-system annual
         bills on the switched tariff and, with a switch, the original."""
@@ -226,12 +256,13 @@ def size_agents(
             return bills_sw, bk.bills_linear_nem(lin_wo, scales, envs.tariff, n_periods)
         if not has_switch:
             imports, imp_sell = bk.import_sums(
-                envs.load, gen_shape, sell, bucket, scales, n_buckets)
+                raw(envs.load), raw(gen_shape), raw(sell), raw(bucket), scales,
+                n_buckets, **engine)
             return bk.bills_linear_nb(lin, imports, imp_sell, scales, tw,
                                       n_periods), None
         imports, imp_sell, imports_o, imp_sell_o = bk.import_sums_pair(
-            envs.load, gen_shape, sell, bucket, sell_wo, bucket_wo, scales,
-            n_buckets)
+            raw(envs.load), raw(gen_shape), raw(sell), raw(bucket), raw(sell_wo),
+            raw(bucket_wo), scales, n_buckets, **engine)
         bills_sw = bk.bills_linear_nb(lin, imports, imp_sell, scales, tw, n_periods)
         bills_o = bk.bills_linear_nb(lin_wo, imports_o, imp_sell_o, scales,
                                      envs.tariff, n_periods)
@@ -310,9 +341,15 @@ def size_agents(
     else:
         tariff_star, bucket_star, sell_star = tw, bucket, sell
     # the battery-modified output is not a scale of the gen shape: the
-    # full bucket-sums kernel with per-year degradation scales
-    s_b, i_b, c_b = bk.bucket_sums(envs.load, dr.system_out, sell_star,
-                                   bucket_star, df, n_buckets)
+    # full bucket-sums kernel with per-year degradation scales, on the
+    # pack's lanes only where they are this call's (full-hour, one tariff
+    # structure: a discharging battery breaks the night-zero premise)
+    batt_packed = packed if daylight is None and not has_switch else None
+    s_b, i_b, c_b = bk.bucket_sums(
+        None if batt_packed is not None else envs.load, dr.system_out,
+        None if batt_packed is not None else sell_star,
+        None if batt_packed is not None else bucket_star,
+        df, n_buckets, impl=impl, packed=batt_packed)
     bills_w_b = bk.bills_from_sums(s_b, i_b, c_b, tariff_star, n_periods) * pf
     out_w = econ(bills_w_b, kw_star, cost_w, envs.value_of_resiliency_usd,
                  dr.system_out.sum(dim=1))

@@ -3,7 +3,10 @@ the JAX package on the CPU. The JAX engines run their XLA twin
 (``impl="xla"``), as the JAX package's own CPU tests do; the port runs
 the plain versions of its kernels. Bucket sums: rtol 1e-5 / atol 1e-3,
 the bound the JAX package pins for two float32 reduction orders
-(tests/test_billpallas.py::test_sharded_engine_matches_unsharded)."""
+(tests/test_billpallas.py::test_sharded_engine_matches_unsharded), for
+every engine, lane layout and pack; the stream engine is also held to
+the JAX stream kernel run in the Pallas interpreter, as
+tests/test_roofline.py runs it."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ from dgen_tpu_torch.ops import bill as tbill
 from dgen_tpu_torch.ops import billkernels as tbk
 from dgen_tpu_torch.ops import cashflow as tcf
 from dgen_tpu_torch.ops import dispatch as tdisp
+from dgen_tpu_torch.ops import layout as tlay
 from dgen_tpu_torch.ops.tariff import NET_BILLING
 
 N = 24
@@ -53,6 +57,8 @@ def world():
         tload=t(load), tgen=t(gen), tts=t(ts),
         tbucket=tbk.hourly_bucket_ids(tat.hour_period, p),
         tsell=tbk.sell_rate_hourly(tat, t(ts)),
+        lay_j=jbp.daylight_layout(np.asarray(jp.profiles.solar_cf)),
+        lay_t=tlay.daylight_layout(tp.profiles.solar_cf.numpy()),
     )
 
 
@@ -253,3 +259,181 @@ def test_dispatch_matches_reference(world):
     for k in ("system_out", "soc", "charge", "discharge"):
         close(getattr(ref, k), getattr(got, k), rtol=1e-5, atol=1e-4, msg=k)
     assert float(got.charge.sum()) > 0.0 and float(got.discharge.sum()) > 0.0
+
+
+def _layouts(w, kind):
+    if kind == "full":
+        return None, None
+    if kind == "compacted":
+        return w["lay_j"], w["lay_t"]
+    return w["lay_j"].uniform(), w["lay_t"].uniform()
+
+
+def _second_structure(w):
+    """Month-major bucket ids of a second tariff structure (each hour's
+    period moved on by one), in both packages."""
+    p = w["p"]
+    jb = w["jbucket"]
+    tb = w["tbucket"]
+    return (jb // p * p + (jb % p + 1) % p,
+            (tb // p * p + (tb % p + 1) % p).to(torch.int32))
+
+
+def _ref_pair(out):
+    """A JAX engine's [N, R, 128] output -> (bucket sums, sell sums)."""
+    out = np.asarray(out)
+    return out[..., :jbp.SELL_COL - 1], out[..., jbp.SELL_COL]
+
+
+@pytest.mark.parametrize("impl", ["auto", "stream"])
+@pytest.mark.parametrize("kind", ["full", "compacted", "uniform"])
+def test_lane_engines_match_reference(world, impl, kind):
+    """Month and stream engines on full-hour and compacted lanes (night
+    sums added back) against _sums_xla and the XLA pair engine with the
+    same layout."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    lay_j, lay_t = _layouts(w, kind)
+    assert kind == "full" or lay_t.n_lanes < 8760
+    ref = jbp.import_sums(w["load"], w["gen"], w["jsell"], w["jbucket"], sc, b,
+                          impl="xla", layout=lay_j)
+    got = tbk.import_sums(w["tload"], w["tgen"], w["tsell"], w["tbucket"], t(sc),
+                          b, impl=impl, layout=lay_t)
+    for r, g in zip(ref, got):
+        close(r, g)
+    jb2, tb2 = _second_structure(w)
+    ref = jbp.import_sums_pair(w["load"], w["gen"], w["jsell"], w["jbucket"],
+                               w["ts"], jb2, sc, b, impl="xla", layout=lay_j)
+    got = tbk.import_sums_pair(w["tload"], w["tgen"], w["tsell"], w["tbucket"],
+                               w["tts"], tb2, t(sc), b, impl=impl, layout=lay_t)
+    for r, g in zip(ref, got):
+        close(r, g)
+
+
+def test_stream_engine_matches_the_pallas_stream_kernel(world):
+    """The stream engine's plain version against _sums_pallas_stream in
+    the Pallas interpreter: imports on the uniform compacted lanes,
+    signed sums on full-hour lanes."""
+    w = world
+    p, b = w["p"], 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    lay_j, lay_t = _layouts(w, "uniform")
+    (imp_r,) = jbp._sums_pallas_stream(w["load"], w["gen"], w["jsell"],
+                                       w["jbucket"], sc, with_signed=False,
+                                       n_periods=p, layout=lay_j, interpret=True)
+    got = tbk.import_sums(w["tload"], w["tgen"], w["tsell"], w["tbucket"], t(sc), b,
+                          impl="stream", layout=lay_t)
+    ref = _ref_pair(imp_r)
+    close(ref[0][..., :b], got[0])
+    close(ref[1], got[1])
+    imp_r, sgn_r = jbp._sums_pallas_stream(w["load"], w["gen"], w["jsell"],
+                                           w["jbucket"], sc, with_signed=True,
+                                           n_periods=p, interpret=True)
+    sgn, imp, credit = tbk.bucket_sums(w["tload"], w["tgen"], w["tsell"],
+                                       w["tbucket"], t(sc), b, impl="stream")
+    (ri, ris), (rs, rss) = _ref_pair(imp_r), _ref_pair(sgn_r)
+    close(ri[..., :b], imp)
+    close(rs[..., :b], sgn)
+    close(ris - rss, credit)
+
+
+@pytest.mark.parametrize("kind", ["full", "uniform"])
+def test_packed_engines_match_reference(world, kind):
+    """Engines fed a pack-once bundle: the JAX engines with the same
+    pack, and the port's own unpacked call."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    lay_j, lay_t = _layouts(w, kind)
+    jb2, tb2 = _second_structure(w)
+    pk_j = jbp.pack_streams(w["load"], w["gen"], w["jsell"], w["jbucket"], b,
+                            layout=lay_j, sell_b=w["ts"], bucket_b=jb2)
+    pk_t = tbk.pack_streams(w["tload"], w["tgen"], w["tsell"], w["tbucket"], b,
+                            layout=lay_t, sell_b=w["tts"], bucket_b=tb2)
+    ref = jbp.import_sums(None, None, None, None, sc, b, impl="xla", layout=lay_j,
+                          packed=pk_j)
+    got = tbk.import_sums(None, None, None, None, t(sc), b, impl="stream",
+                          layout=lay_t, packed=pk_t)
+    unpacked = tbk.import_sums(w["tload"], w["tgen"], w["tsell"], w["tbucket"],
+                               t(sc), b, layout=lay_t)
+    for r, g, u in zip(ref, got, unpacked):
+        close(r, g)
+        torch.testing.assert_close(g, u, rtol=1e-6, atol=1e-4)
+    ref = jbp.import_sums_pair(None, None, None, None, None, None, sc, b,
+                               impl="xla", layout=lay_j, packed=pk_j)
+    got = tbk.import_sums_pair(None, None, None, None, None, None, t(sc), b,
+                               layout=lay_t, packed=pk_t)
+    for r, g in zip(ref, got):
+        close(r, g)
+    if kind == "full":
+        # the battery run's reuse: packed load/sell/period, a fresh gen
+        gen2 = np.random.default_rng(5).random(w["load"].shape).astype(np.float32)
+        pk1 = tbk.pack_streams(w["tload"], w["tgen"], w["tsell"], w["tbucket"], b)
+        ref = jbp.bucket_sums(w["load"], jnp.asarray(gen2), w["jsell"], w["jbucket"],
+                              sc, b, impl="xla")
+        got = tbk.bucket_sums(None, t(gen2), None, None, t(sc), b, packed=pk1)
+        for r, g in zip(ref, got):
+            close(r, g)
+
+
+def test_pack_misuse_is_refused(world):
+    w = world
+    b = 12 * w["p"]
+    sc = t(w["scales"])
+    pk_full = tbk.pack_streams(w["tload"], w["tgen"], w["tsell"], w["tbucket"], b)
+    pk_comp = tbk.pack_streams(w["tload"], w["tgen"], w["tsell"], w["tbucket"], b,
+                               layout=w["lay_t"])
+    with pytest.raises(ValueError, match="lanes"):
+        tbk.import_sums(None, None, None, None, sc, b, layout=w["lay_t"],
+                        packed=pk_full)
+    with pytest.raises(ValueError, match="lanes"):   # battery run, compacted pack
+        tbk.bucket_sums(None, w["tgen"], None, None, sc, b, packed=pk_comp)
+    with pytest.raises(ValueError, match="packed"):
+        tbk.import_sums(None, None, None, None, sc, b, impl="dot", packed=pk_full)
+    with pytest.raises(ValueError, match="impl"):
+        tbk.import_sums(w["tload"], w["tgen"], w["tsell"], w["tbucket"], sc, b,
+                        impl="pallas")
+
+
+@pytest.mark.parametrize("impl", tbk.IMPLS)
+def test_engines_refuse_int64_bucket_ids(world, impl):
+    """The kernels read int32 bucket ids; every entry refuses others on
+    any device rather than casting them."""
+    w = world
+    b = 12 * w["p"]
+    sc = t(w["scales"])
+    wide = w["tbucket"].long()
+    with pytest.raises(TypeError, match="int32"):
+        tbk.import_sums(w["tload"], w["tgen"], w["tsell"], wide, sc, b, impl=impl)
+    with pytest.raises(TypeError, match="int32"):
+        tbk.bucket_sums(w["tload"], w["tgen"], w["tsell"], wide, sc, b, impl=impl)
+    with pytest.raises(TypeError, match="int32"):
+        tbk.import_sums_pair(w["tload"], w["tgen"], w["tsell"], w["tbucket"],
+                             w["tsell"], wide, sc, b, impl=impl)
+    with pytest.raises(TypeError, match="int32"):
+        tbk.pack_streams(w["tload"], w["tgen"], w["tsell"], wide, b)
+
+
+@pytest.mark.parametrize("engine", ["import_sums", "bucket_sums", "import_sums_pair"])
+def test_dot_engine_matches_reference(world, engine):
+    """The one-hot dot engine's plain version against _sums_xla; it
+    ignores a layout (full-hour totals)."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    args_j = (w["load"], w["gen"], w["jsell"], w["jbucket"])
+    args_t = (w["tload"], w["tgen"], w["tsell"], w["tbucket"])
+    if engine == "import_sums_pair":
+        jb2, tb2 = _second_structure(w)
+        args_j += (w["ts"], jb2)
+        args_t += (w["tts"], tb2)
+    ref = getattr(jbp, engine)(*args_j, sc, b, impl="xla")
+    got = getattr(tbk, engine)(*args_t, t(sc), b, impl="dot")
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        close(r, g)
+    if engine == "import_sums":
+        laid = tbk.import_sums(*args_t, t(sc), b, impl="dot", layout=w["lay_t"])
+        for g, gl in zip(got, laid):
+            assert torch.equal(g, gl)

@@ -3,8 +3,9 @@ through the JAX package's converter and package loader (the port has no
 loaders yet), carried across with convert.py, run for 19 model years on
 the port, and held to tests/fixtures/golden_adoption.json under the
 contract of tests/test_golden_e2e.py: curves within rtol 1e-3 and the
-final system-size histogram exact. The port runs its plain versions on
-the CPU."""
+final system-size histogram exact. The gated sizing path is held to the
+default run as tests/test_golden_e2e.py holds the JAX package's. The
+port runs its plain versions on the CPU."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from dgen_tpu.io import convert as jconvert
 from dgen_tpu.io import package
@@ -19,6 +21,9 @@ from dgen_tpu_torch import convert
 from dgen_tpu_torch.config import RunConfig, ScenarioConfig
 from dgen_tpu_torch.models import scenario
 from dgen_tpu_torch.models.simulation import Simulation
+from dgen_tpu_torch.ops import bill as bill_ops
+from dgen_tpu_torch.ops import billkernels as bk
+from dgen_tpu_torch.ops import sizing
 
 pytestmark = pytest.mark.slow
 
@@ -28,7 +33,9 @@ RTOL = 1e-3
 
 
 @pytest.fixture(scope="module")
-def port_golden_run(tmp_path_factory):
+def golden_world(tmp_path_factory):
+    """The golden population on the port's CPU tensors, with its
+    scenario config and inputs."""
     frame = pd.read_pickle(os.path.join(FIXTURES, "golden_agents.pkl"))
     load_df = pd.read_pickle(os.path.join(FIXTURES, "golden_load_profiles.pkl"))
     cf_df = pd.read_pickle(os.path.join(FIXTURES, "golden_solar_profiles.pkl"))
@@ -53,9 +60,19 @@ def port_golden_run(tmp_path_factory):
         overrides={"attachment_rate": np.full((table.n_groups,), 0.35, np.float32)},
         n_states=table.n_states, device=device,
     )
-    sim = Simulation(table, profiles, tariffs, inputs, cfg,
-                     RunConfig(sizing_iters=8), with_hourly=True, device=device)
-    res = sim.run()
+    return table, profiles, tariffs, inputs, cfg
+
+
+def _run(world, run_config: RunConfig):
+    table, profiles, tariffs, inputs, cfg = world
+    sim = Simulation(table, profiles, tariffs, inputs, cfg, run_config,
+                     with_hourly=True, device="cpu")
+    return sim, sim.run()
+
+
+@pytest.fixture(scope="module")
+def port_golden_run(golden_world):
+    sim, res = _run(golden_world, RunConfig(sizing_iters=8))
     mask = sim.host_mask
     ids = sim.host_agent_id
     s = res.summary(mask)
@@ -90,3 +107,40 @@ def test_port_reproduces_golden_adoption(port_golden_run):
         np.testing.assert_allclose(curves[key], golden[key], rtol=RTOL, atol=0.05,
                                    err_msg=key)
     assert curves["kw_histogram"] == golden["kw_histogram"]
+
+
+def test_gated_golden_run_matches_default(golden_world, port_golden_run):
+    """The gated sizing path (daylight-compacted lanes, pack-once, the
+    stream engine) on the golden fixture, to the JAX package's bounds
+    (tests/test_golden_e2e.py::test_golden_daylight_compact_parity): the
+    compaction only re-associates float32 sums, so the import sums of the
+    golden streams hold 1e-5 of the full-hour ones, and national curves
+    hold rtol 1e-4 of the default run (an agent may flip between two
+    near-tied candidate sizes)."""
+    sim, res = _run(golden_world, RunConfig(sizing_iters=8, daylight_compact=True,
+                                            pack_once=True, stream_segments=True))
+    lay = sim._daylight
+    assert lay is not None, "the golden solar profiles have compactable night hours"
+    assert sim.step_kwargs(True)["sizing_impl"] == "stream"
+
+    table, profiles, tariffs, _, _ = golden_world
+    p = tariffs.max_periods
+    at = bill_ops.gather_tariff(tariffs, table.tariff_idx)
+    load = (profiles.load[table.load_idx.long()]
+            * table.load_kwh_per_customer_in_bin[:, None])
+    gen = profiles.solar_cf[table.cf_idx.long()] * sizing.INV_EFF
+    sell = bk.sell_rate_hourly(at, profiles.wholesale[table.region_idx.long()])
+    bucket = bk.hourly_bucket_ids(at.hour_period, p)
+    scales = torch.from_numpy(np.abs(np.random.default_rng(0).normal(
+        2.0, 1.5, (load.shape[0], 8))).astype(np.float32))
+    full = bk.import_sums(load, gen, sell, bucket, scales, 12 * p)
+    for impl, layout in (("auto", lay), ("stream", lay.uniform())):
+        comp = bk.import_sums(load, gen, sell, bucket, scales, 12 * p, impl=impl,
+                              layout=layout)
+        for a, c in zip(full, comp):
+            scale = max(float(a.abs().max()), 1.0)
+            assert float((a - c).abs().max()) / scale < 1e-5, impl
+
+    s = res.summary(sim.host_mask)
+    for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
+        np.testing.assert_allclose(s[k], port_golden_run[k], rtol=1e-4, err_msg=k)

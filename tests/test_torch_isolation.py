@@ -51,6 +51,7 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.models.simulation\n"
         "import dgen_tpu_torch.presets, dgen_tpu_torch.convert\n"
         "import dgen_tpu_torch.ops.billkernels, dgen_tpu_torch.ops._build\n"
+        "import dgen_tpu_torch.ops.layout\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
     )
@@ -88,6 +89,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
 
 def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops.layout import FULL_OFFSETS
 
     rng = np.random.default_rng(0)
     n, r = 3, 5
@@ -98,11 +100,18 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
         torch.from_numpy(rng.integers(0, 2, (n, 8760)).astype(np.int32)), 2)
     scales = torch.from_numpy(rng.random((n, r), dtype=np.float32))
     bk.reset_launches()
-    got = bk.import_sums(load, gen, sell, bucket, scales, 24)
-    ref = bk.month_sums_plain(load, gen, sell, bucket, scales, 2, False)
+    ref = bk.month_sums_plain(load, gen, sell, bucket % 2, scales, FULL_OFFSETS,
+                              2, False)
+    for impl in ("auto", "stream"):
+        got = bk.import_sums(load, gen, sell, bucket, scales, 24, impl=impl)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    got = bk.import_sums(load, gen, sell, bucket, scales, 24, impl="dot")
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     # the plain path is not a launch
-    assert bk.LAUNCHES == {"month": 0, "month_signed": 0, "month_pair": 0}
+    assert set(bk.LAUNCHES) == {"month", "month_signed", "month_pair", "stream",
+                                "stream_signed", "dot", "dot_signed"}
+    assert not any(bk.LAUNCHES.values())
     with pytest.raises(ValueError, match="n_periods"):
         bk.import_sums(load, gen, sell, bucket, scales, 12 * 11)

@@ -8,7 +8,11 @@ scale of tests/test_billpallas.py::test_fast_sizing_matches_oracle);
 payback within 0.1 year. An agent may land on a different candidate
 only where the JAX objective prices the two candidates within 1e-5
 relative — a near-tie the argmax may break either way — and such an
-agent is then held to that bound instead of the per-agent ones."""
+agent is then held to that bound instead of the per-agent ones.
+
+The gated path (stream engine, daylight-compacted lanes, pack-once) is
+held to the JAX package's ``size_agents(impl="pallas_stream", daylight,
+pack_once=True)`` at the same bounds."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +27,9 @@ from dgen_tpu.ops import sizing as jsizing
 from dgen_tpu_torch import config as tcfg
 from dgen_tpu_torch.io import synth as tsynth
 from dgen_tpu_torch.models import scenario as tscen
+from dgen_tpu.ops import billpallas as jbp
 from dgen_tpu_torch.models import simulation as tsim
+from dgen_tpu_torch.ops import layout as tlay
 from dgen_tpu_torch.ops import sizing as tsizing
 
 N = 32
@@ -53,15 +59,28 @@ def _worlds(switch: float):
     tenv = tsim.build_econ_inputs(
         tp.table, tp.profiles, tp.tariffs, tscen.apply_year(tp.table, tin, 1),
         torch.from_numpy(nem), tp.table.incentives, rate_switch=switch > 0)
-    return jenv, tenv, int(jp.tariffs.max_periods)
+    return jenv, tenv, int(jp.tariffs.max_periods), tp.profiles.solar_cf.numpy()
 
 
 @pytest.fixture(scope="module", params=[0.0, 0.5], ids=["no_switch", "rate_switch"])
 def sized(request):
-    jenv, tenv, p = _worlds(request.param)
+    jenv, tenv, p, _ = _worlds(request.param)
     ref = jsizing.size_agents(jenv, n_periods=p, n_years=YEARS, n_iters=ITERS,
                               impl="xla")
     got = tsizing.size_agents(tenv, n_periods=p, n_years=YEARS, n_iters=ITERS)
+    return jenv, p, ref, got
+
+
+@pytest.fixture(scope="module", params=[0.0, 0.5], ids=["no_switch", "rate_switch"])
+def sized_gated(request):
+    jenv, tenv, p, bank = _worlds(request.param)
+    ref = jsizing.size_agents(jenv, n_periods=p, n_years=YEARS, n_iters=ITERS,
+                              impl="pallas_stream", daylight=jbp.daylight_layout(bank),
+                              pack_once=True)
+    lay = tlay.daylight_layout(bank)
+    assert lay is not None and len(set(lay.uniform().seg_lens)) == 1
+    got = tsizing.size_agents(tenv, n_periods=p, n_years=YEARS, n_iters=ITERS,
+                              impl="stream", daylight=lay, pack_once=True)
     return jenv, p, ref, got
 
 
@@ -73,7 +92,14 @@ def test_candidate_grid_is_jax_linspace_bitwise():
 
 
 def test_size_agents_matches_reference(sized):
-    jenv, p, ref, got = sized
+    _check_sized(*sized)
+
+
+def test_gated_size_agents_matches_reference(sized_gated):
+    _check_sized(*sized_gated)
+
+
+def _check_sized(jenv, p, ref, got):
     kw_r = np.asarray(ref.system_kw)
     kw_g = got.system_kw.numpy()
     same = np.abs(kw_g - kw_r) <= 1e-4 * np.abs(kw_r)

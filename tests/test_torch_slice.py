@@ -2,9 +2,11 @@
 package's on the same seeded world — 48 agents, storage on, the
 state-hourly aggregate on, 2 model years, with and without a DG-rate
 switch, a NEM cap that closes in year 2 and a non-zero battery
-attachment rate. National curves within rtol 1e-3 (the golden
-contract, tests/test_golden_e2e.py), state-hourly net load within
-rtol 1e-3 / atol 1e-3 MW, integer battery adopters equal per agent."""
+attachment rate; each on the default path and on the gated one
+(daylight-compacted lanes, pack-once, the stream engine). National
+curves within rtol 1e-3 (the golden contract, tests/test_golden_e2e.py),
+state-hourly net load within rtol 1e-3 / atol 1e-3 MW, integer battery
+adopters equal per agent."""
 
 import numpy as np
 import pytest
@@ -31,9 +33,15 @@ def _overrides(n_groups: int, n_states: int) -> dict:
     }
 
 
-@pytest.fixture(scope="module", params=[0.0, 0.4], ids=["no_switch", "rate_switch"])
+GATED = dict(daylight_compact=True, pack_once=True, stream_segments=True)
+
+
+@pytest.fixture(scope="module",
+                params=[(0.0, False), (0.4, False), (0.0, True), (0.4, True)],
+                ids=["no_switch", "rate_switch", "no_switch-gated", "rate_switch-gated"])
 def runs(request):
-    switch = request.param
+    switch, gated = request.param
+    knobs = GATED if gated else {}
     kw = dict(states=STATES, seed=21, pad_multiple=16, rate_switch_frac=switch)
     jp = jsynth.generate_population(N, **kw)
     tp = tsynth.generate_population(N, device="cpu", **kw)
@@ -45,11 +53,16 @@ def runs(request):
     tin = tscen.uniform_inputs(cfg_t, n_groups=g, n_regions=tp.n_regions,
                                overrides=_overrides(g, s), device="cpu")
     jsim = JSimulation(jp.table, jp.profiles, jp.tariffs, jin, cfg_j,
-                       jcfg.RunConfig(sizing_iters=4), with_hourly=True)
+                       jcfg.RunConfig(sizing_iters=4, **knobs), with_hourly=True)
     tsim = TSimulation(tp.table, tp.profiles, tp.tariffs, tin, cfg_t,
-                       tcfg.RunConfig(sizing_iters=4), with_hourly=True, device="cpu")
+                       tcfg.RunConfig(sizing_iters=4, **knobs), with_hourly=True,
+                       device="cpu")
     assert (jsim._rate_switch, jsim._net_billing) == \
         (tsim._rate_switch, tsim._net_billing) == (switch > 0, True)
+    assert (jsim._daylight is None) == (tsim._daylight is None) == (not gated)
+    if gated:
+        assert tsim.step_kwargs(True)["sizing_impl"] == "stream"
+        assert tsim._daylight.seg_lens == jsim._daylight.seg_lens
     return jsim, jsim.run(), tsim, tsim.run()
 
 
