@@ -25,14 +25,22 @@ its first launch in the path):
   7. the dot path: one model year at 512 agents through
      year_step(..., sizing_impl="dot"), its national curves against the
      month engine's on the same world;
-  8. each kernel against its plain PyTorch version on the operands the
+  8. the micro-benchmark path: dgen_tpu_torch.tools.kernel_microbench at
+     its own full size (8,192 agents x 250 scales x 8,760 hours, P = 2),
+     every default variant: the four variant kernels (sums_variant in its
+     seven settings, monthmask, monthmask_g at 4 and 8 agents per block,
+     monthdot) and the month and stream kernels through lib, compact and
+     stream; each parity line is held to the tolerance of its kind, and a
+     variant that is not ported must be refused;
+  9. each kernel against its plain PyTorch version on the operands the
      paths gave it, with a check that the comparison would catch a
      kernel that drops one TOU period of any agent, and each kernel's
      time beside its plain version's and the card's bound for the same
      work; the month kernel against the stream kernel on the stream
-     kernel's operands (logged only); the first year's sizing call broken
-     down;
-  9. a JSON line with every ported kernel, the card, the result line.
+     kernel's operands, the ablated settings of sums_variant, its
+     32-column forms and its device-memory build at 512 agents (logged
+     only); the first year's sizing call broken down;
+ 10. a JSON line with every ported kernel, the card, the result line.
 
 Exits non-zero, printing no result, without a CUDA device, when the
 package is not beside this script, or when any phase fails.
@@ -56,6 +64,8 @@ SWITCH_AGENTS = 1024
 SWITCH_END_YEAR = 2016        # model years 2014, 2016
 DAYLIGHT_AGENTS = 1024
 DOT_AGENTS = 512
+MICRO_AGENTS = 8192           # the micro-benchmark's own default
+HBM_AGENTS = 512              # M from device memory: 2.3 GB at 512 agents
 GATED = dict(daylight_compact=True, pack_once=True, stream_segments=True)
 #: kernel vs plain version: rtol 1e-4, atol 1e-3 x the agent's largest
 #: |plain| value in that output (the two sum float32 terms in different
@@ -80,6 +90,8 @@ SOURCES = {
     "month": "dgen_tpu_torch/csrc/bucket_sums.cu",
     "stream": "dgen_tpu_torch/csrc/bucket_sums_stream.cu",
     "dot": "dgen_tpu_torch/csrc/bucket_sums_dot.cu",
+    "micro_mask": "dgen_tpu_torch/csrc/microbench_mask.cu",
+    "micro_dot": "dgen_tpu_torch/csrc/microbench_dot.cu",
 }
 
 
@@ -109,7 +121,16 @@ def year0_envs(sim):
         rate_switch=sim._rate_switch))
 
 
-def kernel_specs(bk) -> dict:
+def micro_pair(fn, plain, **override) -> tuple:
+    """(wrapper, plain version) of a micro-benchmark variant over its
+    captured operands (load, gen, sell, bucket ids, scales, keyword
+    arguments), with ``override`` laid over the captured keywords."""
+    def call(f):
+        return lambda *a: f(*a[:5], **{**a[5], **override})
+    return call(fn), call(plain)
+
+
+def kernel_specs(bk, mk) -> dict:
     """JSON name -> (capture, wrapper, plain version, float32 operations
     per (agent, scale, lane), [N, L] lane arrays read, rtol, source,
     TPU kernel replaced). A capture is (path, LAUNCHES key) of the run
@@ -119,6 +140,7 @@ def kernel_specs(bk) -> dict:
     pair = (bk.month_pair_sums, bk.month_pair_sums_plain)
     dot = (bk.dot_sums, bk.dot_sums_plain)
     bp = "dgen_tpu/ops/billpallas.py"
+    mb = "tools/kernel_microbench.py"
     return {
         "bucket_sums_month": (("main", "month"), *month, 6, 4, RTOL, "month",
                               f"{bp}:343"),
@@ -140,6 +162,21 @@ def kernel_specs(bk) -> dict:
                             f"{bp}:296"),
         "bucket_sums_dot_signed": (("dot", "dot_signed"), *dot, 9, 4, DOT_RTOL,
                                    "dot", f"{bp}:296"),
+        "sums_monthmask": (("micro", "monthmask"),
+                           *micro_pair(mk.sums_monthmask, mk.sums_monthmask_plain),
+                           6, 4, RTOL, "micro_mask", f"{mb}:112"),
+        # the path's first monthmask_g launch has 4 agents per block; the
+        # row is the 8-agent launch on the same operands
+        "sums_monthmask_g": (("micro", "monthmask_g"),
+                             *micro_pair(mk.sums_monthmask_g,
+                                         mk.sums_monthmask_g_plain, g_block=8),
+                             6, 4, RTOL, "micro_mask", f"{mb}:220"),
+        "sums_variant": (("micro", "variant"),
+                         *micro_pair(mk.sums_variant, mk.sums_variant_plain),
+                         6, 4, DOT_RTOL, "micro_dot", f"{mb}:49"),
+        "sums_monthdot": (("micro", "monthdot"),
+                          *micro_pair(mk.sums_monthdot, mk.sums_monthdot_plain),
+                          6, 4, DOT_RTOL, "micro_dot", f"{mb}:146"),
     }
 
 
@@ -150,6 +187,88 @@ def ab_specs(bk) -> dict:
     return {"bucket_sums_month_on_stream_operands": (
         ("gated", "stream"), bk.month_sums, bk.month_sums_plain, 6, 4, RTOL,
         "month", "dgen_tpu/ops/billpallas.py:343")}
+
+
+def check_variant_forms(operands: tuple, mk, tool) -> None:
+    """The ablated settings of sums_variant at the path's full size, and
+    its device-memory build at HBM_AGENTS agents, each against its plain
+    version (the product forms at the dot kernel's tolerance, the forms
+    without a product at the month kernel's) and timed; logged only."""
+    import torch
+
+    load, base = operands[0], operands[5]
+    if {k: v for k, v in base.items() if v is not None} != dict(
+            n_periods=tool.N_PERIODS, b_pad=128, build="onehot", dot="dot",
+            net="fma"):
+        raise AssertionError(f"the path's first sums_variant launch is not the "
+                             f"base setting: {base}")
+    forms = [(name, kw, operands[:5]) for name, (kw, real)
+             in tool.SUMS_VARIANTS.items() if not real]
+    # the one-hot kernel's own width at P = 2 (12 P + 1 columns in 32): how
+    # bucket_sums_dot's time splits between forming M and the products
+    forms += [(f"b32{tag}", dict(b_pad=32, **kw), operands[:5])
+              for tag, kw in (("", {}), ("_const", dict(build="const")),
+                              ("_no_dot", dict(dot="none")))]
+    part = tuple(t[:HBM_AGENTS] for t in operands[:5])
+    g = torch.Generator(device=load.device).manual_seed(1)
+    m_hbm = torch.rand((HBM_AGENTS, load.shape[1], 128), generator=g,
+                       device=load.device)
+    forms.append((f"hbm(M from device memory, {HBM_AGENTS} agents)",
+                  dict(build="hbm", m_hbm=m_hbm), part))
+    for name, kw, args in forms:
+        kw = dict(n_periods=tool.N_PERIODS, **kw)
+        got = mk.sums_variant(*args, **kw)
+        ref = mk.sums_variant_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rtol = RTOL if kw.get("dot") == "none" else DOT_RTOL
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if bool(bad_agents(a, b, rtol).any()) or (
+                    rtol == DOT_RTOL and not torch.allclose(
+                        a, b, rtol=DOT_RTOL, atol=DOT_ATOL)):
+                raise AssertionError(f"sums_variant {name}: output {i} disagrees "
+                                     f"with the plain version (max abs err "
+                                     f"{err:.3e})")
+        del got, ref
+        ms = time_ms(lambda: mk.sums_variant(*args, **kw))
+        log(f"  sums_variant {name}: N={args[0].shape[0]} max_abs_err={err:.3e} "
+            f"(rtol {rtol}) kernel {ms:.3f} ms")
+        torch.cuda.empty_cache()
+
+
+def micro_path(tool, bk) -> dict:
+    """The micro-benchmark at its full size through its entry point, with
+    the launch counts set to 0 before and read after; every parity line
+    held to its kind's tolerance."""
+    bk.CAPTURE = {}
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = tool.run(MICRO_AGENTS)
+    finally:
+        launches = dict(bk.LAUNCHES)
+        capture, bk.CAPTURE = bk.CAPTURE, None
+    wall = time.perf_counter() - t0
+    expected = len(tool.SUMS_VARIANTS) + 8
+    if len(out["variants"]) != expected or out["timed_on"] != "device":
+        raise AssertionError(f"the default run gave {list(out['variants'])} on "
+                             f"{out['timed_on']}, expected {expected} variants "
+                             "on the device")
+    for name, v in out["variants"].items():
+        par = v["parity"]
+        if not v["ms"] > 0 or (par is not None and par["bad_agents"]):
+            raise AssertionError(f"micro-benchmark variant {name}: {v}")
+    n_parity = sum(v["parity"] is not None for v in out["variants"].values())
+    if n_parity != 9:
+        raise AssertionError(f"{n_parity} parity lines, expected 9")
+    try:
+        tool.run(MICRO_AGENTS, ["mnet"])
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the tool ran 'mnet', which is not ported")
+    return dict(out=out, wall=wall, launches=launches, capture=capture,
+                refusal=refusal)
 
 
 def bad_agents(got, ref, rtol=RTOL):
@@ -418,7 +537,9 @@ def main() -> int:
         from dgen_tpu_torch.config import RunConfig
         from dgen_tpu_torch.ops import _build
         from dgen_tpu_torch.ops import billkernels as bk
+        from dgen_tpu_torch.ops import microkernels as mk
         from dgen_tpu_torch.ops.tariff import HOURS
+        from dgen_tpu_torch.tools import kernel_microbench as tool
     except ImportError as e:
         print(f"the dgen_tpu_torch package is not beside this script: {e}",
               file=sys.stderr)
@@ -541,15 +662,33 @@ def main() -> int:
     if dot_gap > DOT_CURVE_RTOL:
         raise AssertionError(f"dot curves differ by {dot_gap:.3e} > {DOT_CURVE_RTOL}")
 
-    # --- 8: the kernels on the paths' operands ---
-    log(f"[8] kernels vs plain versions on the first launch's operands (rtol "
-        f"{RTOL}, {DOT_RTOL} for dot, atol {ATOL_FRAC} x the agent's max|plain|) "
+    # --- 8: the micro-benchmark path ---
+    log(f"[8] micro-benchmark path: kernel_microbench.run({MICRO_AGENTS}), every "
+        f"default variant (the tool's own lines follow)")
+    runs["micro"] = run = micro_path(tool, bk)
+    log(f"    {len(run['out']['variants'])} variants in {run['wall']:.3f} s; "
+        f"launches {run['launches']}")
+    log(f"    every parity line within its kind's tolerance (rtol "
+        f"{tool.PARITY_RTOL}, atol {tool.ATOL_FRAC} x the agent's max|lib|); "
+        f"'mnet' refused: {run['refusal']}")
+    need_launches("micro-benchmark path", run["launches"],
+                  ("variant", "monthmask", "monthmask_g", "monthdot", "month",
+                   "stream"),
+                  zero=("month_signed", "month_pair", "stream_signed", "dot",
+                        "dot_signed"))
+
+    # --- 9: the kernels on the paths' operands ---
+    log(f"[9] kernels vs plain versions on the first launch's operands (rtol "
+        f"{RTOL}, {DOT_RTOL} for the tensor-core kernels, atol {ATOL_FRAC} x the "
+        f"agent's max|plain|) "
         f"and times (median of 5 CUDA-event launches after a warm-up):")
     captures = {k: v["capture"] for k, v in runs.items()}
     hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
-    rows = check_and_time(captures, kernel_specs(bk), hour_lanes)
+    rows = check_and_time(captures, kernel_specs(bk, mk), hour_lanes)
     log("  A/B, not in the kernels line (the gated path launches no month kernel):")
     ab = check_and_time(captures, ab_specs(bk), hour_lanes)[0]
+    log("  settings of sums_variant beside its base row, not in the kernels line:")
+    check_variant_forms(captures["micro"]["variant"], mk, tool)
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -567,14 +706,9 @@ def main() -> int:
             f"three kernel launches, as the sum of their isolated medians, "
             f"{parts['kernel_medians_s']:.4f} s")
 
-    # --- 9: the kernel line, the card, the result ---
-    path_launches = {"main": runs["main"]["launches"],
-                     "gated": runs["gated"]["launches"],
-                     "switch": runs["switch"]["launches"],
-                     "switch_gated": runs["switch_gated"]["launches"],
-                     "daylight": runs["daylight"]["launches"],
-                     "dot": runs["dot"]["launches"]}
-    specs = kernel_specs(bk)
+    # --- 10: the kernel line, the card, the result ---
+    path_launches = {k: v["launches"] for k, v in runs.items()}
+    specs = kernel_specs(bk, mk)
     kernels = []
     for r in rows:
         path_key, key = specs[r["name"]][0]

@@ -50,6 +50,24 @@ _SIGNATURES = {
     # load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
     # out_sell_sgn, n, r, hours, n_periods, with_signed, stream
     "bucket_sums_dot": [_P] * 9 + [_I] * 5 + [_P],
+    # the micro-benchmark's variants: load, gen, sell, bucket, scales,
+    # offsets[13], out_imp, out_sell_imp, n, r, n_periods, ..., stream
+    "microbench_monthmask": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 3 + [_P],
+    # ..., g_block, stream
+    "microbench_monthmask_g": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 4 + [_P],
+    "microbench_monthdot": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 3 + [_P],
+    # ..., b_pad, h_chunk, build, dot, net, m_hbm, stream
+    "microbench_variant": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 8 + [_P] * 2,
+}
+
+#: template arguments of the kernels that have any, in order: the name
+#: and, for an integer that selects a form, the forms' names
+_TEMPLATE_ARGS = {
+    "month_kernel": (("signed", ()),),
+    "stream_kernel": (("signed", ()),),
+    "dot_kernel": (("signed", ()),),
+    "variant_kernel": (("build", ("onehot", "const", "hbm")),
+                       ("dot", ("dot", "none")), ("net", ("fma", "bcast"))),
 }
 
 
@@ -73,19 +91,41 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"bucket_sums-{h.hexdigest()[:12]}.so")
 
 
+def _kernel_label(mangled: str) -> str:
+    """``name<arg=value,...>`` of a mangled kernel name: the function's
+    own name and its integral template arguments (``Lb1E`` = true,
+    ``Li2E`` = 2, ``Lin1E`` = -1), named after :data:`_TEMPLATE_ARGS`
+    (``variant_kernel<build=hbm,dot=dot,net=fma>``); a lone true bool
+    prints as its name (``month_kernel<signed>``), a lone false one as
+    nothing."""
+    found = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[a-z]n?\d+E)+)E)?", mangled)
+    if not found:
+        return mangled
+    name, targs = found.groups()
+    if not targs:
+        return name
+    values = [(kind, -int(num) if neg else int(num))
+              for kind, neg, num in re.findall(r"L([a-z])(n?)(\d+)E", targs)]
+    names = _TEMPLATE_ARGS.get(name, ())
+    if len(values) == 1 and values[0][0] == "b" and names:
+        return f"{name}<{names[0][0]}>" if values[0][1] else name
+    parts = []
+    for i, (_, v) in enumerate(values):
+        arg, forms = names[i] if i < len(names) else (None, ())
+        shown = forms[v] if 0 <= v < len(forms) else v
+        parts.append(f"{arg}={shown}" if arg else str(shown))
+    return f"{name}<{','.join(parts)}>"
+
+
 def kernel_resources(log: str) -> list[dict]:
-    """Per kernel, from ``ptxas -v`` output: its name (template flag
+    """Per kernel, from ``ptxas -v`` output: its name (template arguments
     included), registers, spill bytes (stores + loads) and static shared
     memory bytes."""
     rows: list[dict] = []
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", entry.group(1))
-            label = entry.group(1)
-            if name:
-                label = name.group(1) + ({"1": "<signed>", "0": ""}
-                                         .get(name.group(3), ""))
+            label = _kernel_label(entry.group(1))
             rows.append(dict(kernel=label, registers=None, spill_bytes=0,
                              smem_bytes=0))
             continue

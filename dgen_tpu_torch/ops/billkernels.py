@@ -57,7 +57,9 @@ IMPLS = ("auto", "stream", "dot")
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES = {"month": 0, "month_signed": 0, "month_pair": 0, "stream": 0,
-            "stream_signed": 0, "dot": 0, "dot_signed": 0}
+            "stream_signed": 0, "dot": 0, "dot_signed": 0,
+            # the micro-benchmark's variants (ops/microkernels.py)
+            "monthmask": 0, "monthmask_g": 0, "variant": 0, "monthdot": 0}
 
 #: when a dict, each kernel wrapper keeps the arguments of its first
 #: launch there under its :data:`LAUNCHES` key (to check and time a

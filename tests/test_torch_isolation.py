@@ -51,7 +51,8 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.models.simulation\n"
         "import dgen_tpu_torch.presets, dgen_tpu_torch.convert\n"
         "import dgen_tpu_torch.ops.billkernels, dgen_tpu_torch.ops._build\n"
-        "import dgen_tpu_torch.ops.layout\n"
+        "import dgen_tpu_torch.ops.layout, dgen_tpu_torch.ops.microkernels\n"
+        "import dgen_tpu_torch.tools.kernel_microbench\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
     )
@@ -111,7 +112,8 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     # the plain path is not a launch
     assert set(bk.LAUNCHES) == {"month", "month_signed", "month_pair", "stream",
-                                "stream_signed", "dot", "dot_signed"}
+                                "stream_signed", "dot", "dot_signed", "monthmask",
+                                "monthmask_g", "variant", "monthdot"}
     assert not any(bk.LAUNCHES.values())
     with pytest.raises(ValueError, match="n_periods"):
         bk.import_sums(load, gen, sell, bucket, scales, 12 * 11)

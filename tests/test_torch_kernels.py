@@ -9,7 +9,9 @@ bucket lane by lane and the plain version by matrix product, two float32
 orders over up to 768 (bucket) or 8760 (sell) terms. The dot kernel
 multiplies in TF32 (10 mantissa bits): rtol 5e-3 and atol 2.0, the
 JAX package's bound for its dot engine (tests/test_billpallas.py), and
-the per-agent atol above."""
+the per-agent atol above. The micro-benchmark's variants
+(ops/microkernels.py) follow their kind: the mask kernels as the month
+kernel, the two tensor-core kernels as the dot kernel."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 from dgen_tpu_torch.io import synth
 from dgen_tpu_torch.ops import billkernels as bk
 from dgen_tpu_torch.ops import layout
+from dgen_tpu_torch.ops import microkernels as mk
 
 pytestmark = pytest.mark.gpu
 
@@ -152,6 +155,94 @@ def test_dot_kernel_matches_plain(cuda, p, r, signed):
     # the same function as the month kernel
     lane = bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, signed))
     _close(got, lane, rtol=5e-3)
+
+
+def _micro_args(x):
+    return x["load"], x["gen"], x["sell"], x["bucket"], x["scales"]
+
+
+def _micro_check(key, fn, plain, x, kwargs, rtol):
+    before = bk.LAUNCHES[key]
+    got = fn(*_micro_args(x), **kwargs)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before + 1
+    ref = plain(*_micro_args(x), **kwargs)
+    _close(got, ref, rtol=rtol)
+    if rtol == 5e-3:
+        for g, rf in zip(got, ref):
+            torch.testing.assert_close(g, rf, rtol=5e-3, atol=2.0)
+    return got
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 10])
+@pytest.mark.parametrize("r", [25, 250])
+def test_monthmask_kernel_matches_plain(cuda, p, r):
+    x = _inputs(cuda, 37, r, p, seed=8)
+    got = _micro_check("monthmask", mk.sums_monthmask, mk.sums_monthmask_plain, x,
+                       dict(n_periods=p), 1e-4)
+    # the same function as the month kernel
+    _close(got, bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, False)))
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 10])
+@pytest.mark.parametrize("r", [25, 250])
+@pytest.mark.parametrize("g_block", [4, 8])
+def test_monthmask_g_kernel_matches_plain(cuda, p, r, g_block):
+    x = _inputs(cuda, 40, r, p, seed=9)
+    _micro_check("monthmask_g", mk.sums_monthmask_g, mk.sums_monthmask_g_plain, x,
+                 dict(n_periods=p, g_block=g_block), 1e-4)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 10])
+@pytest.mark.parametrize("r", [25, 250])
+def test_monthdot_kernel_matches_plain(cuda, p, r):
+    x = _inputs(cuda, 21, r, p, seed=10)
+    got = _micro_check("monthdot", mk.sums_monthdot, mk.sums_monthdot_plain, x,
+                       dict(n_periods=p), 5e-3)
+    _close(got, bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, False)),
+           rtol=5e-3)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 10])
+@pytest.mark.parametrize("r", [25, 250])
+def test_variant_kernel_base_matches_plain(cuda, p, r):
+    x = _inputs(cuda, 21, r, p, seed=11)
+    got = _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x,
+                       dict(n_periods=p), 5e-3)
+    _close(got, bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, False)),
+           rtol=5e-3)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(build="const"), dict(dot="none"), dict(build="const", dot="none"),
+    dict(net="bcast"), dict(b_pad=64), dict(b_pad=64, build="const"),
+    dict(build="hbm"), dict(build="hbm", dot="none"), dict(net="bcast", dot="none"),
+    dict(h_chunk=8), dict(h_chunk=120), dict(b_pad=32, h_chunk=24),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_variant_kernel_forms_match_plain(cuda, kwargs):
+    x = _inputs(cuda, 13, 50, 2, seed=12)
+    kwargs = dict(kwargs)
+    if kwargs.get("build") == "hbm":
+        g = torch.Generator().manual_seed(13)
+        kwargs["m_hbm"] = torch.rand((13, 8760, 128), generator=g).to(cuda)
+    _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x, kwargs, 5e-3)
+
+
+def test_micro_kernels_refuse_what_they_do_not_take(cuda):
+    x = _inputs(cuda, 6, 8, 2)
+    with pytest.raises(ValueError, match="g_block"):
+        mk.sums_monthmask_g(*_micro_args(x), g_block=4)
+    with pytest.raises(ValueError, match="b_pad"):
+        mk.sums_variant(*_micro_args(x), b_pad=16)
+    with pytest.raises(TypeError):
+        mk.sums_monthdot(x["load"], x["gen"], x["sell"], x["bucket"].long(),
+                         x["scales"])
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.sums_monthmask(x["load"].t().contiguous().t(), x["gen"],
+                          x["sell"], x["bucket"], x["scales"])
+    # a chunk whose tiles exceed a block's shared memory
+    with pytest.raises(RuntimeError, match="microbench_variant"):
+        mk.sums_variant(*_micro_args(x), h_chunk=8760)
 
 
 def test_stream_kernel_refuses_unaligned_months(cuda):
