@@ -27,17 +27,23 @@ its first launch in the path):
      month engine's on the same world;
   8. the micro-benchmark path: dgen_tpu_torch.tools.kernel_microbench at
      its own full size (8,192 agents x 250 scales x 8,760 hours, P = 2),
-     every default variant: the four variant kernels (sums_variant in its
+     every default variant: the six variant kernels (sums_variant in its
      seven settings, monthmask, monthmask_g at 4 and 8 agents per block,
-     monthdot) and the month and stream kernels through lib, compact and
-     stream; each parity line is held to the tolerance of its kind, and a
-     variant that is not ported must be refused;
+     monthdot, monthdot_pre, mnet and mnet_hi) and the month and stream
+     kernels through lib, compact, stream and quant (int8 codes); each
+     parity line is held to the tolerance of its kind, and an unknown
+     variant name must be refused;
+  8b. the bf16-banks path: the main path's world with bf16_banks (month
+     kernel on bf16 streams), and the int8-banks path: the same world with
+     quant_banks, pack_once and stream_segments (stream kernel on int8
+     packs); each one's national curves within 2% of the main path's;
   9. each kernel against its plain PyTorch version on the operands the
      paths gave it, with a check that the comparison would catch a
      kernel that drops one TOU period of any agent, and each kernel's
      time beside its plain version's and the card's bound for the same
      work; the month kernel against the stream kernel on the stream
-     kernel's operands, the ablated settings of sums_variant, its
+     kernel's operands, the narrow-stream rows' kernels on float32 copies
+     of their operands, the ablated settings of sums_variant, its
      32-column forms and its device-memory build at 512 agents (logged
      only); the first year's sizing call broken down;
  10. a JSON line with every ported kernel, the card, the result line.
@@ -82,9 +88,17 @@ DROPPED_SHARE = 1e-2
 #: national curves: port on the card vs on the CPU, and the gated path
 #: vs the default one (the golden contract)
 CURVE_RTOL = 1e-3
-#: national curves of the dot engine vs the month engine
-#: (tests/test_golden_e2e.py's envelope for a lower-precision engine)
+#: national curves of the dot engine vs the month engine, and of the bf16
+#: and int8 banks vs float32 (tests/test_golden_e2e.py's envelope for a
+#: lower-precision engine or bank)
 DOT_CURVE_RTOL = 2e-2
+BANK_CURVE_RTOL = 2e-2
+#: kernel vs plain version on bf16 sums: one bfloat16 unit in the last
+#: place (2^-7 of the value) on top of RTOL, as both round the same float32
+#: sum, taken in two orders, to bfloat16 and may land on neighbours
+BF16_RTOL = RTOL + 2.0 ** -7
+BF16 = dict(bf16_banks=True)
+QUANT = dict(quant_banks=True, pack_once=True, stream_segments=True)
 
 SOURCES = {
     "month": "dgen_tpu_torch/csrc/bucket_sums.cu",
@@ -92,6 +106,7 @@ SOURCES = {
     "dot": "dgen_tpu_torch/csrc/bucket_sums_dot.cu",
     "micro_mask": "dgen_tpu_torch/csrc/microbench_mask.cu",
     "micro_dot": "dgen_tpu_torch/csrc/microbench_dot.cu",
+    "micro_pre": "dgen_tpu_torch/csrc/microbench_pre.cu",
 }
 
 
@@ -121,20 +136,27 @@ def year0_envs(sim):
         rate_switch=sim._rate_switch))
 
 
-def micro_pair(fn, plain, **override) -> tuple:
+def micro_pair(fn, plain, n_args=5, **override) -> tuple:
     """(wrapper, plain version) of a micro-benchmark variant over its
-    captured operands (load, gen, sell, bucket ids, scales, keyword
-    arguments), with ``override`` laid over the captured keywords."""
-    def call(f):
-        return lambda *a: f(*a[:5], **{**a[5], **override})
-    return call(fn), call(plain)
+    captured operands (``n_args`` tensors, then the keyword arguments),
+    with ``override`` laid over the captured keywords; the plain version
+    takes the keywords it reads."""
+    def call(f, keep=None):
+        def run(*a):
+            kw = {**a[n_args], **override}
+            if keep is not None:
+                kw = {k: v for k, v in kw.items() if k in keep}
+            return f(*a[:n_args], **kw)
+        return run
+    return call(fn), call(plain, ("n_periods",) if n_args == 4 else None)
 
 
 def kernel_specs(bk, mk) -> dict:
     """JSON name -> (capture, wrapper, plain version, float32 operations
-    per (agent, scale, lane), [N, L] lane arrays read, rtol, source,
-    TPU kernel replaced). A capture is (path, LAUNCHES key) of the run
-    whose first-launch operands the kernel is checked and timed on."""
+    per (agent, scale, lane), rtol, source, TPU kernel replaced). A
+    capture is (path, LAUNCHES or NARROW_LAUNCHES key) of the run whose
+    first-launch operands the kernel is checked and timed on; the bytes
+    of the bound are those of the captured lane arrays and outputs."""
     month = (bk.month_sums, bk.month_sums_plain)
     stream = (bk.stream_sums, bk.month_sums_plain)
     pair = (bk.month_pair_sums, bk.month_pair_sums_plain)
@@ -142,51 +164,95 @@ def kernel_specs(bk, mk) -> dict:
     bp = "dgen_tpu/ops/billpallas.py"
     mb = "tools/kernel_microbench.py"
     return {
-        "bucket_sums_month": (("main", "month"), *month, 6, 4, RTOL, "month",
+        "bucket_sums_month": (("main", "month"), *month, 6, RTOL, "month",
                               f"{bp}:343"),
-        "bucket_sums_month_signed": (("main", "month_signed"), *month, 9, 4, RTOL,
+        "bucket_sums_month_signed": (("main", "month_signed"), *month, 9, RTOL,
                                      "month", f"{bp}:343"),
-        "bucket_sums_month_pair": (("switch", "month_pair"), *pair, 9, 6, RTOL,
+        "bucket_sums_month_pair": (("switch", "month_pair"), *pair, 9, RTOL,
                                    "month", f"{bp}:427"),
-        "bucket_sums_stream": (("gated", "stream"), *stream, 6, 4, RTOL, "stream",
+        "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
-        "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9, 4,
+        "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
                                       RTOL, "stream", f"{bp}:840"),
-        "bucket_sums_month_compacted": (("daylight", "month"), *month, 6, 4, RTOL,
+        "bucket_sums_month_compacted": (("daylight", "month"), *month, 6, RTOL,
                                         "month", f"{bp}:343"),
         "bucket_sums_month_signed_daylight": (("daylight", "month_signed"), *month,
-                                              9, 4, RTOL, "month", f"{bp}:343"),
+                                              9, RTOL, "month", f"{bp}:343"),
         "bucket_sums_month_pair_compacted": (("switch_gated", "month_pair"), *pair,
-                                             9, 6, RTOL, "month", f"{bp}:427"),
-        "bucket_sums_dot": (("dot", "dot"), *dot, 6, 4, DOT_RTOL, "dot",
+                                             9, RTOL, "month", f"{bp}:427"),
+        "bucket_sums_dot": (("dot", "dot"), *dot, 6, DOT_RTOL, "dot",
                             f"{bp}:296"),
-        "bucket_sums_dot_signed": (("dot", "dot_signed"), *dot, 9, 4, DOT_RTOL,
+        "bucket_sums_dot_signed": (("dot", "dot_signed"), *dot, 9, DOT_RTOL,
                                    "dot", f"{bp}:296"),
         "sums_monthmask": (("micro", "monthmask"),
                            *micro_pair(mk.sums_monthmask, mk.sums_monthmask_plain),
-                           6, 4, RTOL, "micro_mask", f"{mb}:112"),
+                           6, RTOL, "micro_mask", f"{mb}:112"),
         # the path's first monthmask_g launch has 4 agents per block; the
         # row is the 8-agent launch on the same operands
         "sums_monthmask_g": (("micro", "monthmask_g"),
                              *micro_pair(mk.sums_monthmask_g,
                                          mk.sums_monthmask_g_plain, g_block=8),
-                             6, 4, RTOL, "micro_mask", f"{mb}:220"),
+                             6, RTOL, "micro_mask", f"{mb}:220"),
         "sums_variant": (("micro", "variant"),
                          *micro_pair(mk.sums_variant, mk.sums_variant_plain),
-                         6, 4, DOT_RTOL, "micro_dot", f"{mb}:49"),
+                         6, DOT_RTOL, "micro_dot", f"{mb}:49"),
         "sums_monthdot": (("micro", "monthdot"),
                           *micro_pair(mk.sums_monthdot, mk.sums_monthdot_plain),
-                          6, 4, DOT_RTOL, "micro_dot", f"{mb}:146"),
+                          6, DOT_RTOL, "micro_dot", f"{mb}:146"),
+        # the prebuilt-mask kernels on (load, gen, M, scales)
+        "microbench_monthdot_pre": (("micro", "monthdot_pre"),
+                                    *micro_pair(mk.monthdot_pre_sums,
+                                                mk.mask_product_plain, n_args=4),
+                                    6, DOT_RTOL, "micro_pre", f"{mb}:391"),
+        "microbench_mnet": (("micro", "mnet"),
+                            *micro_pair(mk.mnet_sums, mk.mask_product_plain,
+                                        n_args=4),
+                            6, DOT_RTOL, "micro_pre", f"{mb}:493"),
+        "microbench_mnet_hi": (("micro", "mnet_hi"),
+                               *micro_pair(mk.mnet_sums, mk.mask_product_plain,
+                                           n_args=4),
+                               6, RTOL, "micro_pre", f"{mb}:493"),
+        # the engine kernels on narrow streams
+        "bucket_sums_month_bf16": (("bf16", "month/bfloat16"), *month, 6, BF16_RTOL,
+                                   "month", f"{bp}:343"),
+        "bucket_sums_month_int8": (("micro", "month/int8"), *month, 6, RTOL,
+                                   "month", f"{bp}:343"),
+        "bucket_sums_stream_int8": (("quant", "stream/int8"), *stream, 6, RTOL,
+                                    "stream", f"{bp}:840"),
     }
 
 
 def ab_specs(bk) -> dict:
-    """As :func:`kernel_specs`, for the A/B of the month kernel on the
-    stream kernel's uniform compacted operands: the gated path launches
-    no month kernel, so it is logged and not a row of the kernels line."""
-    return {"bucket_sums_month_on_stream_operands": (
-        ("gated", "stream"), bk.month_sums, bk.month_sums_plain, 6, 4, RTOL,
-        "month", "dgen_tpu/ops/billpallas.py:343")}
+    """As :func:`kernel_specs`, for the A/Bs logged beside the kernels
+    line: the month kernel on the stream kernel's uniform compacted
+    operands (the gated path launches no month kernel), and the kernels
+    of the narrow-stream rows on float32 copies of the same operands
+    (equal operations, four bytes an element; :func:`float32_copies`)."""
+    bp = "dgen_tpu/ops/billpallas.py"
+    month = (bk.month_sums, bk.month_sums_plain)
+    return {
+        "bucket_sums_month_on_stream_operands": (
+            ("gated", "stream"), *month, 6, RTOL, "month", f"{bp}:343"),
+        "bucket_sums_month_bf16_as_float32": (
+            ("bf16", "month/float32"), *month, 6, RTOL, "month", f"{bp}:343"),
+        "bucket_sums_month_int8_as_float32": (
+            ("micro", "month/int8-float32"), *month, 6, RTOL, "month", f"{bp}:343"),
+        "bucket_sums_stream_int8_as_float32": (
+            ("quant", "stream/float32"), bk.stream_sums, bk.month_sums_plain, 6,
+            RTOL, "stream", f"{bp}:840"),
+    }
+
+
+def float32_copies(captures: dict) -> None:
+    """Adds to ``captures`` the narrow-stream rows' operands with load, gen
+    and sell as float32 (the same values; int8 codes stay in quantized
+    units), for the equal-operation A/Bs of :func:`ab_specs`."""
+    def widen(args):
+        return tuple(a.float() if i < 3 else a for i, a in enumerate(args))
+
+    captures["bf16"]["month/float32"] = widen(captures["bf16"]["month/bfloat16"])
+    captures["micro"]["month/int8-float32"] = widen(captures["micro"]["month/int8"])
+    captures["quant"]["stream/float32"] = widen(captures["quant"]["stream/int8"])
 
 
 def check_variant_forms(operands: tuple, mk, tool) -> None:
@@ -249,7 +315,8 @@ def micro_path(tool, bk) -> dict:
         launches = dict(bk.LAUNCHES)
         capture, bk.CAPTURE = bk.CAPTURE, None
     wall = time.perf_counter() - t0
-    expected = len(tool.SUMS_VARIANTS) + 8
+    narrow = dict(bk.NARROW_LAUNCHES)
+    expected = len(tool.SUMS_VARIANTS) + 12
     if len(out["variants"]) != expected or out["timed_on"] != "device":
         raise AssertionError(f"the default run gave {list(out['variants'])} on "
                              f"{out['timed_on']}, expected {expected} variants "
@@ -259,16 +326,16 @@ def micro_path(tool, bk) -> dict:
         if not v["ms"] > 0 or (par is not None and par["bad_agents"]):
             raise AssertionError(f"micro-benchmark variant {name}: {v}")
     n_parity = sum(v["parity"] is not None for v in out["variants"].values())
-    if n_parity != 9:
-        raise AssertionError(f"{n_parity} parity lines, expected 9")
+    if n_parity != 13:
+        raise AssertionError(f"{n_parity} parity lines, expected 13")
     try:
-        tool.run(MICRO_AGENTS, ["mnet"])
+        tool.run(MICRO_AGENTS, ["monthmasc"])
     except ValueError as e:
         refusal = str(e)
     else:
-        raise AssertionError("the tool ran 'mnet', which is not ported")
-    return dict(out=out, wall=wall, launches=launches, capture=capture,
-                refusal=refusal)
+        raise AssertionError("the tool ran a variant named 'monthmasc'")
+    return dict(out=out, wall=wall, launches=launches, narrow=narrow,
+                capture=capture, refusal=refusal)
 
 
 def bad_agents(got, ref, rtol=RTOL):
@@ -316,15 +383,25 @@ def time_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound_ms(n: int, r: int, n_lanes: int, work_lanes: int, n_periods: int,
-             ops_per_elem: int, n_streams: int, n_outs: int) -> tuple[float, str]:
+def lane_bytes(args, n_lanes: int) -> int:
+    """Bytes of the captured lane arrays ([N, L] streams and ids, the
+    prebuilt M [N, c, L]) at their own dtypes."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in args
+               if isinstance(t, torch.Tensor) and t.dim() >= 2
+               and t.shape[-1] == n_lanes)
+
+
+def bound_ms(n: int, r: int, work_lanes: int, ops_per_elem: int,
+             in_bytes: int, out_bytes: int) -> tuple[float, str]:
     """Least time for the work: operations on the ``work_lanes`` that hold
     an hour (a compacted layout's padding lanes do no work) over the
-    float32 peak vs bytes moved (each of the ``n_lanes`` lanes of each
-    array read once, each output written once) over HBM."""
+    float32 peak vs bytes moved (each lane array read once, the float32
+    scales read once, each output written once, at their dtypes) over
+    HBM."""
     ops = float(n) * r * work_lanes * ops_per_elem
-    nbytes = 4.0 * (n * n_lanes * n_streams + n * r
-                    + n_outs * n * r * (12 * n_periods + 1))
+    nbytes = float(in_bytes) + 4.0 * n * r + out_bytes
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -339,12 +416,18 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
     from dgen_tpu_torch.ops.tariff import HOURS
 
     rows = []
-    for name, (cap, kernel, plain, ops, n_streams, rtol, src,
-               replaces) in specs.items():
+    for name, (cap, kernel, plain, ops, rtol, src, replaces) in specs.items():
         args = captures[cap[0]][cap[1]]
         got = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if g.dtype != r.dtype:
+                raise AssertionError(f"{name}: the kernel stores {g.dtype}, its "
+                                     f"plain version {r.dtype}")
+        out_bytes = sum(g.numel() * g.element_size() for g in got)
+        got = [g.float() for g in got]
+        ref = [r.float() for r in ref]
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         for i, (g, r) in enumerate(zip(got, ref)):
             bad = bad_agents(g, r, rtol)
@@ -364,13 +447,14 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
         n_lanes = args[0].shape[1]
         work_lanes = n_lanes if n_lanes == HOURS else hour_lanes[cap[0]]
         p = got[0].shape[-1] // 12
-        n_outs = len(got) // 2
         del got, ref
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
-        b_ms, b_by = bound_ms(n, r, n_lanes, work_lanes, p, ops, n_streams, n_outs)
+        b_ms, b_by = bound_ms(n, r, work_lanes, ops, lane_bytes(args, n_lanes),
+                              out_bytes)
+        dtypes = "/".join(str(a.dtype).replace("torch.", "") for a in args[:3])
         log(f"  {name}: N={n} R={r} lanes={n_lanes} ({work_lanes} hours) P={p} "
-            f"max_abs_err={err:.3e} "
+            f"streams {dtypes} max_abs_err={err:.3e} "
             f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.3f} ms "
             f"({b_by}); a dropped period is caught in {caught} of {must} agents "
             f"(one atol over the whole output: {caught_whole})")
@@ -413,6 +497,7 @@ def run_path(sim) -> dict:
     check_outputs(res, sim.table.n_agents)
     lay = sim._daylight
     return dict(res=res, year_s=seconds, wall=wall, launches=launches,
+                narrow=dict(bk.NARROW_LAUNCHES),
                 capture=capture, n_real=int(sim.host_mask.sum()),
                 hour_lanes=None if lay is None else int(lay.valid.sum()))
 
@@ -424,7 +509,8 @@ def report_path(tag: str, title: str, run: dict) -> None:
         f"per-year s {[round(s, 3) for s in run['year_s']]}, run wall "
         f"{run['wall']:.3f} s, {run['n_real'] * n_years / run['wall']:.1f} "
         f"agent-years/s")
-    log(f"    launches {run['launches']}")
+    log(f"    launches {run['launches']}"
+        + (f"; on narrow streams {run['narrow']}" if run.get("narrow") else ""))
 
 
 def need_launches(path: str, launches: dict, keys: tuple, zero: tuple = ()) -> None:
@@ -585,7 +671,7 @@ def main() -> int:
 
     # the port on the card against the port on the CPU (plain versions)
     small = dict(n_agents=64, end_year=2016)
-    for knobs in ({}, GATED):
+    for knobs in ({}, GATED, BF16, QUANT):
         rc = RunConfig(sizing_iters=4, **knobs)
         gpu_sim, _, _ = presets.build("ercot-all-sector", device="cuda",
                                       run_config=rc, **small)
@@ -596,7 +682,7 @@ def main() -> int:
         for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
             np.testing.assert_allclose(g_curve[k], c_curve[k], rtol=CURVE_RTOL,
                                        err_msg=f"card vs CPU {k} {knobs}")
-        log(f"    card vs CPU at 64 agents x 2 years{' (gated)' if knobs else ''}: "
+        log(f"    card vs CPU at 64 agents x 2 years {sorted(knobs) or 'default'}: "
             f"curves agree within rtol {CURVE_RTOL} (adopters "
             f"{g_curve['adopters'].tolist()} vs {c_curve['adopters'].tolist()})")
 
@@ -670,22 +756,55 @@ def main() -> int:
         f"launches {run['launches']}")
     log(f"    every parity line within its kind's tolerance (rtol "
         f"{tool.PARITY_RTOL}, atol {tool.ATOL_FRAC} x the agent's max|lib|); "
-        f"'mnet' refused: {run['refusal']}")
+        f"an unknown name refused: {run['refusal']}; month launches on int8 "
+        f"codes (quant): {run['narrow'].get('month/int8', 0)}")
     need_launches("micro-benchmark path", run["launches"],
-                  ("variant", "monthmask", "monthmask_g", "monthdot", "month",
-                   "stream"),
+                  ("variant", "monthmask", "monthmask_g", "monthdot",
+                   "monthdot_pre", "mnet", "mnet_hi", "month", "stream"),
                   zero=("month_signed", "month_pair", "stream_signed", "dot",
                         "dot_signed"))
+    if not run["narrow"].get("month/int8"):
+        raise AssertionError("the quant variant launched no month kernel on int8")
+
+    # --- 8b: the bf16 and int8 bank paths ---
+    for key, knobs, title, kernel, dtype in (
+            ("bf16", BF16, "bf16-banks path (bf16_banks)", "month", "bfloat16"),
+            ("quant", QUANT, "int8-banks path (quant_banks, pack_once, "
+             "stream_segments)", "stream", "int8")):
+        bsim = build(MAIN_AGENTS, MAIN_END_YEAR, knobs)
+        runs[key] = run = run_path(bsim)
+        report_path("8b", title, run)
+        need_launches(title, run["launches"], (kernel, kernel + "_signed"),
+                      zero=("dot", "dot_signed")
+                      + (("month", "month_signed") if kernel == "stream" else
+                         ("stream", "stream_signed")))
+        narrow = run["narrow"].get(f"{kernel}/{dtype}", 0)
+        if narrow != run["launches"][kernel]:
+            raise AssertionError(f"{title}: {narrow} of {run['launches'][kernel]} "
+                                 f"{kernel} launches on {dtype} streams")
+        gap = curves_gap(run["res"].summary(bsim.host_mask), main_curve)
+        log(f"    {narrow} {kernel} launches on {dtype} streams; national curves "
+            f"within {gap:.3e} (relative) of the float32 main path's (bound "
+            f"{BANK_CURVE_RTOL}); modeled year step "
+            f"{bsim.modeled_step_bytes / 2**30:.2f} GiB (float32: "
+            f"{sim.modeled_step_bytes / 2**30:.2f} GiB)")
+        if gap > BANK_CURVE_RTOL:
+            raise AssertionError(f"{title}: curves differ from the float32 main "
+                                 f"path's by {gap:.3e} > {BANK_CURVE_RTOL}")
+        del bsim
 
     # --- 9: the kernels on the paths' operands ---
     log(f"[9] kernels vs plain versions on the first launch's operands (rtol "
-        f"{RTOL}, {DOT_RTOL} for the tensor-core kernels, atol {ATOL_FRAC} x the "
-        f"agent's max|plain|) "
+        f"{RTOL}, {DOT_RTOL} for the TF32 tensor-core kernels, {BF16_RTOL:.4e} "
+        f"for bf16 sums, atol {ATOL_FRAC} x the agent's max|plain|) "
         f"and times (median of 5 CUDA-event launches after a warm-up):")
     captures = {k: v["capture"] for k, v in runs.items()}
     hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
     rows = check_and_time(captures, kernel_specs(bk, mk), hour_lanes)
-    log("  A/B, not in the kernels line (the gated path launches no month kernel):")
+    log("  A/Bs, not in the kernels line: the month kernel on the stream kernel's "
+        "operands (the gated path launches no month kernel), and the narrow rows' "
+        "kernels on float32 copies of their operands (equal operations):")
+    float32_copies(captures)
     ab = check_and_time(captures, ab_specs(bk), hour_lanes)[0]
     log("  settings of sums_variant beside its base row, not in the kernels line:")
     check_variant_forms(captures["micro"]["variant"], mk, tool)
@@ -707,7 +826,8 @@ def main() -> int:
             f"{parts['kernel_medians_s']:.4f} s")
 
     # --- 10: the kernel line, the card, the result ---
-    path_launches = {k: v["launches"] for k, v in runs.items()}
+    path_launches = {k: {**v["launches"], **v.get("narrow", {})}
+                     for k, v in runs.items()}
     specs = kernel_specs(bk, mk)
     kernels = []
     for r in rows:

@@ -4,9 +4,11 @@ A copy of the settings of ``dgen_tpu/config.py`` that the model-year
 path reads (the JAX package is never imported here: importing any of
 its modules imports jax). ``ScenarioConfig`` is mirrored whole;
 ``RunConfig`` carries the run settings of the ported paths: the sizing
-search's candidate count and the gated kernel paths (daylight
-compaction, pack-once, the stream engine). Other knobs arrive with the
-slices that port them.
+search's candidate count, the gated kernel paths (daylight compaction,
+pack-once, the stream engine) and the narrow profile banks (bf16, int8).
+Other knobs arrive with the slices that port them; the JAX package's
+checks that tie the bank knobs to its differentiable twin do not apply
+here (the twin is not ported).
 """
 
 from __future__ import annotations
@@ -87,6 +89,23 @@ class RunConfig:
     #: the JAX package's knob: on an H100 the stream kernel is not yet
     #: faster than the month kernel on the same lanes (PERF.md).
     stream_segments: bool = False
+    #: store the hourly load / gen / wholesale profile banks in bfloat16:
+    #: the gathered [N, 8760] streams of the sizing search are half the
+    #: bytes, the kernels upcast them when read and sum in float32, and
+    #: the candidate sums are stored in bfloat16 (billkernels
+    #: _sums_out_dtype). Inputs round to ~3 significant digits; the
+    #: dispatch loop, linear sums and hourly profiles price float32
+    #: copies. Off by default; national curves stay within 2% of the
+    #: float32 run (tests/test_torch_golden.py).
+    bf16_banks: bool = False
+    #: store the load and generation banks as int8 codes with per-row
+    #: float32 scales (agents.quantize_rows): the candidate kernels read
+    #: one byte per hour and fold the scales into the candidate scales
+    #: (billkernels._quant_fold); the dispatch loop, linear sums, naep
+    #: and hourly profiles price dequantized float32. Quantized after the
+    #: daylight layout is built and before any bf16 conversion. Off by
+    #: default; national curves stay within 2% of the float32 run.
+    quant_banks: bool = False
 
     def __post_init__(self) -> None:
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")

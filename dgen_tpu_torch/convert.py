@@ -7,8 +7,7 @@ the fields of a JAX package container read with ``dataclasses.fields``
 and ``np.asarray`` — and returns the port's container on ``device``.
 Float64 arrays become float32 and int64 arrays int32, as under the JAX
 package's default 32-bit mode. A field the port does not carry must be
-absent or ``None`` (the JAX ``ProfileBank``'s int8 dequant scales, say),
-else it raises. :func:`to_numpy_dict` is the inverse.
+absent or ``None``, else it raises. :func:`to_numpy_dict` is the inverse.
 """
 
 from __future__ import annotations

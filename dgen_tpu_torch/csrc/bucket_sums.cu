@@ -35,8 +35,16 @@
 // repack is needed. Each period is summed directly (no last
 // period by subtraction from the month total), and the sell sums are
 // taken per month and then added, which keeps float32 rounding small.
+//
+// Stream types (lanes.cuh): load, gen and sell are read as float32,
+// bfloat16 or int8 codes, upcast when read; the sums are taken in float
+// and stored as SumsOut (bfloat16 for bf16 banks). Each type is a
+// template argument, so a float32 launch runs the same instructions as
+// before the narrow forms existed; the staged float4 is float either way.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "lanes.cuh"
 
@@ -46,19 +54,22 @@ using lanes::kMaxPeriods;
 using lanes::kMaxSegLanes;
 using lanes::kMonths;
 using lanes::MonthOffsets;
+using lanes::store;
+using lanes::to_f32;
 
 constexpr int kThreads = 128;
 
-template <bool SIGNED>
-__global__ void month_kernel(const float* __restrict__ load,
-                             const float* __restrict__ gen,
-                             const float* __restrict__ sell,
+template <bool SIGNED, typename TL, typename TG, typename TS,
+          typename TO = lanes::SumsOut<TL, TG, TS>>
+__global__ void month_kernel(const TL* __restrict__ load,
+                             const TG* __restrict__ gen,
+                             const TS* __restrict__ sell,
                              const int* __restrict__ period,
                              const float* __restrict__ scales,
-                             float* __restrict__ out_imp,
-                             float* __restrict__ out_sell_imp,
-                             float* __restrict__ out_sgn,
-                             float* __restrict__ out_sell_sgn,
+                             TO* __restrict__ out_imp,
+                             TO* __restrict__ out_sell_imp,
+                             TO* __restrict__ out_sgn,
+                             TO* __restrict__ out_sell_sgn,
                              int r, int n_lanes, int n_periods, int r_blocks,
                              MonthOffsets offs) {
   __shared__ float4 hour[kMaxSegLanes];  // load, gen, sell, period bits
@@ -80,7 +91,7 @@ __global__ void month_kernel(const float* __restrict__ load,
     __syncthreads();  // every thread is done with the previous month
     for (int h = threadIdx.x; h < len; h += kThreads) {
       const size_t g = row + h0 + h;
-      hour[h] = make_float4(load[g], gen[g], sell[g],
+      hour[h] = make_float4(to_f32(load[g]), to_f32(gen[g]), to_f32(sell[g]),
                             __int_as_float(period[g]));
     }
     __syncthreads();
@@ -113,35 +124,37 @@ __global__ void month_kernel(const float* __restrict__ load,
     sell_imp += mi;
     sell_sgn += ms;
     if (live) {
-      float* oi = out_imp + out_row * nb + m * n_periods;
+      TO* oi = out_imp + out_row * nb + m * n_periods;
 #pragma unroll
       for (int q = 0; q < kMaxPeriods; ++q)
-        if (q < n_periods) oi[q] = acc_i[q];
+        if (q < n_periods) store(oi + q, acc_i[q]);
       if (SIGNED) {
-        float* os = out_sgn + out_row * nb + m * n_periods;
+        TO* os = out_sgn + out_row * nb + m * n_periods;
 #pragma unroll
         for (int q = 0; q < kMaxPeriods; ++q)
-          if (q < n_periods) os[q] = acc_s[q];
+          if (q < n_periods) store(os + q, acc_s[q]);
       }
     }
   }
   if (live) {
-    out_sell_imp[out_row] = sell_imp;
-    if (SIGNED) out_sell_sgn[out_row] = sell_sgn;
+    store(out_sell_imp + out_row, sell_imp);
+    if (SIGNED) store(out_sell_sgn + out_row, sell_sgn);
   }
 }
 
-__global__ void month_pair_kernel(const float* __restrict__ load,
-                                  const float* __restrict__ gen,
-                                  const float* __restrict__ sell_a,
+template <typename TL, typename TG, typename TS,
+          typename TO = lanes::SumsOut<TL, TG, TS>>
+__global__ void month_pair_kernel(const TL* __restrict__ load,
+                                  const TG* __restrict__ gen,
+                                  const TS* __restrict__ sell_a,
                                   const int* __restrict__ period_a,
-                                  const float* __restrict__ sell_b,
+                                  const TS* __restrict__ sell_b,
                                   const int* __restrict__ period_b,
                                   const float* __restrict__ scales,
-                                  float* __restrict__ out_a,
-                                  float* __restrict__ out_sell_a,
-                                  float* __restrict__ out_b,
-                                  float* __restrict__ out_sell_b,
+                                  TO* __restrict__ out_a,
+                                  TO* __restrict__ out_sell_a,
+                                  TO* __restrict__ out_b,
+                                  TO* __restrict__ out_sell_b,
                                   int r, int n_lanes, int n_periods,
                                   int r_blocks, MonthOffsets offs) {
   __shared__ float4 hour[kMaxSegLanes];   // load, gen, sell_a, sell_b
@@ -164,7 +177,8 @@ __global__ void month_pair_kernel(const float* __restrict__ load,
     __syncthreads();
     for (int h = threadIdx.x; h < len; h += kThreads) {
       const size_t g = row + h0 + h;
-      hour[h] = make_float4(load[g], gen[g], sell_a[g], sell_b[g]);
+      hour[h] = make_float4(to_f32(load[g]), to_f32(gen[g]), to_f32(sell_a[g]),
+                            to_f32(sell_b[g]));
       period[h] = make_int2(period_a[g], period_b[g]);
     }
     __syncthreads();
@@ -195,20 +209,20 @@ __global__ void month_pair_kernel(const float* __restrict__ load,
     sell_sum_a += ma;
     sell_sum_b += mb;
     if (live) {
-      float* oa = out_a + out_row * nb + m * n_periods;
-      float* ob = out_b + out_row * nb + m * n_periods;
+      TO* oa = out_a + out_row * nb + m * n_periods;
+      TO* ob = out_b + out_row * nb + m * n_periods;
 #pragma unroll
       for (int q = 0; q < kMaxPeriods; ++q) {
         if (q < n_periods) {
-          oa[q] = acc_a[q];
-          ob[q] = acc_b[q];
+          store(oa + q, acc_a[q]);
+          store(ob + q, acc_b[q]);
         }
       }
     }
   }
   if (live) {
-    out_sell_a[out_row] = sell_sum_a;
-    out_sell_b[out_row] = sell_sum_b;
+    store(out_sell_a + out_row, sell_sum_a);
+    store(out_sell_b + out_row, sell_sum_b);
   }
 }
 
@@ -228,50 +242,82 @@ bool grid_for(int n, int r, int n_lanes, int n_periods, const int* offsets,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue for shapes or offsets the kernel does not take.
-// `offsets` is a host array of 13 lane offsets.
-extern "C" int bucket_sums_month(const float* load, const float* gen,
-                                 const float* sell, const int* period,
+// Return cudaGetLastError() after the launch (0 = launched);
+// cudaErrorInvalidValue for shapes, offsets or a stream dtype combination
+// the kernels do not take (lanes.cuh: with_stream_types; dtype codes
+// 0 = float32, 1 = bfloat16, 2 = int8). `offsets` is a host array of 13
+// lane offsets; outputs are of the SumsOut type of the stream types.
+extern "C" int bucket_sums_month(const void* load, const void* gen,
+                                 const void* sell, const int* period,
                                  const float* scales, const int* offsets,
-                                 float* out_imp, float* out_sell_imp,
-                                 float* out_sgn, float* out_sell_sgn, int n,
+                                 void* out_imp, void* out_sell_imp,
+                                 void* out_sgn, void* out_sell_sgn, int n,
                                  int r, int n_lanes, int n_periods,
-                                 int with_signed, void* stream) {
+                                 int with_signed, int dt_load, int dt_gen,
+                                 int dt_sell, void* stream) {
   MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
   if (!grid_for(n, r, n_lanes, n_periods, offsets, &offs, &r_blocks, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (with_signed) {
-    month_kernel<true><<<blocks, kThreads, 0, st>>>(
-        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, n_lanes, n_periods, r_blocks, offs);
-  } else {
-    month_kernel<false><<<blocks, kThreads, 0, st>>>(
-        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, n_lanes, n_periods, r_blocks, offs);
-  }
+  auto launch = [&](auto signed_tag, auto l, auto g, auto s) {
+    constexpr bool kSigned = decltype(signed_tag)::value;
+    using TL = typename decltype(l)::type;
+    using TG = typename decltype(g)::type;
+    using TS = typename decltype(s)::type;
+    using TO = lanes::SumsOut<TL, TG, TS>;
+    month_kernel<kSigned, TL, TG, TS><<<blocks, kThreads, 0, st>>>(
+        static_cast<const TL*>(load), static_cast<const TG*>(gen),
+        static_cast<const TS*>(sell), period, scales,
+        static_cast<TO*>(out_imp), static_cast<TO*>(out_sell_imp),
+        static_cast<TO*>(out_sgn), static_cast<TO*>(out_sell_sgn), r, n_lanes,
+        n_periods, r_blocks, offs);
+  };
+  const bool known =
+      with_signed
+          ? lanes::with_stream_types<true>(
+                dt_load, dt_gen, dt_sell,
+                [&](auto l, auto g, auto s) {
+                  launch(std::true_type(), l, g, s);
+                })
+          : lanes::with_stream_types<false>(
+                dt_load, dt_gen, dt_sell, [&](auto l, auto g, auto s) {
+                  launch(std::false_type(), l, g, s);
+                });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bucket_sums_month_pair(const float* load, const float* gen,
-                                      const float* sell_a, const int* period_a,
-                                      const float* sell_b, const int* period_b,
+extern "C" int bucket_sums_month_pair(const void* load, const void* gen,
+                                      const void* sell_a, const int* period_a,
+                                      const void* sell_b, const int* period_b,
                                       const float* scales, const int* offsets,
-                                      float* out_a, float* out_sell_a,
-                                      float* out_b, float* out_sell_b, int n,
+                                      void* out_a, void* out_sell_a,
+                                      void* out_b, void* out_sell_b, int n,
                                       int r, int n_lanes, int n_periods,
+                                      int dt_load, int dt_gen, int dt_sell,
                                       void* stream) {
   MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
   if (!grid_for(n, r, n_lanes, n_periods, offsets, &offs, &r_blocks, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
-  month_pair_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      load, gen, sell_a, period_a, sell_b, period_b, scales, out_a,
-      out_sell_a, out_b, out_sell_b, r, n_lanes, n_periods, r_blocks, offs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool known = lanes::with_stream_types<false>(
+      dt_load, dt_gen, dt_sell, [&](auto l, auto g, auto s) {
+        using TL = typename decltype(l)::type;
+        using TG = typename decltype(g)::type;
+        using TS = typename decltype(s)::type;
+        using TO = lanes::SumsOut<TL, TG, TS>;
+        month_pair_kernel<TL, TG, TS><<<blocks, kThreads, 0, st>>>(
+            static_cast<const TL*>(load), static_cast<const TG*>(gen),
+            static_cast<const TS*>(sell_a), period_a,
+            static_cast<const TS*>(sell_b), period_b, scales,
+            static_cast<TO*>(out_a), static_cast<TO*>(out_sell_a),
+            static_cast<TO*>(out_b), static_cast<TO*>(out_sell_b), r, n_lanes,
+            n_periods, r_blocks, offs);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,9 +32,18 @@
 //     one-hot ones are exact), so sums carry ~1e-4 relative rounding:
 //     the kernel is held to the JAX package's dot-engine tolerance,
 //     rtol 5e-3 and atol 2.0.
+//
+// Stream types (lanes.cuh): load, gen and sell are float32, bfloat16 or
+// int8 codes, template arguments of the kernel, upcast when a chunk is
+// staged; the products and sums are the float32 kernel's, and the sums
+// are stored as SumsOut (bfloat16 for bf16 banks).
 
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <type_traits>
+
+#include "lanes.cuh"
 
 namespace {
 
@@ -63,10 +72,11 @@ __device__ __forceinline__ void to_tf32(Frag& f) {
 
 // Writes one warp's accumulated [16 x cols] tile row to the outputs:
 // columns < nb to the bucket sums, column nb to the sell sums.
+template <typename TO>
 __device__ __forceinline__ void emit(FragC (&acc)[kMaxColTiles],
                                      int col_tiles, float* tile, int agent,
-                                     int row0, int r, int nb, float* out,
-                                     float* out_sell) {
+                                     int row0, int r, int nb, TO* out,
+                                     TO* out_sell) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int t = 0; t < kMaxColTiles; ++t) {
@@ -79,22 +89,23 @@ __device__ __forceinline__ void emit(FragC (&acc)[kMaxColTiles],
       if (ri >= r) continue;
       const size_t row = static_cast<size_t>(agent) * r + ri;
       if (c < nb) {
-        out[row * nb + c] = tile[e];
+        lanes::store(out + row * nb + c, tile[e]);
       } else if (c == nb) {
-        out_sell[row] = tile[e];
+        lanes::store(out_sell + row, tile[e]);
       }
     }
     __syncwarp();
   }
 }
 
-template <bool SIGNED>
+template <bool SIGNED, typename TL, typename TG, typename TS,
+          typename TO = lanes::SumsOut<TL, TG, TS>>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-    dot_kernel(const float* __restrict__ load, const float* __restrict__ gen,
-               const float* __restrict__ sell, const int* __restrict__ bucket,
-               const float* __restrict__ scales, float* __restrict__ out_imp,
-               float* __restrict__ out_sell_imp, float* __restrict__ out_sgn,
-               float* __restrict__ out_sell_sgn, int r, int hours,
+    dot_kernel(const TL* __restrict__ load, const TG* __restrict__ gen,
+               const TS* __restrict__ sell, const int* __restrict__ bucket,
+               const float* __restrict__ scales, TO* __restrict__ out_imp,
+               TO* __restrict__ out_sell_imp, TO* __restrict__ out_sgn,
+               TO* __restrict__ out_sell_sgn, int r, int hours,
                int n_periods, int cols, int r_blocks) {
   extern __shared__ __align__(128) float smem[];
 
@@ -134,9 +145,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   for (int h0 = 0; h0 < hours; h0 += kChunk) {
     __syncthreads();  // the previous chunk's tiles are consumed
     for (int h = threadIdx.x; h < kChunk; h += blockDim.x) {
-      h_load[h] = load[row + h0 + h];
-      h_gen[h] = gen[row + h0 + h];
-      h_sell[h] = sell[row + h0 + h];
+      h_load[h] = lanes::to_f32(load[row + h0 + h]);
+      h_gen[h] = lanes::to_f32(gen[row + h0 + h]);
+      h_sell[h] = lanes::to_f32(sell[row + h0 + h]);
       h_bucket[h] = bucket[row + h0 + h];
     }
     __syncthreads();
@@ -189,14 +200,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue for shapes the kernel does not take (hours a
-// multiple of 40). Bucket ids must lie in [0, 12 * n_periods).
-extern "C" int bucket_sums_dot(const float* load, const float* gen,
-                               const float* sell, const int* bucket,
-                               const float* scales, float* out_imp,
-                               float* out_sell_imp, float* out_sgn,
-                               float* out_sell_sgn, int n, int r, int hours,
-                               int n_periods, int with_signed, void* stream) {
+// cudaErrorInvalidValue for shapes or a stream dtype combination the
+// kernel does not take (hours a multiple of 40; dtype codes as in
+// lanes.cuh). Bucket ids must lie in [0, 12 * n_periods).
+extern "C" int bucket_sums_dot(const void* load, const void* gen,
+                               const void* sell, const int* bucket,
+                               const float* scales, void* out_imp,
+                               void* out_sell_imp, void* out_sgn,
+                               void* out_sell_sgn, int n, int r, int hours,
+                               int n_periods, int with_signed, int dt_load,
+                               int dt_gen, int dt_sell, void* stream) {
   if (n <= 0 || r <= 0 || hours <= 0 || hours % kChunk != 0 ||
       n_periods < 1 || n_periods > kMaxPeriods)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -212,14 +225,30 @@ extern "C" int bucket_sums_dot(const float* load, const float* gen,
                    (a_tiles * rows * kChunk + kChunk * cols + 4 * kChunk + rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(total);
-  if (with_signed) {
-    dot_kernel<true><<<blocks, warps * 32, smem, st>>>(
-        load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, hours, n_periods, cols, r_blocks);
-  } else {
-    dot_kernel<false><<<blocks, warps * 32, smem, st>>>(
-        load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, r, hours, n_periods, cols, r_blocks);
-  }
+  auto launch = [&](auto signed_tag, auto l, auto g, auto s) {
+    constexpr bool kSigned = decltype(signed_tag)::value;
+    using TL = typename decltype(l)::type;
+    using TG = typename decltype(g)::type;
+    using TS = typename decltype(s)::type;
+    using TO = lanes::SumsOut<TL, TG, TS>;
+    dot_kernel<kSigned, TL, TG, TS><<<blocks, warps * 32, smem, st>>>(
+        static_cast<const TL*>(load), static_cast<const TG*>(gen),
+        static_cast<const TS*>(sell), bucket, scales,
+        static_cast<TO*>(out_imp), static_cast<TO*>(out_sell_imp),
+        static_cast<TO*>(out_sgn), static_cast<TO*>(out_sell_sgn), r, hours,
+        n_periods, cols, r_blocks);
+  };
+  const bool known =
+      with_signed
+          ? lanes::with_stream_types<true>(
+                dt_load, dt_gen, dt_sell,
+                [&](auto l, auto g, auto s) {
+                  launch(std::true_type(), l, g, s);
+                })
+          : lanes::with_stream_types<false>(
+                dt_load, dt_gen, dt_sell, [&](auto l, auto g, auto s) {
+                  launch(std::false_type(), l, g, s);
+                });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

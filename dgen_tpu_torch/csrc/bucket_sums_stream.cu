@@ -41,8 +41,18 @@
 // longest segment x 4 bytes (81,920 bytes at 5 agents and 512 lanes;
 // 119,040 at 5 agents and 744 full-hour lanes), dynamic, so the launcher
 // raises the block's limit above 48 KB.
+//
+// Stream types (lanes.cuh): load, gen and sell are float32, bfloat16 or
+// int8 codes, template arguments of the kernel. A row is staged in its
+// own type, four lanes per copy: 16 bytes of float (cp.async.cg), 8 of
+// bfloat16 or 4 of int8 (cp.async.ca, which takes 4- and 8-byte
+// copies); every row keeps the float row's room, so the block shape
+// does not depend on the types. The four lanes are upcast when read
+// (load4) and summed in float; the sums are stored as SumsOut.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "lanes.cuh"
 
@@ -58,11 +68,27 @@ constexpr int kRows = 4;          // load, gen, sell, period
 constexpr int kMaxBlockAgents = 8;
 constexpr int kMaxSmemBytes = 232448;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// One asynchronous copy of BYTES (4, 8 or 16) from device to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(gmem), "n"(BYTES)
+                 : "memory");
+  }
+}
+
+// Queues the copy of four lanes of type T starting at lane `lane` of
+// `src` to lane `lane` of the shared row `dst`.
+template <typename T>
+__device__ __forceinline__ void copy4(void* dst, const T* src, int lane) {
+  cp_async<static_cast<int>(4 * sizeof(T))>(static_cast<T*>(dst) + lane,
+                                            src + lane);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -91,14 +117,15 @@ __device__ __forceinline__ void add_lane(float l, float g, float sl, int p,
   }
 }
 
-template <bool SIGNED>
+template <bool SIGNED, typename TL, typename TG, typename TS,
+          typename TO = lanes::SumsOut<TL, TG, TS>>
 __global__ void __launch_bounds__(kThreads)
-    stream_kernel(const float* __restrict__ load, const float* __restrict__ gen,
-                  const float* __restrict__ sell,
+    stream_kernel(const TL* __restrict__ load, const TG* __restrict__ gen,
+                  const TS* __restrict__ sell,
                   const int* __restrict__ period,
-                  const float* __restrict__ scales, float* __restrict__ out_imp,
-                  float* __restrict__ out_sell_imp, float* __restrict__ out_sgn,
-                  float* __restrict__ out_sell_sgn, int n, int r, int n_lanes,
+                  const float* __restrict__ scales, TO* __restrict__ out_imp,
+                  TO* __restrict__ out_sell_imp, TO* __restrict__ out_sgn,
+                  TO* __restrict__ out_sell_sgn, int n, int r, int n_lanes,
                   int n_periods, int r_tile, int block_n, int r_blocks,
                   int seg_cap, MonthOffsets offs) {
   extern __shared__ __align__(16) float smem[];
@@ -122,14 +149,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < n_here * kRows * chunks; i += kThreads) {
       const int c = i % chunks;
       const int row = i / chunks;  // agent * kRows + stream
-      const size_t g =
-          static_cast<size_t>(agent0 + row / kRows) * n_lanes + h0 + 4 * c;
-      const int k = row % kRows;
-      const void* src = k == 0   ? static_cast<const void*>(load + g)
-                        : k == 1 ? static_cast<const void*>(gen + g)
-                        : k == 2 ? static_cast<const void*>(sell + g)
-                                 : static_cast<const void*>(period + g);
-      cp_async16(base + row * seg_cap + 4 * c, src);
+      const size_t g = static_cast<size_t>(agent0 + row / kRows) * n_lanes + h0;
+      float* dst = base + row * seg_cap;
+      switch (row % kRows) {
+        case 0: copy4(dst, load + g, 4 * c); break;
+        case 1: copy4(dst, gen + g, 4 * c); break;
+        case 2: copy4(dst, sell + g, 4 * c); break;
+        default: copy4(dst, period + g, 4 * c); break;
+      }
     }
     cp_async_commit();
   };
@@ -150,9 +177,9 @@ __global__ void __launch_bounds__(kThreads)
       const int len = offs.o[m + 1] - offs.o[m];
       const float* rows = smem + (m % kStages) * stage_floats +
                           a * kRows * seg_cap;
-      const float4* lv = reinterpret_cast<const float4*>(rows);
-      const float4* gv = reinterpret_cast<const float4*>(rows + seg_cap);
-      const float4* sv = reinterpret_cast<const float4*>(rows + 2 * seg_cap);
+      const TL* lv = reinterpret_cast<const TL*>(rows);
+      const TG* gv = reinterpret_cast<const TG*>(rows + seg_cap);
+      const TS* sv = reinterpret_cast<const TS*>(rows + 2 * seg_cap);
       const int4* pv = reinterpret_cast<const int4*>(rows + 3 * seg_cap);
 
       float acc_i[kMaxPeriods];
@@ -166,57 +193,62 @@ __global__ void __launch_bounds__(kThreads)
       float ms = 0.f;
 #pragma unroll 2
       for (int c = 0; c < len / 4; ++c) {
-        const float4 l = lv[c];
-        const float4 g = gv[c];
-        const float4 sl = sv[c];
+        float l[4], g[4], sl[4];
+        lanes::load4(lv + 4 * c, l);
+        lanes::load4(gv + 4 * c, g);
+        lanes::load4(sv + 4 * c, sl);
         const int4 p = pv[c];
-        add_lane<SIGNED>(l.x, g.x, sl.x, p.x, s, acc_i, acc_s, mi, ms);
-        add_lane<SIGNED>(l.y, g.y, sl.y, p.y, s, acc_i, acc_s, mi, ms);
-        add_lane<SIGNED>(l.z, g.z, sl.z, p.z, s, acc_i, acc_s, mi, ms);
-        add_lane<SIGNED>(l.w, g.w, sl.w, p.w, s, acc_i, acc_s, mi, ms);
+        add_lane<SIGNED>(l[0], g[0], sl[0], p.x, s, acc_i, acc_s, mi, ms);
+        add_lane<SIGNED>(l[1], g[1], sl[1], p.y, s, acc_i, acc_s, mi, ms);
+        add_lane<SIGNED>(l[2], g[2], sl[2], p.z, s, acc_i, acc_s, mi, ms);
+        add_lane<SIGNED>(l[3], g[3], sl[3], p.w, s, acc_i, acc_s, mi, ms);
       }
       sell_imp += mi;
       sell_sgn += ms;
-      float* oi = out_imp + out_row * nb + m * n_periods;
+      TO* oi = out_imp + out_row * nb + m * n_periods;
 #pragma unroll
       for (int q = 0; q < kMaxPeriods; ++q)
-        if (q < n_periods) oi[q] = acc_i[q];
+        if (q < n_periods) lanes::store(oi + q, acc_i[q]);
       if (SIGNED) {
-        float* os = out_sgn + out_row * nb + m * n_periods;
+        TO* os = out_sgn + out_row * nb + m * n_periods;
 #pragma unroll
         for (int q = 0; q < kMaxPeriods; ++q)
-          if (q < n_periods) os[q] = acc_s[q];
+          if (q < n_periods) lanes::store(os + q, acc_s[q]);
       }
     }
     __syncthreads();  // stage m % kStages is free for month m + 2
   }
   if (live) {
-    out_sell_imp[out_row] = sell_imp;
-    if (SIGNED) out_sell_sgn[out_row] = sell_sgn;
+    lanes::store(out_sell_imp + out_row, sell_imp);
+    if (SIGNED) lanes::store(out_sell_sgn + out_row, sell_sgn);
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue for shapes, offsets or pointers the kernel does not
-// take (every offset a multiple of 4 lanes, n_lanes too, 16-byte aligned
-// streams). `offsets` is a host array of 13 lane offsets.
-extern "C" int bucket_sums_stream(const float* load, const float* gen,
-                                  const float* sell, const int* period,
+// cudaErrorInvalidValue for shapes, offsets, pointers or a stream dtype
+// combination the kernel does not take (every offset a multiple of 4
+// lanes, n_lanes too, each stream aligned to four of its elements; dtype
+// codes as in lanes.cuh). `offsets` is a host array of 13 lane offsets.
+extern "C" int bucket_sums_stream(const void* load, const void* gen,
+                                  const void* sell, const int* period,
                                   const float* scales, const int* offsets,
-                                  float* out_imp, float* out_sell_imp,
-                                  float* out_sgn, float* out_sell_sgn, int n,
+                                  void* out_imp, void* out_sell_imp,
+                                  void* out_sgn, void* out_sell_sgn, int n,
                                   int r, int n_lanes, int n_periods,
-                                  int with_signed, void* stream) {
+                                  int with_signed, int dt_load, int dt_gen,
+                                  int dt_sell, void* stream) {
   MonthOffsets offs;
   if (n <= 0 || r <= 0 || n_periods < 1 || n_periods > kMaxPeriods ||
-      !lanes::read_offsets(offsets, n_lanes, 4, &offs) || !aligned16(load) ||
-      !aligned16(gen) || !aligned16(sell) || !aligned16(period))
+      !lanes::read_offsets(offsets, n_lanes, 4, &offs) ||
+      !aligned(load, 4 * lanes::dtype_bytes(dt_load)) ||
+      !aligned(gen, 4 * lanes::dtype_bytes(dt_gen)) ||
+      !aligned(sell, 4 * lanes::dtype_bytes(dt_sell)) || !aligned(period, 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int r_tile = r < kThreads ? r : kThreads;
   const int seg_cap = lanes::max_segment(offs);
@@ -233,20 +265,37 @@ extern "C" int bucket_sums_stream(const float* load, const float* gen,
   const int smem = block_n * agent_bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(total);
-  if (with_signed) {
-    cudaFuncSetAttribute(stream_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    stream_kernel<true><<<blocks, kThreads, smem, st>>>(
-        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, n, r, n_lanes, n_periods, r_tile, block_n, r_blocks,
-        seg_cap, offs);
-  } else {
-    cudaFuncSetAttribute(stream_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    stream_kernel<false><<<blocks, kThreads, smem, st>>>(
-        load, gen, sell, period, scales, out_imp, out_sell_imp, out_sgn,
-        out_sell_sgn, n, r, n_lanes, n_periods, r_tile, block_n, r_blocks,
-        seg_cap, offs);
-  }
+  cudaError_t attr = cudaSuccess;
+  auto launch = [&](auto signed_tag, auto l, auto g, auto s) {
+    constexpr bool kSigned = decltype(signed_tag)::value;
+    using TL = typename decltype(l)::type;
+    using TG = typename decltype(g)::type;
+    using TS = typename decltype(s)::type;
+    using TO = lanes::SumsOut<TL, TG, TS>;
+    auto* kernel = stream_kernel<kSigned, TL, TG, TS>;
+    attr = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+    if (attr != cudaSuccess) return;
+    kernel<<<blocks, kThreads, smem, st>>>(
+        static_cast<const TL*>(load), static_cast<const TG*>(gen),
+        static_cast<const TS*>(sell), period, scales,
+        static_cast<TO*>(out_imp), static_cast<TO*>(out_sell_imp),
+        static_cast<TO*>(out_sgn), static_cast<TO*>(out_sell_sgn), n, r,
+        n_lanes, n_periods, r_tile, block_n, r_blocks, seg_cap, offs);
+  };
+  const bool known =
+      with_signed
+          ? lanes::with_stream_types<true>(
+                dt_load, dt_gen, dt_sell,
+                [&](auto l, auto g, auto s) {
+                  launch(std::true_type(), l, g, s);
+                })
+          : lanes::with_stream_types<false>(
+                dt_load, dt_gen, dt_sell, [&](auto l, auto g, auto s) {
+                  launch(std::false_type(), l, g, s);
+                });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   return static_cast<int>(cudaGetLastError());
 }

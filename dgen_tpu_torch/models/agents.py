@@ -10,6 +10,7 @@ TariffBank, ``load_idx`` / ``cf_idx`` into a :class:`ProfileBank`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,15 +68,35 @@ class AgentTable:
 
 @dataclasses.dataclass(frozen=True)
 class ProfileBank:
-    """Shared 8760-hour profile banks."""
+    """Shared 8760-hour profile banks: float32, bfloat16
+    (``RunConfig.bf16_banks``) or, for load and solar_cf, int8 codes
+    (``RunConfig.quant_banks``)."""
 
     load: torch.Tensor       # [L, 8760] normalized to sum 1.0
     solar_cf: torch.Tensor   # [S, 8760] kWh per kW_dc per hour
     wholesale: torch.Tensor  # [R, 8760] $/kWh wholesale price by region
+    #: int8 banks: per-row float32 dequantization factors of ``load`` /
+    #: ``solar_cf`` (value = scale[row] * code); None = not quantized. The
+    #: wholesale (sell) stream is never quantized.
+    load_scale: Optional[torch.Tensor] = None
+    solar_cf_scale: Optional[torch.Tensor] = None
 
     @property
     def hours(self) -> int:
         return self.load.shape[1]
+
+
+def quantize_rows(bank) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization of a [R, 8760] profile bank:
+    ``codes = rint(x / scale)`` with ``scale = rowmax(|x|) / 127``
+    (all-zero rows get scale 1.0, so they dequantize to exact zeros).
+    Exact zeros stay exact zeros, so the daylight layout's premise (gen
+    == 0 off-daylight) survives quantization."""
+    x = np.asarray(bank, np.float32)
+    amax = np.max(np.abs(x), axis=1)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(x / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

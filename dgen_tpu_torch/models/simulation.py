@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from dgen_tpu_torch.config import RunConfig, ScenarioConfig, resolve_device
-from dgen_tpu_torch.models.agents import AgentTable, ProfileBank
+from dgen_tpu_torch.models.agents import AgentTable, ProfileBank, quantize_rows
 from dgen_tpu_torch.models.market import (
     MarketState,
     allocate_battery_adopters,
@@ -120,11 +120,24 @@ def build_econ_inputs(
     # gated original tariff
     at_w = gather(table.tariff_switch_idx, gate_metering=False) if rate_switch else None
 
-    load = profiles.load[table.load_idx.long()] * ya.load_kwh_per_customer[:, None]
-    gen_per_kw = profiles.solar_cf[table.cf_idx.long()]
+    load_idx, cf_idx = table.load_idx.long(), table.cf_idx.long()
+    if profiles.load_scale is not None:
+        # int8 banks: gather the codes and fold the load multiplier into
+        # the gathered scale, so the hour streams stay one byte per hour
+        load = profiles.load[load_idx]
+        load_scale = profiles.load_scale[load_idx] * ya.load_kwh_per_customer
+        gen_per_kw = profiles.solar_cf[cf_idx]
+        gen_scale = profiles.solar_cf_scale[cf_idx]
+    else:
+        # the multiplier is cast to the bank dtype before the product, so
+        # bf16 banks stay bf16 through the gathered streams
+        load = profiles.load[load_idx] \
+            * ya.load_kwh_per_customer[:, None].to(profiles.load.dtype)
+        gen_per_kw = profiles.solar_cf[cf_idx]
+        load_scale = gen_scale = None
     # net-billing sell rate = this year's wholesale price x retail multiplier
     ts_sell = (profiles.wholesale[table.region_idx.long()]
-               * (mult * ya.wholesale_multiplier)[:, None])
+               * (mult * ya.wholesale_multiplier)[:, None].to(profiles.wholesale.dtype))
 
     # the NEM size limit caps the bracket while NEM is active; agents
     # with a DG-rate switch are exempt
@@ -152,6 +165,8 @@ def build_econ_inputs(
         switch_min_kw=table.switch_min_kw,
         switch_max_kw=table.switch_max_kw,
         batt_rt_eff=ya.batt_rt_eff,
+        load_scale=load_scale,
+        gen_scale=gen_scale,
     )
 
 
@@ -394,15 +409,24 @@ def run_static_flags(table: AgentTable, tariffs: TariffBank, inputs: ScenarioInp
 # Device memory model
 # ---------------------------------------------------------------------------
 
-#: [8760]-hour float32 tensors live per agent at the sizing peak: the
-#: gathered streams (load, gen, sell, bucket ids, TOU map, wholesale),
-#: the scaled gen shape and the dispatch traces
+#: [8760]-hour tensors live per agent at the sizing peak: the gathered
+#: streams (load, gen, sell, bucket ids, TOU map, wholesale), the scaled
+#: gen shape and the dispatch traces
 _LIVE_HOUR_ARRAYS = 14
+#: ... of which are bank streams, stored at the bank's width: load, gen
+#: per kW, wholesale, sell and the gen shape (the rest are int32 ids and
+#: float32 dispatch traces)
+_LIVE_BANK_ARRAYS = 5
+#: under bf16 or int8 banks, the float32 load and gen copies that the
+#: dispatch loop, the linear sums and the hourly profiles read
+_LIVE_FLOOR_COPIES = 2
 #: the kept hourly net profiles and the state mix
 _LIVE_HOUR_ARRAYS_HOURLY = 4
 #: the original tariff's sell/bucket streams and the kW* selections
 _LIVE_HOUR_ARRAYS_RATE_SWITCH = 5
-#: [R, 12 * P] float32 tensors per agent: kernel output + bill temporaries
+#: ... of which are sell streams, at the bank's float width
+_LIVE_BANK_ARRAYS_RATE_SWITCH = 2
+#: [R, 12 * P] tensors per agent: kernel output + bill temporaries
 _LIVE_BUCKET_ARRAYS = 5
 _LIVE_BUCKET_ARRAYS_RATE_SWITCH = 2
 #: persistent per-agent bytes: table, carry, outputs
@@ -412,17 +436,42 @@ _MEMORY_BUDGET_FRAC = 0.8
 
 
 def per_agent_step_bytes(*, sizing_iters: int, econ_years: int, n_periods: int,
-                         with_hourly: bool, rate_switch: bool) -> int:
-    """Modeled peak device bytes per agent of one year step."""
+                         with_hourly: bool, rate_switch: bool,
+                         bank_bf16: bool = False, bank_quant: bool = False) -> int:
+    """Modeled peak device bytes per agent of one year step.
+
+    ``bank_bf16``: the bank streams at 2 bytes, two float32 floor copies
+    (load and gen for the dispatch loop, linear sums, hourly profiles),
+    and the kernel's candidate sums stored at 2 bytes beside the float32
+    copy the bills upcast them to. ``bank_quant``: load and gen codes at
+    1 byte (the gen shape is the codes themselves), the sell streams at
+    the bank's float width, the two dequantized float32 copies, and
+    float32 sums unless the sell stream is bf16 too."""
     r = max(sizing_iters, 4) * econ_years
-    hours = _LIVE_HOUR_ARRAYS
+    float_b = 2 if bank_bf16 else 4
+    bank = _LIVE_BANK_ARRAYS
+    floor = _LIVE_HOUR_ARRAYS - bank
+    if bank_quant:
+        # load and gen codes; wholesale and sell; no separate gen shape
+        bank_bytes = 1 * 2 + float_b * 2
+    else:
+        bank_bytes = float_b * bank
+    if bank_quant or bank_bf16:
+        floor += _LIVE_FLOOR_COPIES
+    hour_bytes = 4 * floor + bank_bytes
     buckets = _LIVE_BUCKET_ARRAYS
     if with_hourly:
-        hours += _LIVE_HOUR_ARRAYS_HOURLY
+        hour_bytes += 4 * _LIVE_HOUR_ARRAYS_HOURLY
     if rate_switch:
-        hours += _LIVE_HOUR_ARRAYS_RATE_SWITCH
+        hour_bytes += (4 * (_LIVE_HOUR_ARRAYS_RATE_SWITCH
+                            - _LIVE_BANK_ARRAYS_RATE_SWITCH)
+                       + float_b * _LIVE_BANK_ARRAYS_RATE_SWITCH)
         buckets += _LIVE_BUCKET_ARRAYS_RATE_SWITCH
-    return 4 * (hours * HOURS + buckets * r * 12 * n_periods) + _PERSISTENT_ROW_BYTES
+    # the kernel's output stored at 2 bytes, plus the float32 copy the
+    # bills take of it, where the sums are bf16 (billkernels._sums_out_dtype)
+    bucket_bytes = 4 * buckets + (2 if bank_bf16 else 0)
+    return (hour_bytes * HOURS + bucket_bytes * r * 12 * n_periods
+            + _PERSISTENT_ROW_BYTES)
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +537,10 @@ class Simulation:
         self.inputs = to_device(inputs, self.device)
         self._rate_switch, self._net_billing = run_static_flags(
             self.table, self.tariffs, self.inputs, self.years)
+        # the daylight layout comes from the float32 bank, before the banks
+        # are narrowed
         self._daylight = self._build_daylight(profiles)
+        self.profiles = self._narrow_banks(self.profiles)
         self.modeled_step_bytes = self._check_memory()
         self.host_agent_id = self.table.agent_id.cpu().numpy()
         self.host_mask = self.table.mask.cpu().numpy()
@@ -508,13 +560,39 @@ class Simulation:
                         HOURS / lay.n_lanes)
         return lay
 
+    def _narrow_banks(self, profiles: ProfileBank) -> ProfileBank:
+        """The banks as the run asks for them: int8 codes of load and
+        generation with float32 per-row scales (``quant_banks``), then
+        every float stream in bfloat16 (``bf16_banks``; the codes and the
+        scales stay as they are)."""
+        rc = self.run_config
+        if rc.quant_banks:
+            lq, ls = quantize_rows(profiles.load.cpu().numpy())
+            cq, cs = quantize_rows(profiles.solar_cf.cpu().numpy())
+            dev = lambda a: torch.from_numpy(a).to(self.device)
+            profiles = dataclasses.replace(
+                profiles, load=dev(lq), solar_cf=dev(cq), load_scale=dev(ls),
+                solar_cf_scale=dev(cs))
+            logger.info("int8 profile banks: load/gen streams at 1 byte/hour "
+                        "(+%d per-row float32 scales)", ls.size + cs.size)
+        if rc.bf16_banks:
+            def bf16(x):
+                return x.to(torch.bfloat16) if x.is_floating_point() else x
+
+            profiles = dataclasses.replace(
+                profiles, load=bf16(profiles.load),
+                solar_cf=bf16(profiles.solar_cf),
+                wholesale=bf16(profiles.wholesale))
+        return profiles
+
     def _check_memory(self) -> int:
         """Modeled year-step bytes; raises when they exceed the card's
         budget."""
         per_agent = per_agent_step_bytes(
             sizing_iters=self.run_config.sizing_iters, econ_years=self.econ_years,
             n_periods=self.tariffs.max_periods, with_hourly=self.with_hourly,
-            rate_switch=self._rate_switch,
+            rate_switch=self._rate_switch, bank_bf16=self.run_config.bf16_banks,
+            bank_quant=self.run_config.quant_banks,
         )
         modeled = per_agent * self.table.n_agents
         if self.device.type == "cuda":

@@ -41,15 +41,18 @@ _I = ctypes.c_int
 _OFFS = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # load, gen, sell, period, scales, offsets[13], out_imp, out_sell_imp,
-    # out_sgn, out_sell_sgn, n, r, n_lanes, n_periods, with_signed, stream
-    "bucket_sums_month": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 5 + [_P],
-    "bucket_sums_stream": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 5 + [_P],
+    # out_sgn, out_sell_sgn, n, r, n_lanes, n_periods, with_signed, the
+    # dtype codes of load, gen and sell, stream
+    "bucket_sums_month": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 8 + [_P],
+    "bucket_sums_stream": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 8 + [_P],
     # load, gen, sell_a, period_a, sell_b, period_b, scales, offsets[13],
-    # out_a, out_sell_a, out_b, out_sell_b, n, r, n_lanes, n_periods, stream
-    "bucket_sums_month_pair": [_P] * 7 + [_OFFS] + [_P] * 4 + [_I] * 4 + [_P],
+    # out_a, out_sell_a, out_b, out_sell_b, n, r, n_lanes, n_periods, the
+    # three dtype codes, stream
+    "bucket_sums_month_pair": [_P] * 7 + [_OFFS] + [_P] * 4 + [_I] * 7 + [_P],
     # load, gen, sell, bucket, scales, out_imp, out_sell_imp, out_sgn,
-    # out_sell_sgn, n, r, hours, n_periods, with_signed, stream
-    "bucket_sums_dot": [_P] * 9 + [_I] * 5 + [_P],
+    # out_sell_sgn, n, r, hours, n_periods, with_signed, the three dtype
+    # codes, stream
+    "bucket_sums_dot": [_P] * 9 + [_I] * 8 + [_P],
     # the micro-benchmark's variants: load, gen, sell, bucket, scales,
     # offsets[13], out_imp, out_sell_imp, n, r, n_periods, ..., stream
     "microbench_monthmask": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 3 + [_P],
@@ -58,17 +61,27 @@ _SIGNATURES = {
     "microbench_monthdot": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 3 + [_P],
     # ..., b_pad, h_chunk, build, dot, net, m_hbm, stream
     "microbench_variant": [_P] * 5 + [_OFFS] + [_P] * 2 + [_I] * 8 + [_P] * 2,
+    # load, gen, m, scales, offsets[13], out_imp, out_sell_imp, n, r,
+    # n_periods, c_pad, (hi,) stream
+    "microbench_monthdot_pre": [_P] * 4 + [_OFFS] + [_P] * 2 + [_I] * 4 + [_P],
+    "microbench_mnet": [_P] * 4 + [_OFFS] + [_P] * 2 + [_I] * 5 + [_P],
 }
 
 #: template arguments of the kernels that have any, in order: the name
-#: and, for an integer that selects a form, the forms' names
+#: and, for an integer that selects a form, the forms' names (a bool
+#: prints as its name when true; type arguments print as their dtype)
 _TEMPLATE_ARGS = {
     "month_kernel": (("signed", ()),),
     "stream_kernel": (("signed", ()),),
     "dot_kernel": (("signed", ()),),
     "variant_kernel": (("build", ("onehot", "const", "hbm")),
                        ("dot", ("dot", "none")), ("net", ("fma", "bcast"))),
+    "mask_product_kernel": (("mode", ("monthdot_pre", "mnet", "mnet_hi")),
+                            ("col_tiles", ())),
 }
+#: mangled type arguments -> dtype names (a later bfloat16 argument is a
+#: substitution, S<n>_, of the first)
+_TYPE_ARGS = {"f": "f32", "a": "i8", "13__nv_bfloat16": "bf16", "i": "i32"}
 
 
 def sources() -> list[str]:
@@ -91,30 +104,40 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"bucket_sums-{h.hexdigest()[:12]}.so")
 
 
+_TARG = r"L[a-z]n?\d+E|13__nv_bfloat16|S\w*?_|[fai]"
+
+
 def _kernel_label(mangled: str) -> str:
-    """``name<arg=value,...>`` of a mangled kernel name: the function's
-    own name and its integral template arguments (``Lb1E`` = true,
-    ``Li2E`` = 2, ``Lin1E`` = -1), named after :data:`_TEMPLATE_ARGS`
-    (``variant_kernel<build=hbm,dot=dot,net=fma>``); a lone true bool
-    prints as its name (``month_kernel<signed>``), a lone false one as
-    nothing."""
-    found = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[a-z]n?\d+E)+)E)?", mangled)
+    """``name<arg,...>`` of a mangled kernel name: the function's own
+    name and its template arguments. Integral ones (``Lb1E`` = true,
+    ``Li2E`` = 2, ``Lin1E`` = -1) are named after :data:`_TEMPLATE_ARGS`
+    (``variant_kernel<build=hbm,dot=dot,net=fma>``); a bool prints as its
+    name when true and as nothing when false (``month_kernel<signed>``,
+    ``month_kernel``); a type prints as its dtype
+    (``month_kernel<signed,bf16,f32,bf16,f32>``: load, gen, sell, sums)."""
+    found = re.search(rf"\d+([a-z_]+_kernel)(?:I((?:{_TARG})+)E)?", mangled)
     if not found:
         return mangled
     name, targs = found.groups()
     if not targs:
         return name
-    values = [(kind, -int(num) if neg else int(num))
-              for kind, neg, num in re.findall(r"L([a-z])(n?)(\d+)E", targs)]
     names = _TEMPLATE_ARGS.get(name, ())
-    if len(values) == 1 and values[0][0] == "b" and names:
-        return f"{name}<{names[0][0]}>" if values[0][1] else name
     parts = []
-    for i, (_, v) in enumerate(values):
+    for i, tok in enumerate(re.findall(_TARG, targs)):
+        lit = re.fullmatch(r"L([a-z])(n?)(\d+)E", tok)
+        if lit is None:
+            parts.append(_TYPE_ARGS.get(tok, "bf16"))
+            continue
+        kind, neg, num = lit.groups()
+        v = -int(num) if neg else int(num)
         arg, forms = names[i] if i < len(names) else (None, ())
+        if kind == "b" and arg:
+            if v:
+                parts.append(arg)
+            continue
         shown = forms[v] if 0 <= v < len(forms) else v
         parts.append(f"{arg}={shown}" if arg else str(shown))
-    return f"{name}<{','.join(parts)}>"
+    return f"{name}<{','.join(parts)}>" if parts else name
 
 
 def kernel_resources(log: str) -> list[dict]:

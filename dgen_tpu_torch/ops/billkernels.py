@@ -29,6 +29,18 @@ or a daylight-compacted layout whose night-hour sums (which do not
 depend on ``s``) are added after the kernel. :class:`PackedStreams`
 holds those lanes built once per sizing call (``RunConfig.pack_once``).
 
+Stream types. ``load``, ``gen`` and ``sell`` may be float32, bfloat16
+(``RunConfig.bf16_banks``) or, for load and gen, int8 codes
+(``RunConfig.quant_banks``; :func:`import_sums` and
+:func:`import_sums_pair` then take the per-agent ``load_scale`` and
+``gen_scale`` and fold them into the scales, :func:`_quant_fold`). The
+kernels upcast each element when they read it and sum in float32; the
+sums are stored at :func:`_sums_out_dtype` of the stream types. The
+(load, gen, sell) combinations the kernels are instantiated for are
+:data:`IMPORT_DTYPES` and :data:`SIGNED_DTYPES`; any other raises
+``TypeError`` on every device, and nothing is quietly upcast to reach
+the float32 kernel.
+
 On a CUDA tensor every engine launches its kernel or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version (the twin of the JAX
 package's ``_sums_xla``). Each kernel wrapper counts its launches in
@@ -59,11 +71,31 @@ IMPLS = ("auto", "stream", "dot")
 LAUNCHES = {"month": 0, "month_signed": 0, "month_pair": 0, "stream": 0,
             "stream_signed": 0, "dot": 0, "dot_signed": 0,
             # the micro-benchmark's variants (ops/microkernels.py)
-            "monthmask": 0, "monthmask_g": 0, "variant": 0, "monthdot": 0}
+            "monthmask": 0, "monthmask_g": 0, "variant": 0, "monthdot": 0,
+            "monthdot_pre": 0, "mnet": 0, "mnet_hi": 0}
+
+F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
+#: dtype codes of the C launchers (csrc/lanes.cuh)
+_DTYPE_CODES = {F32: 0, BF16: 1, I8: 2}
+#: (load, gen, sell) dtypes the import kernels (month, pair, stream, dot)
+#: are instantiated for: float32 banks, bf16 banks, int8 codes beside a
+#: float32 or a bf16 sell stream
+IMPORT_DTYPES = ((F32, F32, F32), (BF16, BF16, BF16), (I8, I8, F32),
+                 (I8, I8, BF16))
+#: ... and the signed kernels (the battery forward run, whose gen is the
+#: float32 dispatch output beside the bank's load and sell)
+SIGNED_DTYPES = ((F32, F32, F32), (BF16, BF16, BF16), (BF16, F32, BF16),
+                 (F32, F32, BF16))
+
+#: launches on narrow streams since the last :func:`reset_launches`, by
+#: ``"<LAUNCHES key>/<load dtype>"`` (``"month/bfloat16"``,
+#: ``"stream/int8"``); float32 launches count in :data:`LAUNCHES` only
+NARROW_LAUNCHES: dict = {}
 
 #: when a dict, each kernel wrapper keeps the arguments of its first
-#: launch there under its :data:`LAUNCHES` key (to check and time a
-#: kernel on the operands a real run gave it)
+#: launch there under its :data:`LAUNCHES` key, and those of its first
+#: launch on narrow streams under its :data:`NARROW_LAUNCHES` key too (to
+#: check and time a kernel on the operands a real run gave it)
 CAPTURE: dict | None = None
 
 #: bytes of one [N, rc, L] float32 temporary the plain versions allow
@@ -73,6 +105,7 @@ _PLAIN_CHUNK_BYTES = 1 << 28
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    NARROW_LAUNCHES.clear()
 
 
 def _check_buckets(n_buckets: int) -> int:
@@ -87,6 +120,66 @@ def _check_buckets(n_buckets: int) -> int:
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _sums_out_dtype(load_dtype, gen_dtype, sell_dtype) -> torch.dtype:
+    """Stored dtype of the bucket sums: bfloat16 when load and gen are
+    bfloat16 (bf16 banks), or when int8 codes ride beside a bfloat16 sell
+    stream (int8 composed with bf16 banks); float32 otherwise (a float32
+    dispatch output mixed into gen keeps float32 sums). The sums are
+    always accumulated in float32; only the stored result takes the
+    bank precision."""
+    if load_dtype == BF16 and gen_dtype == BF16:
+        return BF16
+    if load_dtype == I8 and sell_dtype == BF16:
+        return BF16
+    return F32
+
+
+def _check_stream_dtypes(load, gen, sell, signed: bool, sell_b=None) -> tuple:
+    """The C dtype codes of (load, gen, sell); ``TypeError`` for a
+    combination no kernel is instantiated for."""
+    combo = (load.dtype, gen.dtype, sell.dtype)
+    allowed = SIGNED_DTYPES if signed else IMPORT_DTYPES
+    if combo not in allowed:
+        names = [tuple(str(d).replace("torch.", "") for d in c) for c in allowed]
+        raise TypeError(
+            f"(load, gen, sell) dtypes {tuple(str(d) for d in combo)} have no "
+            f"{'signed' if signed else 'import'} bucket-sums kernel; the kernels "
+            f"take {names}")
+    if sell_b is not None and sell_b.dtype != sell.dtype:
+        raise TypeError(f"the two sell streams must share a dtype, got "
+                        f"{sell.dtype} and {sell_b.dtype}")
+    return tuple(_DTYPE_CODES[d] for d in combo)
+
+
+def _quant_fold(scales, load_scale, gen_scale):
+    """int8 banks: fold the per-agent dequantization factors into the
+    scales so the kernels run unchanged in quantized units. With load =
+    ls * ql and gen = gs * qg (ql, qg the codes, upcast when read),
+
+        relu(ls * ql - s * gs * qg) = ls * relu(ql - (s * gs / ls) * qg),
+
+    so every bucket column and the sell-weighted column scale by ``ls``
+    (the sell rate is never quantized). Returns (effective scales,
+    per-agent post factor) for :func:`_quant_unfold`; (scales, None)
+    without scales. ``ls == 0`` (an identically-zero load row) is floored
+    here and zeroed by the post multiply."""
+    if (load_scale is None) != (gen_scale is None):
+        raise ValueError("load_scale and gen_scale go together")
+    if load_scale is None:
+        return scales, None
+    safe = torch.clamp_min(load_scale, 1e-20)
+    return scales * (gen_scale / safe)[:, None], load_scale
+
+
+def _quant_unfold(outs, post) -> tuple:
+    """The engine's outputs times the post factor, in float32, stored
+    back at their dtype."""
+    if post is None:
+        return tuple(outs)
+    return tuple((o.float() * post.view(-1, *[1] * (o.ndim - 1))).to(o.dtype)
+                 for o in outs)
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +200,14 @@ def _bucketize(x: torch.Tensor, masks: list, onehot: torch.Tensor) -> torch.Tens
 
 
 def _sums_buffers(n: int, r: int, n_periods: int, with_signed: bool,
-                  device) -> list:
-    """[imports [N, R, 12P], imp_sell [N, R], signed, sgn_sell] float32
-    buffers; the signed pair is None unless ``with_signed``."""
-    f32 = dict(dtype=torch.float32, device=device)
+                  device, dtype=F32) -> list:
+    """[imports [N, R, 12P], imp_sell [N, R], signed, sgn_sell] buffers of
+    ``dtype``; the signed pair is None unless ``with_signed``."""
+    kw = dict(dtype=dtype, device=device)
 
     def sums_and_sell():
-        return [torch.empty((n, r, MONTHS * n_periods), **f32),
-                torch.empty((n, r), **f32)]
+        return [torch.empty((n, r, MONTHS * n_periods), **kw),
+                torch.empty((n, r), **kw)]
 
     return sums_and_sell() + (sums_and_sell() if with_signed else [None, None])
 
@@ -123,13 +216,26 @@ def _scale_chunk(n: int, lanes: int) -> int:
     return max(1, _PLAIN_CHUNK_BYTES // max(1, n * lanes * 4))
 
 
+def _upcast(*streams) -> tuple:
+    """(out dtype of the first three streams, the streams as float32)."""
+    out = _sums_out_dtype(*(t.dtype for t in streams[:3]))
+    return out, tuple(t.float() for t in streams)
+
+
+def _store(outs, dtype) -> tuple:
+    return tuple(None if o is None else o.to(dtype) for o in outs)
+
+
 def month_sums_plain(load, gen, sell, period, scales, offsets, n_periods: int,
                      with_signed: bool):
     """Plain version of the month and stream kernels over ``[N, L]``
     lanes with month ``m`` in ``[offsets[m], offsets[m + 1])``:
     (imports [N, R, 12P], imp_sell [N, R]) and, when ``with_signed``,
     also (signed, sgn_sell). Loops over chunks of scales with per-period
-    masks against the lane-month one-hot."""
+    masks against the lane-month one-hot. Narrow streams are upcast and
+    the float32 sums stored at :func:`_sums_out_dtype`, as the kernels
+    do."""
+    out_dtype, (load, gen, sell) = _upcast(load, gen, sell)
     n, r = scales.shape
     masks = [(period == p).to(torch.float32) for p in range(n_periods)]
     onehot = _lane_month_onehot(tuple(offsets), load.device)
@@ -146,8 +252,8 @@ def month_sums_plain(load, gen, sell, period, scales, offsets, n_periods: int,
             sgn[:, r0:r0 + rc] = _bucketize(net, masks, onehot)
             sgn_sell[:, r0:r0 + rc] = (net * sell[:, None, :]).sum(dim=2)
     if with_signed:
-        return imp, imp_sell, sgn, sgn_sell
-    return imp, imp_sell
+        return _store((imp, imp_sell, sgn, sgn_sell), out_dtype)
+    return _store((imp, imp_sell), out_dtype)
 
 
 def month_pair_sums_plain(load, gen, sell_a, period_a, sell_b, period_b,
@@ -155,6 +261,7 @@ def month_pair_sums_plain(load, gen, sell_a, period_a, sell_b, period_b,
     """Plain version of the pair kernel: (imports_a, imp_sell_a,
     imports_b, imp_sell_b) over one shared relu(net) on ``[N, L]``
     lanes."""
+    out_dtype, (load, gen, sell_a, sell_b) = _upcast(load, gen, sell_a, sell_b)
     n, r = scales.shape
     onehot = _lane_month_onehot(tuple(offsets), load.device)
     masks_a = [(period_a == p).to(torch.float32) for p in range(n_periods)]
@@ -168,7 +275,7 @@ def month_pair_sums_plain(load, gen, sell_a, period_a, sell_b, period_b,
         out[1][:, r0:r0 + rc] = (pos * sell_a[:, None, :]).sum(dim=2)
         out[2][:, r0:r0 + rc] = _bucketize(pos, masks_b, onehot)
         out[3][:, r0:r0 + rc] = (pos * sell_b[:, None, :]).sum(dim=2)
-    return tuple(out)
+    return _store(out, out_dtype)
 
 
 def dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods: int,
@@ -177,6 +284,7 @@ def dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods: int,
     bucket matrix M [N, Hc, 12P + 1] (sell rate in the last column) and
     ``relu(net) @ M`` (and ``net @ M``). Outputs as
     :func:`month_sums_plain`."""
+    out_dtype, (load, gen, sell) = _upcast(load, gen, sell)
     n, r = scales.shape
     nb = MONTHS * n_periods
     f32 = dict(dtype=torch.float32, device=load.device)
@@ -195,20 +303,24 @@ def dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods: int,
     out = (acc_i[..., :nb].contiguous(), acc_i[..., nb].contiguous())
     if with_signed:
         out += (acc_s[..., :nb].contiguous(), acc_s[..., nb].contiguous())
-    return out
+    return _store(out, out_dtype)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(streams, ints, scales, lanes: int) -> tuple[int, int]:
+def _check_kernel_inputs(streams, ints, scales, lanes: int,
+                         narrow: bool = False) -> tuple[int, int]:
+    """(N, R) after checking device, dtype, shape and contiguity; the
+    streams are float32, or with ``narrow`` of the dtypes the caller
+    checked with :func:`_check_stream_dtypes`."""
     n, r = scales.shape
     dev = scales.device
     for name, t, dtype, shape in (
-        [("stream", t, torch.float32, (n, lanes)) for t in streams]
+        [("stream", t, t.dtype if narrow else F32, (n, lanes)) for t in streams]
         + [("period or bucket ids", t, torch.int32, (n, lanes)) for t in ints]
-        + [("scales", scales, torch.float32, (n, r))]
+        + [("scales", scales, F32, (n, r))]
     ):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, scales on {dev}")
@@ -246,23 +358,32 @@ def _launch(fn_name: str, scales, *c_args) -> None:
             "kernel does not take: shape, month offsets or alignment)")
 
 
-def _count(key: str, args: tuple) -> None:
+def _count(key: str, args: tuple, load_dtype=F32) -> None:
     LAUNCHES[key] += 1
+    narrow = None
+    if load_dtype != F32:
+        narrow = f"{key}/{str(load_dtype).replace('torch.', '')}"
+        NARROW_LAUNCHES[narrow] = NARROW_LAUNCHES.get(narrow, 0) + 1
     if CAPTURE is not None:
         CAPTURE.setdefault(key, args)
+        if narrow is not None:
+            CAPTURE.setdefault(narrow, args)
 
 
 def _lane_sums(fn_name: str, key: str, load, gen, sell, period, scales,
-               offsets, n_periods: int, with_signed: bool):
-    n, r = _check_kernel_inputs((load, gen, sell), (period,), scales, load.shape[1])
-    out = _sums_buffers(n, r, n_periods, with_signed, scales.device)
+               offsets, n_periods: int, with_signed: bool, codes: tuple):
+    n, r = _check_kernel_inputs((load, gen, sell), (period,), scales,
+                                load.shape[1], narrow=True)
+    out = _sums_buffers(n, r, n_periods, with_signed, scales.device,
+                        _sums_out_dtype(load.dtype, gen.dtype, sell.dtype))
     if n and r:
         _launch(fn_name, scales, _ptr(load), _ptr(gen), _ptr(sell), _ptr(period),
                 _ptr(scales), _offsets_arg(offsets, load.shape[1]),
                 *(_ptr(o) for o in out), n, r, load.shape[1], n_periods,
-                int(with_signed))
+                int(with_signed), *codes)
         _count(key + ("_signed" if with_signed else ""),
-               (load, gen, sell, period, scales, offsets, n_periods, with_signed))
+               (load, gen, sell, period, scales, offsets, n_periods, with_signed),
+               load.dtype)
     return tuple(out if with_signed else out[:2])
 
 
@@ -271,11 +392,12 @@ def month_sums(load, gen, sell, period, scales, offsets, n_periods: int,
     """Month bucket sums over lanes (see :func:`month_sums_plain` for the
     outputs): the CUDA kernel on a CUDA tensor, the plain version on a
     CPU one."""
+    codes = _check_stream_dtypes(load, gen, sell, with_signed)
     if scales.device.type == "cpu":
         return month_sums_plain(load, gen, sell, period, scales, offsets,
                                 n_periods, with_signed)
     return _lane_sums("bucket_sums_month", "month", load, gen, sell, period,
-                      scales, offsets, n_periods, with_signed)
+                      scales, offsets, n_periods, with_signed, codes)
 
 
 def stream_sums(load, gen, sell, period, scales, offsets, n_periods: int,
@@ -283,30 +405,33 @@ def stream_sums(load, gen, sell, period, scales, offsets, n_periods: int,
     """The month kernel's function on the segment-streaming kernel: the
     CUDA kernel on a CUDA tensor, :func:`month_sums_plain` on a CPU
     one."""
+    codes = _check_stream_dtypes(load, gen, sell, with_signed)
     if scales.device.type == "cpu":
         return month_sums_plain(load, gen, sell, period, scales, offsets,
                                 n_periods, with_signed)
     return _lane_sums("bucket_sums_stream", "stream", load, gen, sell, period,
-                      scales, offsets, n_periods, with_signed)
+                      scales, offsets, n_periods, with_signed, codes)
 
 
 def month_pair_sums(load, gen, sell_a, period_a, sell_b, period_b, scales,
                     offsets, n_periods: int):
     """Pair bucket sums over lanes (see :func:`month_pair_sums_plain`):
     the CUDA kernel on a CUDA tensor, the plain version on a CPU one."""
+    codes = _check_stream_dtypes(load, gen, sell_a, False, sell_b=sell_b)
     if scales.device.type == "cpu":
         return month_pair_sums_plain(load, gen, sell_a, period_a, sell_b,
                                      period_b, scales, offsets, n_periods)
     n, r = _check_kernel_inputs((load, gen, sell_a, sell_b), (period_a, period_b),
-                                scales, load.shape[1])
-    out = tuple(_sums_buffers(n, r, n_periods, True, scales.device))
+                                scales, load.shape[1], narrow=True)
+    out = tuple(_sums_buffers(n, r, n_periods, True, scales.device,
+                              _sums_out_dtype(load.dtype, gen.dtype, sell_a.dtype)))
     if n and r:
         _launch("bucket_sums_month_pair", scales, _ptr(load), _ptr(gen),
                 _ptr(sell_a), _ptr(period_a), _ptr(sell_b), _ptr(period_b),
                 _ptr(scales), _offsets_arg(offsets, load.shape[1]),
-                *(_ptr(o) for o in out), n, r, load.shape[1], n_periods)
+                *(_ptr(o) for o in out), n, r, load.shape[1], n_periods, *codes)
         _count("month_pair", (load, gen, sell_a, period_a, sell_b, period_b,
-                              scales, offsets, n_periods))
+                              scales, offsets, n_periods), load.dtype)
     return out
 
 
@@ -315,17 +440,21 @@ def dot_sums(load, gen, sell, bucket_id, scales, n_periods: int,
     """Bucket sums on the one-hot tensor-core kernel over full-hour
     streams and bucket ids (see :func:`dot_sums_plain`): the CUDA kernel
     on a CUDA tensor, the plain version on a CPU one."""
+    codes = _check_stream_dtypes(load, gen, sell, with_signed)
     if scales.device.type == "cpu":
         return dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods,
                               with_signed)
-    n, r = _check_kernel_inputs((load, gen, sell), (bucket_id,), scales, HOURS)
-    out = _sums_buffers(n, r, n_periods, with_signed, scales.device)
+    n, r = _check_kernel_inputs((load, gen, sell), (bucket_id,), scales, HOURS,
+                                narrow=True)
+    out = _sums_buffers(n, r, n_periods, with_signed, scales.device,
+                        _sums_out_dtype(load.dtype, gen.dtype, sell.dtype))
     if n and r:
         _launch("bucket_sums_dot", scales, _ptr(load), _ptr(gen), _ptr(sell),
                 _ptr(bucket_id), _ptr(scales), *(_ptr(o) for o in out), n, r,
-                HOURS, n_periods, int(with_signed))
+                HOURS, n_periods, int(with_signed), *codes)
         _count("dot_signed" if with_signed else "dot",
-               (load, gen, sell, bucket_id, scales, n_periods, with_signed))
+               (load, gen, sell, bucket_id, scales, n_periods, with_signed),
+               load.dtype)
     return tuple(out if with_signed else out[:2])
 
 
@@ -355,8 +484,9 @@ def _to_lanes(layout: Optional[DaylightLayout], arrays) -> list:
     if layout is None:
         return [a.contiguous() for a in arrays]
     idx, valid, _ = layout.device_maps(arrays[0].device)
+    # float and int8 lanes keep their dtype (0/1 is exact in every one)
     return [a.index_select(1, idx) if a.dtype == torch.int32
-            else a.index_select(1, idx) * valid for a in arrays]
+            else a.index_select(1, idx) * valid.to(a.dtype) for a in arrays]
 
 
 def night_sums(load, sell, bucket_id, night, n_periods: int, with_signed: bool):
@@ -364,15 +494,17 @@ def night_sums(load, sell, bucket_id, night, n_periods: int, with_signed: bool):
     is 1 where no profile generates): there ``relu(load - s * gen) ==
     relu(load)`` and the signed net is ``load`` for every scale. Returns
     (imports, signed-or-None), each a pair (buckets [N, 12P], sell sum
-    [N])."""
+    [N]), float32 whatever the stream dtypes (int8 load codes give sums
+    in quantized units, unfolded with the kernel's)."""
     n = load.shape[0]
     hour_period = _periods(bucket_id, n_periods)
+    sell = sell.float()
 
     def sums(x):
         return (monthly_period_sums(x, hour_period, n_periods).reshape(n, -1),
                 (x * sell).sum(dim=1))
 
-    load_n = load * night[None, :]
+    load_n = load.float() * night[None, :]
     imp = sums(torch.clamp_min(load_n, 0.0))
     return imp, (sums(load_n) if with_signed else None)
 
@@ -463,9 +595,12 @@ def _night_for(load, sell, bucket_id, layout, n_periods: int, with_signed: bool,
 
 
 def _add_night(sums, sell_sum, night) -> tuple:
+    """The kernel's sums plus the night sums, added in float32 and stored
+    back at the sums' dtype."""
     if night is None:
         return sums, sell_sum
-    return sums + night[0][:, None, :], sell_sum + night[1][:, None]
+    return ((sums.float() + night[0][:, None, :]).to(sums.dtype),
+            (sell_sum.float() + night[1][:, None]).to(sell_sum.dtype))
 
 
 def _reject_packed_for_dot(packed) -> None:
@@ -480,7 +615,8 @@ def _reject_packed_for_dot(packed) -> None:
 
 def import_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
                 impl: str = "auto", layout: Optional[DaylightLayout] = None,
-                packed: Optional[PackedStreams] = None):
+                packed: Optional[PackedStreams] = None, load_scale=None,
+                gen_scale=None):
     """(imports [N, R, B], imp_sell [N, R]): positive-part bucket sums
     and the sell-weighted positive-part sum for R net-load scales.
 
@@ -488,36 +624,45 @@ def import_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
     compacted lanes only and the night sums are added back (valid where
     ``gen`` is zero off-daylight); totals cover all hours either way.
     ``packed``: lanes from :func:`pack_streams` for the same layout (the
-    raw streams may then be None)."""
+    raw streams may then be None). ``load_scale``/``gen_scale``: [N]
+    float32 dequantization factors of int8 load/gen codes
+    (:func:`_quant_fold`); the kernels run in quantized units and the
+    outputs rescale once."""
     n_periods = _check_buckets(n_buckets)
     _check_impl(impl)
     _check_ids(bucket_id)
+    scales, post = _quant_fold(scales, load_scale, gen_scale)
     if impl == "dot":
         _reject_packed_for_dot(packed)
-        return dot_sums(load, gen, sell, bucket_id, scales, n_periods, False)
+        out = dot_sums(load, gen, sell, bucket_id, scales, n_periods, False)
+        return _quant_unfold(out, post)
     engine = stream_sums if impl == "stream" else month_sums
     lanes = _prep_positional(load, gen, sell, bucket_id, n_periods, layout, packed)
     imp, imp_sell = engine(*lanes, scales, _offsets(layout), n_periods, False)
     night_i, _ = _night_for(load, sell, bucket_id, layout, n_periods, False, packed)
-    return _add_night(imp, imp_sell, night_i)
+    return _quant_unfold(_add_night(imp, imp_sell, night_i), post)
 
 
 def import_sums_pair(load, gen, sell_a, bucket_a, sell_b, bucket_b, scales,
                      n_buckets: int, impl: str = "auto",
                      layout: Optional[DaylightLayout] = None,
-                     packed: Optional[PackedStreams] = None):
+                     packed: Optional[PackedStreams] = None, load_scale=None,
+                     gen_scale=None):
     """(imports_a, imp_sell_a, imports_b, imp_sell_b): the rate-switch
     search's two tariff structures (switched, original) priced over ONE
     shared ``relu(load - s * gen)``, on the pair kernel under ``"auto"``
-    and ``"stream"``; ``layout``/``packed`` as in :func:`import_sums` (a
-    pack built with ``sell_b``/``bucket_b`` carries both)."""
+    and ``"stream"``; ``layout``/``packed``/``load_scale``/``gen_scale``
+    as in :func:`import_sums` (a pack built with ``sell_b``/``bucket_b``
+    carries both)."""
     n_periods = _check_buckets(n_buckets)
     _check_impl(impl)
     _check_ids(bucket_a, bucket_b)
+    scales, post = _quant_fold(scales, load_scale, gen_scale)
     if impl == "dot":
         _reject_packed_for_dot(packed)
-        return (dot_sums(load, gen, sell_a, bucket_a, scales, n_periods, False)
-                + dot_sums(load, gen, sell_b, bucket_b, scales, n_periods, False))
+        return _quant_unfold(
+            dot_sums(load, gen, sell_a, bucket_a, scales, n_periods, False)
+            + dot_sums(load, gen, sell_b, bucket_b, scales, n_periods, False), post)
     if packed is not None:
         lanes = _prep_positional(load, gen, sell_a, bucket_a, n_periods, layout,
                                  packed) + [packed.sell_b, packed.period_b]
@@ -528,13 +673,16 @@ def import_sums_pair(load, gen, sell_a, bucket_a, sell_b, bucket_b, scales,
         night_a, _ = _night_for(load, sell_a, bucket_a, layout, n_periods, False, None)
         night_b, _ = _night_for(load, sell_b, bucket_b, layout, n_periods, False, None)
     out = month_pair_sums(*lanes, scales, _offsets(layout), n_periods)
-    return _add_night(out[0], out[1], night_a) + _add_night(out[2], out[3], night_b)
+    return _quant_unfold(_add_night(out[0], out[1], night_a)
+                         + _add_night(out[2], out[3], night_b), post)
 
 
 def bucket_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
                 impl: str = "auto", packed: Optional[PackedStreams] = None):
     """(signed [N, R, B], imports [N, R, B], export_credit [N, R]) — the
-    full reduction set of the battery forward run, over full-hour lanes.
+    full reduction set of the battery forward run, over full-hour lanes
+    (stream dtypes: :data:`SIGNED_DTYPES`; the credit is their difference
+    at the sums' dtype).
 
     ``packed``: a full-hour :class:`PackedStreams` whose load/sell/period
     lanes are reused beside a fresh ``gen`` (the battery-modified
@@ -563,7 +711,10 @@ def linear_sums(load, gen, sell, hour_period, n_periods: int):
     """Per-agent linear bill structure: (S_load [N, B], S_gen [N, B],
     S_load_sell [N], S_gen_sell [N]). ``signed(s) = S_load - s * S_gen``
     gives the exact NEM monthly sums for any scale; the sell scalars
-    close the export-credit identity."""
+    close the export-credit identity. The streams are upcast to float32
+    first: an 8760-term sum at bank precision would lose the identity's
+    precision."""
+    load, gen, sell = load.float(), gen.float(), sell.float()
     n = load.shape[0]
     s_l = monthly_period_sums(load, hour_period, n_periods).reshape(n, -1)
     s_g = monthly_period_sums(gen, hour_period, n_periods).reshape(n, -1)
@@ -583,13 +734,15 @@ def sell_rate_hourly(tariff: AgentTariff, ts_sell: torch.Tensor) -> torch.Tensor
 
     tou = select_by_period(tariff.hour_period, tariff.sell_price, ts_sell)
     has_tou = (tariff.sell_price > 0.0).any(dim=1, keepdim=True)
-    return torch.where(has_tou, tou, ts_sell)
+    # the bank's dtype: under bf16 banks the sell stream is bf16 too
+    return torch.where(has_tou, tou, ts_sell).to(ts_sell.dtype)
 
 
 def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Tensor:
     """[N, R, 12, P] monthly sums -> [N, R] annual tiered charges, as a
     loop over the (small) tier axis so the largest temporary stays
-    [N, R, 12, P]."""
+    [N, R, 12, P]. Sums stored at bank precision are upcast first."""
+    sums_mp = sums_mp.float()
     price = tariff.price          # [N, P, T]
     caps = tariff.tier_cap        # [N, T]
     lower = torch.cat([torch.zeros_like(caps[:, :1]), caps[:, :-1]], dim=1)

@@ -11,7 +11,10 @@ by the full bucket-sums kernel, then the 25-year cashflow.
 
 ``impl`` picks the bucket-sums engine (``billkernels.IMPLS``);
 ``daylight`` runs the refine rounds on daylight-compacted lanes;
-``pack_once`` builds the candidate lanes once per call.
+``pack_once`` builds the candidate lanes once per call. Under bf16 or
+int8 profile banks the candidate kernels read the narrow streams (int8
+codes with their scales folded in); the dispatch loop, the linear sums,
+naep and the hourly profiles price float32 (dequantized) copies.
 """
 
 from __future__ import annotations
@@ -72,6 +75,10 @@ class AgentEconInputs:
     switch_max_kw: Optional[torch.Tensor] = None
     #: battery round-trip efficiency; None = the dispatch default
     batt_rt_eff: Optional[torch.Tensor] = None
+    #: int8 banks: [N] float32 dequantization factors of the ``load`` and
+    #: ``gen_per_kw`` codes (the load multiplier folded in); None = float
+    load_scale: Optional[torch.Tensor] = None
+    gen_scale: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,8 +180,27 @@ def size_agents(
     f32 = dict(dtype=torch.float32, device=dev)
     k = max(int(n_iters), 4)
 
-    gen_shape = envs.gen_per_kw * INV_EFF                          # [N, H]
-    naep = envs.gen_per_kw.sum(dim=1)                              # [N]
+    # int8 banks: the candidate kernels read the codes, their scales folded
+    # into the candidate scales (billkernels._quant_fold); the float32
+    # floors below price dequantized copies, as under bf16 banks
+    quant = envs.load_scale is not None
+    if quant:
+        gen_scale_eff = envs.gen_scale * INV_EFF
+        gen_shape = envs.gen_per_kw                                # codes
+        gen_f32 = envs.gen_per_kw.float() * gen_scale_eff[:, None]
+        load_f32 = envs.load.float() * envs.load_scale[:, None]
+        naep = envs.gen_per_kw.float().sum(dim=1) * envs.gen_scale
+    else:
+        gen_scale_eff = None
+        # the factor at the bank's dtype, as the JAX package multiplies a
+        # bf16 bank by its bf16-rounded constant
+        gen_shape = envs.gen_per_kw * torch.tensor(INV_EFF,
+                                                   dtype=envs.gen_per_kw.dtype)
+        gen_f32 = gen_shape.float()
+        # float32 dispatch and profiles (the state-of-charge recursion
+        # compounds rounding over 8760 steps); float32 8760-term sums
+        load_f32 = envs.load.float()
+        naep = envs.gen_per_kw.float().sum(dim=1)                  # [N]
 
     max_system = envs.load_kwh_per_customer / torch.clamp_min(naep, 1e-9)
     lo = max_system * SIZE_LO_FRAC
@@ -196,7 +222,9 @@ def size_agents(
           * (1.0 + envs.elec_price_escalator[:, None])) ** yr      # [N, Y]
     df = (1.0 - envs.pv_degradation[:, None]) ** yr                # [N, Y]
 
-    lin = bk.linear_sums(envs.load, gen_shape, sell, tw.hour_period, n_periods)
+    # the linear bill structure, on dequantized float32 under int8 banks
+    lin_load, lin_gen = (load_f32, gen_f32) if quant else (envs.load, gen_shape)
+    lin = bk.linear_sums(lin_load, lin_gen, sell, tw.hour_period, n_periods)
 
     # no-system bills: scale 0 through the linear path on the ORIGINAL
     # tariff, no kernel call
@@ -205,7 +233,7 @@ def size_agents(
         lin_wo, sell_wo, bucket_wo = lin, sell, bucket
     else:
         sell_wo = bk.sell_rate_hourly(envs.tariff, envs.ts_sell)
-        lin_wo = bk.linear_sums(envs.load, gen_shape, sell_wo,
+        lin_wo = bk.linear_sums(lin_load, lin_gen, sell_wo,
                                 envs.tariff.hour_period, n_periods)
         bucket_wo = bk.hourly_bucket_ids(envs.tariff.hour_period, n_periods)
     imp0 = lin_wo[0][:, None, :]
@@ -241,6 +269,8 @@ def size_agents(
             bucket_b=bucket_wo if has_switch else None,
         )
     engine = dict(impl=impl, layout=daylight, packed=packed)
+    if quant:
+        engine.update(load_scale=envs.load_scale, gen_scale=gen_scale_eff)
 
     def raw(a):
         """A raw stream argument, None when the pack carries it."""
@@ -314,7 +344,7 @@ def size_agents(
     kw_star = take(g2, i2)
 
     # --- PV-only outputs at kW* (the winning candidate) ---
-    gen_n = gen_shape * kw_star[:, None]
+    gen_n = gen_f32 * kw_star[:, None]
     bills_w_n = bills2.gather(1, i2[:, None, None].expand(n, 1, n_years))[:, 0, :]
     out_n = econ(bills_w_n, kw_star, pv_cost(kw_star), torch.zeros(n, **f32),
                  kw_star * INV_EFF * naep)
@@ -324,7 +354,7 @@ def size_agents(
     batt_kw, batt_kwh = dispatch_ops.batt_size_from_pv(kw_star)
     rt_eff = (torch.full((n,), dispatch_ops.DEFAULT_RT_EFF, **f32)
               if envs.batt_rt_eff is None else envs.batt_rt_eff)
-    dr = dispatch_ops.dispatch_battery(envs.load, gen_n, batt_kw, batt_kwh, rt_eff)
+    dr = dispatch_ops.dispatch_battery(load_f32, gen_n, batt_kw, batt_kwh, rt_eff)
     batt_cost = envs.batt_capex_per_kwh_combined * batt_kwh * 0.7
     sw_star = _switch_active(envs, kw_star)
     otc_star = torch.where(sw_star, envs.one_time_charge, 0.0)
@@ -343,10 +373,13 @@ def size_agents(
     # the battery-modified output is not a scale of the gen shape: the
     # full bucket-sums kernel with per-year degradation scales, on the
     # pack's lanes only where they are this call's (full-hour, one tariff
-    # structure: a discharging battery breaks the night-zero premise)
-    batt_packed = packed if daylight is None and not has_switch else None
+    # structure: a discharging battery breaks the night-zero premise; no
+    # int8 codes: the battery prices the dequantized float32 load)
+    batt_load = load_f32 if quant else envs.load
+    batt_packed = (packed if daylight is None and not has_switch and not quant
+                   else None)
     s_b, i_b, c_b = bk.bucket_sums(
-        None if batt_packed is not None else envs.load, dr.system_out,
+        None if batt_packed is not None else batt_load, dr.system_out,
         None if batt_packed is not None else sell_star,
         None if batt_packed is not None else bucket_star,
         df, n_buckets, impl=impl, packed=batt_packed)
@@ -359,7 +392,7 @@ def size_agents(
 
     if keep_hourly:
         baseline_net, net_pvonly, net_with_batt = net_hourly_profiles(
-            envs.load, gen_n, dr.system_out)
+            load_f32, gen_n, dr.system_out)
     else:
         baseline_net = net_pvonly = net_with_batt = torch.zeros((n, 0), **f32)
 

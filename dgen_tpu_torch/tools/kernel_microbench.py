@@ -10,11 +10,19 @@ on one card:
     tensor-core kernel with its stages switched off one by one);
   * ``monthmask``, ``mg4``, ``mg8`` (month-masked sums, one agent or
     4 / 8 agents per block) and ``monthdot`` (month-blocked product);
+  * ``monthdot_pre`` (relu(net) times prebuilt mask columns on the
+    tensor cores), ``mnet`` and ``mnet_hi`` (net itself a rank-1
+    tensor-core product, in TF32 and in 3xTF32); the mask columns M
+    [N, 8, 8760] are built once per run, outside the timed calls, and
+    the build is timed and printed on its own line;
   * ``compact``: the month engine under the daylight-compacted layout of
     the synthetic generation (zero outside 06:00-18:00), night sums added
     back; ``stream``: the segment-streaming engine, full-hour and on the
     uniform compacted segments, with its modeled lane operations and
-    stream bytes; ``lib``: the month engine, full-hour;
+    stream bytes; ``quant``: int8 load and gen codes (per-agent scales
+    folded into the scales) through the unchanged month engine, with the
+    stream bytes beside the float32 ones; ``lib``: the month engine,
+    full-hour;
   * ``piecewise`` (only when named): the sorted-hinge formulation in plain
     PyTorch, no kernel.
 
@@ -31,10 +39,9 @@ Usage: python -m dgen_tpu_torch.tools.kernel_microbench [n_agents]
 
 A name selects the ``sums_variant`` settings whose name contains it and
 any other variant of exactly that name (``monthmask``, ``mg4``, ``mg8``,
-``monthdot``, ``compact``, ``stream``, ``lib``, ``piecewise``,
-``parity``); no name runs all but ``piecewise``. The variants
-``monthdot_pre``, ``mnet``, ``mnet_hi`` and ``quant`` of the JAX tool are
-not ported yet: naming one is an error.
+``monthdot``, ``monthdot_pre``, ``mnet``, ``mnet_hi``, ``compact``,
+``stream``, ``quant``, ``lib``, ``piecewise``, ``parity``); no name runs
+all but ``piecewise``; an unknown name is an error.
 """
 
 from __future__ import annotations
@@ -57,9 +64,6 @@ N_SCALES = 250
 #: agents of the slice every parity line compares on
 PARITY_AGENTS = 32
 
-#: variants of the JAX tool that wait for their kernels
-NOT_PORTED = ("monthdot_pre", "mnet", "mnet_hi", "quant")
-
 #: settings of ``sums_variant``, selected by substring; True = the setting
 #: computes the real function and gets a parity line
 SUMS_VARIANTS = {
@@ -72,13 +76,18 @@ SUMS_VARIANTS = {
     "b64_const": (dict(b_pad=64, build="const"), False),
 }
 #: variants selected by their exact name
-EXACT_NAMES = ("monthmask", "mg4", "mg8", "monthdot", "piecewise", "compact",
-               "stream", "lib", "parity")
+EXACT_NAMES = ("monthmask", "mg4", "mg8", "monthdot", "monthdot_pre", "mnet",
+               "mnet_hi", "piecewise", "compact", "stream", "quant", "lib",
+               "parity")
+#: rows of the prebuilt mask columns of monthdot_pre and mnet
+C_PAD = 8
 
 #: parity against ``lib``, by kind: rtol, with atol ATOL_FRAC x the agent's
 #: largest |lib| value in that output. "mask": float32 sums in another
-#: order; "dot": TF32 products (10 mantissa bits)
-PARITY_RTOL = {"mask": 1e-4, "dot": 5e-3}
+#: order (3xTF32 products too); "dot": TF32 products (10 mantissa bits);
+#: "int8": load and gen rounded to 1/254 of each agent's range, held to
+#: the JAX package's int8 envelope of 2% (tests/test_roofline.py)
+PARITY_RTOL = {"mask": 1e-4, "dot": 5e-3, "int8": 2e-2}
 ATOL_FRAC = 1e-3
 
 
@@ -196,13 +205,16 @@ def check_parity(name: str, fn, data, kind: str, k: int = PARITY_AGENTS) -> dict
                 kind=kind, rtol=rtol, agents=part[0].shape[0], bad_agents=bad)
 
 
+def quantize(x: torch.Tensor) -> tuple:
+    """(int8 codes, [N] float32 scales) of ``x`` [N, H], row by row, as the
+    JAX tool's ``quant`` variant quantizes: scale = max(max|x|, 1e-9) /
+    127, codes = clip(round(x / scale), -127, 127)."""
+    scale = torch.clamp_min(x.abs().amax(dim=1), 1e-9) / 127.0
+    codes = torch.clamp(torch.round(x / scale[:, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
 def _check_names(which: set) -> None:
-    refused = sorted(which & set(NOT_PORTED))
-    if refused:
-        raise ValueError(
-            f"variants {refused} are not ported yet: their kernels "
-            "(sums_monthdot_pre, sums_mnet, the int8 streams) are still to "
-            "come; nothing runs in their place")
     unknown = sorted(w for w in which if w not in EXACT_NAMES
                      and not any(w in name for name in SUMS_VARIANTS))
     if unknown:
@@ -214,7 +226,7 @@ def run(n_agents: int = 8192, which=(), device="cuda", reps: int = 5,
         seed: int = 0) -> dict:
     """Runs the variants ``which`` selects (all but ``piecewise`` when
     empty) at ``n_agents`` x 250 scales x 8760 hours, P = 2, printing the
-    tool's lines. Returns ``{"device", "timed_on", "n_agents", "variants":
+    tool's lines; ``ValueError`` for an unknown name. Returns ``{"device", "timed_on", "n_agents", "variants":
     {name: {"ms", "parity" or None}}}``; ``parity`` is
     :func:`check_parity`'s dict."""
     which = set(which)
@@ -222,8 +234,7 @@ def run(n_agents: int = 8192, which=(), device="cuda", reps: int = 5,
     dev = resolve_device(device)
     timed_on = "device" if dev.type == "cuda" else "cpu"
     if not which:
-        print(f"kernel_microbench on {dev}: every variant but piecewise; "
-              f"{', '.join(NOT_PORTED)} are not ported yet and do not run",
+        print(f"kernel_microbench on {dev}: every variant but piecewise",
               flush=True)
     data = make_data(n_agents, dev, seed)
     nb = MONTHS * N_PERIODS
@@ -265,6 +276,32 @@ def run(n_agents: int = 8192, which=(), device="cuda", reps: int = 5,
                     l, g, s, b, sc, n_periods=N_PERIODS),
                 "monthdot", "dot")
 
+    pre_names = ("monthdot_pre", "mnet", "mnet_hi")
+    if not which or which & set(pre_names):
+        t0 = time.perf_counter()
+        m_pre = mk.build_mask_cols(data[2], data[3] % N_PERIODS, N_PERIODS, C_PAD)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        print(f"mask columns M [{n_agents}, {C_PAD}, {HOURS}]: "
+              f"{m_pre.numel() * 4 / 1e6:.0f} MB, built in "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, once, "
+              "outside the timed calls)", flush=True)
+
+        def pre(fn, **kw):
+            # the first k agents' rows of M for the parity slice
+            return lambda l, g, s, b, sc: fn(l, g, s, b, sc, n_periods=N_PERIODS,
+                                             c_pad=C_PAD,
+                                             prebuilt=m_pre[:l.shape[0]], **kw)
+
+        if not which or "monthdot_pre" in which:
+            measure("monthdot_pre(prebuilt M,MXU)", pre(mk.sums_monthdot_pre),
+                    "monthdot_pre", "dot")
+        for name, hi in (("mnet", False), ("mnet_hi", True)):
+            if not which or name in which:
+                measure(f"{name}(rank-1 MXU net{'/hi' if hi else ''})",
+                        pre(mk.sums_mnet, hi=hi), name, "mask" if hi else "dot")
+        del m_pre
+
     if "piecewise" in which:
         measure("piecewise(sorted-hinge,plain)",
                 lambda l, g, s, b, sc: sums_piecewise(
@@ -294,6 +331,21 @@ def run(n_agents: int = 8192, which=(), device="cuda", reps: int = 5,
                     lambda l, g, s, b, sc, lay_s=lay_s: bk.import_sums(
                         l, g, s, b, sc, nb, impl="stream", layout=lay_s),
                     name)
+
+    if not which or "quant" in which:
+        stream_bytes = n_agents * HOURS * (1 + 1 + 4 + 4)
+        print(f"quant: int8 load/gen codes, ~{stream_bytes / 1e6:.0f} MB stream "
+              f"reads per call (f32: {n_agents * HOURS * 16 / 1e6:.0f} MB)",
+              flush=True)
+
+        def quant(l, g, s, b, sc):
+            # quantized inside the timed call, as the JAX tool does: an
+            # O(N H) pass beside the kernel's O(N R H)
+            lq, ls = quantize(l)
+            gq, gs = quantize(g)
+            return bk.import_sums(lq, gq, s, b, sc, nb, load_scale=ls, gen_scale=gs)
+
+        measure("quant(int8 streams)", quant, "quant", "int8")
 
     if not which or "lib" in which:
         measure("library month engine",

@@ -437,3 +437,181 @@ def test_dot_engine_matches_reference(world, engine):
         laid = tbk.import_sums(*args_t, t(sc), b, impl="dot", layout=w["lay_t"])
         for g, gl in zip(got, laid):
             assert torch.equal(g, gl)
+
+
+# ---------------------------------------------------------------------------
+# bf16 and int8 streams (RunConfig.bf16_banks / quant_banks)
+# ---------------------------------------------------------------------------
+
+#: two bfloat16 units in the last place (2^-7 of the value each): the port
+#: stores the kernel's sums, the sums with the night hours added and the
+#: unfolded int8 sums each in bfloat16 (the rounding steps of the JAX
+#: package's Pallas path); its XLA twin adds the night sums in float32 and
+#: rounds at most twice. A sum may so land up to two bfloat16 values away.
+BF16_ULPS = 2 * 2.0 ** -7
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+          "i8": (jnp.int8, torch.int8)}
+
+
+@pytest.mark.parametrize("load", list(DTYPES))
+@pytest.mark.parametrize("gen", list(DTYPES))
+def test_sums_out_dtype_table(load, gen):
+    for sell in DTYPES:
+        ref = jbp._sums_out_dtype(*(jnp.zeros(1, DTYPES[k][0]) for k in (load, gen, sell)))
+        got = tbk._sums_out_dtype(*(DTYPES[k][1] for k in (load, gen, sell)))
+        assert str(got) == "torch." + jnp.dtype(ref).name, (load, gen, sell)
+
+
+def _narrow(w, mode):
+    """(JAX streams, port streams, JAX fold kwargs, port fold kwargs) of
+    the world's load, gen and sell: ``bf16`` all three in bfloat16;
+    ``i8`` load and gen as int8 codes of the JAX package's quantize_rows
+    (float32 sell); ``i8_bf16`` the codes beside a bfloat16 sell."""
+    from dgen_tpu.models.agents import quantize_rows
+
+    if mode == "bf16":
+        js = [jnp.asarray(w[k]).astype(jnp.bfloat16) for k in ("load", "gen", "jsell")]
+        ts = [w[k].to(torch.bfloat16) for k in ("tload", "tgen", "tsell")]
+        return js, ts, {}, {}
+    lq, ls = quantize_rows(np.asarray(w["load"]))
+    gq, gs = quantize_rows(np.asarray(w["gen"]))
+    sell_j, sell_t = w["jsell"], w["tsell"]
+    if mode == "i8_bf16":
+        sell_j, sell_t = sell_j.astype(jnp.bfloat16), sell_t.to(torch.bfloat16)
+    kq_j = dict(load_scale=jnp.asarray(ls), gen_scale=jnp.asarray(gs))
+    kq_t = dict(load_scale=t(ls), gen_scale=t(gs))
+    return ([jnp.asarray(lq), jnp.asarray(gq), sell_j], [t(lq), t(gq), sell_t],
+            kq_j, kq_t)
+
+
+def close_narrow(ref, got, rtol=1e-5):
+    """Same dtype in both packages; bf16 sums within two bfloat16 units
+    on top of the float32 bound."""
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        assert str(g.dtype) == "torch." + jnp.dtype(r.dtype).name
+        extra = BF16_ULPS if g.dtype == torch.bfloat16 else 0.0
+        close(np.asarray(r.astype(jnp.float32)), g.float(), rtol=rtol + extra)
+
+
+NARROW_CASES = [(mode, impl, kind) for mode in ("bf16", "i8", "i8_bf16")
+                for impl in tbk.IMPLS
+                for kind in (("full",) if impl == "dot" else
+                             ("full", "compacted", "uniform"))]
+
+
+@pytest.mark.parametrize("mode,impl,kind", NARROW_CASES,
+                         ids=["-".join(c) for c in NARROW_CASES])
+def test_narrow_import_sums_match_reference(world, mode, impl, kind):
+    """import_sums and import_sums_pair on bf16 streams and on int8 codes
+    with their scales folded, every engine and lane layout, against the
+    JAX package's XLA twin on the same streams."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    js, ts, kq_j, kq_t = _narrow(w, mode)
+    lay_j, lay_t = _layouts(w, kind)
+    ref = jbp.import_sums(*js, w["jbucket"], sc, b, impl="xla", layout=lay_j, **kq_j)
+    got = tbk.import_sums(*ts, w["tbucket"], t(sc), b, impl=impl, layout=lay_t, **kq_t)
+    close_narrow(ref, got)
+    jb2, tb2 = _second_structure(w)
+    ref = jbp.import_sums_pair(*js, w["jbucket"], js[2], jb2, sc, b, impl="xla",
+                               layout=lay_j, **kq_j)
+    got = tbk.import_sums_pair(*ts, w["tbucket"], ts[2], tb2, t(sc), b, impl=impl,
+                               layout=lay_t, **kq_t)
+    close_narrow(ref, got)
+
+
+@pytest.mark.parametrize("mode", ["i8", "i8_bf16", "bf16"])
+def test_narrow_packed_streams_match_reference(world, mode):
+    """A pack keeps the stream dtypes, and the stream engine on it
+    matches the JAX package's packed XLA twin."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"])
+    js, ts, kq_j, kq_t = _narrow(w, mode)
+    lay_j, lay_t = _layouts(w, "uniform")
+    pj = jbp.pack_streams(*js, w["jbucket"], b, layout=lay_j)
+    pt = tbk.pack_streams(*ts, w["tbucket"], b, layout=lay_t)
+    assert (pt.load.dtype, pt.gen.dtype, pt.sell.dtype) == tuple(x.dtype for x in ts)
+    ref = jbp.import_sums(None, None, None, None, sc, b, impl="xla", layout=lay_j,
+                          packed=pj, **kq_j)
+    got = tbk.import_sums(None, None, None, None, t(sc), b, impl="stream",
+                          layout=lay_t, packed=pt, **kq_t)
+    close_narrow(ref, got)
+
+
+@pytest.mark.parametrize("sell", ["f32", "bf16"])
+@pytest.mark.parametrize("load", ["f32", "bf16"])
+def test_battery_run_sums_match_reference(world, load, sell):
+    """The battery forward run's mixed streams (a bank-dtype load and
+    sell beside the float32 dispatch output) through bucket_sums."""
+    w = world
+    b = 12 * w["p"]
+    sc = jnp.asarray(w["scales"][:, :3])
+    jl = jnp.asarray(w["load"]).astype(DTYPES[load][0])
+    jsell = jnp.asarray(w["jsell"]).astype(DTYPES[sell][0])
+    gen = np.asarray(w["gen"]) * 0.7
+    if load == "bf16" and sell == "f32":
+        with pytest.raises(TypeError, match="signed"):
+            tbk.bucket_sums(t(jl.astype(jnp.float32)).bfloat16(), t(gen), w["tsell"],
+                            w["tbucket"], t(sc), b)
+        return
+    ref = jbp.bucket_sums(jl, jnp.asarray(gen), jsell, w["jbucket"], sc, b, impl="xla")
+    for impl in tbk.IMPLS:
+        got = tbk.bucket_sums(w["tload"].to(DTYPES[load][1]), t(gen),
+                              w["tsell"].to(DTYPES[sell][1]), w["tbucket"], t(sc), b,
+                              impl=impl)
+        close_narrow(ref, got)
+
+
+def test_quant_fold_matches_dequantized_streams(world):
+    """The fold reproduces pricing the dequantized float32 streams (the
+    int8 error lives in the codes, never in the fold), and an all-zero
+    load row (scale 0) comes out exactly zero, not NaN
+    (tests/test_roofline.py::test_quant_fold_matches_dequantized_streams)."""
+    from dgen_tpu_torch.models.agents import quantize_rows
+
+    w = world
+    b = 12 * w["p"]
+    sc = t(w["scales"])
+    lq, ls = quantize_rows(w["tload"].numpy())
+    gq, gs = quantize_rows(w["tgen"].numpy())
+    for impl in tbk.IMPLS:
+        folded = tbk.import_sums(t(lq), t(gq), w["tsell"], w["tbucket"], sc, b,
+                                 impl=impl, load_scale=t(ls), gen_scale=t(gs))
+        deq = tbk.import_sums(t(lq.astype(np.float32) * ls[:, None]),
+                              t(gq.astype(np.float32) * gs[:, None]), w["tsell"],
+                              w["tbucket"], sc, b, impl=impl)
+        for a, c in zip(folded, deq):
+            rel = float((a - c).abs().max()) / max(float(c.abs().max()), 1e-9)
+            assert rel < 1e-5, impl
+    lq[0], ls[0] = 0, 0.0
+    z = tbk.import_sums(t(lq), t(gq), w["tsell"], w["tbucket"], sc, b,
+                        load_scale=t(ls), gen_scale=t(gs))
+    assert bool(torch.isfinite(z[0]).all()) and bool((z[0][0] == 0).all())
+    with pytest.raises(ValueError, match="together"):
+        tbk.import_sums(t(lq), t(gq), w["tsell"], w["tbucket"], sc, b,
+                        load_scale=t(ls))
+
+
+def test_stream_dtypes_with_no_kernel_are_refused_on_every_device(world):
+    """A combination no kernel is instantiated for raises TypeError on
+    the CPU as on the card, never quietly upcast."""
+    w = world
+    b = 12 * w["p"]
+    sc = t(w["scales"])
+    bad = [(w["tload"], w["tgen"].bfloat16(), w["tsell"]),
+           (w["tload"].half(), w["tgen"].half(), w["tsell"]),
+           (w["tload"].to(torch.int8), w["tgen"].to(torch.int8), w["tsell"].half())]
+    for impl in tbk.IMPLS:
+        for streams in bad:
+            with pytest.raises(TypeError, match="kernel"):
+                tbk.import_sums(*streams, w["tbucket"], sc, b, impl=impl)
+    q = w["tload"].to(torch.int8)
+    with pytest.raises(TypeError, match="signed"):
+        tbk.bucket_sums(q, q, w["tsell"], w["tbucket"], sc, b)
+    with pytest.raises(TypeError, match="share a dtype"):
+        tbk.import_sums_pair(w["tload"], w["tgen"], w["tsell"], w["tbucket"],
+                             w["tsell"].bfloat16(), w["tbucket"], sc, b)

@@ -6,6 +6,7 @@ equality (``apply_year`` gathers: rtol 1e-6)."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -201,7 +202,73 @@ def test_convert_bridges_reference_containers():
     d = convert.to_numpy_dict(ref.profiles)
     d["load"] = d["load"].astype(np.float64)
     assert convert.profile_bank(d, device=CPU).load.dtype == torch.float32
+    # the int8 banks' per-row scales are carried
+    d["load_scale"] = np.ones(d["load"].shape[0], np.float32)
+    assert convert.profile_bank(d, device=CPU).load_scale.dtype == torch.float32
     # a field the port does not carry is refused, not dropped
-    d["load_scale"] = np.ones(3, np.float32)
-    with pytest.raises(ValueError, match="load_scale"):
+    d["load_offset"] = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="load_offset"):
         convert.profile_bank(d, device=CPU)
+
+
+def test_quantize_rows_bit_equal_to_the_jax_function():
+    """Codes and scales bit for bit, on the synthetic banks and on rows
+    with the contract's corners (tests/test_roofline.py::
+    test_quantize_rows_contract): an all-zero row (scale 1.0, codes 0),
+    an exact zero inside a row, a negative row."""
+    from dgen_tpu.models.agents import quantize_rows as jquant
+    from dgen_tpu_torch.models.agents import quantize_rows as tquant
+
+    rng = np.random.default_rng(1)
+    x = rng.random((6, 8760), np.float32) * 7
+    x[2] = 0.0
+    x[3, 10] = 0.0
+    x[4] *= -1.0
+    pop = tsynth.generate_population(16, seed=2, pad_multiple=8, device=CPU)
+    for bank in (x, pop.profiles.load.numpy(), pop.profiles.solar_cf.numpy()):
+        (q, s), (jq, js) = tquant(bank), jquant(bank)
+        assert q.dtype == np.int8 and s.dtype == np.float32
+        np.testing.assert_array_equal(q, jq)
+        np.testing.assert_array_equal(s.view(np.int32), js.view(np.int32))
+    q, s = tquant(x)
+    assert np.all(q[2] == 0) and s[2] == 1.0 and q[3, 10] == 0
+    assert np.max(np.abs(q.astype(np.float32) * s[:, None] - x)) <= np.max(s) / 2 + 1e-7
+
+
+@pytest.mark.parametrize("knobs", [dict(bf16_banks=True), dict(quant_banks=True),
+                                   dict(quant_banks=True, bf16_banks=True,
+                                        daylight_compact=True)],
+                         ids=["bf16", "int8", "int8-bf16-daylight"])
+def test_simulation_narrows_the_banks_as_the_jax_package(knobs):
+    """Simulation's banks under the knobs equal the JAX Simulation's
+    element for element and dtype for dtype: int8 quantization before
+    bf16, the scales float32, the daylight layout from the float32 bank."""
+    from dgen_tpu.models.simulation import Simulation as JSimulation
+    from dgen_tpu_torch.models.simulation import Simulation as TSimulation
+
+    jp = jsynth.generate_population(24, seed=4, pad_multiple=8)
+    tp = tsynth.generate_population(24, seed=4, pad_multiple=8, device=CPU)
+    cfg_j = jcfg.ScenarioConfig(start_year=2014, end_year=2014)
+    cfg_t = tcfg.ScenarioConfig(start_year=2014, end_year=2014)
+    g = jp.table.n_groups
+    jsim = JSimulation(jp.table, jp.profiles, jp.tariffs,
+                       jscen.uniform_inputs(cfg_j, n_groups=g, n_regions=jp.n_regions),
+                       cfg_j, jcfg.RunConfig(**knobs))
+    tsim = TSimulation(tp.table, tp.profiles, tp.tariffs,
+                       tscen.uniform_inputs(cfg_t, n_groups=g, n_regions=tp.n_regions,
+                                            device=CPU),
+                       cfg_t, tcfg.RunConfig(**knobs), device=CPU)
+    for f in ("load", "solar_cf", "wholesale", "load_scale", "solar_cf_scale"):
+        ref, got = getattr(jsim.profiles, f), getattr(tsim.profiles, f)
+        if ref is None:
+            assert got is None, f
+            continue
+        assert str(got.dtype) == "torch." + jnp.dtype(ref.dtype).name, f
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(ref.astype(jnp.float32)), err_msg=f)
+    if knobs.get("daylight_compact"):
+        assert tsim._daylight.seg_lens == jsim._daylight.seg_lens
+    assert tsim.modeled_step_bytes < TSimulation(
+        tp.table, tp.profiles, tp.tariffs,
+        tscen.uniform_inputs(cfg_t, n_groups=g, n_regions=tp.n_regions, device=CPU),
+        cfg_t, tcfg.RunConfig(), device=CPU).modeled_step_bytes

@@ -4,7 +4,9 @@ loaders yet), carried across with convert.py, run for 19 model years on
 the port, and held to tests/fixtures/golden_adoption.json under the
 contract of tests/test_golden_e2e.py: curves within rtol 1e-3 and the
 final system-size histogram exact. The gated sizing path is held to the
-default run as tests/test_golden_e2e.py holds the JAX package's. The
+default run as tests/test_golden_e2e.py holds the JAX package's, and the
+bf16 and int8 profile banks are held to the port's own float32 run within
+the JAX package's 2% envelope (tests/test_golden_e2e.py:265-361). The
 port runs its plain versions on the CPU."""
 
 import json
@@ -144,3 +146,35 @@ def test_gated_golden_run_matches_default(golden_world, port_golden_run):
     s = res.summary(sim.host_mask)
     for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
         np.testing.assert_allclose(s[k], port_golden_run[k], rtol=1e-4, err_msg=k)
+
+
+def _within_bank_envelope(world, golden, knobs: dict, what: str):
+    """The golden run under narrow banks against the port's float32
+    golden run: national curves within 2% (the JAX package's envelope:
+    inputs round to ~3 significant digits under bf16, to 1/254 of each
+    bank row's range under int8), every output finite."""
+    sim, res = _run(world, RunConfig(sizing_iters=8, **knobs))
+    s = res.summary(sim.host_mask)
+    for k in ("adopters", "system_kw_cum", "batt_kwh_cum"):
+        ref = np.maximum(np.abs(np.asarray(golden[k], np.float64)), 1e-6)
+        rel = np.max(np.abs(s[k] - golden[k]) / ref)
+        assert rel < 2e-2, f"{k}: {what} drift {rel:.3e} exceeds the envelope"
+    for v in res.agent.values():
+        assert np.all(np.isfinite(v))
+    return sim
+
+
+def test_golden_bf16_banks_within_tolerance(golden_world, port_golden_run):
+    sim = _within_bank_envelope(golden_world, port_golden_run,
+                                dict(bf16_banks=True), "bf16")
+    assert sim.profiles.load.dtype == torch.bfloat16
+
+
+def test_golden_quant_banks_within_tolerance(golden_world, port_golden_run):
+    """int8 banks with pack-once and the stream engine, the JAX package's
+    configuration for this case."""
+    sim = _within_bank_envelope(
+        golden_world, port_golden_run,
+        dict(quant_banks=True, pack_once=True, stream_segments=True), "int8")
+    assert sim.profiles.load.dtype == torch.int8
+    assert sim.step_kwargs(True)["sizing_impl"] == "stream"

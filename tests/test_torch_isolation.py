@@ -113,7 +113,29 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     # the plain path is not a launch
     assert set(bk.LAUNCHES) == {"month", "month_signed", "month_pair", "stream",
                                 "stream_signed", "dot", "dot_signed", "monthmask",
-                                "monthmask_g", "variant", "monthdot"}
+                                "monthmask_g", "variant", "monthdot",
+                                "monthdot_pre", "mnet", "mnet_hi"}
     assert not any(bk.LAUNCHES.values())
     with pytest.raises(ValueError, match="n_periods"):
         bk.import_sums(load, gen, sell, bucket, scales, 12 * 11)
+
+
+def test_chip_smoke_alone_exits_2(tmp_path):
+    """chip_smoke.py in a directory that holds nothing else of the repo
+    exits 2 and prints no result: without a card, and with a card but
+    without the package beside it."""
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    runs = [[sys.executable, "-I", "chip_smoke.py"],
+            [sys.executable, "-I", "-c",
+             "import sys, runpy, torch\n"
+             "torch.cuda.is_available = lambda: True\n"
+             "sys.argv = ['chip_smoke.py']\n"
+             "runpy.run_path('chip_smoke.py', run_name='__main__')\n"]]
+    for cmd in runs:
+        proc = subprocess.run(cmd, cwd=tmp_path, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 2, (proc.stdout, proc.stderr)
+        assert '"ok"' not in proc.stdout
+    assert "not beside this script" in proc.stderr

@@ -312,3 +312,184 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                        x["scales"], 24)
     with pytest.raises(ValueError, match="lanes"):
         bk.stream_sums(*_lane_args(x, _offsets("uniform"), 2, False))
+
+
+# ---------------------------------------------------------------------------
+# The prebuilt-mask kernels (microbench_pre.cu)
+# ---------------------------------------------------------------------------
+
+PRE_CASES = [(1, 8), (2, 8), (3, 8), (7, 8), (10, 16), (2, 16)]
+
+
+@pytest.mark.parametrize("p,c_pad", PRE_CASES)
+@pytest.mark.parametrize("r", [25, 250])
+def test_monthdot_pre_kernel_matches_plain(cuda, p, c_pad, r):
+    x = _inputs(cuda, 21, r, p, seed=14)
+    m = mk.build_mask_cols(x["sell"], x["period"], p, c_pad)
+    before = bk.LAUNCHES["monthdot_pre"]
+    got = mk.monthdot_pre_sums(x["load"], x["gen"], m, x["scales"], n_periods=p)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["monthdot_pre"] == before + 1
+    ref = mk.mask_product_plain(x["load"], x["gen"], m, x["scales"], n_periods=p)
+    _close(got, ref, rtol=5e-3)
+    for g, rf in zip(got, ref):
+        torch.testing.assert_close(g, rf, rtol=5e-3, atol=2.0)
+    # the month kernel's function
+    _close(got, bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, False)),
+           rtol=5e-3)
+
+
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("p,c_pad", PRE_CASES)
+@pytest.mark.parametrize("r", [25, 250])
+def test_mnet_kernel_matches_plain(cuda, hi, p, c_pad, r):
+    """TF32 at the tensor-core tolerance; 3xTF32 (hi) at the month
+    kernel's float32 one."""
+    x = _inputs(cuda, 21, r, p, seed=15)
+    m = mk.build_mask_cols(x["sell"], x["period"], p, c_pad)
+    key = "mnet_hi" if hi else "mnet"
+    before = bk.LAUNCHES[key]
+    got = mk.sums_mnet(x["load"], x["gen"], x["sell"], x["bucket"], x["scales"],
+                       n_periods=p, c_pad=c_pad, hi=hi, prebuilt=m)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before + 1
+    ref = mk.mask_product_plain(x["load"], x["gen"], m, x["scales"], n_periods=p)
+    if hi:
+        _close(got, ref)
+    else:
+        _close(got, ref, rtol=5e-3)
+        for g, rf in zip(got, ref):
+            torch.testing.assert_close(g, rf, rtol=5e-3, atol=2.0)
+
+
+def test_mask_kernels_refuse_what_they_do_not_take(cuda):
+    x = _inputs(cuda, 6, 8, 2)
+    m = mk.build_mask_cols(x["sell"], x["period"], 2, 8)
+    with pytest.raises(ValueError, match="c_pad"):
+        mk.sums_monthdot_pre(*_micro_args(x), c_pad=12)
+    with pytest.raises(ValueError, match="c_pad"):
+        mk.sums_mnet(*_micro_args(x), n_periods=8, c_pad=8)
+    with pytest.raises(ValueError, match="M must be"):
+        mk.monthdot_pre_sums(x["load"], x["gen"], m[:, :, :8000].contiguous(),
+                             x["scales"], n_periods=2)
+    with pytest.raises(TypeError):
+        mk.mnet_sums(x["load"].bfloat16(), x["gen"], m, x["scales"])
+
+
+# ---------------------------------------------------------------------------
+# bf16 and int8 streams through the engine kernels
+# ---------------------------------------------------------------------------
+
+#: one bfloat16 unit in the last place (2^-7 of the value) on top of the
+#: float32 tolerance: kernel and plain version round the same float32
+#: sum, taken in two orders, to bfloat16 and may land on neighbours
+BF16_ULP = 2.0 ** -7
+
+
+def _narrow(x, dtypes):
+    """The float streams of ``x`` at (load, gen, sell) ``dtypes``; int8
+    load and gen become codes of their values (0..127 here)."""
+    out = dict(x)
+    for key, dt in zip(("load", "gen", "sell"), dtypes):
+        if dt == torch.int8:
+            t = x[key]
+            out[key] = torch.round(t / t.amax() * 127).to(torch.int8)
+        else:
+            out[key] = x[key].to(dt)
+    if dtypes[2] != torch.float32:
+        out["sell_b"] = x["sell_b"].to(dtypes[2])
+    return out
+
+
+def _close_at(got, ref, out_dtype, rtol=1e-4):
+    for gt, rf in zip(got, ref):
+        assert gt.dtype == rf.dtype == out_dtype
+    extra = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
+    for gt, rf in zip(got, ref):
+        gt, rf = gt.float(), rf.float()
+        row_max = rf.abs().flatten(1).amax(1).view(-1, *[1] * (rf.ndim - 1))
+        tol = (rtol + extra) * rf.abs() + 1e-3 * row_max
+        assert bool(((gt - rf).abs() <= tol).all()), float((gt - rf).abs().max())
+
+
+NARROW = ([("import", d) for d in bk.IMPORT_DTYPES[1:]]
+          + [("signed", d) for d in bk.SIGNED_DTYPES[1:]])
+
+
+def _ids(case):
+    kind, d = case
+    return kind + "-" + "-".join(str(t).replace("torch.", "") for t in d)
+
+
+@pytest.mark.parametrize("case", NARROW, ids=_ids)
+@pytest.mark.parametrize("engine", ["month", "stream", "dot"])
+@pytest.mark.parametrize("p", [1, 2, 10])
+def test_engine_kernels_take_narrow_streams(cuda, case, engine, p):
+    kind, dtypes = case
+    signed = kind == "signed"
+    x = _narrow(_inputs(cuda, 29, 60, p, seed=16), dtypes)
+    out_dtype = bk._sums_out_dtype(*dtypes)
+    if engine == "dot":
+        args = (x["load"], x["gen"], x["sell"], x["bucket"], x["scales"], p, signed)
+        fn, plain, rtol = bk.dot_sums, bk.dot_sums_plain, 5e-3
+    else:
+        args = _lane_args(x, layout.FULL_OFFSETS, p, signed)
+        fn = bk.month_sums if engine == "month" else bk.stream_sums
+        plain, rtol = bk.month_sums_plain, 1e-4
+    key = engine + ("_signed" if signed else "")
+    before = bk.LAUNCHES[key]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before + 1
+    _close_at(got, plain(*args), out_dtype, rtol)
+
+
+@pytest.mark.parametrize("dtypes", bk.IMPORT_DTYPES[1:], ids=lambda d: "-".join(
+    str(t).replace("torch.", "") for t in d))
+@pytest.mark.parametrize("lanes", ["full", "uniform"])
+def test_narrow_streams_on_compacted_lanes(cuda, dtypes, lanes):
+    """The pair kernel, and the stream kernel on uniform compacted lanes,
+    with narrow streams."""
+    offsets = _offsets(lanes)
+    x = _narrow(_inputs(cuda, 19, 60, 2, seed=17, offsets=offsets), dtypes)
+    out_dtype = bk._sums_out_dtype(*dtypes)
+    args = (x["load"], x["gen"], x["sell"], x["period"], x["sell_b"],
+            x["period_b"], x["scales"], offsets, 2)
+    _close_at(bk.month_pair_sums(*args), bk.month_pair_sums_plain(*args), out_dtype)
+    args = _lane_args(x, offsets, 2, False)
+    _close_at(bk.stream_sums(*args), bk.month_sums_plain(*args), out_dtype)
+
+
+def test_quantized_import_sums_on_the_card_match_the_cpu(cuda):
+    """int8 codes with their scales folded through import_sums and the
+    pair entry, card vs CPU (the fold and unfold are plain tensor code)."""
+    x = _inputs(cuda, 16, 50, 2, seed=18)
+    lq = torch.round(x["load"] / 3.0 * 127).to(torch.int8)
+    gq = torch.round(x["gen"] / 0.9 * 127).to(torch.int8)
+    ls = torch.full((16,), 3.0 / 127, device=cuda)
+    gs = torch.full((16,), 0.9 / 127, device=cuda)
+    for impl in bk.IMPLS:
+        for sell in (x["sell"], x["sell"].bfloat16()):
+            args = (lq, gq, sell, x["bucket"], x["scales"], 24)
+            got = bk.import_sums(*args, impl=impl, load_scale=ls, gen_scale=gs)
+            ref = bk.import_sums(*(a.cpu() if torch.is_tensor(a) else a
+                                   for a in args), impl=impl,
+                                 load_scale=ls.cpu(), gen_scale=gs.cpu())
+            _close_at([g.cpu() for g in got], ref, bk._sums_out_dtype(
+                torch.int8, torch.int8, sell.dtype), 5e-3 if impl == "dot" else 1e-4)
+
+
+def test_engines_refuse_stream_dtypes_with_no_kernel(cuda):
+    x = _inputs(cuda, 4, 8, 2)
+    for load, gen, sell in ((x["load"], x["gen"].bfloat16(), x["sell"]),
+                            (x["load"].half(), x["gen"], x["sell"]),
+                            (x["load"].to(torch.int8), x["gen"].to(torch.int8),
+                             x["sell"].half())):
+        for signed in (False, True):
+            with pytest.raises(TypeError, match="kernel"):
+                bk.month_sums(load, gen, sell, x["period"], x["scales"],
+                              layout.FULL_OFFSETS, 2, signed)
+    # int8 codes have no signed kernel (the battery run prices float32)
+    q = x["load"].to(torch.int8)
+    with pytest.raises(TypeError, match="signed"):
+        bk.bucket_sums(q, q, x["sell"], x["bucket"], x["scales"], 24)

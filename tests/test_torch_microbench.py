@@ -140,6 +140,79 @@ def test_variant_forms_match_the_jax_tool(jtool, interpret, kwargs, p):
     hold(got, ref, p, b_pad=b_pad)
 
 
+PRE_CASES = [(1, 8), (2, 8), (3, 8), (7, 8), (10, 16)]
+
+
+def _month_lanes(jtool, x: np.ndarray) -> np.ndarray:
+    """The JAX tool's month-padded lanes of [..., 8760] hour values."""
+    idx, valid = jtool._month_layout()
+    return x[..., idx] * valid
+
+
+@pytest.mark.parametrize("p,c_pad", PRE_CASES)
+def test_mask_cols_match_the_jax_tool(jtool, p, c_pad):
+    """The port's M over the 8760 hours is the JAX tool's M over its
+    month-padded lanes, lane for lane, with zeros in the pad lanes."""
+    x = make_inputs(p, seed=40 + p)
+    period = x["bucket"] % p
+    idx, valid = jtool._month_layout()
+    ref = np.asarray(jtool.build_mask_cols(
+        jnp.asarray(x["sell"]), jnp.asarray(period), jnp.asarray(valid),
+        jnp.asarray(idx), p, c_pad))
+    got = mk.build_mask_cols(torch.from_numpy(x["sell"]), torch.from_numpy(period),
+                             p, c_pad)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (N, c_pad, H)
+    np.testing.assert_array_equal(_month_lanes(jtool, got.numpy()), ref)
+
+
+@pytest.mark.parametrize("p,c_pad", PRE_CASES)
+@pytest.mark.parametrize("name", ["monthdot_pre", "mnet", "mnet_hi"])
+def test_prebuilt_mask_variants_match_the_jax_tool(jtool, interpret, name, p, c_pad):
+    jargs, targs = both(make_inputs(p, seed=50 + p))
+    kw = dict(n_periods=p, c_pad=c_pad)
+    if name == "monthdot_pre":
+        ref = jtool.sums_monthdot_pre(*jargs, **kw)
+        got = mk.sums_monthdot_pre(*targs, **kw)
+    else:
+        hi = name == "mnet_hi"
+        ref = jtool.sums_mnet(*jargs, hi=hi, **kw)
+        got = mk.sums_mnet(*targs, hi=hi, **kw)
+    hold(got, ref, p)
+    # a prebuilt M gives the same sums as one built in the call
+    m = mk.build_mask_cols(targs[2], targs[3] % p, p, c_pad)
+    again = mk.sums_monthdot_pre(*targs, prebuilt=m, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_mask_cols_refuse_a_c_pad_below_p_plus_one(jtool):
+    x = make_inputs(3)
+    sell, period = torch.from_numpy(x["sell"]), torch.from_numpy(x["bucket"] % 3)
+    # below P + 1, and (3, 12) not a whole number of 8-column tiles
+    for p, c_pad in ((8, 8), (3, 2), (3, 12), (10, 8)):
+        with pytest.raises(ValueError, match="c_pad"):
+            mk.build_mask_cols(sell, period, p, c_pad)
+    with pytest.raises(ValueError, match="c_pad"):
+        mk.sums_mnet(*both(x)[1], n_periods=8, c_pad=8)
+    # the JAX tool's pad refuses it too
+    idx, valid = jtool._month_layout()
+    with pytest.raises(ValueError):
+        jtool.build_mask_cols(jnp.asarray(x["sell"]), jnp.asarray(x["bucket"] % 8),
+                              jnp.asarray(valid), jnp.asarray(idx), 8, 8)
+
+
+def test_quant_variant_is_the_jax_tools_quantization():
+    """The tool's int8 codes and scales are the JAX tool's formula, and
+    the variant is the month engine on the codes with the scales folded."""
+    x = make_inputs(2, seed=60)
+    load = x["load"]
+    codes, scale = tool.quantize(torch.from_numpy(load))
+    ls = np.maximum(np.max(np.abs(load), axis=1), 1e-9).astype(np.float32) / 127.0
+    want = np.clip(np.round(load / ls[:, None]), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(
+        jnp.maximum(jnp.max(jnp.abs(jnp.asarray(load)), axis=1), 1e-9) / 127.0))
+    np.testing.assert_array_equal(codes.numpy(), want)
+
+
 def test_ablated_forms_are_what_the_kernel_body_says():
     """``dot="none"`` puts one sum per scale into every column, ``const``
     scales the row sums by 0.01, ``bcast`` drops the scales."""
@@ -200,12 +273,17 @@ def test_refusals(call, exc, match):
         call(targs)
 
 
-@pytest.mark.parametrize("name", tool.NOT_PORTED)
+@pytest.mark.parametrize("name", ["monthdot_pre", "mnet", "mnet_hi", "quant"])
 def test_tool_refuses_variants_that_are_not_ported(name, capsys):
-    with pytest.raises(ValueError, match="not ported"):
-        tool.run(8, [name], device="cpu")
-    assert tool.main(["8", name, "--device", "cpu"]) == 2
-    assert name in capsys.readouterr().err
+    """The four variants that waited for their kernels now run under
+    their names; a name next to one of them is still refused."""
+    out = tool.run(8, [name], device="cpu", reps=1)
+    (got,) = out["variants"].values()
+    assert got["parity"]["bad_agents"] == 0
+    with pytest.raises(ValueError, match="no variant is named"):
+        tool.run(8, [name + "x"], device="cpu")
+    assert tool.main(["8", name + "x", "--device", "cpu"]) == 2
+    assert name + "x" in capsys.readouterr().err
 
 
 def test_tool_refuses_unknown_names_and_a_missing_card():
@@ -232,26 +310,33 @@ def test_default_run_on_the_cpu_runs_every_variant(default_run):
     assert list(out["variants"]) == [
         *tool.SUMS_VARIANTS, "monthmask(no onehot,no MXU)", "monthmask_g4",
         "monthmask_g8", "monthdot(positional M,dot)",
-        "compact(daylight seg+night sums)", "stream(full-hour dbuf)",
-        "stream_compact(uniform dbuf)", "library month engine"]
+        "monthdot_pre(prebuilt M,MXU)", "mnet(rank-1 MXU net)",
+        "mnet_hi(rank-1 MXU net/hi)", "compact(daylight seg+night sums)",
+        "stream(full-hour dbuf)", "stream_compact(uniform dbuf)",
+        "quant(int8 streams)", "library month engine"]
     assert all(v["ms"] > 0 for v in out["variants"].values())
     # the plain path is not a launch
     assert not any(bk.LAUNCHES.values())
-    for name in tool.NOT_PORTED:
-        assert name in lines[0]
+    assert "every variant but piecewise" in lines[0]
+    assert any(ln.startswith("mask columns M [64, 8, 8760]") for ln in lines)
+    assert any(ln.startswith("quant: int8 load/gen codes") for ln in lines)
     assert not any(" device" in ln for ln in lines if "ms/call" in ln)
 
 
 def test_default_run_parity_lines_are_within_tolerance(default_run):
     out, lines = default_run
     with_parity = {k: v["parity"] for k, v in out["variants"].items() if v["parity"]}
-    assert len(with_parity) == 9
-    assert sum(ln.startswith("parity ") for ln in lines) == 9
+    assert len(with_parity) == 13
+    assert sum(ln.startswith("parity ") for ln in lines) == 13
     for name, par in with_parity.items():
         assert par["agents"] == tool.PARITY_AGENTS
         assert par["bad_agents"] == 0, (name, par)
-        # plain versions in float32: far inside the card's tolerance
-        assert par["rel_buckets"] < 1e-5, (name, par)
+        if par["kind"] == "int8":
+            # the codes' rounding, far inside the 2% envelope
+            assert par["rel_buckets"] < 2e-3, (name, par)
+        else:
+            # plain versions in float32: far inside the card's tolerance
+            assert par["rel_buckets"] < 1e-5, (name, par)
     ablated = [k for k, (_, real) in tool.SUMS_VARIANTS.items() if not real]
     assert all(out["variants"][k]["parity"] is None for k in ablated)
 
@@ -304,4 +389,22 @@ def test_kernel_resources_names_any_template_arguments():
     assert [r["smem_bytes"] for r in rows] == [0, 12288, 12288, 0]
     for name in ("microbench_monthmask", "microbench_monthmask_g",
                  "microbench_monthdot", "microbench_variant"):
+        assert name in _build._SIGNATURES
+
+
+def test_kernel_resources_names_the_stream_types():
+    """Type template arguments print as dtypes (load, gen, sell, sums); a
+    repeated bfloat16 is a substitution of the first (names from an nvcc
+    12.8 build log)."""
+    pre = "_ZN47_GLOBAL__N__18745352_14_bucket_sums_cu_0011a3e512month_kernel"
+    tail = "EEvPKT0_PKT1_PKT2_PKiPKfPT3_SG_SG_SG_iiiiN5lanes12MonthOffsetsE"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{pre}{targs}{tail}' for 'sm_90a'"
+        for targs in ("ILb0Eaa13__nv_bfloat16S1_", "ILb0Eaaff",
+                      "ILb1E13__nv_bfloat16fS1_f", "ILb1E13__nv_bfloat16S1_S1_S1_"))
+    assert [r["kernel"] for r in _build.kernel_resources(log)] == [
+        "month_kernel<i8,i8,bf16,bf16>", "month_kernel<i8,i8,f32,f32>",
+        "month_kernel<signed,bf16,f32,bf16,f32>",
+        "month_kernel<signed,bf16,bf16,bf16,bf16>"]
+    for name in ("microbench_monthdot_pre", "microbench_mnet"):
         assert name in _build._SIGNATURES
