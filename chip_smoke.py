@@ -11,8 +11,9 @@ its first launch in the path):
      source, all started together, sm_90a) and each kernel's registers,
      spills and shared memory;
   3. the main path: ercot-all-sector at 8,192 agents for 3 model years
-     (month kernel), with per-year wall time and agent-years/s, and the
-     port on the card against the port on the CPU at a small size;
+     (month kernel, battery dispatch kernel), with per-year wall time and
+     agent-years/s, and the port on the card against the port on the CPU
+     at a small size;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -41,12 +42,20 @@ its first launch in the path):
      paths gave it, with a check that the comparison would catch a
      kernel that drops one TOU period of any agent, and each kernel's
      time beside its plain version's and the card's bound for the same
-     work; the month kernel against the stream kernel on the stream
-     kernel's operands, the narrow-stream rows' kernels on float32 copies
-     of their operands, the ablated settings of sums_variant, its
-     32-column forms and its device-memory build at 512 agents (logged
-     only); the first year's sizing call broken down;
+     work; the battery dispatch kernel, bit for bit against its plain
+     loop on the main path's first-year dispatch; logged only: the month
+     kernel against the stream kernel on the stream kernel's operands,
+     the month kernel at P = 10 on the main path's lanes and scales and
+     at 1, 2 and 4 scales a thread, the dispatch kernel on one warp of
+     agents (its serial chain), the narrow-stream rows' kernels on
+     float32 copies of their operands, the ablated settings of
+     sums_variant, its 32-column forms and its device-memory build at
+     512 agents; the first year's sizing call broken down (with the
+     dispatch kernel and with the plain loop);
  10. a JSON line with every ported kernel, the card, the result line.
+
+Every model path asserts that it launched the battery dispatch kernel
+once per model year it ran.
 
 Exits non-zero, printing no result, without a CUDA device, when the
 package is not beside this script, or when any phase fails.
@@ -107,7 +116,16 @@ SOURCES = {
     "micro_mask": "dgen_tpu_torch/csrc/microbench_mask.cu",
     "micro_dot": "dgen_tpu_torch/csrc/microbench_dot.cu",
     "micro_pre": "dgen_tpu_torch/csrc/microbench_pre.cu",
+    "dispatch": "dgen_tpu_torch/csrc/battery_dispatch.cu",
 }
+#: float32 operations of one (agent, hour) of the dispatch: two subtracts,
+#: two maxes and two mins for surplus and deficit, three each for the
+#: charge and discharge limits (subtract, max, divide or multiply) and
+#: their mins, a multiply, an add, a divide and a subtract for soc, a
+#: subtract and an add for system_out
+DISPATCH_OPS = 20
+#: the month kernel's logged A/B at the most periods a tariff may carry
+AB_PERIODS = 10
 
 
 def log(msg: str) -> None:
@@ -473,6 +491,7 @@ def run_path(sim) -> dict:
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
 
     seconds = []
     orig = sim.step
@@ -487,14 +506,18 @@ def run_path(sim) -> dict:
     sim.step = step
     bk.CAPTURE = {}
     bk.reset_launches()
+    dispatch.reset_launches()
     t0 = time.perf_counter()
     try:
         res = sim.run()
     finally:
-        launches = dict(bk.LAUNCHES)
+        launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
         capture, bk.CAPTURE = bk.CAPTURE, None
     wall = time.perf_counter() - t0
     check_outputs(res, sim.table.n_agents)
+    if launches["dispatch"] != len(res.years):
+        raise AssertionError(f"{launches['dispatch']} dispatch kernel launches in "
+                             f"{len(res.years)} model years")
     lay = sim._daylight
     return dict(res=res, year_s=seconds, wall=wall, launches=launches,
                 narrow=dict(bk.NARROW_LAUNCHES),
@@ -529,12 +552,11 @@ def curves_gap(a: dict, b: dict, keys=("adopters", "system_kw_cum",
                for k in keys)
 
 
-def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
-    """Seconds of the first year's sizing call (with the run's knobs)
-    and of its battery dispatch loop on the main path's shapes, each
-    timed alone after a synchronize, beside the sum of the isolated
-    launch medians of the year's three kernel launches (not timed inside
-    the sizing call)."""
+def dispatch_operands(sim) -> tuple:
+    """(envs, operands) of the first model year's battery dispatch on
+    ``sim``'s shapes: the year's sizing inputs, and load, the generation
+    of a system sized to the agent's annual load, that system's battery
+    and the year's round-trip efficiencies."""
     import torch
 
     from dgen_tpu_torch.ops import dispatch, sizing
@@ -543,6 +565,21 @@ def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
     kw = envs.load_kwh_per_customer / torch.clamp_min(envs.gen_per_kw.sum(1), 1e-9)
     batt_kw, batt_kwh = dispatch.batt_size_from_pv(kw)
     gen = envs.gen_per_kw * (sizing.INV_EFF * kw[:, None])
+    return envs, (envs.load, gen, batt_kw, batt_kwh, envs.batt_rt_eff)
+
+
+def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
+    """Seconds of the first year's sizing call (with the run's knobs),
+    once with the battery dispatch kernel and once with the plain loop in
+    its place, and of the dispatch kernel and the plain loop alone on the
+    main path's shapes, each timed alone after a synchronize, beside the
+    sum of the isolated launch medians of the year's kernel launches (not
+    timed inside the sizing call)."""
+    import torch
+
+    from dgen_tpu_torch.ops import dispatch, sizing
+
+    envs, ops = dispatch_operands(sim)
 
     def timed(fn) -> float:
         torch.cuda.synchronize()
@@ -551,15 +588,114 @@ def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    return dict(
-        sizing_s=timed(lambda: sizing.size_agents(
+    def size():
+        sizing.size_agents(
             envs, n_periods=sim.tariffs.max_periods, n_years=sim.econ_years,
             n_iters=sim.run_config.sizing_iters, keep_hourly=sim.with_hourly,
-            net_billing=sim._net_billing, **knobs)),
-        dispatch_s=timed(lambda: dispatch.dispatch_battery(
-            envs.load, gen, batt_kw, batt_kwh, envs.batt_rt_eff)),
+            net_billing=sim._net_billing, **knobs)
+
+    sizing_s = timed(size)
+    kernel = dispatch.dispatch_battery
+    dispatch.dispatch_battery = lambda *a: dispatch.dispatch_battery_plain(*a)
+    try:
+        sizing_plain_s = timed(size)
+    finally:
+        dispatch.dispatch_battery = kernel
+    return dict(
+        sizing_s=sizing_s, sizing_plain_dispatch_s=sizing_plain_s,
+        dispatch_s=timed(lambda: dispatch.dispatch_battery(*ops)),
+        dispatch_plain_s=timed(lambda: dispatch.dispatch_battery_plain(*ops)),
         kernel_medians_s=kernel_ms / 1e3,
     )
+
+
+def dispatch_row(ops: tuple, launches: int) -> dict:
+    """The dispatch kernel against its plain loop on ``ops``, bit for
+    bit, both timed, its bound (bytes: load and gen read, the four
+    outputs written, the three [N] battery inputs read, at 4 bytes; vs
+    DISPATCH_OPS float32 operations an (agent, hour)), and the kernel
+    on the first warp of agents alone (its serial chain, logged)."""
+    import torch
+
+    from dgen_tpu_torch.ops import dispatch
+
+    got = dispatch.dispatch_battery(*ops)
+    ref = dispatch.dispatch_battery_plain(*ops)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in ("system_out", "soc", "charge", "discharge"):
+        a, b = getattr(got, k), getattr(ref, k)
+        err = max(err, float((a - b).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"battery_dispatch: {k} differs from the plain "
+                                 f"loop (max abs err {err:.3e})")
+    del got, ref
+    n, hours = ops[0].shape
+    ms = time_ms(lambda: dispatch.dispatch_battery(*ops))
+    plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops))
+    t_bytes = 4.0 * (6 * n * hours + 3 * n) / PEAK_BYTES_PER_S * 1e3
+    t_ops = float(n) * hours * DISPATCH_OPS / PEAK_F32_FLOPS * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    warp = tuple(t[:32] for t in ops)
+    warp_ms = time_ms(lambda: dispatch.dispatch_battery(*warp))
+    log(f"  battery_dispatch: N={n} H={hours} equal to the plain loop bit for bit "
+        f"(torch.equal, every output) kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
+        f"| bound {b_ms:.3f} ms ({b_by}); one warp of 32 agents alone (the serial "
+        f"chain of {hours} hours) {warp_ms:.3f} ms")
+    return dict(name="battery_dispatch", route="cuda", source=SOURCES["dispatch"],
+                replaces="dgen_tpu/ops/dispatch.py:88", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape_n_hours=[n, hours],
+                serial_chain_ms=warp_ms, path="main")
+
+
+def month_kernel_ab(imports: tuple, signed: tuple) -> None:
+    """Logged A/B of the month kernel on the main path's first imports
+    launch (R = 300) at its own P and at AB_PERIODS periods from a seeded
+    period map, and on its first signed launch (R = 25), each at 1, 2 and
+    4 scales a thread beside the kernel's own choice; at AB_PERIODS also
+    against its plain version. Every form sums in the same order, so the
+    forms must agree bit for bit."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    load, gen, sell, period, scales, offsets, p, _ = imports
+    g = torch.Generator(device=load.device).manual_seed(10)
+    period10 = torch.randint(0, AB_PERIODS, period.shape, generator=g,
+                             device=load.device, dtype=torch.int32)
+    cases = [("imports", imports),
+             ("imports", (load, gen, sell, period10, scales, offsets, AB_PERIODS,
+                          False)),
+             ("signed", signed)]
+    for kind, a in cases:
+        base = bk.month_sums(*a)
+        line = [f"own choice {time_ms(lambda: bk.month_sums(*a)):.3f} ms"]
+        for spt in bk.MONTH_SCALES_PER_THREAD_FORMS:
+            got = bk.month_sums(*a, scales_per_thread=spt)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, base)):
+                raise AssertionError(f"month kernel at {spt} scales a thread "
+                                     "differs from its own choice")
+            del got
+            ms = time_ms(lambda: bk.month_sums(*a, scales_per_thread=spt))
+            line.append(f"{spt} a thread {ms:.3f} ms")
+        msg = ""
+        if a[6] == AB_PERIODS:
+            ref = bk.month_sums_plain(*a)
+            torch.cuda.synchronize()
+            for i, (x, y) in enumerate(zip(base, ref)):
+                if bool(bad_agents(x, y).any()):
+                    raise AssertionError(f"month kernel at P = {AB_PERIODS}: output "
+                                         f"{i} disagrees with the plain version")
+            err = max(float((x - y).abs().max()) for x, y in zip(base, ref))
+            del ref
+            msg = (f"; max_abs_err {err:.3e}, plain "
+                   f"{time_ms(lambda: bk.month_sums_plain(*a)):.3f} ms")
+        del base
+        log(f"  month kernel, {kind} at P={a[6]}: N={a[0].shape[0]} "
+            f"R={a[4].shape[1]} lanes={a[0].shape[1]}: " + ", ".join(line) + msg)
+        torch.cuda.empty_cache()
 
 
 def check_outputs(res, n_agents: int) -> None:
@@ -582,6 +718,7 @@ def dot_path(presets) -> tuple:
 
     from dgen_tpu_torch.models.simulation import year_step
     from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
 
     sim, _, _ = presets.build("ercot-all-sector", n_agents=DOT_AGENTS,
                               end_year=2014, device="cuda")
@@ -601,10 +738,11 @@ def dot_path(presets) -> tuple:
     ref = national(one_year("auto"))
     bk.CAPTURE = {}
     bk.reset_launches()
+    dispatch.reset_launches()
     try:
         dot = national(one_year("dot"))
     finally:
-        launches = dict(bk.LAUNCHES)
+        launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
         capture, bk.CAPTURE = bk.CAPTURE, None
     return launches, capture, curves_gap(dot, ref), dot, ref
 
@@ -660,7 +798,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     runs["main"] = run = run_path(sim)
     report_path("3", "main path ercot-all-sector", run)
-    need_launches("main path", run["launches"], ("month", "month_signed"))
+    need_launches("main path", run["launches"], ("month", "month_signed", "dispatch"))
     main_curve = run["res"].summary(sim.host_mask)
     if not main_curve["adopters"][-1] > 0:
         raise AssertionError("no national adoption on the main path")
@@ -697,7 +835,8 @@ def main() -> int:
     runs["gated"] = run = run_path(gsim)
     report_path("4", "gated main path (daylight_compact, pack_once, "
                 "stream_segments)", run)
-    need_launches("gated main path", run["launches"], ("stream", "stream_signed"),
+    need_launches("gated main path", run["launches"],
+                  ("stream", "stream_signed", "dispatch"),
                   zero=("month", "month_signed", "dot", "dot_signed"))
     gap = curves_gap(run["res"].summary(gsim.host_mask), main_curve)
     if gap > CURVE_RTOL:
@@ -714,7 +853,7 @@ def main() -> int:
             raise AssertionError("the rate-switch world has no switch")
         runs[key] = run = run_path(rs)
         report_path("5", title, run)
-        need_launches(title, run["launches"], ("month_pair",),
+        need_launches(title, run["launches"], ("month_pair", "dispatch"),
                       zero=("month", "stream"))
     if runs["switch_gated"]["capture"]["month_pair"][0].shape[1] == HOURS:
         raise AssertionError("the gated pair kernel ran full-hour lanes")
@@ -723,7 +862,8 @@ def main() -> int:
     dsim = build(DAYLIGHT_AGENTS, 2014, dict(daylight_compact=True))
     runs["daylight"] = run = run_path(dsim)
     report_path("6", "daylight path (daylight_compact alone)", run)
-    need_launches("daylight path", run["launches"], ("month", "month_signed"),
+    need_launches("daylight path", run["launches"],
+                  ("month", "month_signed", "dispatch"),
                   zero=("stream", "stream_signed"))
     if run["capture"]["month"][0].shape[1] != dsim._daylight.n_lanes:
         raise AssertionError("the daylight path's month kernel ran full-hour lanes")
@@ -745,6 +885,9 @@ def main() -> int:
         f"{dot_c['adopters'].tolist()} vs {ref_c['adopters'].tolist()})")
     need_launches("dot path", dot_launches, ("dot", "dot_signed"),
                   zero=("month", "month_signed", "stream"))
+    if dot_launches["dispatch"] != 1:
+        raise AssertionError(f"dot path: {dot_launches['dispatch']} dispatch kernel "
+                             "launches in one model year")
     if dot_gap > DOT_CURVE_RTOL:
         raise AssertionError(f"dot curves differ by {dot_gap:.3e} > {DOT_CURVE_RTOL}")
 
@@ -774,7 +917,7 @@ def main() -> int:
         bsim = build(MAIN_AGENTS, MAIN_END_YEAR, knobs)
         runs[key] = run = run_path(bsim)
         report_path("8b", title, run)
-        need_launches(title, run["launches"], (kernel, kernel + "_signed"),
+        need_launches(title, run["launches"], (kernel, kernel + "_signed", "dispatch"),
                       zero=("dot", "dot_signed")
                       + (("month", "month_signed") if kernel == "stream" else
                          ("stream", "stream_signed")))
@@ -806,6 +949,10 @@ def main() -> int:
         "kernels on float32 copies of their operands (equal operations):")
     float32_copies(captures)
     ab = check_and_time(captures, ab_specs(bk), hour_lanes)[0]
+    log(f"  the month kernel on the main path's first launches, at P = {AB_PERIODS} "
+        "too (seeded period map), at each count of scales a thread, not in the "
+        "kernels line:")
+    month_kernel_ab(captures["main"]["month"], captures["main"]["month_signed"])
     log("  settings of sums_variant beside its base row, not in the kernels line:")
     check_variant_forms(captures["micro"]["variant"], mk, tool)
     del captures
@@ -815,15 +962,22 @@ def main() -> int:
     ms = {r["name"]: r["ms"] for r in rows}
     log(f"    on the stream kernel's operands: month kernel {ab['ms']:.3f} ms, "
         f"stream kernel {ms['bucket_sums_stream']:.3f} ms")
+    log("  the battery dispatch kernel on the main path's first-year dispatch "
+        "(rebuilt at a system sized to each agent's load):")
+    drow = dispatch_row(dispatch_operands(sim)[1], runs["main"]["launches"]["dispatch"])
+    ms["battery_dispatch"] = drow["ms"]
+    log("  the first year's sizing call, broken down:")
     for tag, s, knobs, names in (
             ("main", sim, {}, ("bucket_sums_month",) * 2 + ("bucket_sums_month_signed",)),
             ("gated", gsim, dict(impl="stream", daylight=lay, pack_once=True),
              ("bucket_sums_stream",) * 2 + ("bucket_sums_stream_signed",))):
-        parts = breakdown(s, knobs, sum(ms[n] for n in names))
-        log(f"    {tag}: first-year sizing call {parts['sizing_s']:.3f} s, of which "
-            f"the battery dispatch loop {parts['dispatch_s']:.3f} s; the year's "
-            f"three kernel launches, as the sum of their isolated medians, "
-            f"{parts['kernel_medians_s']:.4f} s")
+        parts = breakdown(s, knobs, sum(ms[n] for n in names + ("battery_dispatch",)))
+        log(f"    {tag}: first-year sizing call {parts['sizing_s']:.3f} s with the "
+            f"dispatch kernel, {parts['sizing_plain_dispatch_s']:.3f} s with the plain "
+            f"loop in its place; alone, the dispatch kernel {parts['dispatch_s']:.4f} s "
+            f"and the plain loop {parts['dispatch_plain_s']:.3f} s; the year's four "
+            f"kernel launches (three bucket sums, one dispatch), as the sum of their "
+            f"isolated medians, {parts['kernel_medians_s']:.4f} s")
 
     # --- 10: the kernel line, the card, the result ---
     path_launches = {k: {**v["launches"], **v.get("narrow", {})}
@@ -840,6 +994,7 @@ def main() -> int:
             shape_n_r_lanes=list(r["shape"]), hour_lanes=r["work_lanes"],
             path=path_key,
         ))
+    kernels.append(drow)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of its path never launched: {kernels}")
     print(card_line())

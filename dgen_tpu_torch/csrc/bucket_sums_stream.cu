@@ -21,7 +21,7 @@
 // Here:
 //   * one thread owns one (agent, scale) pair and keeps its period
 //     accumulators in registers (predicated adds unrolled over the
-//     compile-time kMaxPeriods, as in the month kernel); a month's sums
+//     compile-time kMaxPeriods, as in the pair kernel); a month's sums
 //     are written once, when the month is done, and the sell sum carries
 //     across months in a register;
 //   * a 128-thread block holds block_n agents x r_tile scales, r_tile =

@@ -44,6 +44,8 @@ _SIGNATURES = {
     # out_sgn, out_sell_sgn, n, r, n_lanes, n_periods, with_signed, the
     # dtype codes of load, gen and sell, stream
     "bucket_sums_month": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 8 + [_P],
+    # ..., scales per thread, stream
+    "bucket_sums_month_spt": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 9 + [_P],
     "bucket_sums_stream": [_P] * 5 + [_OFFS] + [_P] * 4 + [_I] * 8 + [_P],
     # load, gen, sell_a, period_a, sell_b, period_b, scales, offsets[13],
     # out_a, out_sell_a, out_b, out_sell_b, n, r, n_lanes, n_periods, the
@@ -65,13 +67,16 @@ _SIGNATURES = {
     # n_periods, c_pad, (hi,) stream
     "microbench_monthdot_pre": [_P] * 4 + [_OFFS] + [_P] * 2 + [_I] * 4 + [_P],
     "microbench_mnet": [_P] * 4 + [_OFFS] + [_P] * 2 + [_I] * 5 + [_P],
+    # load, gen, batt_kw, batt_kwh, soc_min, soc_init, eta, system_out,
+    # soc, charge, discharge, n, hours, stream
+    "battery_dispatch": [_P] * 11 + [_I] * 2 + [_P],
 }
 
 #: template arguments of the kernels that have any, in order: the name
 #: and, for an integer that selects a form, the forms' names (a bool
 #: prints as its name when true; type arguments print as their dtype)
 _TEMPLATE_ARGS = {
-    "month_kernel": (("signed", ()),),
+    "month_kernel": (("signed", ()), ("spt", ())),
     "stream_kernel": (("signed", ()),),
     "dot_kernel": (("signed", ()),),
     "variant_kernel": (("build", ("onehot", "const", "hbm")),

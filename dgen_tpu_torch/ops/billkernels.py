@@ -67,6 +67,10 @@ MAX_PERIODS = 10
 #: engine choices of the entries below
 IMPLS = ("auto", "stream", "dot")
 
+#: scales a thread the month kernel is built for (csrc/bucket_sums.cu;
+#: 4 on float32 streams only); by default it takes 1 while R <= 32, else 2
+MONTH_SCALES_PER_THREAD_FORMS = (1, 2, 4)
+
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES = {"month": 0, "month_signed": 0, "month_pair": 0, "stream": 0,
             "stream_signed": 0, "dot": 0, "dot_signed": 0,
@@ -371,7 +375,8 @@ def _count(key: str, args: tuple, load_dtype=F32) -> None:
 
 
 def _lane_sums(fn_name: str, key: str, load, gen, sell, period, scales,
-               offsets, n_periods: int, with_signed: bool, codes: tuple):
+               offsets, n_periods: int, with_signed: bool, codes: tuple,
+               extra: tuple = ()):
     n, r = _check_kernel_inputs((load, gen, sell), (period,), scales,
                                 load.shape[1], narrow=True)
     out = _sums_buffers(n, r, n_periods, with_signed, scales.device,
@@ -380,7 +385,7 @@ def _lane_sums(fn_name: str, key: str, load, gen, sell, period, scales,
         _launch(fn_name, scales, _ptr(load), _ptr(gen), _ptr(sell), _ptr(period),
                 _ptr(scales), _offsets_arg(offsets, load.shape[1]),
                 *(_ptr(o) for o in out), n, r, load.shape[1], n_periods,
-                int(with_signed), *codes)
+                int(with_signed), *codes, *extra)
         _count(key + ("_signed" if with_signed else ""),
                (load, gen, sell, period, scales, offsets, n_periods, with_signed),
                load.dtype)
@@ -388,16 +393,28 @@ def _lane_sums(fn_name: str, key: str, load, gen, sell, period, scales,
 
 
 def month_sums(load, gen, sell, period, scales, offsets, n_periods: int,
-               with_signed: bool):
+               with_signed: bool, scales_per_thread: Optional[int] = None):
     """Month bucket sums over lanes (see :func:`month_sums_plain` for the
     outputs): the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU one."""
+    CPU one. ``scales_per_thread`` times the kernel's other forms (one
+    of :data:`MONTH_SCALES_PER_THREAD_FORMS`; None = the kernel's own
+    choice); every form sums in the same order, and the plain version
+    has none."""
     codes = _check_stream_dtypes(load, gen, sell, with_signed)
+    if scales_per_thread not in (None, *MONTH_SCALES_PER_THREAD_FORMS):
+        raise ValueError(f"scales_per_thread {scales_per_thread} is not one of "
+                         f"{MONTH_SCALES_PER_THREAD_FORMS}")
+    if scales_per_thread == 4 and any(c != _DTYPE_CODES[F32] for c in codes):
+        raise TypeError("scales_per_thread 4 needs float32 streams")
     if scales.device.type == "cpu":
         return month_sums_plain(load, gen, sell, period, scales, offsets,
                                 n_periods, with_signed)
-    return _lane_sums("bucket_sums_month", "month", load, gen, sell, period,
-                      scales, offsets, n_periods, with_signed, codes)
+    if scales_per_thread is None:
+        return _lane_sums("bucket_sums_month", "month", load, gen, sell, period,
+                          scales, offsets, n_periods, with_signed, codes)
+    return _lane_sums("bucket_sums_month_spt", "month", load, gen, sell, period,
+                      scales, offsets, n_periods, with_signed, codes,
+                      (scales_per_thread,))
 
 
 def stream_sums(load, gen, sell, period, scales, offsets, n_periods: int,

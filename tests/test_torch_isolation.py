@@ -52,6 +52,7 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.presets, dgen_tpu_torch.convert\n"
         "import dgen_tpu_torch.ops.billkernels, dgen_tpu_torch.ops._build\n"
         "import dgen_tpu_torch.ops.layout, dgen_tpu_torch.ops.microkernels\n"
+        "import dgen_tpu_torch.ops.dispatch\n"
         "import dgen_tpu_torch.tools.kernel_microbench\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
@@ -60,6 +61,25 @@ def test_port_imports_with_jax_unavailable():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_dispatch_kernel_is_built_from_the_sources_and_imports_no_reference():
+    """csrc/battery_dispatch.cu is among the sources the build compiles,
+    its C launcher is bound, and the module around it imports neither jax
+    nor the JAX package (also at run time: see the test above)."""
+    from dgen_tpu_torch.ops import _build
+
+    src = os.path.join(PKG, "csrc", "battery_dispatch.cu")
+    assert src in _build.sources()
+    assert "battery_dispatch" in _build._SIGNATURES
+    with open(src) as f:
+        assert 'extern "C" int battery_dispatch(' in f.read()
+    path = os.path.join(PKG, "ops", "dispatch.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    mods += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert mods and not [m for m in mods if _forbidden(m)], mods
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():

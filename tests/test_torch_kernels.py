@@ -11,7 +11,11 @@ multiplies in TF32 (10 mantissa bits): rtol 5e-3 and atol 2.0, the
 JAX package's bound for its dot engine (tests/test_billpallas.py), and
 the per-agent atol above. The micro-benchmark's variants
 (ops/microkernels.py) follow their kind: the mask kernels as the month
-kernel, the two tensor-core kernels as the dot kernel."""
+kernel, the two tensor-core kernels as the dot kernel. The battery
+dispatch kernel (ops/dispatch.py) rounds every operation as its plain
+loop does and is held to it bit for bit (torch.equal); so are the month
+kernel's per-period sums, on inputs where net = load exactly, to a
+lane-by-lane float32 sum."""
 
 import numpy as np
 import pytest
@@ -493,3 +497,206 @@ def test_engines_refuse_stream_dtypes_with_no_kernel(cuda):
     q = x["load"].to(torch.int8)
     with pytest.raises(TypeError, match="signed"):
         bk.bucket_sums(q, q, x["sell"], x["bucket"], x["scales"], 24)
+
+
+# ---------------------------------------------------------------------------
+# The month kernel's period-partitioned staging: corner cases
+# ---------------------------------------------------------------------------
+
+def _month_lanes(offsets):
+    """[L] month index of every lane."""
+    return torch.repeat_interleave(
+        torch.arange(12), torch.tensor(np.diff(np.asarray(offsets))))
+
+
+def _month_case(period, month, p, offsets, seed):
+    """Each agent's period lanes rewritten in some months: every hour of
+    month 0 in the last period; no hour of month 1 in period 1 (P >= 2);
+    at P >= 3 month 2 holds each period but 0 in exactly one hour, at
+    random; month 3 cycles through the periods hour by hour (runs of one
+    hour in lane order)."""
+    g = torch.Generator().manual_seed(seed)
+    period = period.clone()
+    n = period.shape[0]
+    period[:, month == 0] = p - 1
+    if p >= 2:
+        m1 = month == 1
+        period[:, m1] = torch.where(period[:, m1] == 1, 0, period[:, m1])
+    if p >= 3:
+        lanes = torch.nonzero(month == 2)[:, 0]
+        period[:, lanes] = 0
+        for a in range(n):
+            pick = lanes[torch.randperm(len(lanes), generator=g)[:p - 1]]
+            period[a, pick] = torch.arange(1, p, dtype=torch.int32)
+    m3 = torch.nonzero(month == 3)[:, 0]
+    period[:, m3] = (torch.arange(len(m3), dtype=torch.int32) % p)[None, :]
+    return period
+
+
+@pytest.mark.parametrize("lanes", ["full", "compacted"])
+@pytest.mark.parametrize("p", list(range(1, 11)))
+@pytest.mark.parametrize("signed", [False, True])
+def test_month_kernel_period_corners(cuda, lanes, p, signed):
+    """Absent periods, a one-period month, single-hour runs and every P
+    in 1..10, full-hour and on the uneven daylight-compacted lanes."""
+    offsets = _offsets(lanes)
+    x = _inputs(cuda, 13, 70, p, seed=20 + p, offsets=offsets)
+    month = _month_lanes(offsets)
+    x["period"] = _month_case(x["period"].cpu(), month, p, offsets,
+                              seed=p).to(cuda)
+    args = _lane_args(x, offsets, p, signed)
+    got = bk.month_sums(*args)
+    ref = bk.month_sums_plain(*args)
+    _close(got, ref)
+    imp = got[0].view(13, 70, 12, p)
+    if p > 1:   # month 1 lacks period 1: its sums are exactly zero
+        assert bool((imp[:, :, 1, 1] == 0).all())
+        assert bool((imp[:, :, 0, :p - 1] == 0).all())   # month 0: one period
+
+
+def test_month_kernel_stages_out_of_range_periods_for_sell_only(cuda):
+    """A period lane outside [0, P) counts in the sell sums and in no
+    bucket, as in the plain version."""
+    x = _inputs(cuda, 9, 40, 3, seed=30)
+    x["period"][:, ::7] = 5
+    x["period"][:, 3::11] = -1
+    for signed in (False, True):
+        args = _lane_args(x, layout.FULL_OFFSETS, 3, signed)
+        _close(bk.month_sums(*args), bk.month_sums_plain(*args))
+
+
+@pytest.mark.parametrize("lanes", ["full", "compacted"])
+@pytest.mark.parametrize("p", [1, 2, 10])
+def test_month_kernel_sums_each_period_in_lane_order(cuda, lanes, p):
+    """With every scale 0, net = load exactly (the multiply-add adds a
+    zero), so each bucket is a float32 sum of the period's lanes of the
+    month: equal, bit for bit, to adding them one by one in lane order —
+    the summation order of the kernel's earlier per-period predicated
+    adds."""
+    offsets = _offsets(lanes)
+    x = _inputs(cuda, 11, 3, p, seed=31, offsets=offsets)
+    x["load"] = x["load"] - 1.0          # both signs: relu and signed differ
+    x["scales"].zero_()
+    got = bk.month_sums(*_lane_args(x, offsets, p, True))
+    load = x["load"].cpu().numpy()
+    bucket = (_month_lanes(offsets)[None, :] * p + x["period"].cpu()).numpy()
+    imp = np.zeros((11, 12 * p), np.float32)
+    sgn = np.zeros((11, 12 * p), np.float32)
+    rows = np.arange(11)
+    for h in range(load.shape[1]):
+        imp[rows, bucket[:, h]] += np.maximum(load[:, h], np.float32(0.0))
+        sgn[rows, bucket[:, h]] += load[:, h]
+    for j in range(3):
+        np.testing.assert_array_equal(got[0][:, j].cpu().numpy(), imp)
+        np.testing.assert_array_equal(got[2][:, j].cpu().numpy(), sgn)
+
+
+@pytest.mark.parametrize("spt", bk.MONTH_SCALES_PER_THREAD_FORMS)
+@pytest.mark.parametrize("r", [1, 25, 300, 700])
+@pytest.mark.parametrize("signed", [False, True])
+def test_month_kernel_scales_per_thread_forms(cuda, spt, r, signed):
+    """Every scales-per-thread form, with R past one block's scales (700
+    at 2 a thread) and a ragged last warp; the forms take the lanes in
+    the same order, so they agree with each other bit for bit."""
+    x = _inputs(cuda, 5, r, 4, seed=32)
+    args = _lane_args(x, layout.FULL_OFFSETS, 4, signed)
+    key = "month_signed" if signed else "month"
+    before = bk.LAUNCHES[key]
+    got = bk.month_sums(*args, scales_per_thread=spt)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES[key] == before + 1
+    _close(got, bk.month_sums_plain(*args))
+    for a, b in zip(got, bk.month_sums(*args)):
+        assert torch.equal(a, b)
+
+
+def test_month_kernel_forms_refuse_what_they_do_not_take(cuda):
+    x = _inputs(cuda, 4, 8, 2)
+    args = _lane_args(x, layout.FULL_OFFSETS, 2, False)
+    with pytest.raises(ValueError, match="scales_per_thread"):
+        bk.month_sums(*args, scales_per_thread=3)
+    narrow = _narrow(x, bk.IMPORT_DTYPES[1])
+    with pytest.raises(TypeError, match="float32"):
+        bk.month_sums(*_lane_args(narrow, layout.FULL_OFFSETS, 2, False),
+                      scales_per_thread=4)
+
+
+# ---------------------------------------------------------------------------
+# The battery dispatch kernel (battery_dispatch.cu)
+# ---------------------------------------------------------------------------
+
+def _dispatch_inputs(dev, n, hours, seed):
+    rng = np.random.default_rng(seed)
+    load = rng.uniform(0.1, 4.0, (n, hours)).astype(np.float32)
+    gen = (rng.uniform(0.0, 3.0, (n, hours))
+           * (rng.random((n, hours)) > 0.4)).astype(np.float32)
+    kw = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    kw[0] = 0.0                                   # a zero battery
+    kwh = (kw * 2.0).astype(np.float32)
+    eff = rng.uniform(0.80, 0.96, n).astype(np.float32)   # mixed rt_eff
+    return [torch.from_numpy(a).to(dev) for a in (load, gen, kw, kwh, eff)]
+
+
+@pytest.mark.parametrize("n", [1, 37, 300])
+@pytest.mark.parametrize("hours", [37, 8760])
+def test_dispatch_kernel_equals_plain_loop(cuda, n, hours):
+    from dgen_tpu_torch.ops import dispatch
+
+    x = _dispatch_inputs(cuda, n, hours, seed=n + hours)
+    before = dispatch.LAUNCHES["dispatch"]
+    got = dispatch.dispatch_battery(*x)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["dispatch"] == before + 1
+    ref = dispatch.dispatch_battery_plain(*x)
+    for k in ("system_out", "soc", "charge", "discharge"):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert a.shape == b.shape == (n, hours) and a.is_contiguous()
+        assert torch.equal(a, b), (k, float((a - b).abs().max()))
+    assert float(got.charge[0].abs().max()) == 0.0
+    assert torch.equal(got.system_out[0], x[1][0])
+    if n > 1:
+        assert float(got.charge.sum()) > 0.0 and float(got.discharge.sum()) > 0.0
+
+
+def test_dispatch_on_the_card_runs_pscan_and_refuses_what_it_does_not_take(cuda):
+    from dgen_tpu_torch.ops import dispatch
+
+    x = _dispatch_inputs(cuda, 16, 8760, seed=40)
+    before = dispatch.LAUNCHES["dispatch"]
+    ps = dispatch.dispatch_battery(*x, impl="pscan")
+    assert dispatch.LAUNCHES["dispatch"] == before   # plain PyTorch, no kernel
+    seq = dispatch.dispatch_battery(*x)
+    for k in ("soc", "charge", "discharge", "system_out"):
+        np.testing.assert_allclose(getattr(ps, k).cpu().numpy(),
+                                   getattr(seq, k).cpu().numpy(), rtol=1e-5,
+                                   atol=2e-4 if k == "system_out" else 1e-4)
+    with pytest.raises(TypeError, match="float32"):
+        dispatch.dispatch_battery(x[0].double(), *x[1:])
+    with pytest.raises(ValueError, match="on"):
+        dispatch.dispatch_battery(x[0], x[1], x[2].cpu(), *x[3:])
+    with pytest.raises(ValueError, match="shape"):
+        dispatch.dispatch_battery(x[0], x[1][:, :100], *x[2:])
+
+
+def test_dispatch_kernel_exact_division_tiles_equal_plain_loop(cuda):
+    """Agents and tiles outside the range where the kernel divides
+    through a reciprocal taken once per agent run nvcc's own division:
+    a one-way efficiency below 0.5, batteries too small for the range,
+    denormal and huge loads in some hours, a negative generation; still
+    bit for bit the plain loop, beside agents on the fast division in
+    the same warps."""
+    from dgen_tpu_torch.ops import dispatch
+
+    load, gen, kw, kwh, eff = _dispatch_inputs(cuda, 70, 8760, seed=41)
+    eff[1] = 0.2                       # eta = 0.447
+    kwh[2], kw[2] = 1e-20, 5e-21       # soc_min below 2^-60
+    kwh[3], kw[3] = 3e20, 1.5e20       # above 2^60
+    load[4, 100:140] = 1e-40           # denormal hours
+    gen[5, 3000:3010] = 1e-39
+    load[6, 5000] = 3e19
+    gen[33, 7000:7100] = -0.5          # negative generation (allowed)
+    got = dispatch.dispatch_battery(load, gen, kw, kwh, eff)
+    ref = dispatch.dispatch_battery_plain(load, gen, kw, kwh, eff)
+    for k in ("system_out", "soc", "charge", "discharge"):
+        a, b = getattr(got, k), getattr(ref, k)
+        assert torch.equal(a, b), (k, float((a - b).abs().max()))
