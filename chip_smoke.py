@@ -51,7 +51,15 @@ its first launch in the path):
      float32 copies of their operands, the ablated settings of
      sums_variant, its 32-column forms and its device-memory build at
      512 agents; the first year's sizing call broken down (with the
-     dispatch kernel and with the plain loop);
+     dispatch kernel and with the plain loop); the stream kernel against
+     the month kernel on the gated and int8-banks paths' operands, and the
+     pair kernel against two month launches on both rate-switch paths'
+     operands, bit for bit (a mismatch fails the run) and timed;
+ 9c. one carry year of the main path and of the gated path under
+     torch.profiler: the ten longest device operations with their
+     launch counts, kernel time against the year's wall time, the
+     device's idle share, and each piece of the year's host and device
+     time;
  10. a JSON line with every ported kernel, the card, the result line.
 
 Every model path asserts that it launched the battery dispatch kernel
@@ -698,6 +706,182 @@ def month_kernel_ab(imports: tuple, signed: tuple) -> None:
         torch.cuda.empty_cache()
 
 
+def same_bits(got, ref) -> bool:
+    """Every output equal bit for bit (signed zeros included)."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+               for a, b in zip(got, ref, strict=True))
+
+
+def ab_ms(fa, fb, pairs: int = 6) -> tuple[float, float, int]:
+    """Medians of ``pairs`` alternated timings of ``fa`` and ``fb``
+    (a, b, then b, a, ...; each a :func:`time_ms`), and in how many of
+    the pairs ``fa`` was the faster."""
+    ta, tb = [], []
+    for i in range(pairs):
+        for f, t in ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta)):
+            t.append(time_ms(f))
+    wins = sum(a < b for a, b in zip(ta, tb))
+    return sorted(ta)[pairs // 2], sorted(tb)[pairs // 2], wins
+
+
+def staging_ab(captures: dict) -> None:
+    """The stream kernel against the month kernel on the gated path's and
+    the int8-banks path's own operands, and the pair kernel against two
+    month launches (one a tariff) on both rate-switch paths' operands:
+    bit for bit, and both sides timed in alternated pairs; a mismatch
+    fails the run."""
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    for name, (path, key) in (
+            ("stream imports, gated", ("gated", "stream")),
+            ("stream signed, gated", ("gated", "stream_signed")),
+            ("stream imports, int8 packs", ("quant", "stream/int8"))):
+        args = captures[path][key]
+        if not same_bits(bk.stream_sums(*args), bk.month_sums(*args)):
+            raise AssertionError(f"{name}: the stream kernel differs from the "
+                                 "month kernel on the same operands")
+        ms, month_ms, wins = ab_ms(lambda: bk.stream_sums(*args),
+                                   lambda: bk.month_sums(*args))
+        log(f"  {name}: N={args[0].shape[0]} R={args[4].shape[1]} "
+            f"lanes={args[0].shape[1]}: equal to the month kernel bit for bit; "
+            f"stream kernel {ms:.3f} ms | month kernel {month_ms:.3f} ms "
+            f"(medians of 6 alternated pairs; stream faster in {wins})")
+    for path in ("switch", "switch_gated"):
+        load, gen, sa, pa, sb, pb, scales, offsets, p = captures[path]["month_pair"]
+
+        def two():
+            return (bk.month_sums(load, gen, sa, pa, scales, offsets, p, False)
+                    + bk.month_sums(load, gen, sb, pb, scales, offsets, p, False))
+
+        def pair():
+            return bk.month_pair_sums(load, gen, sa, pa, sb, pb, scales, offsets, p)
+
+        name = f"pair, {path}"
+        if not same_bits(pair(), two()):
+            raise AssertionError(f"{name}: the pair kernel differs from two month "
+                                 "launches on the same operands")
+        ms, month_ms, wins = ab_ms(pair, two)
+        log(f"  {name}: N={load.shape[0]} R={scales.shape[1]} lanes={load.shape[1]}: "
+            f"equal to two month launches bit for bit; pair kernel {ms:.3f} ms | "
+            f"two month launches {month_ms:.3f} ms (medians of 6 alternated "
+            f"pairs; pair faster in {wins})")
+
+
+#: the pieces of a model year the profiled year names, by module and
+#: function: (label, module path, attribute)
+YEAR_PIECES = (
+    ("apply_year", "dgen_tpu_torch.models.simulation", "apply_year"),
+    ("nem_gate", "dgen_tpu_torch.models.simulation", "compute_nem_allowed"),
+    ("build_econ_inputs", "dgen_tpu_torch.models.simulation", "build_econ_inputs"),
+    ("size_agents", "dgen_tpu_torch.ops.sizing", "size_agents"),
+    ("linear_sums", "dgen_tpu_torch.ops.billkernels", "linear_sums"),
+    ("pack_streams", "dgen_tpu_torch.ops.billkernels", "pack_streams"),
+    ("import_sums", "dgen_tpu_torch.ops.billkernels", "import_sums"),
+    ("bucket_sums", "dgen_tpu_torch.ops.billkernels", "bucket_sums"),
+    ("bills_linear_nb", "dgen_tpu_torch.ops.billkernels", "bills_linear_nb"),
+    ("bills_linear_nem", "dgen_tpu_torch.ops.billkernels", "bills_linear_nem"),
+    ("bills_from_sums", "dgen_tpu_torch.ops.billkernels", "bills_from_sums"),
+    ("cashflow", "dgen_tpu_torch.ops.sizing", "cashflow"),
+    ("payback_period", "dgen_tpu_torch.ops.sizing", "payback_period"),
+    ("dispatch_battery", "dgen_tpu_torch.ops.dispatch", "dispatch_battery"),
+    ("net_hourly_profiles", "dgen_tpu_torch.ops.sizing", "net_hourly_profiles"),
+    ("max_market_share", "dgen_tpu_torch.models.simulation", "max_market_share"),
+    ("diffusion_step", "dgen_tpu_torch.models.simulation", "diffusion_step"),
+    ("allocate_battery", "dgen_tpu_torch.models.simulation",
+     "allocate_battery_adopters"),
+)
+
+
+def profile_year(sim, title: str) -> None:
+    """One carry year of ``sim`` (its first year run just before, outside
+    the trace) under torch.profiler, its outputs collected to the host as
+    Simulation.run collects them. Logs the ten device operations that
+    took most time with their launch counts, kernel (and copy) time
+    against the year's wall time, the device's idle share over that wall
+    time (1 - the union of device intervals / wall), and per piece of the
+    year (YEAR_PIECES, each wrapped in a record_function range for the
+    trace) its calls, host time and device time."""
+    import dataclasses
+    import importlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dgen_tpu_torch.models.simulation import YearOutputs
+
+    def labelled(label, fn):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    originals = []
+    for label, mod, attr in YEAR_PIECES:
+        m = importlib.import_module(mod)
+        originals.append((m, attr, getattr(m, attr)))
+        setattr(m, attr, labelled(label, getattr(m, attr)))
+    fields = [f.name for f in dataclasses.fields(YearOutputs)]
+    step = type(sim).step
+    try:
+        carry, _ = step(sim, sim.init_carry(), 0, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, outs = step(sim, carry, 1, False)
+            with record_function("collect"):
+                for k in fields:
+                    v = getattr(outs, k)
+                    if v is not None:
+                        v.cpu().numpy()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for m, attr, fn in originals:
+            setattr(m, attr, fn)
+    labels = {label for label, _, _ in YEAR_PIECES} | {"collect"}
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in labels]
+    if not device:
+        raise AssertionError(f"{title}: the profiler recorded no device operation")
+    by_name: dict = {}
+    for e in device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    copies = sum(us for name, (_, us) in by_name.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    kernels = sum(us for _, us in by_name.values()) - copies
+    log(f"[9c] profiled carry year, {title}: wall {wall_us / 1e3:.3f} ms; device "
+        f"kernels {kernels / 1e3:.3f} ms, copies {copies / 1e3:.3f} ms; device busy "
+        f"(union of intervals) {busy / 1e3:.3f} ms, idle share "
+        f"{1.0 - busy / wall_us:.3f}; {sum(n for n, _ in by_name.values())} device "
+        f"operations of {len(by_name)} kinds; the ten longest:")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        log(f"    {us / 1e3:8.3f} ms  {n:4d} x  {name[:110]}")
+    log("    pieces of the year (host ms inclusive, device ms of the kernels "
+        "they launched):")
+    for label in [lb for lb, _, _ in YEAR_PIECES] + ["collect"]:
+        hits = [e for e in events if e.name == label
+                and e.device_type == DeviceType.CPU]
+        if not hits:
+            continue
+        dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total for e in hits)
+        log(f"    {label:20s} {len(hits):3d} calls  host {sum(e.cpu_time_total for e in hits) / 1e3:8.3f} ms  "
+            f"device {dev_us / 1e3:8.3f} ms")
+
+
 def check_outputs(res, n_agents: int) -> None:
     import numpy as np
 
@@ -949,6 +1133,9 @@ def main() -> int:
         "kernels on float32 copies of their operands (equal operations):")
     float32_copies(captures)
     ab = check_and_time(captures, ab_specs(bk), hour_lanes)[0]
+    log("  the redesigned kernels on their paths' own operands against the month "
+        "kernel, bit for bit (same_bits) and timed, not in the kernels line:")
+    staging_ab(captures)
     log(f"  the month kernel on the main path's first launches, at P = {AB_PERIODS} "
         "too (seeded period map), at each count of scales a thread, not in the "
         "kernels line:")
@@ -978,6 +1165,10 @@ def main() -> int:
             f"and the plain loop {parts['dispatch_plain_s']:.3f} s; the year's four "
             f"kernel launches (three bucket sums, one dispatch), as the sum of their "
             f"isolated medians, {parts['kernel_medians_s']:.4f} s")
+
+    # --- 9c: one carry year of the default and the gated path, traced ---
+    profile_year(sim, f"default path, {MAIN_AGENTS} agents")
+    profile_year(gsim, f"gated path, {MAIN_AGENTS} agents")
 
     # --- 10: the kernel line, the card, the result ---
     path_launches = {k: {**v["launches"], **v.get("narrow", {})}

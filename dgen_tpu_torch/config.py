@@ -82,12 +82,15 @@ class RunConfig:
     #: daylight_compact) per year instead of up to three. Off by default.
     pack_once: bool = False
     #: run the candidate kernels on the segment-streaming kernel
-    #: (csrc/bucket_sums_stream.cu): several agents share a block and the
-    #: copy of month segment m + 1 overlaps the sums over segment m.
-    #: Under daylight_compact the layout is padded to uniform segments,
-    #: as the JAX package pads it. Off by default. Kept for parity with
-    #: the JAX package's knob: on an H100 the stream kernel is not yet
-    #: faster than the month kernel on the same lanes (PERF.md).
+    #: (csrc/bucket_sums_stream.cu): the copy of month segment m + 1
+    #: overlaps the sums over segment m, and compacted lanes whose load
+    #: and gen are both zero are not summed. Under daylight_compact the
+    #: layout is padded to uniform segments, as the JAX package pads it.
+    #: Off by default. Its sums equal the month kernel's bit for bit. On
+    #: an H100 it is ~25% faster than the month kernel on the gated
+    #: path's uniform compacted lanes (whose pad lanes it skips) and on
+    #: the signed launch (R = 25, full-hour lanes), and level with it on
+    #: full-hour imports (PERF.md).
     stream_segments: bool = False
     #: store the hourly load / gen / wholesale profile banks in bfloat16:
     #: the gathered [N, 8760] streams of the sizing search are half the

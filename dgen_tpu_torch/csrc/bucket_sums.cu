@@ -21,36 +21,45 @@
 // operations against ~1.2 GB of streams read once, so the kernels are
 // bound by FP32 ALU throughput, not by memory.
 //
-// The month kernel: period-partitioned staging. A block stages one
-// agent's month into shared memory as one float4 per lane (load, gen,
-// sell) GROUPED BY TOU PERIOD, with a stable counting sort on the period
-// lane (stage_by_period), and keeps the P + 1 run offsets beside it.
-// Each thread owns SPT consecutive scales (default_spt: 1 at R <= 32, else
-// 2) and walks the runs q = 0 .. P - 1: over run q it keeps one import sum
-// (and one signed sum) per scale in registers and stores it as bucket
-// m * P + q. Per staged hour that is one broadcast 16-byte shared-memory
-// load feeding SPT x (fma, max, add, fma) — no accumulator array, no
-// predicate per period, so the work follows the hours, not P x hours.
-// Each run is summed in lane order, so a period's sum is the same float32
-// sum, in the same order, as adding the period's lanes one by one; only
-// the sell sums (per month, then added) take the lanes in period order.
-// A block is as many warps as its scales need (at least 4, at most 8),
-// so at R <= 512 one block stages each agent's month once; a warp whose
-// scales all lie past R helps stage the hours and skips the arithmetic.
-// The staging reads device memory in two sweeps with every thread's
-// loads in flight together (periods, then the three streams), so a
-// month costs two memory latencies, not one per chunk of lanes. A month
-// is a contiguous slice of lanes in both layouts, so no month-padded
-// repack is needed.
+// The month kernel: period-partitioned staging (staging.cuh). A block
+// stages one agent's month into shared memory as one float4 per lane
+// (load, gen, sell) GROUPED BY TOU PERIOD, with a stable counting sort on
+// the period lane (stage_by_period), and keeps the P + 1 run offsets
+// beside it. Each thread owns SPT consecutive scales (default_spt: 1 at
+// R <= 32, else 2) and walks the runs (sum_runs): over run q it keeps one
+// import sum (and one signed sum) per scale in registers and stores it as
+// bucket m * P + q. Per staged hour that is one broadcast 16-byte
+// shared-memory load feeding SPT x (fma, max, add, fma) — no accumulator
+// array, no predicate per period, so the work follows the hours, not
+// P x hours. Each run is summed in lane order, so a period's sum is the
+// same float32 sum, in the same order, as adding the period's lanes one
+// by one; only the sell sums (per month, then added) take the lanes in
+// period order. A block is as many warps as its scales need (at least 4,
+// at most 8), so at R <= 512 one block stages each agent's month once; a
+// warp whose scales all lie past R helps stage the hours and skips the
+// arithmetic. The staging reads device memory in two sweeps with every
+// thread's loads in flight together (periods, then the three streams),
+// so a month costs two memory latencies, not one per chunk of lanes. A
+// month is a contiguous slice of lanes in both layouts, so no
+// month-padded repack is needed.
 //
-// The pair kernel: the lane streams of one agent are staged month by
-// month as one float4 per lane; one thread owns one scale and selects
-// each period's accumulator through predicated adds unrolled over the
-// compile-time kMaxPeriods = 10, so no accumulator array spills to local
-// memory. A block is kThreads = 128 threads (scales). Each period is
-// summed directly (no last period by subtraction from the month total),
-// and the sell sums are taken per month and then added, which keeps
-// float32 rounding small.
+// The pair kernel: two partitions of one staged month. Both period rows
+// are read in one sweep and ranked one after the other by the month
+// kernel's routine (rank_by_class); one more sweep reads load, gen and
+// the two sell rows and fills two arrays, one sorted by period_a (with
+// sell_a), one by period_b (with sell_b): 2 x 16 bytes a lane, 24.6 KB
+// at the longest month, in shared memory sized to it (with 16-bit slots,
+// so 8 blocks fit an SM at full-hour months). On a compacted layout,
+// lanes whose load and gen are both zero (its pad lanes) are ranked last
+// and not staged, as in the stream kernel. Each thread then walks A's runs and B's
+// runs over its SPT scales. That recomputes the fma and max for the
+// second tariff (~8 issue slots per (scale, hour), against ~24 for
+// predicated adds over 2 x 10 periods), and in return each output is,
+// bit for bit, what one month-kernel launch gives on (load, gen, sell_a,
+// period_a), resp. (load, gen, sell_b, period_b). What the fused pair
+// saves over two month launches is the second staging of load and gen,
+// and the walk over the pad lanes.
+// Blocks and scales a thread as the month kernel's.
 //
 // Stream types (lanes.cuh): load, gen and sell are read as float32,
 // bfloat16 or int8 codes, upcast when read; the sums are taken in float
@@ -64,6 +73,7 @@
 #include <type_traits>
 
 #include "lanes.cuh"
+#include "staging.cuh"
 
 namespace {
 
@@ -73,95 +83,11 @@ using lanes::kMonths;
 using lanes::MonthOffsets;
 using lanes::store;
 using lanes::to_f32;
-
-constexpr int kThreads = 128;          // pair kernel: one scale a thread
-constexpr int kMonthMaxThreads = 256;  // month kernel: most threads a block
-constexpr int kMonthMinThreads = 128;  // ... and fewest (to stage a month)
-
-// Stages one agent's month of `len` lanes from `row` into `hour`, grouped
-// by TOU period with a stable counting sort: the lanes of period q, in
-// lane order, in hour[run[q] .. run[q + 1]), and lanes whose period lies
-// outside [0, n_periods) last, in run n_periods (they count in the sell
-// sums only). Device memory is read in two sweeps in which every thread
-// has its loads in flight at once: the period lanes into `cls` (as
-// classes) first, the load, gen and sell lanes straight into their slots
-// last. Between them each warp ranks a contiguous share of the month in
-// chunks of 32 lanes from shared memory: pass 1 counts its lanes per
-// class with one ballot per class, the block turns the (warp, class)
-// counts into each warp's first slot per class, and pass 2 gives every
-// lane its slot plus its rank among the chunk's lanes of its class.
-template <typename TL, typename TG, typename TS>
-__device__ __forceinline__ void stage_by_period(
-    const TL* __restrict__ load, const TG* __restrict__ gen,
-    const TS* __restrict__ sell, const int* __restrict__ period, size_t row,
-    int len, int n_periods, float4* hour, int* cls, int* slot,
-    int (*warp_count)[kMaxPeriods + 1], int (*warp_base)[kMaxPeriods + 1],
-    int* run) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
-  const int n_classes = n_periods + 1;
-  const unsigned below = (1u << lane) - 1u;
-
-#pragma unroll 4
-  for (int h = threadIdx.x; h < len; h += blockDim.x) {
-    const int p = period[row + h];
-    cls[h] = (p >= 0 && p < n_periods) ? p : n_periods;
-  }
-  __syncthreads();
-
-  const int span = (len + blockDim.x - 1) / blockDim.x * 32;
-  const int hb = min(len, warp * span);
-  const int he = min(len, hb + span);
-  int count = 0;  // lane q: lanes of class q in this warp's share
-  for (int c = hb; c < he; c += 32) {
-    const int p = c + lane < he ? cls[c + lane] : -1;
-    for (int q = 0; q < n_classes; ++q) {
-      const unsigned in_q = __ballot_sync(0xffffffffu, p == q);
-      if (lane == q) count += __popc(in_q);
-    }
-  }
-  if (lane < n_classes) warp_count[warp][lane] = count;
-  __syncthreads();
-  if (threadIdx.x < n_warps * n_classes) {
-    const int w = threadIdx.x / n_classes;
-    const int q = threadIdx.x % n_classes;
-    int base = 0;  // every lane of an earlier class, then of q in earlier warps
-    for (int w2 = 0; w2 < n_warps; ++w2) {
-      for (int q2 = 0; q2 < q; ++q2) base += warp_count[w2][q2];
-      if (w2 < w) base += warp_count[w2][q];
-    }
-    warp_base[w][q] = base;
-    if (w == 0) run[q] = base;
-    if (w == 0 && q == n_periods) run[n_classes] = len;
-  }
-  __syncthreads();
-  int next = lane < n_classes ? warp_base[warp][lane] : 0;
-  for (int c = hb; c < he; c += 32) {
-    const int h = c + lane;
-    const int p = h < he ? cls[h] : -1;
-    int at = 0;
-    for (int q = 0; q < n_classes; ++q) {
-      const unsigned in_q = __ballot_sync(0xffffffffu, p == q);
-      const int first = __shfl_sync(0xffffffffu, next, q);
-      if (p == q) at = first + __popc(in_q & below);
-      if (lane == q) next += __popc(in_q);
-    }
-    if (h < he) slot[h] = at;
-  }
-  __syncthreads();
-
-#pragma unroll 4
-  for (int h = threadIdx.x; h < len; h += blockDim.x) {
-    const size_t g = row + h;
-    hour[slot[h]] = make_float4(to_f32(load[g]), to_f32(gen[g]),
-                                to_f32(sell[g]), 0.f);
-  }
-}
+using staging::kMaxThreads;
 
 template <bool SIGNED, int SPT, typename TL, typename TG, typename TS,
           typename TO = lanes::SumsOut<TL, TG, TS>>
-__global__ void __launch_bounds__(kMonthMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     month_kernel(const TL* __restrict__ load, const TG* __restrict__ gen,
                  const TS* __restrict__ sell, const int* __restrict__ period,
                  const float* __restrict__ scales, TO* __restrict__ out_imp,
@@ -171,8 +97,8 @@ __global__ void __launch_bounds__(kMonthMaxThreads)
   __shared__ float4 hour[kMaxSegLanes];  // load, gen, sell; by period
   __shared__ int cls[kMaxSegLanes];      // each lane's period class
   __shared__ int slot[kMaxSegLanes];     // each lane's place in hour
-  __shared__ int warp_count[kMonthMaxThreads / 32][kMaxPeriods + 1];
-  __shared__ int warp_base[kMonthMaxThreads / 32][kMaxPeriods + 1];
+  __shared__ int warp_count[kMaxThreads / 32][kMaxPeriods + 1];
+  __shared__ int warp_base[kMaxThreads / 32][kMaxPeriods + 1];
   __shared__ int run[kMaxPeriods + 2];
 
   const int agent = blockIdx.x / r_blocks;
@@ -193,58 +119,20 @@ __global__ void __launch_bounds__(kMonthMaxThreads)
   }
 
   for (int m = 0; m < kMonths; ++m) {
-    const int h0 = offs.o[m];
+    const size_t h0 = row + offs.o[m];
     __syncthreads();  // every thread is done with the previous month
-    stage_by_period(load, gen, sell, period, row + h0, offs.o[m + 1] - h0,
-                    n_periods, hour, cls, slot, warp_count, warp_base, run);
-    __syncthreads();
+    staging::stage_by_period<false>(
+        offs.o[m + 1] - offs.o[m], n_periods + 1,
+        [&](int h) { return staging::period_class(period[h0 + h], n_periods); },
+        [&](int h) {
+          const size_t g = h0 + h;
+          return make_float4(to_f32(load[g]), to_f32(gen[g]), to_f32(sell[g]),
+                             0.f);
+        },
+        hour, cls, slot, warp_count, warp_base, run);
     if (!warp_live) continue;  // no scale of this warp lies below R
-
-    float mi[SPT];  // the month's sell-weighted sums
-    float ms[SPT];
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      mi[j] = 0.f;
-      ms[j] = 0.f;
-    }
-    for (int q = 0; q <= n_periods; ++q) {
-      float ai[SPT];  // period q's sums
-      float as[SPT];
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        ai[j] = 0.f;
-        as[j] = 0.f;
-      }
-      const int end = run[q + 1];
-#pragma unroll 4
-      for (int h = run[q]; h < end; ++h) {
-        const float4 v = hour[h];
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          const float net = fmaf(-s[j], v.y, v.x);
-          const float pos = fmaxf(net, 0.f);
-          ai[j] += pos;
-          mi[j] = fmaf(pos, v.z, mi[j]);
-          if (SIGNED) {
-            as[j] += net;
-            ms[j] = fmaf(net, v.z, ms[j]);
-          }
-        }
-      }
-      if (q == n_periods) break;  // out-of-range periods: sell sums only
-      const size_t b = static_cast<size_t>(m) * n_periods + q;
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        if (r0 + j >= r) break;
-        store(out_imp + (out_row + j) * nb + b, ai[j]);
-        if (SIGNED) store(out_sgn + (out_row + j) * nb + b, as[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      sell_imp[j] += mi[j];
-      sell_sgn[j] += ms[j];
-    }
+    staging::sum_runs<SIGNED, SPT>(hour, run, n_periods, m, s, r0, r, out_row,
+                                   nb, out_imp, out_sgn, sell_imp, sell_sgn);
   }
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
@@ -254,87 +142,129 @@ __global__ void __launch_bounds__(kMonthMaxThreads)
   }
 }
 
-template <typename TL, typename TG, typename TS,
+// Byte offsets of the pair kernel's dynamic shared memory at seg_cap lanes
+// in the longest month: the two sorted months (a float4 a lane each) at
+// 0, the two 16-bit class/slot rows, the (warp, class) counts and bases,
+// the two run-offset rows; `bytes` in all.
+struct PairLayout {
+  int slots, counts, bytes;
+};
+
+inline __host__ __device__ PairLayout pair_layout(int seg_cap, int n_warps) {
+  PairLayout p;
+  p.slots = 2 * 16 * seg_cap;
+  p.counts = p.slots + (2 * 2 * seg_cap + 15) / 16 * 16;
+  p.bytes = p.counts + 4 * (2 * n_warps * staging::kMaxClasses +
+                            2 * (staging::kMaxClasses + 1));
+  return p;
+}
+
+// Two partitions of one staged month: the lanes sorted by period_a (with
+// sell_a) into hour_a and by period_b (with sell_b) into hour_b, each
+// ranked by the month kernel's routine. The first sweep reads both
+// period rows and load and gen (for the zero class below); the second
+// reads load, gen and the sell rows again, from cache, and fills both
+// arrays. On a compacted layout, lanes whose load and gen are both zero
+// (its pad lanes) form one more class, ranked last in both partitions
+// and not staged: they add nothing (bucket_sums_stream.cu says why, bit
+// for bit). The walk over each partition is the month kernel's, so output A
+// is bit for bit one month-kernel launch on (load, gen, sell_a,
+// period_a), and B likewise on (load, gen, sell_b, period_b). Shared
+// memory (pair_layout) is sized to the longest month, with 16-bit
+// classes and slots: 27,368 bytes at 744 lanes and 5 warps, so 8 blocks
+// fit an SM.
+template <int SPT, bool DROP, typename TL, typename TG, typename TS,
           typename TO = lanes::SumsOut<TL, TG, TS>>
-__global__ void month_pair_kernel(const TL* __restrict__ load,
-                                  const TG* __restrict__ gen,
-                                  const TS* __restrict__ sell_a,
-                                  const int* __restrict__ period_a,
-                                  const TS* __restrict__ sell_b,
-                                  const int* __restrict__ period_b,
-                                  const float* __restrict__ scales,
-                                  TO* __restrict__ out_a,
-                                  TO* __restrict__ out_sell_a,
-                                  TO* __restrict__ out_b,
-                                  TO* __restrict__ out_sell_b,
-                                  int r, int n_lanes, int n_periods,
-                                  int r_blocks, MonthOffsets offs) {
-  __shared__ float4 hour[kMaxSegLanes];   // load, gen, sell_a, sell_b
-  __shared__ int2 period[kMaxSegLanes];   // period_a, period_b
+__global__ void __launch_bounds__(kMaxThreads)
+    month_pair_kernel(const TL* __restrict__ load, const TG* __restrict__ gen,
+                      const TS* __restrict__ sell_a,
+                      const int* __restrict__ period_a,
+                      const TS* __restrict__ sell_b,
+                      const int* __restrict__ period_b,
+                      const float* __restrict__ scales, TO* __restrict__ out_a,
+                      TO* __restrict__ out_sell_a, TO* __restrict__ out_b,
+                      TO* __restrict__ out_sell_b, int r, int n_lanes,
+                      int n_periods, int r_blocks, int seg_cap,
+                      MonthOffsets offs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_warps = blockDim.x / 32;
+  const PairLayout lay = pair_layout(seg_cap, n_warps);
+  float4* hour_a = reinterpret_cast<float4*>(smem);  // load, gen, sell_a
+  float4* hour_b = hour_a + seg_cap;                 // load, gen, sell_b
+  short* slot_a = reinterpret_cast<short*>(smem + lay.slots);  // class, slot
+  short* slot_b = slot_a + seg_cap;
+  auto warp_count =
+      reinterpret_cast<int(*)[staging::kMaxClasses]>(smem + lay.counts);
+  auto warp_base = warp_count + n_warps;
+  int* run_a = reinterpret_cast<int*>(warp_base + n_warps);
+  int* run_b = run_a + staging::kMaxClasses + 1;
 
   const int agent = blockIdx.x / r_blocks;
-  const int ri = (blockIdx.x % r_blocks) * kThreads + threadIdx.x;
-  const bool live = ri < r;
-  const bool warp_live = ri - static_cast<int>(threadIdx.x % 32) < r;
+  const int r0 = ((blockIdx.x % r_blocks) * blockDim.x + threadIdx.x) * SPT;
+  const bool warp_live = r0 - static_cast<int>(threadIdx.x % 32) * SPT < r;
   const size_t row = static_cast<size_t>(agent) * n_lanes;
-  const size_t out_row = static_cast<size_t>(agent) * r + ri;
+  const size_t out_row = static_cast<size_t>(agent) * r + r0;
   const int nb = kMonths * n_periods;
-  const float s = live ? scales[out_row] : 0.f;
+  const int n_classes = n_periods + (DROP ? 2 : 1);
+  const int zero_class = n_periods + 1;  // load and gen both zero: dropped
+  float s[SPT];
+  float sell_sum_a[SPT];
+  float sell_sum_b[SPT];
+  float no_signed[SPT];
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    s[j] = r0 + j < r ? scales[out_row + j] : 0.f;
+    sell_sum_a[j] = 0.f;
+    sell_sum_b[j] = 0.f;
+    no_signed[j] = 0.f;
+  }
 
-  float sell_sum_a = 0.f;
-  float sell_sum_b = 0.f;
   for (int m = 0; m < kMonths; ++m) {
-    const int h0 = offs.o[m];
-    const int len = offs.o[m + 1] - h0;
+    const size_t h0 = row + offs.o[m];
+    const int len = offs.o[m + 1] - offs.o[m];
+    __syncthreads();  // every thread is done with the previous month
+#pragma unroll 4
+    for (int h = threadIdx.x; h < len; h += blockDim.x) {
+      const size_t g = h0 + h;
+      const bool zero =
+          DROP && to_f32(load[g]) == 0.f && to_f32(gen[g]) == 0.f;
+      slot_a[h] = static_cast<short>(
+          zero ? zero_class : staging::period_class(period_a[g], n_periods));
+      slot_b[h] = static_cast<short>(
+          zero ? zero_class : staging::period_class(period_b[g], n_periods));
+    }
     __syncthreads();
-    for (int h = threadIdx.x; h < len; h += kThreads) {
-      const size_t g = row + h0 + h;
-      hour[h] = make_float4(to_f32(load[g]), to_f32(gen[g]), to_f32(sell_a[g]),
-                            to_f32(sell_b[g]));
-      period[h] = make_int2(period_a[g], period_b[g]);
+    staging::rank_by_class(
+        slot_a, len, n_classes, warp_count, warp_base, run_a,
+        [&](int h, int at) { slot_a[h] = static_cast<short>(at); });
+    staging::rank_by_class(
+        slot_b, len, n_classes, warp_count, warp_base, run_b,
+        [&](int h, int at) { slot_b[h] = static_cast<short>(at); });
+    const int kept = DROP ? run_a[zero_class] : len;  // zero in A and B
+#pragma unroll 4
+    for (int h = threadIdx.x; h < len; h += blockDim.x) {
+      const int at = slot_a[h];
+      if (at >= kept) continue;
+      const size_t g = h0 + h;
+      const float l = to_f32(load[g]);
+      const float ge = to_f32(gen[g]);
+      hour_a[at] = make_float4(l, ge, to_f32(sell_a[g]), 0.f);
+      hour_b[slot_b[h]] = make_float4(l, ge, to_f32(sell_b[g]), 0.f);
     }
     __syncthreads();
     if (!warp_live) continue;  // no scale of this warp lies below R
-
-    float acc_a[kMaxPeriods];
-    float acc_b[kMaxPeriods];
-#pragma unroll
-    for (int q = 0; q < kMaxPeriods; ++q) {
-      acc_a[q] = 0.f;
-      acc_b[q] = 0.f;
-    }
-    float ma = 0.f;
-    float mb = 0.f;
-#pragma unroll 4
-    for (int h = 0; h < len; ++h) {
-      const float4 v = hour[h];
-      const int2 p = period[h];
-      const float pos = fmaxf(v.x - s * v.y, 0.f);  // shared by both tariffs
-      ma += pos * v.z;
-      mb += pos * v.w;
-#pragma unroll
-      for (int q = 0; q < kMaxPeriods; ++q) {
-        acc_a[q] += (p.x == q) ? pos : 0.f;
-        acc_b[q] += (p.y == q) ? pos : 0.f;
-      }
-    }
-    sell_sum_a += ma;
-    sell_sum_b += mb;
-    if (live) {
-      TO* oa = out_a + out_row * nb + m * n_periods;
-      TO* ob = out_b + out_row * nb + m * n_periods;
-#pragma unroll
-      for (int q = 0; q < kMaxPeriods; ++q) {
-        if (q < n_periods) {
-          store(oa + q, acc_a[q]);
-          store(ob + q, acc_b[q]);
-        }
-      }
-    }
+    staging::sum_runs<false, SPT, TO>(hour_a, run_a, n_periods, m, s, r0, r,
+                                      out_row, nb, out_a, nullptr, sell_sum_a,
+                                      no_signed);
+    staging::sum_runs<false, SPT, TO>(hour_b, run_b, n_periods, m, s, r0, r,
+                                      out_row, nb, out_b, nullptr, sell_sum_b,
+                                      no_signed);
   }
-  if (live) {
-    store(out_sell_a + out_row, sell_sum_a);
-    store(out_sell_b + out_row, sell_sum_b);
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    if (r0 + j >= r) break;
+    store(out_sell_a + out_row + j, sell_sum_a[j]);
+    store(out_sell_b + out_row + j, sell_sum_b[j]);
   }
 }
 
@@ -353,20 +283,6 @@ bool grid_for(int n, int r, int n_lanes, int n_periods, const int* offsets,
   return true;
 }
 
-// The month kernel's scales a thread: 1 while R's scales fit one warp
-// (2 a thread would idle more than half its lanes), else 2, which feeds
-// each staged hour to twice the arithmetic.
-int default_spt(int r) { return r <= 32 ? 1 : 2; }
-
-// Threads of a month-kernel block at spt scales a thread: whole warps
-// for R's scales, at least kMonthMinThreads (the warps past R help stage
-// each month) and at most kMonthMaxThreads.
-int month_threads(int r, int spt) {
-  const int warps = ((r + spt - 1) / spt + 31) / 32;
-  return 32 * std::max(kMonthMinThreads / 32,
-                       std::min(warps, kMonthMaxThreads / 32));
-}
-
 template <bool SIGNED, int SPT, typename TL, typename TG, typename TS>
 int launch_month(const void* load, const void* gen, const void* sell,
                  const int* period, const float* scales, const int* offsets,
@@ -374,7 +290,7 @@ int launch_month(const void* load, const void* gen, const void* sell,
                  void* out_sell_sgn, int n, int r, int n_lanes, int n_periods,
                  cudaStream_t st) {
   using TO = lanes::SumsOut<TL, TG, TS>;
-  const int threads = month_threads(r, SPT);
+  const int threads = staging::agent_threads(r, SPT);
   MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
@@ -420,7 +336,7 @@ extern "C" int bucket_sums_month_spt(const void* load, const void* gen,
           load, gen, sell, period, scales, offsets, out_imp, out_sell_imp,
           out_sgn, out_sell_sgn, n, r, n_lanes, n_periods, st);
     };
-    if (spt == 0) spt = default_spt(r);
+    if (spt == 0) spt = staging::default_spt(r);
     if (spt == 1) at(std::integral_constant<int, 1>());
     if (spt == 2) at(std::integral_constant<int, 2>());
     if constexpr (std::is_same<TL, float>::value &&
@@ -466,12 +382,16 @@ extern "C" int bucket_sums_month_pair(const void* load, const void* gen,
                                       int r, int n_lanes, int n_periods,
                                       int dt_load, int dt_gen, int dt_sell,
                                       void* stream) {
+  const int spt = staging::default_spt(r);
+  const int threads = staging::agent_threads(r, spt);
   MonthOffsets offs;
   int r_blocks;
   unsigned blocks;
-  if (!grid_for(n, r, n_lanes, n_periods, offsets, kThreads, &offs,
+  if (!grid_for(n, r, n_lanes, n_periods, offsets, threads * spt, &offs,
                 &r_blocks, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int seg_cap = lanes::max_segment(offs);
+  const int smem = pair_layout(seg_cap, threads / 32).bytes;  // < 48 KB
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool known = lanes::with_stream_types<false>(
       dt_load, dt_gen, dt_sell, [&](auto l, auto g, auto s) {
@@ -479,13 +399,24 @@ extern "C" int bucket_sums_month_pair(const void* load, const void* gen,
         using TG = typename decltype(g)::type;
         using TS = typename decltype(s)::type;
         using TO = lanes::SumsOut<TL, TG, TS>;
-        month_pair_kernel<TL, TG, TS><<<blocks, kThreads, 0, st>>>(
-            static_cast<const TL*>(load), static_cast<const TG*>(gen),
-            static_cast<const TS*>(sell_a), period_a,
-            static_cast<const TS*>(sell_b), period_b, scales,
-            static_cast<TO*>(out_a), static_cast<TO*>(out_sell_a),
-            static_cast<TO*>(out_b), static_cast<TO*>(out_sell_b), r, n_lanes,
-            n_periods, r_blocks, offs);
+        auto launch = [&](auto spt_tag, auto drop_tag) {
+          constexpr int kSpt = decltype(spt_tag)::value;
+          constexpr bool kDrop = decltype(drop_tag)::value;
+          month_pair_kernel<kSpt, kDrop, TL, TG, TS>
+              <<<blocks, threads, smem, st>>>(
+              static_cast<const TL*>(load), static_cast<const TG*>(gen),
+              static_cast<const TS*>(sell_a), period_a,
+              static_cast<const TS*>(sell_b), period_b, scales,
+              static_cast<TO*>(out_a), static_cast<TO*>(out_sell_a),
+              static_cast<TO*>(out_b), static_cast<TO*>(out_sell_b), r,
+              n_lanes, n_periods, r_blocks, seg_cap, offs);
+        };
+        auto with_drop = [&](auto spt_tag) {
+          if (staging::drops_zero_lanes(n_lanes)) launch(spt_tag, std::true_type());
+          else launch(spt_tag, std::false_type());
+        };
+        if (spt == 1) with_drop(std::integral_constant<int, 1>());
+        else with_drop(std::integral_constant<int, 2>());
       });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

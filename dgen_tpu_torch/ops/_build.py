@@ -77,7 +77,8 @@ _SIGNATURES = {
 #: prints as its name when true; type arguments print as their dtype)
 _TEMPLATE_ARGS = {
     "month_kernel": (("signed", ()), ("spt", ())),
-    "stream_kernel": (("signed", ()),),
+    "stream_kernel": (("signed", ()), ("spt", ()), ("drop_zeros", ())),
+    "month_pair_kernel": (("spt", ()), ("drop_zeros", ())),
     "dot_kernel": (("signed", ()),),
     "variant_kernel": (("build", ("onehot", "const", "hbm")),
                        ("dot", ("dot", "none")), ("net", ("fma", "bcast"))),

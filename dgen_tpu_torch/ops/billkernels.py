@@ -23,11 +23,16 @@ Engines (``impl``):
     full-hour only: it ignores a layout and refuses packed streams; the
     pair runs as two single-tariff passes.
 
-The month and stream kernels read ``[N, L]`` lanes with 13 month
+The month, pair and stream kernels read ``[N, L]`` lanes with 13 month
 offsets (:mod:`dgen_tpu_torch.ops.layout`): the plain 8760-hour order,
 or a daylight-compacted layout whose night-hour sums (which do not
 depend on ``s``) are added after the kernel. :class:`PackedStreams`
 holds those lanes built once per sizing call (``RunConfig.pack_once``).
+All three stage each agent-month sorted by TOU period and walk the
+period runs in lane order (``csrc/staging.cuh``), so on the same
+operands the stream kernel's outputs equal the month kernel's bit for
+bit, and each half of the pair kernel's equals one month-kernel launch
+on that tariff's sell and period lanes.
 
 Stream types. ``load``, ``gen`` and ``sell`` may be float32, bfloat16
 (``RunConfig.bf16_banks``) or, for load and gen, int8 codes
@@ -421,7 +426,10 @@ def stream_sums(load, gen, sell, period, scales, offsets, n_periods: int,
                 with_signed: bool):
     """The month kernel's function on the segment-streaming kernel: the
     CUDA kernel on a CUDA tensor, :func:`month_sums_plain` on a CPU
-    one."""
+    one. On the card its outputs equal :func:`month_sums`' bit for bit
+    (the same period runs, summed in the same order; on compacted lanes,
+    lanes whose load and gen are both zero, which add nothing, are not
+    staged)."""
     codes = _check_stream_dtypes(load, gen, sell, with_signed)
     if scales.device.type == "cpu":
         return month_sums_plain(load, gen, sell, period, scales, offsets,
@@ -433,7 +441,12 @@ def stream_sums(load, gen, sell, period, scales, offsets, n_periods: int,
 def month_pair_sums(load, gen, sell_a, period_a, sell_b, period_b, scales,
                     offsets, n_periods: int):
     """Pair bucket sums over lanes (see :func:`month_pair_sums_plain`):
-    the CUDA kernel on a CUDA tensor, the plain version on a CPU one."""
+    the CUDA kernel on a CUDA tensor, the plain version on a CPU one. On
+    the card (imports_a, imp_sell_a) equal :func:`month_sums` on
+    ``(load, gen, sell_a, period_a)`` bit for bit, and the B outputs
+    likewise: one staging of load and gen feeds two period partitions
+    (on compacted lanes, lanes whose load and gen are both zero are not
+    staged)."""
     codes = _check_stream_dtypes(load, gen, sell_a, False, sell_b=sell_b)
     if scales.device.type == "cpu":
         return month_pair_sums_plain(load, gen, sell_a, period_a, sell_b,

@@ -622,6 +622,153 @@ def test_month_kernel_forms_refuse_what_they_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The stream and pair kernels on the month kernel's staging: bit for bit
+# ---------------------------------------------------------------------------
+
+#: R of the bitwise grids: one warp's scales and less (one agent a warp,
+#: several a block), just past a warp (one agent a block, 2 a thread), the
+#: refine rounds' R, and past one block's 512 scales
+BITWISE_R = [1, 25, 33, 300, 700]
+#: (signed, (load, gen, sell) dtypes) of every instantiated kernel
+BITWISE_DTYPES = ([(False, d) for d in bk.IMPORT_DTYPES]
+                  + [(True, d) for d in bk.SIGNED_DTYPES])
+
+
+def _dtype_id(d):
+    return "-".join(str(t).replace("torch.", "") for t in d)
+
+
+def _same_bits(got, ref):
+    """Every output equal bit for bit (signed zeros included)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    for a, b in zip(got, ref, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if not torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])):
+            return False
+    return True
+
+
+def _bitwise_lanes(dev, lanes, n, seed):
+    """(offsets, inputs) for the bitwise grids: full-hour lanes, the
+    uniform compacted lanes, or those with their pad lanes zero-filled as
+    the engines fill them (ops/layout.py) plus zero lanes inside the
+    months: load -0.0 and gen 0 beside a negative sell rate."""
+    offsets = _offsets("full" if lanes == "full" else "uniform")
+    x = _inputs(dev, n, max(BITWISE_R), 10, seed=seed, offsets=offsets)
+    if lanes == "padded":
+        lay = layout.daylight_layout(synth.make_solar_cf_profiles(8, seed=1))
+        valid = torch.from_numpy(np.array(lay.uniform().valid)).to(dev)
+        g = torch.Generator().manual_seed(seed)
+        hole = (torch.rand(x["load"].shape, generator=g) < 0.05).to(dev)
+        x["load"] = torch.where(hole, torch.full_like(x["load"], -0.0),
+                                x["load"] * valid)
+        x["gen"] = torch.where(hole, 0.0, x["gen"] * valid)
+        x["sell"] = torch.where(hole, -x["sell"], x["sell"] * valid)
+        x["sell_b"] = x["sell_b"] * valid
+    return offsets, x
+
+
+@pytest.mark.parametrize("case", BITWISE_DTYPES,
+                         ids=lambda c: ("signed-" if c[0] else "") + _dtype_id(c[1]))
+@pytest.mark.parametrize("lanes", ["full", "uniform", "padded"])
+def test_stream_kernel_equals_month_kernel_bit_for_bit(cuda, lanes, case):
+    """Both kernels walk the same period runs in lane order, so they agree
+    bit for bit for every stream type, P in 1..10 and R, with 43 agents;
+    on padded lanes the stream kernel drops the zero lanes the month
+    kernel adds."""
+    signed, dtypes = case
+    offsets, x = _bitwise_lanes(cuda, lanes, 43, seed=50)
+    x = _narrow(x, dtypes)
+    key = "stream_signed" if signed else "stream"
+    for p in range(1, 11):
+        period = (x["period"] % p).contiguous()
+        for r in BITWISE_R:
+            args = (x["load"], x["gen"], x["sell"], period,
+                    x["scales"][:, :r].contiguous(), offsets, p, signed)
+            ref = bk.month_sums(*args)
+            before = bk.LAUNCHES[key]
+            got = bk.stream_sums(*args)
+            assert bk.LAUNCHES[key] == before + 1
+            assert _same_bits(got, ref), (p, r)
+
+
+@pytest.mark.parametrize("dtypes", bk.IMPORT_DTYPES, ids=_dtype_id)
+@pytest.mark.parametrize("lanes", ["full", "uniform", "padded"])
+def test_pair_kernel_equals_two_month_launches_bit_for_bit(cuda, lanes, dtypes):
+    """Each half of the pair kernel is one month-kernel launch on that
+    tariff's sell and period lanes, bit for bit, for P in 1..10 and R."""
+    offsets, x = _bitwise_lanes(cuda, lanes, 43, seed=51)
+    x = _narrow(x, dtypes)
+    for p in range(1, 11):
+        pa = (x["period"] % p).contiguous()
+        pb = (x["period_b"] % p).contiguous()
+        for r in BITWISE_R:
+            sc = x["scales"][:, :r].contiguous()
+            before = bk.LAUNCHES["month_pair"]
+            got = bk.month_pair_sums(x["load"], x["gen"], x["sell"], pa,
+                                     x["sell_b"], pb, sc, offsets, p)
+            assert bk.LAUNCHES["month_pair"] == before + 1
+            ref = (bk.month_sums(x["load"], x["gen"], x["sell"], pa, sc, offsets,
+                                 p, False)
+                   + bk.month_sums(x["load"], x["gen"], x["sell_b"], pb, sc,
+                                   offsets, p, False))
+            assert _same_bits(got, ref), (p, r)
+
+
+@pytest.mark.parametrize("lanes", ["full", "compacted", "uniform"])
+@pytest.mark.parametrize("p", list(range(1, 11)))
+@pytest.mark.parametrize("signed", [False, True])
+def test_stream_and_pair_kernels_period_corners(cuda, lanes, p, signed):
+    """The month kernel's period corners (absent periods, a one-period
+    month, single-hour runs) through the stream kernel, and the pair
+    kernel with a second corner map: each against its plain version and
+    bit for bit against the month kernel, on every lane layout."""
+    offsets = _offsets(lanes)
+    x = _inputs(cuda, 13, 70, p, seed=20 + p, offsets=offsets)
+    month = _month_lanes(offsets)
+    x["period"] = _month_case(x["period"].cpu(), month, p, offsets,
+                              seed=p).to(cuda)
+    x["period_b"] = _month_case(x["period_b"].cpu(), month, p, offsets,
+                                seed=p + 40).to(cuda)
+    args = _lane_args(x, offsets, p, signed)
+    got = bk.stream_sums(*args)
+    _close(got, bk.month_sums_plain(*args))
+    assert _same_bits(got, bk.month_sums(*args))
+    imp = got[0].view(13, 70, 12, p)
+    if p > 1:   # month 1 lacks period 1; month 0 holds one period
+        assert bool((imp[:, :, 1, 1] == 0).all())
+        assert bool((imp[:, :, 0, :p - 1] == 0).all())
+    if signed:
+        return
+    pair = (x["load"], x["gen"], x["sell"], x["period"], x["sell_b"],
+            x["period_b"], x["scales"], offsets, p)
+    got = bk.month_pair_sums(*pair)
+    _close(got, bk.month_pair_sums_plain(*pair))
+    ref = (bk.month_sums(*args)
+           + bk.month_sums(x["load"], x["gen"], x["sell_b"], x["period_b"],
+                           x["scales"], offsets, p, False))
+    assert _same_bits(got, ref)
+
+
+def test_stream_and_pair_kernels_stage_out_of_range_periods_for_sell_only(cuda):
+    """A period lane outside [0, P) counts in the sell sums and in no
+    bucket, in both kernels, as in the plain versions."""
+    x = _inputs(cuda, 9, 40, 3, seed=30)
+    x["period"][:, ::7] = 5
+    x["period"][:, 3::11] = -1
+    x["period_b"][:, 1::5] = 3
+    x["period_b"][:, 2::13] = -7
+    for signed in (False, True):
+        args = _lane_args(x, layout.FULL_OFFSETS, 3, signed)
+        got = bk.stream_sums(*args)
+        _close(got, bk.month_sums_plain(*args))
+        assert _same_bits(got, bk.month_sums(*args))
+    pair = (x["load"], x["gen"], x["sell"], x["period"], x["sell_b"],
+            x["period_b"], x["scales"], layout.FULL_OFFSETS, 3)
+    _close(bk.month_pair_sums(*pair), bk.month_pair_sums_plain(*pair))
+
+
+# ---------------------------------------------------------------------------
 # The battery dispatch kernel (battery_dispatch.cu)
 # ---------------------------------------------------------------------------
 
