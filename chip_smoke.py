@@ -23,9 +23,9 @@ its first launch in the path):
   6. the daylight path (1,024 agents, 1 model year, daylight_compact
      alone): the month kernel on compacted lanes, its national curves
      against the same world's without the knob;
-  7. the dot path: one model year at 512 agents through
-     year_step(..., sizing_impl="dot"), its national curves against the
-     month engine's on the same world;
+  7. the dot path: one model year of the main path's world (8,192
+     agents) through year_step(..., sizing_impl="dot"), its national
+     curves against the month engine's on the same world;
   8. the micro-benchmark path: dgen_tpu_torch.tools.kernel_microbench at
      its own full size (8,192 agents x 250 scales x 8,760 hours, P = 2),
      every default variant: the six variant kernels (sums_variant in its
@@ -42,8 +42,15 @@ its first launch in the path):
      paths gave it, with a check that the comparison would catch a
      kernel that drops one TOU period of any agent, and each kernel's
      time beside its plain version's and the card's bound for the same
-     work; the battery dispatch kernel, bit for bit against its plain
-     loop on the main path's first-year dispatch; logged only: the month
+     work (the dot kernel's bound: the tensor-core products its bucket
+     ids need, forming relu(net), or bytes; its library time: torch.bmm
+     of the pre-formed relu(net) and M under TF32, the contraction
+     alone); the battery dispatch kernel, bit for bit against its plain
+     loop on the main path's first-year dispatch and on every model
+     path's first dispatch, its bound the larger of its bytes and its
+     serial chain at the SM clock read under load;
+     logged only: the dot kernel against the month kernel on the dot
+     path's operands and against the bmm, in alternated pairs; the month
      kernel against the stream kernel on the stream kernel's operands,
      the month kernel at P = 10 on the main path's lanes and scales and
      at 1, 2 and 4 scales a thread, the dispatch kernel on one warp of
@@ -71,6 +78,7 @@ package is not beside this script, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,13 +88,15 @@ import time
 #: tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: dense TF32 on the tensor cores
+PEAK_TF32_FLOPS = 495e12
 
 MAIN_AGENTS = 8192
 MAIN_END_YEAR = 2018          # model years 2014, 2016, 2018
 SWITCH_AGENTS = 1024
 SWITCH_END_YEAR = 2016        # model years 2014, 2016
 DAYLIGHT_AGENTS = 1024
-DOT_AGENTS = 512
+DOT_AGENTS = MAIN_AGENTS
 MICRO_AGENTS = 8192           # the micro-benchmark's own default
 HBM_AGENTS = 512              # M from device memory: 2.3 GB at 512 agents
 GATED = dict(daylight_compact=True, pack_once=True, stream_segments=True)
@@ -132,6 +142,22 @@ SOURCES = {
 #: their mins, a multiply, an add, a divide and a subtract for soc, a
 #: subtract and an add for system_out
 DISPATCH_OPS = 20
+#: dependent instructions between two hours' soc in the dispatch kernel's
+#: fast path, counted in its SASS (cuobjdump -sass): subtract, max, three
+#: multiply-adds (the division), min, multiply, add, subtract; each takes
+#: DEPENDENT_CYCLES, the arithmetic latency the CUDA C++ Programming Guide
+#: gives for compute capability 7.0 and later
+DISPATCH_CHAIN = 9
+DEPENDENT_CYCLES = 4
+#: the dot kernel's column tiles: 7 buckets and a sell slot of 8 columns
+#: (csrc/bucket_sums_dot.cu kGroup), and hours of a k-step
+DOT_GROUP = 7
+DOT_K = 8
+#: f32 operations per (scale, hour) to form relu(net) (a multiply-add and
+#: a max; the signed kernel takes net from the same multiply-add)
+DOT_FORM_OPS = 3
+#: bytes of pre-formed operands a torch.bmm yardstick call may take
+BMM_BYTES = 12 << 30
 #: the month kernel's logged A/B at the most periods a tariff may carry
 AB_PERIODS = 10
 
@@ -433,6 +459,141 @@ def bound_ms(n: int, r: int, work_lanes: int, ops_per_elem: int,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def dot_bound_ms(args, out_bytes: int) -> tuple[float, str, str]:
+    """Least time for the dot kernel's work on ``args``: the larger of the
+    TF32 products of the column tiles these bucket ids touch (per k-step
+    of DOT_K hours, the distinct tiles of DOT_GROUP buckets, each R rows x
+    8 columns x DOT_K hours; twice that signed) over the tensor cores'
+    peak, forming relu(net) (DOT_FORM_OPS float32 operations per (scale,
+    hour)) over the CUDA cores' peak, and the bytes (each stream and the
+    scales read once, each output written once). Returns (ms, "operations"
+    or "bytes", a note naming what sets it beside the dense product's
+    floor, all 12 P + 1 columns padded to a multiple of 8)."""
+    import torch
+
+    load, gen, sell, bucket, scales, p, signed = args
+    n, r = scales.shape
+    hours = bucket.shape[1]
+    tiles = (bucket // DOT_GROUP).view(n, hours // DOT_K, DOT_K).long()
+    live = torch.zeros((n, hours // DOT_K, -(-12 * p // DOT_GROUP)),
+                       dtype=torch.bool, device=bucket.device)
+    live.scatter_(2, tiles, True)
+    products = float(live.sum())
+    del live, tiles
+    a_sets = 2 if signed else 1
+    t_tc = products * r * 8 * DOT_K * 2 * a_sets / PEAK_TF32_FLOPS * 1e3
+    t_form = float(n) * r * hours * DOT_FORM_OPS / PEAK_F32_FLOPS * 1e3
+    t_bytes = (lane_bytes(args, hours) + 4.0 * n * r + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    dense = (float(n) * r * hours * -(-(12 * p + 1) // 8) * 8 * 2 * a_sets
+             / PEAK_TF32_FLOPS * 1e3)
+    b_ms, what = max((t_tc, "tensor-core products"), (t_form, "forming relu(net)"),
+                     (t_bytes, "bytes"))
+    note = (f"bound set by {what} (tensor-core products {t_tc:.3f} ms over "
+            f"{products / (n * hours / DOT_K):.3f} live tiles a k-step, forming "
+            f"relu(net) {t_form:.3f} ms, bytes {t_bytes:.3f} ms; the dense "
+            f"product's tensor-core floor {dense:.3f} ms)")
+    return b_ms, "bytes" if what == "bytes" else "operations", note
+
+
+def bmm_yardstick(args) -> float:
+    """The dot row's library time: torch.bmm of the pre-formed relu(net)
+    (and net, signed) [n, R, H] with M [n, H, 12 P + 1] (the one-hot
+    bucket columns and the sell rate) under TF32 (set and restored around
+    these timings only), the contraction alone: the medians of agent
+    chunks of at most BMM_BYTES of operands, each formed before it is
+    timed, added up. On the first chunk the bmm is held to the kernel at
+    the dot tolerance and the two are timed in alternated pairs (logged)."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
+
+    load, gen, sell, bucket, scales, p, signed = args
+    n, r = scales.shape
+    hours = load.shape[1]
+    cols = 12 * p + 1
+    a_rows = r * (2 if signed else 1)
+    chunk = max(1, min(n, BMM_BYTES // (4 * hours * (a_rows + cols))))
+
+    def operands(a0, a1):
+        ld, gn, sl, sc = (t[a0:a1].float() for t in (load, gen, sell, scales))
+        net = ld[:, None, :] - sc[:, :, None] * gn[:, None, :]
+        a = torch.clamp_min(net, 0.0)
+        if signed:
+            a = torch.cat([a, net], dim=1)
+        del net
+        m = torch.zeros((a1 - a0, hours, cols), device=load.device)
+        m.scatter_(2, bucket[a0:a1, :, None].long(), 1.0)
+        m[:, :, cols - 1] = sl
+        return a, m
+
+    total, calls = 0.0, 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for a0 in range(0, n, chunk):
+            a1 = min(n, a0 + chunk)
+            a, m = operands(a0, a1)
+            if a0 == 0:
+                part = tuple(t[a0:a1] for t in args[:5]) + args[5:]
+                got = bk.dot_sums(*part)
+                out = torch.bmm(a, m)
+                want = (out[:, :r, :cols - 1], out[:, :r, cols - 1])
+                if signed:
+                    want += (out[:, r:, :cols - 1], out[:, r:, cols - 1])
+                for g, w in zip(got, want):
+                    if bool(bad_agents(g.float(), w, DOT_RTOL).any()):
+                        raise AssertionError("the torch.bmm yardstick disagrees with "
+                                             "the dot kernel")
+                del got, out, want
+                ms, bmm_ms, wins = ab_ms(lambda: bk.dot_sums(*part),
+                                         lambda: torch.bmm(a, m))
+                log(f"    dot kernel vs torch.bmm of pre-formed relu(net) and M "
+                    f"(TF32, the contraction alone) on agents 0-{a1 - 1}: kernel "
+                    f"{ms:.3f} ms | bmm {bmm_ms:.3f} ms (medians of 6 alternated "
+                    f"pairs; kernel faster in {wins})")
+            total += time_ms(lambda: torch.bmm(a, m))
+            calls += 1
+            del a, m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"    torch.bmm yardstick over all {n} agents: {calls} calls of up to "
+        f"{chunk} agents, {total:.3f} ms in all (operands formed outside the timing)")
+    return total
+
+
+def dot_month_ab(captures: dict) -> None:
+    """The dot kernel against the month kernel on the dot path's own
+    operands (bucket ids as period ids on the full-hour lanes), held to the
+    dot tolerance and timed in alternated pairs; logged."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops.layout import FULL_OFFSETS
+    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
+
+    for key in ("dot", "dot_signed"):
+        load, gen, sell, bucket, scales, p, signed = args = captures["dot"][key]
+        month = (load, gen, sell, (bucket % p).to(torch.int32), scales, FULL_OFFSETS,
+                 p, signed)
+        got, ref = bk.dot_sums(*args), bk.month_sums(*month)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            g, r = g.float(), r.float()
+            if bool(bad_agents(g, r, DOT_RTOL).any()) or not torch.allclose(
+                    g, r, rtol=DOT_RTOL, atol=DOT_ATOL):
+                raise AssertionError(f"{key}: the dot kernel disagrees with the "
+                                     "month kernel on the same operands")
+        del got, ref
+        ms, month_ms, wins = ab_ms(lambda: bk.dot_sums(*args),
+                                   lambda: bk.month_sums(*month))
+        log(f"  {key} vs the month kernel on the dot path's operands: N={load.shape[0]} "
+            f"R={scales.shape[1]} P={p}: within rtol {DOT_RTOL} / atol {DOT_ATOL}; "
+            f"dot kernel {ms:.3f} ms | month kernel {month_ms:.3f} ms (medians of 6 "
+            f"alternated pairs; dot faster in {wins})")
+
+
 def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
     """Each kernel of ``specs`` against its plain version, and both timed,
     on the operands a path gave it. ``hour_lanes``: path -> lanes of its
@@ -476,26 +637,52 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
         del got, ref
         ms = time_ms(lambda: kernel(*args))
         plain_ms = time_ms(lambda: plain(*args))
-        b_ms, b_by = bound_ms(n, r, work_lanes, ops, lane_bytes(args, n_lanes),
-                              out_bytes)
+        library_ms, note = None, ""
+        if src == "dot":
+            b_ms, b_by, note = dot_bound_ms(args, out_bytes)
+            library_ms = bmm_yardstick(args)
+            note = f"; {note}; library (torch.bmm, TF32) {library_ms:.3f} ms"
+        else:
+            b_ms, b_by = bound_ms(n, r, work_lanes, ops, lane_bytes(args, n_lanes),
+                                  out_bytes)
         dtypes = "/".join(str(a.dtype).replace("torch.", "") for a in args[:3])
         log(f"  {name}: N={n} R={r} lanes={n_lanes} ({work_lanes} hours) P={p} "
             f"streams {dtypes} max_abs_err={err:.3e} "
             f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | bound {b_ms:.3f} ms "
-            f"({b_by}); a dropped period is caught in {caught} of {must} agents "
-            f"(one atol over the whole output: {caught_whole})")
+            f"({b_by}){note}; a dropped period is caught in {caught} of {must} "
+            f"agents (one atol over the whole output: {caught_whole})")
         rows.append(dict(name=name, source=SOURCES[src], replaces=replaces,
                          path=cap[0], err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, shape=(n, r, n_lanes),
-                         work_lanes=work_lanes))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                         shape=(n, r, n_lanes), work_lanes=work_lanes))
         torch.cuda.empty_cache()
     return rows
+
+
+@contextlib.contextmanager
+def first_dispatch(capture: dict):
+    """Keeps the operands of the first battery dispatch made inside the
+    block in ``capture["dispatch"]``; the dispatch runs as it would."""
+    from dgen_tpu_torch.ops import dispatch
+
+    kernel = dispatch.dispatch_battery
+
+    def keep(*args, **kw):
+        capture.setdefault("dispatch", args)
+        return kernel(*args, **kw)
+
+    dispatch.dispatch_battery = keep
+    try:
+        yield
+    finally:
+        dispatch.dispatch_battery = kernel
 
 
 def run_path(sim) -> dict:
     """Run every model year of ``sim`` with the launch counts set to 0
     before and read after; returns the results, per-year seconds, wall,
-    launch counts and first-launch operands."""
+    launch counts and first-launch operands (the first battery dispatch's
+    among them)."""
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
@@ -517,7 +704,8 @@ def run_path(sim) -> dict:
     dispatch.reset_launches()
     t0 = time.perf_counter()
     try:
-        res = sim.run()
+        with first_dispatch(bk.CAPTURE):
+            res = sim.run()
     finally:
         launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
         capture, bk.CAPTURE = bk.CAPTURE, None
@@ -617,12 +805,32 @@ def breakdown(sim, knobs: dict, kernel_ms: float) -> dict:
     )
 
 
+def sm_clock_mhz_under(fn) -> float:
+    """The SM clock nvidia-smi reads while ``fn`` is launched back to back
+    (at most 2,000 launches)."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    for _ in range(2000):
+        if proc.poll() is not None:
+            break
+        fn()
+    out = proc.communicate(timeout=60)[0]
+    torch.cuda.synchronize()
+    return float(out.strip().splitlines()[0])
+
+
 def dispatch_row(ops: tuple, launches: int) -> dict:
     """The dispatch kernel against its plain loop on ``ops``, bit for
-    bit, both timed, its bound (bytes: load and gen read, the four
-    outputs written, the three [N] battery inputs read, at 4 bytes; vs
-    DISPATCH_OPS float32 operations an (agent, hour)), and the kernel
-    on the first warp of agents alone (its serial chain, logged)."""
+    bit, both timed, its bound: the larger of its bytes (load and gen
+    read, the four outputs written, the three [N] battery inputs read, at
+    4 bytes; DISPATCH_OPS float32 operations an (agent, hour) take less)
+    and its serial chain (DISPATCH_CHAIN dependent instructions of
+    DEPENDENT_CYCLES an hour at the SM clock read under load); and the
+    kernel on the first warp of agents alone (its chain in practice,
+    logged)."""
     import torch
 
     from dgen_tpu_torch.ops import dispatch
@@ -641,20 +849,55 @@ def dispatch_row(ops: tuple, launches: int) -> dict:
     n, hours = ops[0].shape
     ms = time_ms(lambda: dispatch.dispatch_battery(*ops))
     plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops))
+    mhz = sm_clock_mhz_under(lambda: dispatch.dispatch_battery(*ops))
     t_bytes = 4.0 * (6 * n * hours + 3 * n) / PEAK_BYTES_PER_S * 1e3
     t_ops = float(n) * hours * DISPATCH_OPS / PEAK_F32_FLOPS * 1e3
-    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_chain = float(hours) * DISPATCH_CHAIN * DEPENDENT_CYCLES / (mhz * 1e6) * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"),
+                     (t_chain, "operations"))
     warp = tuple(t[:32] for t in ops)
     warp_ms = time_ms(lambda: dispatch.dispatch_battery(*warp))
     log(f"  battery_dispatch: N={n} H={hours} equal to the plain loop bit for bit "
         f"(torch.equal, every output) kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
-        f"| bound {b_ms:.3f} ms ({b_by}); one warp of 32 agents alone (the serial "
-        f"chain of {hours} hours) {warp_ms:.3f} ms")
+        f"| bound {b_ms:.3f} ms ({'bytes' if b_ms == t_bytes else 'serial chain'}; "
+        f"bytes {t_bytes:.3f} ms, serial chain {t_chain:.3f} ms = {DISPATCH_CHAIN} "
+        f"dependent instructions x {DEPENDENT_CYCLES} cycles x {hours} hours at "
+        f"{mhz:.0f} MHz under load); one warp of 32 agents alone (the serial "
+        f"chain in practice) {warp_ms:.3f} ms")
     return dict(name="battery_dispatch", route="cuda", source=SOURCES["dispatch"],
                 replaces="dgen_tpu/ops/dispatch.py:88", launches=launches,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, shape_n_hours=[n, hours],
-                serial_chain_ms=warp_ms, path="main")
+                sm_clock_mhz=mhz, serial_chain_ms=warp_ms, path="main")
+
+
+def dispatch_every_path(captures: dict) -> None:
+    """The dispatch kernel against its plain loop, bit for bit, on the
+    first battery dispatch of every model path (every path but the
+    micro-benchmark's, which runs no model year); logged, a mismatch or a
+    model path with no captured dispatch fails the run."""
+    import torch
+
+    from dgen_tpu_torch.ops import dispatch
+
+    for path, cap in captures.items():
+        if path == "micro":
+            continue
+        if "dispatch" not in cap:
+            raise AssertionError(f"the {path} path captured no battery dispatch")
+        ops = cap["dispatch"]
+        got = dispatch.dispatch_battery(*ops)
+        ref = dispatch.dispatch_battery_plain(*ops)
+        torch.cuda.synchronize()
+        for k in ("system_out", "soc", "charge", "discharge"):
+            if not torch.equal(getattr(got, k), getattr(ref, k)):
+                raise AssertionError(f"battery_dispatch on the {path} path: {k} "
+                                     "differs from the plain loop")
+        log(f"  battery_dispatch on the {path} path's first dispatch: "
+            f"N={ops[0].shape[0]} H={ops[0].shape[1]}, equal to the plain loop bit "
+            "for bit (torch.equal, every output)")
+        del got, ref
+        torch.cuda.empty_cache()
 
 
 def month_kernel_ab(imports: tuple, signed: tuple) -> None:
@@ -716,18 +959,6 @@ def same_bits(got, ref) -> bool:
                for a, b in zip(got, ref, strict=True))
 
 
-def ab_ms(fa, fb, pairs: int = 6) -> tuple[float, float, int]:
-    """Medians of ``pairs`` alternated timings of ``fa`` and ``fb``
-    (a, b, then b, a, ...; each a :func:`time_ms`), and in how many of
-    the pairs ``fa`` was the faster."""
-    ta, tb = [], []
-    for i in range(pairs):
-        for f, t in ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta)):
-            t.append(time_ms(f))
-    wins = sum(a < b for a, b in zip(ta, tb))
-    return sorted(ta)[pairs // 2], sorted(tb)[pairs // 2], wins
-
-
 def staging_ab(captures: dict) -> None:
     """The stream kernel against the month kernel on the gated path's and
     the int8-banks path's own operands, and the pair kernel against two
@@ -735,6 +966,7 @@ def staging_ab(captures: dict) -> None:
     bit for bit, and both sides timed in alternated pairs; a mismatch
     fails the run."""
     from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
 
     for name, (path, key) in (
             ("stream imports, gated", ("gated", "stream")),
@@ -924,7 +1156,8 @@ def dot_path(presets) -> tuple:
     bk.reset_launches()
     dispatch.reset_launches()
     try:
-        dot = national(one_year("dot"))
+        with first_dispatch(bk.CAPTURE):
+            dot = national(one_year("dot"))
     finally:
         launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
         capture, bk.CAPTURE = bk.CAPTURE, None
@@ -1136,6 +1369,9 @@ def main() -> int:
     log("  the redesigned kernels on their paths' own operands against the month "
         "kernel, bit for bit (same_bits) and timed, not in the kernels line:")
     staging_ab(captures)
+    dot_month_ab(captures)
+    log("  the battery dispatch kernel on every model path's first dispatch:")
+    dispatch_every_path(captures)
     log(f"  the month kernel on the main path's first launches, at P = {AB_PERIODS} "
         "too (seeded period map), at each count of scales a thread, not in the "
         "kernels line:")
@@ -1181,7 +1417,8 @@ def main() -> int:
             name=r["name"], route="cuda", source=r["source"],
             replaces=r["replaces"], launches=path_launches[path_key][key],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
             shape_n_r_lanes=list(r["shape"]), hour_lanes=r["work_lanes"],
             path=path_key,
         ))

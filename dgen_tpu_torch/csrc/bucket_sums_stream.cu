@@ -68,6 +68,7 @@
 
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "lanes.cuh"
 #include "staging.cuh"
 
@@ -78,34 +79,11 @@ using lanes::MonthOffsets;
 using lanes::to_f32;
 using staging::kMaxClasses;
 
-// One asynchronous copy of BYTES (4, 8 or 16) from device to shared memory.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(gmem)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-                 "l"(gmem), "n"(BYTES)
-                 : "memory");
-  }
-}
-
 // Queues the copy of four lanes of type T starting at lane `lane` of
 // `src` to lane `lane` of the shared row `dst`.
 template <typename T>
 __device__ __forceinline__ void copy4(T* dst, const T* src, int lane) {
-  cp_async<static_cast<int>(4 * sizeof(T))>(dst + lane, src + lane);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  async_copy::copy<static_cast<int>(4 * sizeof(T))>(dst + lane, src + lane);
 }
 
 __host__ __device__ inline int align16(int bytes) {
@@ -188,13 +166,13 @@ __global__ void __launch_bounds__(staging::kMaxThreads)
       copy4(raw_s, sell + g0, c);
       copy4(raw_p, period + g0, c);
     }
-    cp_async_commit();
+    async_copy::commit();
   };
 
   const int zero_class = n_periods + 1;  // load and gen both zero: dropped
   issue(0);
   for (int m = 0; m < kMonths; ++m) {
-    cp_async_wait_all();  // this thread's copies of month m landed
+    async_copy::wait<0>();  // this thread's copies of month m landed
     __syncthreads();  // ... and every thread's; none still sums month m - 1
     staging::stage_by_period<DROP>(
         offs.o[m + 1] - offs.o[m], n_periods + (DROP ? 2 : 1),

@@ -6,7 +6,9 @@ linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library lands in ``build/`` beside the package, one file
 per hash of the sources, headers and flags (an edited source is
 rebuilt), written to a temporary name and renamed, so a concurrent or
-interrupted build never leaves a half-written library behind.
+interrupted build never leaves a half-written library behind. Each
+function takes another ``csrc`` directory too (another checkout's
+kernels, built with this checkout's flags); it defaults to this one.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ _TEMPLATE_ARGS = {
     "month_kernel": (("signed", ()), ("spt", ())),
     "stream_kernel": (("signed", ()), ("spt", ()), ("drop_zeros", ())),
     "month_pair_kernel": (("spt", ()), ("drop_zeros", ())),
-    "dot_kernel": (("signed", ()),),
+    "dot_kernel": (("signed", ()), ("col_tiles", ())),
     "variant_kernel": (("build", ("onehot", "const", "hbm")),
                        ("dot", ("dot", "none")), ("net", ("fma", "bcast"))),
     "mask_product_kernel": (("mode", ("monthdot_pre", "mnet", "mnet_hi")),
@@ -90,8 +92,8 @@ _TEMPLATE_ARGS = {
 _TYPE_ARGS = {"f": "f32", "a": "i8", "13__nv_bfloat16": "bf16", "i": "i32"}
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str | None = None) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc or CSRC, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -101,9 +103,9 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
+def library_path(csrc: str | None = None) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+    for path in sorted(glob.glob(os.path.join(csrc or CSRC, "*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -172,10 +174,11 @@ def kernel_resources(log: str) -> list[dict]:
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> tuple[str, float, str]:
+def build(csrc: str | None = None) -> tuple[str, float, str]:
     """(library path, build seconds, compiler log). Compiles only when the
     library for these sources is missing; seconds is 0.0 then."""
-    path = library_path()
+    srcs = sources(csrc)
+    path = library_path(csrc)
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -183,14 +186,14 @@ def build() -> tuple[str, float, str]:
     t0 = time.perf_counter()
     try:
         nvcc = _nvcc()
-        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in sources()]
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
         procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", src, "-o", obj],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
-                 for src, obj in zip(sources(), objs)]
+                 for src, obj in zip(srcs, objs)]
         logs = [p.communicate()[0] for p in procs]
         log = "".join(logs)
-        failed = [src for src, p in zip(sources(), procs) if p.returncode != 0]
+        failed = [src for src, p in zip(srcs, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = os.path.join(work, "lib.so")
@@ -210,11 +213,14 @@ def build() -> tuple[str, float, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    path, _, _ = build()
+def library(csrc: str | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed, its C entries
+    typed (those of :data:`_SIGNATURES` that it has)."""
+    path, _, _ = build(csrc)
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

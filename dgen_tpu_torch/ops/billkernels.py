@@ -469,7 +469,12 @@ def dot_sums(load, gen, sell, bucket_id, scales, n_periods: int,
              with_signed: bool):
     """Bucket sums on the one-hot tensor-core kernel over full-hour
     streams and bucket ids (see :func:`dot_sums_plain`): the CUDA kernel
-    on a CUDA tensor, the plain version on a CPU one."""
+    on a CUDA tensor, the plain version on a CPU one. The kernel's import
+    products take TF32 operands and its signed products 3xTF32 ones (the
+    signed terms cancel), both summed in float32. It takes float32 and
+    bfloat16 streams and the bucket ids at 16-byte aligned addresses and
+    int8 streams at 8-byte aligned ones (any row of an array from the
+    allocator); a stream that starts elsewhere raises."""
     codes = _check_stream_dtypes(load, gen, sell, with_signed)
     if scales.device.type == "cpu":
         return dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods,

@@ -6,7 +6,9 @@ and available energy). Two forms, as in the JAX package:
 
   * ``impl="scan"`` (default): the sequential recursion. On a CUDA tensor
     it is the hand-written kernel ``csrc/battery_dispatch.cu`` (one thread
-    per agent, equal to the plain loop bit for bit); on a CPU tensor it is
+    per agent steps the state of charge, helper warps of its block do the
+    rest of each hour; equal to the plain loop bit for bit); on a CPU
+    tensor it is
     :func:`dispatch_battery_plain`, the JAX ``lax.scan`` as a Python loop
     over ``[N]`` tensors.
   * ``impl="pscan"``: the saturating-accumulator parallel prefix (the JAX

@@ -179,6 +179,19 @@ def time_ms(fn, reps: int, device) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def ab_ms(fa, fb, pairs: int = 6, device=torch.device("cuda")
+          ) -> tuple[float, float, int]:
+    """Medians of ``pairs`` alternated timings of ``fa`` and ``fb``
+    (a, b, then b, a, ...; each a :func:`time_ms` of 5 calls), and in how
+    many of the pairs ``fa`` was the faster."""
+    ta, tb = [], []
+    for i in range(pairs):
+        for f, t in ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta)):
+            t.append(time_ms(f, 5, device))
+    wins = sum(a < b for a, b in zip(ta, tb))
+    return sorted(ta)[pairs // 2], sorted(tb)[pairs // 2], wins
+
+
 def bad_agents(got: torch.Tensor, ref: torch.Tensor, rtol: float) -> int:
     """Agents with an element outside rtol + ATOL_FRAC x that agent's
     largest |ref| in this output."""

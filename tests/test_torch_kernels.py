@@ -13,7 +13,8 @@ the per-agent atol above. The micro-benchmark's variants
 (ops/microkernels.py) follow their kind: the mask kernels as the month
 kernel, the two tensor-core kernels as the dot kernel. The battery
 dispatch kernel (ops/dispatch.py) rounds every operation as its plain
-loop does and is held to it bit for bit (torch.equal); so are the month
+loop does and is held to it bit for bit (torch.equal; NaN in the same
+places where a load is NaN); so are the month
 kernel's per-period sums, on inputs where net = load exactly, to a
 lane-by-lane float32 sum."""
 
@@ -141,24 +142,98 @@ def test_stream_kernel_matches_plain(cuda, lanes, p, r, signed):
     _close(got, bk.month_sums_plain(*args))
 
 
-@pytest.mark.parametrize("p", PERIODS)
-@pytest.mark.parametrize("r", [25, 300])
-@pytest.mark.parametrize("signed", [False, True])
-def test_dot_kernel_matches_plain(cuda, p, r, signed):
+#: (kind, (load, gen, sell) dtypes): every stream combination the engine
+#: kernels are instantiated for
+DOT_CASES = ([("import", d) for d in bk.IMPORT_DTYPES]
+             + [("signed", d) for d in bk.SIGNED_DTYPES])
+
+
+def _case_id(case):
+    kind, dtypes = case
+    return kind + "-" + "-".join(str(t).replace("torch.", "") for t in dtypes)
+
+
+@pytest.mark.parametrize("case", DOT_CASES, ids=_case_id)
+@pytest.mark.parametrize("p", [1, 2, 3, 5, 10])
+@pytest.mark.parametrize("r", [1, 16, 17, 25, 33, 300, 700])
+def test_dot_kernel_matches_plain(cuda, case, p, r):
+    """The dot kernel against its plain version and the month kernel's,
+    at the dot engine's tolerance: P = 1, 2, 3, 5 and 10 run each of its
+    column-tile forms (2, 4, 8, 12 and 18 tiles), R = 17 and 33 leave a
+    row tile partly empty, R = 700 takes two blocks an agent (the second
+    partly empty), and the last day of December sits in the last period,
+    the last live bucket column before the sell column."""
+    kind, dtypes = case
+    signed = kind == "signed"
     x = _inputs(cuda, 21, r, p, seed=7)
+    x["period"][:, -24:] = p - 1
+    x["bucket"] = bk.hourly_bucket_ids(x["period"], p)
+    x = _narrow(x, dtypes)
     args = (x["load"], x["gen"], x["sell"], x["bucket"], x["scales"], p, signed)
     key = "dot_signed" if signed else "dot"
     before = bk.LAUNCHES[key]
     got = bk.dot_sums(*args)
     torch.cuda.synchronize()
     assert bk.LAUNCHES[key] == before + 1
-    ref = bk.dot_sums_plain(*args)
-    _close(got, ref, rtol=5e-3)
-    for g, rf in zip(got, ref):
-        torch.testing.assert_close(g, rf, rtol=5e-3, atol=2.0)
+    out_dtype = bk._sums_out_dtype(*dtypes)
+    extra = BF16_ULP if out_dtype == torch.bfloat16 else 0.0
     # the same function as the month kernel
     lane = bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, signed))
-    _close(got, lane, rtol=5e-3)
+    for ref in (bk.dot_sums_plain(*args), lane):
+        _close_at(got, ref, out_dtype, rtol=5e-3)
+        for g, rf in zip(got, ref):
+            torch.testing.assert_close(g.float(), rf.float(), rtol=5e-3 + extra,
+                                       atol=2.0)
+
+
+@pytest.mark.parametrize("case", DOT_CASES, ids=_case_id)
+def test_dot_kernel_takes_rows_from_any_agent(cuda, case):
+    """The streams of agents 3.. of an array are a view that starts one
+    row in (8,760 bytes for int8 codes, so 8-byte but not 16-byte aligned):
+    the kernel takes it and matches its plain version; a stream that
+    starts one element off its copy size is refused."""
+    kind, dtypes = case
+    signed = kind == "signed"
+    x = _narrow(_inputs(cuda, 8, 25, 2, seed=11), dtypes)
+    args = [x["load"][3:], x["gen"][3:], x["sell"][3:], x["bucket"][3:],
+            x["scales"][3:], 2, signed]
+    assert all(t.is_contiguous() for t in args[:5])
+    got = bk.dot_sums(*args)
+    extra = BF16_ULP if bk._sums_out_dtype(*dtypes) == torch.bfloat16 else 0.0
+    for g, rf in zip(got, bk.dot_sums_plain(*args)):
+        torch.testing.assert_close(g.float(), rf.float(), rtol=5e-3 + extra,
+                                   atol=2.0)
+    load = x["load"].flatten()[1:1 + 5 * 8760].view(5, 8760)
+    with pytest.raises(RuntimeError, match="alignment"):
+        bk.dot_sums(load, *args[1:])
+
+
+def test_dot_kernel_rounds_operands_to_nearest_tf32(cuda):
+    """The import products take relu(net) and the sell rate rounded to the
+    nearest TF32 value (10 mantissa bits, ties away from zero), the one-hot
+    ones exactly, so one hour's import sums are the rounded values:
+    1 + 2^-11 + 2^-13 and the tie 1 + 2^-11 give 1 + 2^-10, a sell rate
+    of 1 + 2^-11 + 2^-13 times a load of 1 gives 1 + 2^-10. The signed
+    products take net and the sell rate as two TF32 parts each (3xTF32),
+    which carry these values exactly."""
+    above, tie, up = 1 + 2.0 ** -11 + 2.0 ** -13, 1 + 2.0 ** -11, 1 + 2.0 ** -10
+    load = torch.zeros((4, 8760))
+    sell = torch.zeros((4, 8760))
+    load[:, 0] = torch.tensor([above, tie, -tie, 1.0])
+    sell[3, 0] = above
+    zeros = torch.zeros((4, 8760), dtype=torch.int32)
+    scales = torch.zeros((4, 1))
+    got = bk.dot_sums(*(t.to(cuda) for t in (load, torch.zeros((4, 8760)), sell,
+                                             bk.hourly_bucket_ids(zeros, 1),
+                                             scales)), 1, True)
+    want_imp = torch.zeros((4, 1, 12))
+    want_imp[:, 0, 0] = torch.tensor([up, up, 0.0, 1.0])
+    want_sgn = torch.zeros((4, 1, 12))
+    want_sgn[:, 0, 0] = torch.tensor([above, tie, -tie, 1.0])
+    want_imp_sell = torch.tensor([[0.0], [0.0], [0.0], [up]])
+    want_sgn_sell = torch.tensor([[0.0], [0.0], [0.0], [above]])
+    for g, w in zip(got, (want_imp, want_imp_sell, want_sgn, want_sgn_sell)):
+        assert torch.equal(g.cpu(), w), (g.cpu(), w)
 
 
 def _micro_args(x):
@@ -784,12 +859,26 @@ def _dispatch_inputs(dev, n, hours, seed):
     return [torch.from_numpy(a).to(dev) for a in (load, gen, kw, kwh, eff)]
 
 
-@pytest.mark.parametrize("n", [1, 37, 300])
-@pytest.mark.parametrize("hours", [37, 8760])
-def test_dispatch_kernel_equals_plain_loop(cuda, n, hours):
+def _equal(a, b) -> bool:
+    """torch.equal, with NaN equal to NaN in the same places (the NaN's
+    payload may differ between the kernel's min.NaN and PyTorch's)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan_loads"])
+@pytest.mark.parametrize("n", [1, 31, 33, 37, 300])
+@pytest.mark.parametrize("hours", [1, 31, 33, 37, 8760])
+def test_dispatch_kernel_equals_plain_loop(cuda, n, hours, nan):
+    """Bit for bit, at agent counts that leave the last block of 32 partly
+    empty and hour counts that leave the last tile of 32 partly empty;
+    with NaN loads in a few hours of two agents, NaN in the same places."""
     from dgen_tpu_torch.ops import dispatch
 
     x = _dispatch_inputs(cuda, n, hours, seed=n + hours)
+    if nan:
+        x[0][-1, hours // 2] = float("nan")
+        x[0][n // 2, ::max(1, hours // 3)] = float("nan")
     before = dispatch.LAUNCHES["dispatch"]
     got = dispatch.dispatch_battery(*x)
     torch.cuda.synchronize()
@@ -798,10 +887,13 @@ def test_dispatch_kernel_equals_plain_loop(cuda, n, hours):
     for k in ("system_out", "soc", "charge", "discharge"):
         a, b = getattr(got, k), getattr(ref, k)
         assert a.shape == b.shape == (n, hours) and a.is_contiguous()
-        assert torch.equal(a, b), (k, float((a - b).abs().max()))
+        assert _equal(a, b), (k, float((a - b).abs().nan_to_num().max()))
+    if nan:
+        assert bool(torch.isnan(got.soc[-1, hours // 2:]).all())
+        return
     assert float(got.charge[0].abs().max()) == 0.0
     assert torch.equal(got.system_out[0], x[1][0])
-    if n > 1:
+    if n > 1 and hours > 1:
         assert float(got.charge.sum()) > 0.0 and float(got.discharge.sum()) > 0.0
 
 

@@ -408,3 +408,31 @@ def test_kernel_resources_names_the_stream_types():
         "month_kernel<signed,bf16,bf16,bf16,bf16>"]
     for name in ("microbench_monthdot_pre", "microbench_mnet"):
         assert name in _build._SIGNATURES
+
+
+def test_ab_ms_alternates_and_counts_wins():
+    calls = []
+
+    def slow():
+        sum(range(200_000))
+        calls.append("b")
+
+    ms_a, ms_b, wins = tool.ab_ms(lambda: calls.append("a"), slow, pairs=4,
+                                  device=torch.device("cpu"))
+    assert ms_a < ms_b and wins == 4, (ms_a, ms_b, wins)
+    # each timing is a warm-up and 5 calls; the second pair starts with b
+    assert calls[:12] == ["a"] * 6 + ["b"] * 6
+    assert calls[12:18] == ["b"] * 6
+
+
+def test_parent_ab_cuts_agent_rows_and_flattens_outputs():
+    from dgen_tpu_torch.ops import dispatch
+    from dgen_tpu_torch.tools import kernel_parent_ab as ab
+
+    load, scales = torch.zeros((6, 16)), torch.zeros((6, 3))
+    cut = ab.first_rows((load, scales, torch.zeros(6), (0, 16), 2, True), 2)
+    assert [tuple(t.shape) for t in cut[:3]] == [(2, 16), (2, 3), (2,)]
+    assert cut[3:] == ((0, 16), 2, True) and cut[0].is_contiguous()
+    res = dispatch.DispatchResult(*(torch.full((1,), float(i)) for i in range(4)))
+    assert [float(t) for t in ab.outputs(res)] == [0.0, 1.0, 2.0, 3.0]
+    assert ab.outputs([load]) == (load,)

@@ -1,9 +1,10 @@
-"""Host-side pieces of the period-partitioned staging kernels
-(csrc/staging.cuh, csrc/bucket_sums.cu, csrc/bucket_sums_stream.cu)
-that run without a card: the stream and pair wrappers' CPU path, the
-build hash over the shared header, and the compiler-log names of the
-redesigned kernels."""
+"""Host-side pieces of the CUDA kernels that run without a card: the
+stream, pair and dot wrappers' CPU path, the build hash over the shared
+headers (csrc/staging.cuh, csrc/lanes.cuh, csrc/async_copy.cuh), and the
+compiler-log names of the redesigned kernels."""
 
+import os
+import re
 import shutil
 
 import pytest
@@ -47,6 +48,72 @@ def test_stream_and_pair_wrappers_run_the_plain_version_on_the_cpu(dtypes):
         assert all(a.dtype == b.dtype and torch.equal(a, b)
                    for a, b in zip(got, ref, strict=True))
     assert bk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtypes", ALL_DTYPES, ids=lambda d: "-".join(
+    str(t).replace("torch.", "") for t in d))
+def test_dot_wrapper_runs_the_plain_version_on_the_cpu(dtypes):
+    """On CPU tensors the dot wrapper returns its plain version bit for
+    bit, at its output dtype, and counts no kernel launch."""
+    g = torch.Generator().manual_seed(8)
+
+    def stream(dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, (3, 8760), generator=g,
+                                 dtype=torch.int8)
+        return torch.rand((3, 8760), generator=g).to(dtype)
+
+    load, gen, sell = (stream(d) for d in dtypes)
+    period = torch.randint(0, 3, (3, 8760), generator=g, dtype=torch.int32)
+    scales = torch.rand((3, 5), generator=g)
+    before = dict(bk.LAUNCHES)
+    args = (load, gen, sell, bk.hourly_bucket_ids(period, 3), scales, 3,
+            dtypes in bk.SIGNED_DTYPES)
+    got = bk.dot_sums(*args)
+    ref = bk.dot_sums_plain(*args)
+    assert all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, ref, strict=True))
+    assert bk.LAUNCHES == before
+
+
+def _included_headers() -> list[str]:
+    found = set()
+    for src in _build.sources():
+        with open(src) as f:
+            found.update(re.findall(r'^#include "([^"]+)"', f.read(), re.M))
+    return sorted(found)
+
+
+def test_every_included_header_is_in_csrc():
+    headers = _included_headers()
+    assert {"async_copy.cuh", "lanes.cuh", "staging.cuh"} <= set(headers)
+    for h in headers:
+        assert os.path.isfile(os.path.join(_build.CSRC, h)), h
+
+
+@pytest.mark.parametrize("header", _included_headers())
+def test_library_path_covers_every_included_header(header, tmp_path, monkeypatch):
+    """The build hash reads every file of csrc/, so an edit to any header
+    a kernel source includes rebuilds the library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = _build.library_path()
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+
+
+def test_kernel_resources_name_the_dot_kernel_forms():
+    pre = "_ZN46_GLOBAL__N__2b7c3a41_18_bucket_sums_dot_cu_5e1c4a2b"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{pre}{name}{targs}EEvPKT1_' "
+        "for 'sm_90a'" for name, targs in (
+            ("10dot_kernel", "ILb1ELi4Effff"),
+            ("10dot_kernel", "ILb0ELi18Eaaff")))
+    assert [r["kernel"] for r in _build.kernel_resources(log)] == [
+        "dot_kernel<signed,col_tiles=4,f32,f32,f32,f32>",
+        "dot_kernel<col_tiles=18,i8,i8,f32,f32>"]
 
 
 def test_library_path_covers_the_staging_header(tmp_path, monkeypatch):
