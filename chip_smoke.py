@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (dgen_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent`` names another checkout of the repository (default
+build/parent beside this script, where present), for example the parent
+commit unpacked with git archive, whose micro-benchmark tensor-core
+kernels [9] times against this checkout's.
 
 Phases, in order (each path runs with the launch counts set to 0 just
 before it and read just after; each kernel wrapper keeps the operands of
@@ -43,21 +48,30 @@ its first launch in the path):
      kernel that drops one TOU period of any agent, and each kernel's
      time beside its plain version's and the card's bound for the same
      work (the dot kernel's bound: the tensor-core products its bucket
-     ids need, forming relu(net), or bytes; its library time: torch.bmm
-     of the pre-formed relu(net) and M under TF32, the contraction
-     alone); the battery dispatch kernel, bit for bit against its plain
+     ids need, forming relu(net), or bytes; sums_variant's bound: the
+     TF32 product of the 12 P + 1 columns its outputs need, its CUDA-core
+     operations, or bytes, its dense b_pad-column product logged beside
+     it; every bucket-sums row's library time: torch.bmm of the
+     pre-formed relu(net) and the one-hot M of its buckets, 12 P + 1
+     columns a tariff, under TF32, the contraction alone, on the row's
+     own operands, the micro path's for the micro-benchmark rows); the
+     battery dispatch kernel, bit for bit against its plain
      loop on the main path's first-year dispatch and on every model
      path's first dispatch, its bound the larger of its bytes and its
      serial chain at the SM clock read under load;
-     logged only: the dot kernel against the month kernel on the dot
-     path's operands and against the bmm, in alternated pairs; the month
+     logged only: each row's kernel against its bmm, the dot kernel
+     against the month kernel on the dot path's operands, sums_variant
+     against the bmm of its 128 columns, sums_monthdot and sums_variant
+     against the --parent checkout's kernels (kernel_parent_ab),
+     sums_monthdot against the month kernel on the micro path's operands
+     at its P and at P = 10, in alternated pairs; the month
      kernel against the stream kernel on the stream kernel's operands,
      the month kernel at P = 10 on the main path's lanes and scales and
      at 1, 2 and 4 scales a thread, the dispatch kernel on one warp of
      agents (its serial chain), the narrow-stream rows' kernels on
      float32 copies of their operands, the ablated settings of
      sums_variant, its 32-column forms and its device-memory build at
-     512 agents; the first year's sizing call broken down (with the
+     512 agents, each beside its floor; the first year's sizing call broken down (with the
      dispatch kernel and with the plain loop); the stream kernel against
      the month kernel on the gated and int8-banks paths' operands, and the
      pair kernel against two month launches on both rate-switch paths'
@@ -349,8 +363,19 @@ def check_variant_forms(operands: tuple, mk, tool) -> None:
                                      f"{err:.3e})")
         del got, ref
         ms = time_ms(lambda: mk.sums_variant(*args, **kw))
-        log(f"  sums_variant {name}: N={args[0].shape[0]} max_abs_err={err:.3e} "
-            f"(rtol {rtol}) kernel {ms:.3f} ms")
+        n, r = args[4].shape
+        hours = args[0].shape[1]
+        if kw.get("dot") == "none":
+            floor = (f"CUDA-core floor "
+                     f"{float(n) * r * hours * 6 / PEAK_F32_FLOPS * 1e3:.3f} ms")
+        else:
+            p, cols = kw["n_periods"], kw.get("b_pad", 128)
+            need, dense = variant_floors_ms(n, r, hours, p, cols)
+            floor = (f"TF32 floor of the {12 * p + 1} columns the outputs need "
+                     f"{need:.3f} ms, dense TF32 floor of all {cols} columns "
+                     f"{dense:.3f} ms")
+        log(f"  sums_variant {name}: N={n} max_abs_err={err:.3e} "
+            f"(rtol {rtol}) kernel {ms:.3f} ms; {floor}")
         torch.cuda.empty_cache()
 
 
@@ -495,37 +520,103 @@ def dot_bound_ms(args, out_bytes: int) -> tuple[float, str, str]:
     return b_ms, "bytes" if what == "bytes" else "operations", note
 
 
-def bmm_yardstick(args) -> float:
-    """The dot row's library time: torch.bmm of the pre-formed relu(net)
-    (and net, signed) [n, R, H] with M [n, H, 12 P + 1] (the one-hot
-    bucket columns and the sell rate) under TF32 (set and restored around
-    these timings only), the contraction alone: the medians of agent
-    chunks of at most BMM_BYTES of operands, each formed before it is
-    timed, added up. On the first chunk the bmm is held to the kernel at
-    the dot tolerance and the two are timed in alternated pairs (logged)."""
+def lane_buckets(period, offsets, p: int):
+    """[N, L] bucket ids month x P + period of lanes whose month m is
+    [offsets[m], offsets[m + 1]), and the lanes whose period lies in [0,
+    P) (the others count for the sell sum alone)."""
     import torch
 
-    from dgen_tpu_torch.ops import billkernels as bk
-    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
+    lens = torch.tensor([b - a for a, b in zip(offsets[:-1], offsets[1:])],
+                        device=period.device)
+    month = torch.repeat_interleave(torch.arange(12, device=period.device), lens)
+    period = period.long()
+    return month * p + period, (period >= 0) & (period < p)
 
-    load, gen, sell, bucket, scales, p, signed = args
+
+def sums_terms(args) -> tuple:
+    """A bucket-sums row's operands as (load, gen, scales, P, signed,
+    tariffs), ``tariffs`` one (bucket ids, valid lanes, sell) [N, L] each:
+    ``args`` are the dot kernel's (load, gen, sell, bucket ids, scales, P,
+    signed), the month and stream kernels' (load, gen, sell, period,
+    scales, offsets, P, signed) or the pair kernel's (load, gen, sell_a,
+    period_a, sell_b, period_b, scales, offsets, P)."""
+    if len(args) == 7:
+        load, gen, sell, bucket, scales, p, signed = args
+        return load, gen, scales, p, signed, [(bucket.long(), None, sell)]
+    if len(args) == 8:
+        load, gen, sell, period, scales, offsets, p, signed = args
+        return load, gen, scales, p, signed, [(*lane_buckets(period, offsets, p), sell)]
+    load, gen, sell_a, period_a, sell_b, period_b, scales, offsets, p = args
+    return load, gen, scales, p, False, [
+        (*lane_buckets(period, offsets, p), sell)
+        for period, sell in ((period_a, sell_a), (period_b, sell_b))]
+
+
+def bmm_operands(terms: tuple, a0: int, a1: int, cols: int) -> tuple:
+    """The bmm yardstick's operands for agents [a0, a1) of ``terms``
+    (:func:`sums_terms`): relu(net) (and net below it, signed) [n, R or
+    2R, L] and M [n, L, cols x tariffs], per tariff its one-hot bucket
+    columns, zero columns up to its last, and the sell rate in its
+    last."""
+    import torch
+
+    load, gen, scales, p, signed, tariffs = terms
+    nb = 12 * p
+    ld, gn, sc = (t[a0:a1].float() for t in (load, gen, scales))
+    net = ld[:, None, :] - sc[:, :, None] * gn[:, None, :]
+    a = torch.clamp_min(net, 0.0)
+    if signed:
+        a = torch.cat([a, net], dim=1)
+    del net
+    m = torch.zeros((a1 - a0, load.shape[1], cols * len(tariffs)), device=load.device)
+    for t, (bucket, valid, sell) in enumerate(tariffs):
+        mt = m[:, :, t * cols:(t + 1) * cols]
+        ids = bucket[a0:a1].clamp(0, nb - 1)[..., None]
+        if valid is None:
+            mt.scatter_(2, ids, 1.0)
+        else:  # an hour outside [0, P) has no import column
+            mt.scatter_(2, ids, valid[a0:a1, :, None].float())
+        mt[:, :, cols - 1] = sell[a0:a1].float()
+    return a, m
+
+
+def bmm_outputs(out, terms: tuple, cols: int) -> tuple:
+    """The bucket sums in the bmm's product ``out`` [n, R or 2R, cols x
+    tariffs], in the order the row's kernel returns them."""
+    r, p, signed, tariffs = terms[2].shape[1], terms[3], terms[4], terms[5]
+    nb = 12 * p
+    want = ()
+    for t in range(len(tariffs)):
+        c0 = t * cols
+        want += (out[:, :r, c0:c0 + nb], out[:, :r, c0 + cols - 1])
+    if signed:
+        want += (out[:, r:, :nb], out[:, r:, cols - 1])
+    return want
+
+
+def bmm_yardstick(args, kernel, what: str, cols=None, rtol=DOT_RTOL) -> float:
+    """A bucket-sums row's library time: one torch.bmm of the pre-formed
+    relu(net) (and net, signed) [n, R, L] with M [n, L, cols x tariffs]
+    (:func:`bmm_operands`; ``cols`` defaults to 12 P + 1, all the function
+    needs) under TF32 (set and restored around these timings only), the
+    contraction alone: the medians of agent chunks of at most BMM_BYTES
+    of operands, each formed before it is timed, added up. On the first
+    chunk the bmm is held to ``kernel`` (called on ``args`` cut to the
+    chunk's agents) at the larger of ``rtol`` and the dot tolerance, and
+    the two are timed in alternated pairs (logged)."""
+    import torch
+
+    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
+    from dgen_tpu_torch.tools.kernel_parent_ab import first_rows
+
+    terms = sums_terms(args)
+    load, scales, p, signed, tariffs = terms[0], terms[2], terms[3], terms[4], terms[5]
     n, r = scales.shape
     hours = load.shape[1]
-    cols = 12 * p + 1
+    cols = cols or 12 * p + 1
+    width = cols * len(tariffs)
     a_rows = r * (2 if signed else 1)
-    chunk = max(1, min(n, BMM_BYTES // (4 * hours * (a_rows + cols))))
-
-    def operands(a0, a1):
-        ld, gn, sl, sc = (t[a0:a1].float() for t in (load, gen, sell, scales))
-        net = ld[:, None, :] - sc[:, :, None] * gn[:, None, :]
-        a = torch.clamp_min(net, 0.0)
-        if signed:
-            a = torch.cat([a, net], dim=1)
-        del net
-        m = torch.zeros((a1 - a0, hours, cols), device=load.device)
-        m.scatter_(2, bucket[a0:a1, :, None].long(), 1.0)
-        m[:, :, cols - 1] = sl
-        return a, m
+    chunk = max(1, min(n, BMM_BYTES // (4 * hours * (a_rows + width))))
 
     total, calls = 0.0, 0
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -533,34 +624,159 @@ def bmm_yardstick(args) -> float:
     try:
         for a0 in range(0, n, chunk):
             a1 = min(n, a0 + chunk)
-            a, m = operands(a0, a1)
+            a, m = bmm_operands(terms, a0, a1, cols)
             if a0 == 0:
-                part = tuple(t[a0:a1] for t in args[:5]) + args[5:]
-                got = bk.dot_sums(*part)
-                out = torch.bmm(a, m)
-                want = (out[:, :r, :cols - 1], out[:, :r, cols - 1])
-                if signed:
-                    want += (out[:, r:, :cols - 1], out[:, r:, cols - 1])
-                for g, w in zip(got, want):
-                    if bool(bad_agents(g.float(), w, DOT_RTOL).any()):
-                        raise AssertionError("the torch.bmm yardstick disagrees with "
-                                             "the dot kernel")
-                del got, out, want
-                ms, bmm_ms, wins = ab_ms(lambda: bk.dot_sums(*part),
+                part = first_rows(args, a1)
+                got = kernel(*part)
+                want = bmm_outputs(torch.bmm(a, m), terms, cols)
+                for g, w in zip(got, want, strict=True):
+                    if bool(bad_agents(g.float(), w, max(rtol, DOT_RTOL)).any()):
+                        raise AssertionError(f"the torch.bmm yardstick disagrees with "
+                                             f"{what}")
+                del got, want
+                ms, bmm_ms, wins = ab_ms(lambda: kernel(*part),
                                          lambda: torch.bmm(a, m))
-                log(f"    dot kernel vs torch.bmm of pre-formed relu(net) and M "
-                    f"(TF32, the contraction alone) on agents 0-{a1 - 1}: kernel "
-                    f"{ms:.3f} ms | bmm {bmm_ms:.3f} ms (medians of 6 alternated "
-                    f"pairs; kernel faster in {wins})")
+                log(f"    {what} vs torch.bmm of pre-formed relu(net) and M [{width} "
+                    f"columns] (TF32, the contraction alone) on agents 0-{a1 - 1}: "
+                    f"kernel {ms:.3f} ms | bmm {bmm_ms:.3f} ms (medians of 6 "
+                    f"alternated pairs; kernel faster in {wins})")
             total += time_ms(lambda: torch.bmm(a, m))
             calls += 1
             del a, m
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    log(f"    torch.bmm yardstick over all {n} agents: {calls} calls of up to "
-        f"{chunk} agents, {total:.3f} ms in all (operands formed outside the timing)")
+    log(f"    torch.bmm yardstick [{width} columns] over all {n} agents: {calls} "
+        f"calls of up to {chunk} agents, {total:.3f} ms in all (operands formed "
+        "outside the timing)")
     return total
+
+
+def micro_library_ms(operands: tuple, mk) -> float:
+    """The micro-benchmark rows' library time on the micro path's operands
+    (the first sums_variant launch's: load, gen, sell, bucket ids, scales,
+    keywords): the bmm yardstick at 12 P + 1 columns, the function every
+    micro-benchmark kernel computes, held to and timed against
+    sums_monthdot. The yardstick at the variant's own b_pad columns, the
+    product its ablation multiplies, is held to and timed against
+    sums_variant and logged only."""
+    kw = operands[5]
+    p, b_pad = kw["n_periods"], kw["b_pad"]
+    args = tuple(operands[:5]) + (p, False)
+    log("  library time of the micro-benchmark rows (the torch.bmm yardstick on "
+        "the micro path's operands):")
+    library = bmm_yardstick(args, lambda *a: mk.sums_monthdot(*a[:5], n_periods=p),
+                            "sums_monthdot")
+    dense = bmm_yardstick(args, lambda *a: mk.sums_variant(*a[:5], n_periods=p,
+                                                           b_pad=b_pad),
+                          "sums_variant", cols=b_pad)
+    log(f"    the micro rows' library time is the {12 * p + 1}-column bmm, "
+        f"{library:.3f} ms; the {b_pad}-column bmm ({dense:.3f} ms) computes the "
+        "same outputs with zero columns and is not a row's")
+    return library
+
+
+def variant_floors_ms(n: int, r: int, hours: int, p: int, b_pad: int) -> tuple:
+    """sums_variant's tensor-core floors: the TF32 product of the 12 P + 1
+    columns its outputs need, and the dense product of all ``b_pad``
+    columns its ablation multiplies (2 N R H columns operations each, at
+    the TF32 peak)."""
+    per_col = 2.0 * n * r * hours / PEAK_TF32_FLOPS * 1e3
+    return per_col * (12 * p + 1), per_col * b_pad
+
+
+def variant_bound_ms(n: int, r: int, hours: int, p: int, b_pad: int,
+                     in_bytes: int, out_bytes: int) -> tuple[float, str, str]:
+    """Least time for sums_variant's function: the larger of its CUDA-core
+    operations (6 a (agent, scale, hour)), the TF32 product of the 12 P +
+    1 columns its outputs need, and the bytes. The dense product of its
+    ``b_pad`` columns, which includes columns known to be zero, is named
+    in the note and not counted. Returns (ms, "operations" or "bytes", the
+    note)."""
+    t_ops = float(n) * r * hours * 6 / PEAK_F32_FLOPS * 1e3
+    t_tc, t_dense = variant_floors_ms(n, r, hours, p, b_pad)
+    t_bytes = (float(in_bytes) + 4.0 * n * r + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    b_ms = max(t_ops, t_tc, t_bytes)
+    note = (f"; bound: the TF32 product of the {12 * p + 1} columns the outputs "
+            f"need {t_tc:.3f} ms, CUDA-core operations {t_ops:.3f} ms, bytes "
+            f"{t_bytes:.3f} ms; the dense TF32 product of all {b_pad} columns "
+            f"{t_dense:.3f} ms (not the bound)")
+    return b_ms, "bytes" if b_ms == t_bytes else "operations", note
+
+
+def monthdot_month_ab(operands: tuple, mk) -> None:
+    """sums_monthdot against the month kernel on the micro path's operands
+    (the same function: bucket ids as period ids on the full-hour lanes),
+    at the path's P and at AB_PERIODS periods from a seeded period map
+    (monthdot's two-tile form), held to the dot tolerance and timed in
+    alternated pairs; logged."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops.layout import FULL_OFFSETS
+    from dgen_tpu_torch.tools.kernel_microbench import ab_ms
+
+    load, gen, sell, bucket, scales = operands[:5]
+    g = torch.Generator(device=load.device).manual_seed(10)
+    period10 = torch.randint(0, AB_PERIODS, bucket.shape, generator=g,
+                             device=load.device, dtype=torch.int32)
+    for p, ids in ((operands[5]["n_periods"], bucket),
+                   (AB_PERIODS, bk.hourly_bucket_ids(period10, AB_PERIODS))):
+        args = (load, gen, sell, ids, scales)
+        month = (load, gen, sell, (ids % p).to(torch.int32), scales, FULL_OFFSETS,
+                 p, False)
+        got = mk.sums_monthdot(*args, n_periods=p)
+        ref = bk.month_sums(*month)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if bool(bad_agents(a, b, DOT_RTOL).any()) or not torch.allclose(
+                    a, b, rtol=DOT_RTOL, atol=DOT_ATOL):
+                raise AssertionError(f"sums_monthdot disagrees with the month kernel "
+                                     f"on the same operands at P = {p}")
+        del got, ref
+        ms, month_ms, wins = ab_ms(lambda: mk.sums_monthdot(*args, n_periods=p),
+                                   lambda: bk.month_sums(*month))
+        log(f"  sums_monthdot vs the month kernel on the micro path's operands: "
+            f"N={load.shape[0]} R={scales.shape[1]} P={p}: within rtol {DOT_RTOL} / "
+            f"atol {DOT_ATOL}; monthdot {ms:.3f} ms | month kernel {month_ms:.3f} ms "
+            f"(medians of 6 alternated pairs; monthdot faster in {wins})")
+
+
+def parent_ab(operands: tuple, parent_root: str) -> None:
+    """The redesigned micro-benchmark kernels (sums_variant, sums_monthdot)
+    against another checkout's (``parent_root``, e.g. the parent commit
+    unpacked with git archive) on the micro path's operands, through
+    kernel_parent_ab: both held to the plain version at the dot tolerance
+    (rtol and the per-agent atol), then timed in 6 alternated pairs;
+    logged. Skipped, and said so, without such a checkout."""
+    import os
+
+    from dgen_tpu_torch.ops import _build
+    from dgen_tpu_torch.tools import kernel_parent_ab as ab
+
+    csrc = os.path.join(parent_root, "dgen_tpu_torch", "csrc")
+    if not os.path.isdir(csrc):
+        log(f"  the redesigned kernels against the parent's: skipped, no checkout "
+            f"at {parent_root} (unpack the parent commit there with git archive)")
+        return
+    t0 = time.perf_counter()
+    other = _build.library(csrc)
+    log(f"  the redesigned kernels against the checkout at {parent_root} (its "
+        f"kernels built in {time.perf_counter() - t0:.1f} s), on the micro path's "
+        "operands:")
+    args = tuple(operands[:5])
+    for key in ("variant", "monthdot"):
+        row = ab.compare(key, args, other, DOT_RTOL, DOT_ATOL)
+        if row["this_bad_agents"] or row["this_tol_ratio"] > 1.0:
+            raise AssertionError(f"{key}: this checkout's kernel is outside the dot "
+                                 f"tolerance: {row}")
+        row.update(ab.timed(key, args, other))
+        log(f"    {key}: this checkout {row['ms']:.3f} ms | parent "
+            f"{row['other_ms']:.3f} ms (this faster in {row['wins']} of 6 "
+            f"alternated pairs); against the plain version max abs err "
+            f"{row['this_max_abs_err']:.3e} (parent {row['other_max_abs_err']:.3e}), "
+            f"agents outside rtol {DOT_RTOL} + the per-agent atol "
+            f"{row['this_bad_agents']} (parent {row['other_bad_agents']})")
 
 
 def dot_month_ab(captures: dict) -> None:
@@ -594,10 +810,15 @@ def dot_month_ab(captures: dict) -> None:
             f"alternated pairs; dot faster in {wins})")
 
 
-def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
+def check_and_time(captures: dict, specs: dict, hour_lanes: dict,
+                   micro_library: float | None = None) -> list:
     """Each kernel of ``specs`` against its plain version, and both timed,
     on the operands a path gave it. ``hour_lanes``: path -> lanes of its
-    daylight layout that hold an hour (None without a layout)."""
+    daylight layout that hold an hour (None without a layout);
+    ``micro_library``: the micro-benchmark rows' library ms
+    (:func:`micro_library_ms`). With it, every other row's library time
+    is the bmm yardstick on its own operands; without it (the logged
+    A/Bs), no row has one."""
     import torch
 
     from dgen_tpu_torch.ops.tariff import HOURS
@@ -640,11 +861,20 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict) -> list:
         library_ms, note = None, ""
         if src == "dot":
             b_ms, b_by, note = dot_bound_ms(args, out_bytes)
-            library_ms = bmm_yardstick(args)
-            note = f"; {note}; library (torch.bmm, TF32) {library_ms:.3f} ms"
+            note = "; " + note
+        elif name == "sums_variant":
+            b_ms, b_by, note = variant_bound_ms(
+                n, r, n_lanes, p, args[5]["b_pad"], lane_bytes(args, n_lanes),
+                out_bytes)
         else:
             b_ms, b_by = bound_ms(n, r, work_lanes, ops, lane_bytes(args, n_lanes),
                                   out_bytes)
+        if src.startswith("micro"):
+            library_ms = micro_library
+        elif micro_library is not None:
+            library_ms = bmm_yardstick(args, kernel, name, rtol=rtol)
+        if library_ms is not None:
+            note += f"; library (torch.bmm, TF32) {library_ms:.3f} ms"
         dtypes = "/".join(str(a.dtype).replace("torch.", "") for a in args[:3])
         log(f"  {name}: N={n} R={r} lanes={n_lanes} ({work_lanes} hours) P={p} "
             f"streams {dtypes} max_abs_err={err:.3e} "
@@ -1164,7 +1394,16 @@ def dot_path(presets) -> tuple:
     return launches, capture, curves_gap(dot, ref), dot, ref
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "parent"),
+        help="another checkout whose sums_variant and sums_monthdot kernels "
+             "[9] times against this one's (skipped where absent)")
+    parent_root = ap.parse_args(argv).parent
     try:
         import torch
     except ImportError:
@@ -1360,7 +1599,10 @@ def main() -> int:
         f"and times (median of 5 CUDA-event launches after a warm-up):")
     captures = {k: v["capture"] for k, v in runs.items()}
     hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
-    rows = check_and_time(captures, kernel_specs(bk, mk), hour_lanes)
+    micro_library = micro_library_ms(captures["micro"]["variant"], mk)
+    rows = check_and_time(captures, kernel_specs(bk, mk), hour_lanes, micro_library)
+    parent_ab(captures["micro"]["variant"], parent_root)
+    monthdot_month_ab(captures["micro"]["variant"], mk)
     log("  A/Bs, not in the kernels line: the month kernel on the stream kernel's "
         "operands (the gated path launches no month kernel), and the narrow rows' "
         "kernels on float32 copies of their operands (equal operations):")

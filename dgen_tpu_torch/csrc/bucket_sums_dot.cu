@@ -74,8 +74,16 @@
 
 #include "async_copy.cuh"
 #include "lanes.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
+
+using mma_tf32::kOne;
+using mma_tf32::mma;
+using mma_tf32::row_tiles;
+using mma_tf32::tf32;
+using mma_tf32::tf32_relu;
+using mma_tf32::tf32_rest;
 
 constexpr int kMonths = 12;
 constexpr int kMaxPeriods = 10;
@@ -83,54 +91,14 @@ constexpr int kK = 8;          // hours of a k-step (mma K for TF32)
 constexpr int kChunk = 584;    // hours a staged chunk (8760 = 15 x 584)
 static_assert(2 * kChunk % 16 == 0, "staged arrays stay 16-byte aligned");
 constexpr int kMaxWarps = 8;
-constexpr uint32_t kOne = 0x3f800000u;  // 1.0f
 // Buckets an 8-column tile holds; its eighth column is its sell slot.
 constexpr int kGroup = 7;
-
-// Row tiles a warp holds at NT column tiles: RT x NT accumulator tiles of
-// 4 registers stay within 64 registers (128 at NT = 16 signed).
-__host__ __device__ constexpr int row_tiles(int nt, bool with_signed) {
-  const int t = 16 / (nt * (with_signed ? 2 : 1));
-  return t < 1 ? 1 : t > 4 ? 4 : t;
-}
 
 // Column tiles a kernel is instantiated for: the tiles of 12 P buckets,
 // kGroup a tile, rounded up to 2, 4, 8, 12 or 18.
 inline int column_tiles(int n_periods) {
   const int nt = (kMonths * n_periods + kGroup - 1) / kGroup;
   return nt <= 2 ? 2 : nt <= 4 ? 4 : nt <= 8 ? 8 : nt <= 12 ? 12 : 18;
-}
-
-// TF32 operands: the tensor cores read the top 19 bits of a float32
-// register (sign, exponent, 10 mantissa bits) and ignore the other 13.
-// Adding half a TF32 unit to the bit pattern first rounds the magnitude
-// to nearest, ties away, as cvt.rna.tf32.f32 does; on the same pattern a
-// signed integer max with 0 is relu (a negative float is a negative
-// integer, -0 the most negative).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return __float_as_uint(x) + 0x1000u;
-}
-__device__ __forceinline__ uint32_t tf32_relu(float x) {
-  return static_cast<uint32_t>(max(__float_as_int(x) + 0x1000, 0));
-}
-// x as the TF32 value nearest it and the TF32 value nearest the rest
-// (3xTF32: hi b + lo b + hi b_lo carries x b to ~2^-22 of itself).
-__device__ __forceinline__ uint32_t tf32_rest(float x, uint32_t hi) {
-  return tf32(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-// d += a [16 x 8] . b [8 x 8], TF32 operands, float32 accumulators.
-// Fragments (g = lane / 4, q = lane % 4): a = rows (g, g + 8) x k (q,
-// q + 4) as a[0] (g, q), a[1] (g + 8, q), a[2] (g, q + 4), a[3] (g + 8,
-// q + 4); b = k (q, q + 4) x column g; d = rows (g, g + 8) x columns
-// (2q, 2q + 1) as d[0] (g, 2q), d[1] (g, 2q + 1), d[2] (g + 8, 2q),
-// d[3] (g + 8, 2q + 1).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two adjacent elements (aligned to two), upcast.

@@ -83,7 +83,9 @@ _TEMPLATE_ARGS = {
     "month_pair_kernel": (("spt", ()), ("drop_zeros", ())),
     "dot_kernel": (("signed", ()), ("col_tiles", ())),
     "variant_kernel": (("build", ("onehot", "const", "hbm")),
-                       ("dot", ("dot", "none")), ("net", ("fma", "bcast"))),
+                       ("dot", ("dot", "none")), ("net", ("fma", "bcast")),
+                       ("col_tiles", ())),
+    "monthdot_kernel": (("col_tiles", ()),),
     "mask_product_kernel": (("mode", ("monthdot_pre", "mnet", "mnet_hi")),
                             ("col_tiles", ())),
 }

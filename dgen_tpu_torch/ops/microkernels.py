@@ -13,7 +13,9 @@ question about where a bucket-sums kernel's time goes:
   * :func:`sums_monthmask_g`: the same arithmetic with ``g_block``
     agents per block of threads.
   * :func:`sums_variant` (``csrc/microbench_dot.cu``): the one-hot
-    tensor-core kernel over hour chunks with its stages switched:
+    tensor-core kernel over hour chunks (``wgmma`` m64nNk8 TF32, N the
+    ``b_pad`` columns, relu(net) in registers and M in shared memory)
+    with its stages switched:
     ``build`` = ``"onehot"`` (M formed from the bucket ids) / ``"const"``
     (M = 0.01 everywhere, nothing formed) / ``"hbm"`` (M read from device
     memory, ``m_hbm`` [N, 8760, b_pad]); ``dot`` = ``"dot"`` / ``"none"``
@@ -23,7 +25,8 @@ question about where a bucket-sums kernel's time goes:
     to be timed, and their plain versions define them as exactly.
   * :func:`sums_monthdot`: per month one product of relu(net) with a
     matrix built from the period lane by position (the month's P period
-    columns and the sell rate), accumulated over the 12 months.
+    columns and the sell rate), accumulated over the 12 months
+    (``mma.sync`` m16n8k8 TF32, both operands formed in registers).
   * :func:`sums_monthdot_pre` (``csrc/microbench_pre.cu``): per month one
     narrow tensor-core product of relu(net) with PREBUILT mask columns
     M [N, c_pad, 8760] (:func:`build_mask_cols`: P - 1 period one-hots,

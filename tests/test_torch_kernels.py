@@ -272,8 +272,13 @@ def test_monthmask_g_kernel_matches_plain(cuda, p, r, g_block):
                  dict(n_periods=p, g_block=g_block), 1e-4)
 
 
-@pytest.mark.parametrize("p", [1, 2, 3, 10])
-@pytest.mark.parametrize("r", [25, 250])
+#: scale counts of the micro-benchmark's tensor-core kernels: one row, a
+#: ragged row tile, one warpgroup, the tool's 250, and 300 (two blocks)
+MICRO_R = [1, 17, 25, 64, 250, 300]
+
+
+@pytest.mark.parametrize("p", PERIODS)
+@pytest.mark.parametrize("r", MICRO_R)
 def test_monthdot_kernel_matches_plain(cuda, p, r):
     x = _inputs(cuda, 21, r, p, seed=10)
     got = _micro_check("monthdot", mk.sums_monthdot, mk.sums_monthdot_plain, x,
@@ -282,8 +287,8 @@ def test_monthdot_kernel_matches_plain(cuda, p, r):
            rtol=5e-3)
 
 
-@pytest.mark.parametrize("p", [1, 2, 3, 10])
-@pytest.mark.parametrize("r", [25, 250])
+@pytest.mark.parametrize("p", PERIODS)
+@pytest.mark.parametrize("r", MICRO_R)
 def test_variant_kernel_base_matches_plain(cuda, p, r):
     x = _inputs(cuda, 21, r, p, seed=11)
     got = _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x,
@@ -305,6 +310,45 @@ def test_variant_kernel_forms_match_plain(cuda, kwargs):
         g = torch.Generator().manual_seed(13)
         kwargs["m_hbm"] = torch.rand((13, 8760, 128), generator=g).to(cuda)
     _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x, kwargs, 5e-3)
+
+
+#: (P, b_pad, h_chunk) of the every-form grid: three chunk depths at 64
+#: columns, and every width one period leaves room for (so every
+#: instantiation of the kernel runs)
+VARIANT_FORM_SHAPES = [(3, 64, h) for h in (8, 40, 120)] + [
+    (1, b, 40) for b in range(16, mk.MAX_B_PAD + 1, 16) if b != 64]
+
+
+@pytest.mark.parametrize("p,b_pad,h_chunk", VARIANT_FORM_SHAPES)
+@pytest.mark.parametrize("net", mk.NETS)
+@pytest.mark.parametrize("dot", mk.DOTS)
+@pytest.mark.parametrize("build", mk.BUILDS)
+def test_variant_kernel_every_form_matches_plain(cuda, build, dot, net, p, b_pad,
+                                                 h_chunk):
+    """Every build x dot x net form at three chunk depths and at every
+    width, on two warpgroups (70 scales); the forms without a product at
+    the month kernel's tolerance."""
+    x = _inputs(cuda, 5, 70, p, seed=14)
+    kwargs = dict(n_periods=p, b_pad=b_pad, build=build, dot=dot, net=net,
+                  h_chunk=h_chunk)
+    if build == "hbm":
+        g = torch.Generator().manual_seed(15)
+        kwargs["m_hbm"] = torch.rand((5, 8760, b_pad), generator=g).to(cuda)
+    _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x, kwargs,
+                 1e-4 if dot == "none" else 5e-3)
+
+
+@pytest.mark.parametrize("p,b_pad", [
+    (p, b) for p in PERIODS for b in range(16, mk.MAX_B_PAD + 1, 16)
+    if b >= 12 * p + 1])
+def test_variant_kernel_widths_match_plain(cuda, p, b_pad):
+    """Every width a tariff's periods leave room for: one product of 16,
+    32, 64 or 128 columns a k-step, or its binary parts."""
+    x = _inputs(cuda, 3, 17, p, seed=16)
+    got = _micro_check("variant", mk.sums_variant, mk.sums_variant_plain, x,
+                       dict(n_periods=p, b_pad=b_pad), 5e-3)
+    _close(got, bk.month_sums_plain(*_lane_args(x, layout.FULL_OFFSETS, p, False)),
+           rtol=5e-3)
 
 
 def test_micro_kernels_refuse_what_they_do_not_take(cuda):

@@ -436,3 +436,37 @@ def test_parent_ab_cuts_agent_rows_and_flattens_outputs():
     res = dispatch.DispatchResult(*(torch.full((1,), float(i)) for i in range(4)))
     assert [float(t) for t in ab.outputs(res)] == [0.0, 1.0, 2.0, 3.0]
     assert ab.outputs([load]) == (load,)
+
+
+def test_parent_ab_takes_the_micro_benchmark_kernels():
+    """kernel_parent_ab's micro-benchmark keys: the launch-count keys of
+    the six kernels (mnet twice), each on the tool's own seeded data (the
+    prebuilt-mask kernels on M in place of sell and the bucket ids), each
+    wrapper in the tool's default setting; on the CPU a wrapper is its
+    plain version and counts no launch."""
+    from dgen_tpu_torch.tools import kernel_parent_ab as ab
+
+    assert set(ab.MICRO_KERNELS) == {"variant", "monthdot", "monthmask",
+                                     "monthmask_g", "monthdot_pre", "mnet",
+                                     "mnet_hi"}
+    assert set(ab.MICRO_KERNELS) <= set(ab.KERNELS) & set(bk.LAUNCHES)
+    cpu = torch.device("cpu")
+    data = tool.make_data(8, cpu, seed=3)
+    for got, want in zip(ab.micro_operands("variant", 8, seed=3, device=cpu), data):
+        assert torch.equal(got, want)
+    load, gen, m, scales = ab.micro_operands("mnet_hi", 8, seed=3, device=cpu)
+    assert torch.equal(m, mk.build_mask_cols(data[2], data[3] % tool.N_PERIODS,
+                                             tool.N_PERIODS, tool.C_PAD))
+    before = dict(bk.LAUNCHES)
+    for key, (wrapper, plain) in ab.MICRO_KERNELS.items():
+        args = ab.first_rows(ab.micro_operands(key, 8, seed=3, device=cpu), 8)
+        got, ref = wrapper(*args), plain(*args)
+        assert [tuple(t.shape) for t in got] == [(8, tool.N_SCALES,
+                                                  12 * tool.N_PERIODS),
+                                                 (8, tool.N_SCALES)], key
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), key
+    assert bk.LAUNCHES == before
+    cut = ab.first_rows(ab.micro_operands("monthdot_pre", 8, device=cpu), 2)
+    assert [tuple(t.shape) for t in cut] == [(2, 8760), (2, 8760),
+                                             (2, tool.C_PAD, 8760),
+                                             (2, tool.N_SCALES)]

@@ -1,7 +1,8 @@
 """Host-side pieces of the CUDA kernels that run without a card: the
 stream, pair and dot wrappers' CPU path, the build hash over the shared
-headers (csrc/staging.cuh, csrc/lanes.cuh, csrc/async_copy.cuh), and the
-compiler-log names of the redesigned kernels."""
+headers (csrc/staging.cuh, csrc/lanes.cuh, csrc/async_copy.cuh,
+csrc/mma_tf32.cuh), and the compiler-log names of the redesigned
+kernels."""
 
 import os
 import re
@@ -86,7 +87,7 @@ def _included_headers() -> list[str]:
 
 def test_every_included_header_is_in_csrc():
     headers = _included_headers()
-    assert {"async_copy.cuh", "lanes.cuh", "staging.cuh"} <= set(headers)
+    assert {"async_copy.cuh", "lanes.cuh", "mma_tf32.cuh", "staging.cuh"} <= set(headers)
     for h in headers:
         assert os.path.isfile(os.path.join(_build.CSRC, h)), h
 
@@ -144,3 +145,21 @@ def test_kernel_resources_name_the_redesigned_kernels():
         "stream_kernel<signed,spt=1,f32,f32,f32,f32>",
         "stream_kernel<spt=2,drop_zeros,i8,i8,f32,f32>",
         "month_pair_kernel<spt=2,drop_zeros,bf16,bf16,bf16,bf16>"]
+
+
+def test_kernel_resources_name_the_micro_tensor_core_kernels():
+    """The variant kernel's width (its 16-column tiles; 0 without a
+    product) and the monthdot kernel's n8 tiles print by name (names from
+    an nvcc 12 build log)."""
+    pre = "_ZN50_GLOBAL__N__c8cfa117_17_microbench_dot_cu_e48ca6f7"
+    tail = "EEvPKfS2_S2_PKiS2_S2_PfS5_iiiiii"
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{pre}{name}{targs}{tail}' "
+        "for 'sm_90a'" for name, targs in (
+            ("14variant_kernel", "ILi0ELi0ELi0ELi8E"),
+            ("14variant_kernel", "ILi2ELi1ELi1ELi0E"),
+            ("15monthdot_kernel", "ILi2E")))
+    assert [r["kernel"] for r in _build.kernel_resources(log)] == [
+        "variant_kernel<build=onehot,dot=dot,net=fma,col_tiles=8>",
+        "variant_kernel<build=hbm,dot=none,net=bcast,col_tiles=0>",
+        "monthdot_kernel<col_tiles=2>"]
