@@ -19,6 +19,21 @@ its first launch in the path):
      (month kernel, battery dispatch kernel), with per-year wall time and
      agent-years/s, and the port on the card against the port on the CPU
      at a small size;
+  3c. the streaming year step against the whole table: ercot-all-sector
+     at 32,768 agents for 2 model years, hourly aggregate and storage on
+     and batteries allocated, once in 4 chunks of 8,192 rows and once
+     whole, held to each other at the JAX package's tolerance for this
+     computation; then, in one more first year of each, the first month,
+     signed-month and dispatch launches (the remat pass's too) held
+     against the plain versions as they launch;
+  3d. national-all-sector at its full width, 1,048,576 agents, under the
+     automatic chunk, for 2 model years (depth cut from the preset's 19):
+     chunks, padded rows, per-year wall, agent-years/s, modeled step
+     bytes beside the card's measured peaks, the health verdict and the
+     launch counts (two dispatch launches a chunk a year: sizing and the
+     hourly remat pass), and the preset runner's record; the run keeps
+     no operands, and one more first year holds its first launches at
+     the chunk's rows (87,424 on an 80 GB card) against the plain versions as [3c] does;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -84,7 +99,8 @@ its first launch in the path):
  10. a JSON line with every ported kernel, the card, the result line.
 
 Every model path asserts that it launched the battery dispatch kernel
-once per model year it ran.
+once per chunk per model year it ran (the whole table is one chunk), and
+once more per chunk with the state-hourly aggregate on a streaming run.
 
 Exits non-zero, printing no result, without a CUDA device, when the
 package is not beside this script, or when any phase fails.
@@ -94,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -107,6 +124,24 @@ PEAK_TF32_FLOPS = 495e12
 
 MAIN_AGENTS = 8192
 MAIN_END_YEAR = 2018          # model years 2014, 2016, 2018
+CHUNK_AGENTS = 32768          # [3c]: four chunks of 8,192 rows
+CHUNK_ROWS = 8192
+CHUNK_END_YEAR = 2016         # model years 2014, 2016
+NATIONAL = "national-all-sector"
+NATIONAL_END_YEAR = 2016      # [3d]: 2 of the preset's 19 model years
+#: chunked vs whole table (tests/test_simulation.py
+#: test_chunked_matches_whole_table): per-agent fields, state-hourly
+CHUNK_FIELDS = ("system_kw_cum", "number_of_adopters", "batt_kwh_cum", "npv",
+                "payback_period", "max_market_share")
+CHUNK_RTOL, CHUNK_ATOL = 2e-5, 1e-4
+CHUNK_HOURLY_RTOL, CHUNK_HOURLY_ATOL = 1e-4, 1e-5
+#: [3c]: every group's battery attachment rate (the synthetic default's
+#: is 0, which allocates no battery and leaves the remat pass's battery
+#: profile out of the aggregate), as tests/test_torch_chunk.py sets it
+CHUNK_ATTACHMENT = 0.4
+#: agent rows of one plain-version block where [3c] and [3d] hold a
+#: kernel's launch against its plain version (held_rows)
+HELD_ROWS = 16384
 SWITCH_AGENTS = 1024
 SWITCH_END_YEAR = 2016        # model years 2014, 2016
 DAYLIGHT_AGENTS = 1024
@@ -917,33 +952,25 @@ def run_path(sim) -> dict:
 
     from dgen_tpu_torch.ops import billkernels as bk
     from dgen_tpu_torch.ops import dispatch
+    from dgen_tpu_torch.presets import year_timer
 
     seconds = []
-    orig = sim.step
-
-    def step(carry, yi, first_year):
-        t0 = time.perf_counter()
-        out = orig(carry, yi, first_year)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        return out
-
-    sim.step = step
     bk.CAPTURE = {}
     bk.reset_launches()
     dispatch.reset_launches()
     t0 = time.perf_counter()
     try:
-        with first_dispatch(bk.CAPTURE):
+        with first_dispatch(bk.CAPTURE), year_timer(sim, seconds):
             res = sim.run()
     finally:
         launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
         capture, bk.CAPTURE = bk.CAPTURE, None
     wall = time.perf_counter() - t0
-    check_outputs(res, sim.table.n_agents)
-    if launches["dispatch"] != len(res.years):
+    check_outputs(res, sim)
+    want = dispatch_per_year(sim) * len(res.years)
+    if launches["dispatch"] != want:
         raise AssertionError(f"{launches['dispatch']} dispatch kernel launches in "
-                             f"{len(res.years)} model years")
+                             f"{len(res.years)} model years, {want} expected")
     lay = sim._daylight
     return dict(res=res, year_s=seconds, wall=wall, launches=launches,
                 narrow=dict(bk.NARROW_LAUNCHES),
@@ -1344,15 +1371,309 @@ def profile_year(sim, title: str) -> None:
             f"device {dev_us / 1e3:8.3f} ms")
 
 
-def check_outputs(res, n_agents: int) -> None:
+def n_chunks(sim) -> int:
+    """Chunks of ``sim``'s year step (1 = the whole table)."""
+    return sim.table.n_agents // sim._agent_chunk if sim._agent_chunk else 1
+
+
+def dispatch_per_year(sim) -> int:
+    """Battery dispatch launches of one model year: one a chunk in
+    sizing, and one more a chunk in the hourly remat pass of a streaming
+    run with the state-hourly aggregate on."""
+    return n_chunks(sim) * (2 if sim._agent_chunk and sim.with_hourly else 1)
+
+
+def check_outputs(res, sim) -> None:
+    """Every collected output covers the table's rows, padding included,
+    and is finite."""
     import numpy as np
 
     for k, v in res.agent.items():
-        if v.shape[1] != n_agents or not np.all(np.isfinite(v)):
-            raise AssertionError(f"output {k} has shape {v.shape} or non-finite values")
+        if v.shape[1] != sim.table.n_agents or not np.all(np.isfinite(v)):
+            raise AssertionError(f"output {k} has shape {v.shape} (table rows "
+                                 f"{sim.table.n_agents}) or non-finite values")
     if res.state_hourly_net_mw is not None and not np.all(
             np.isfinite(res.state_hourly_net_mw)):
         raise AssertionError("non-finite state-hourly net load")
+
+
+def counted_run(sim) -> tuple:
+    """``sim.run()`` with no operands captured (so the card's measured
+    peak is the run's own) and the launch counts set to 0 before and
+    read after; (results, launches, per-year seconds ending in a
+    synchronize)."""
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+    from dgen_tpu_torch.presets import year_timer
+
+    bk.CAPTURE = None
+    bk.reset_launches()
+    dispatch.reset_launches()
+    with year_timer(sim, []) as seconds:
+        res = sim.run()
+    return res, {**bk.LAUNCHES, **dispatch.LAUNCHES}, seconds
+
+
+def held_rows(name: str, got: tuple, args: tuple, plain, same) -> float:
+    """Holds the kernel's outputs ``got`` on the operands ``args`` (agent
+    rows first in each of the first five) against ``plain`` on the same
+    rows, HELD_ROWS agents at a time so the plain version's temporaries
+    stay small; ``same(g, r)`` -> the [rows] agents that disagree. Raises
+    on a disagreement; returns the largest absolute error."""
+    n = args[0].shape[0]
+    err = 0.0
+    for a in range(0, n, HELD_ROWS):
+        rows = slice(a, min(a + HELD_ROWS, n))
+        ref = plain(*(t[rows] for t in args[:5]), *args[5:])
+        for i, (g, r) in enumerate(zip(got, ref, strict=True)):
+            g = g[rows]
+            if g.dtype != r.dtype or g.shape != r.shape:
+                raise AssertionError(f"{name}: output {i} is {g.dtype} "
+                                     f"{tuple(g.shape)}, plain {r.dtype} "
+                                     f"{tuple(r.shape)}")
+            bad = same(g, r)
+            if bool(bad.any()):
+                first = a + int(bad.nonzero()[0, 0])
+                raise AssertionError(
+                    f"{name}: output {i} disagrees with the plain version for "
+                    f"{int(bad.sum())} agents of rows {rows.start}-{rows.stop - 1} "
+                    f"(first: row {first} of {n})")
+            err = max(err, float((g.float() - r.float()).abs().max()))
+        del ref
+    return err
+
+
+def not_equal(g, r):
+    """[rows] agents whose outputs differ in any bit."""
+    return (g != r).flatten(1).any(1) if g.ndim > 1 else g != r
+
+
+def held_year(sim, tag: str) -> None:
+    """One more first model year of ``sim`` after its counted run (so
+    that run's launch counts and memory peaks stand as it left them), in
+    which the first launch of the month kernel and of the signed month
+    kernel, and the first battery dispatch of sizing and, on a streaming
+    run with hourly on, of the remat pass, are each held against the
+    plain version as they launch, at the shapes the path gives them:
+    the bucket sums per agent at RTOL (:func:`bad_agents`), the dispatch
+    bit for bit. Nothing is kept past its check, so no chunk's operands
+    stay pinned; raises on a disagreement or a check that never ran."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    month, disp = bk.month_sums, dispatch.dispatch_battery
+    remat = n_chunks(sim) if sim._agent_chunk and sim.with_hourly else None
+    dispatches = []
+    held = {}
+
+    def month_held(*args):
+        got = month(*args)
+        key = "month_signed" if args[7] else "month"
+        if key not in held:
+            err = held_rows(f"[{tag}] {key}", got, args, bk.month_sums_plain,
+                            lambda g, r: bad_agents(g.float(), r.float()))
+            held[key] = (f"N={args[0].shape[0]} R={args[4].shape[1]} "
+                         f"P={args[6]} max_abs_err={err:.3e}")
+        return got
+
+    def dispatch_held(*args, **kw):
+        i = len(dispatches)
+        dispatches.append(i)
+        got = disp(*args, **kw)
+        if i in (0, remat):
+            fields = ("system_out", "soc", "charge", "discharge")
+            held_rows(f"[{tag}] dispatch {i}", [getattr(got, k) for k in fields],
+                      args, lambda *a: [getattr(dispatch.dispatch_battery_plain(*a), k)
+                                        for k in fields], not_equal)
+            held["dispatch (sizing)" if i == 0 else "dispatch (remat pass)"] = (
+                f"N={args[0].shape[0]} H={args[0].shape[1]} bit for bit")
+        return got
+
+    bk.CAPTURE = None
+    bk.month_sums, dispatch.dispatch_battery = month_held, dispatch_held
+    try:
+        sim.step(sim.init_carry(), 0, True)
+    finally:
+        bk.month_sums, dispatch.dispatch_battery = month, disp
+    want = ["month", "month_signed", "dispatch (sizing)"]
+    if remat is not None:
+        want.append("dispatch (remat pass)")
+    missing = [k for k in want if k not in held]
+    if missing:
+        raise AssertionError(f"[{tag}] no launch of {missing} to hold against "
+                             "the plain version")
+    log(f"    [{tag}] first launches of a further first year held against the "
+        f"plain versions (bucket sums rtol {RTOL}, atol {ATOL_FRAC} x the agent's "
+        f"max|plain|; in blocks of {HELD_ROWS} rows): {held}")
+    torch.cuda.empty_cache()
+
+
+def per_year(launches: dict, years: int) -> dict:
+    return {k: v / years for k, v in launches.items() if v}
+
+
+def chunked_vs_whole(presets, RunConfig) -> None:
+    """[3c]: the streaming year step (4 chunks) against the whole table
+    at CHUNK_AGENTS with batteries allocated (CHUNK_ATTACHMENT), per
+    agent and state-hourly; each run's first launches held against the
+    plain versions (:func:`held_year`); raises on a mismatch, a world
+    with no battery adopters or a launch count off the chunk count."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for tag, chunk in (("chunked", CHUNK_ROWS), ("whole", 0)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim, _, _ = presets.build("ercot-all-sector", n_agents=CHUNK_AGENTS,
+                                  end_year=CHUNK_END_YEAR, device="cuda",
+                                  run_config=RunConfig(agent_chunk=chunk),
+                                  attachment_rate=CHUNK_ATTACHMENT)
+        if not (sim.with_hourly and sim.scenario.storage_enabled):
+            raise AssertionError("the [3c] world runs without hourly or storage")
+        res, launches, secs = counted_run(sim)
+        check_outputs(res, sim)
+        mem = sim.memory_check
+        years = len(res.years)
+        log(f"[3c] {tag}: {int(sim.host_mask.sum())} agents, {sim.table.n_agents} "
+            f"rows, chunk {sim._agent_chunk} ({n_chunks(sim)} chunks) x {years} "
+            f"years {res.years}; per-year s {[round(t, 3) for t in secs]}; launches "
+            f"a year {per_year(launches, years)}; modeled step "
+            f"{mem['modeled_step_bytes'] / 2**30:.2f} GiB, measured peak allocated "
+            f"{mem['device_peak_allocated'] / 2**30:.2f} GiB, reserved "
+            f"{mem['device_peak_reserved'] / 2**30:.2f} GiB; health "
+            f"{sim.health_report}")
+        if launches["dispatch"] != dispatch_per_year(sim) * years:
+            raise AssertionError(f"[3c] {tag}: {launches['dispatch']} dispatch launches")
+        batt = float(res.agent["new_batt_adopters"].sum())
+        log(f"    [3c] {tag}: {batt:.1f} battery adopters allocated over the run")
+        if not batt > 0:
+            raise AssertionError(f"[3c] {tag}: no battery adopters, so the remat "
+                                 "pass's battery profile is not compared")
+        held_year(sim, f"3c {tag}")
+        out[tag] = (sim, res, launches)
+        del sim
+    (c_sim, c_res, c_l), (w_sim, w_res, w_l) = out["chunked"], out["whole"]
+    if c_sim._agent_chunk != CHUNK_ROWS or n_chunks(c_sim) != CHUNK_AGENTS // CHUNK_ROWS:
+        raise AssertionError(f"[3c] the chunked path did not engage: chunk "
+                             f"{c_sim._agent_chunk}, rows {c_sim.table.n_agents}")
+    if w_sim._agent_chunk:
+        raise AssertionError("[3c] the whole-table run streamed")
+    k = n_chunks(c_sim)
+    for key in ("month", "month_signed"):
+        if c_l[key] != k * w_l[key] or not w_l[key]:
+            raise AssertionError(f"[3c] {key}: {c_l[key]} chunked launches, "
+                                 f"{w_l[key]} whole-table")
+    m = w_sim.host_mask
+    n = len(m)
+    worst = {}
+    for f in CHUNK_FIELDS:
+        a, b = w_res.agent[f] * m, c_res.agent[f][:, :n] * m
+        np.testing.assert_allclose(b, a, rtol=CHUNK_RTOL, atol=CHUNK_ATOL,
+                                   err_msg=f"[3c] chunked vs whole {f}")
+        worst[f] = float(np.max(np.abs(a - b)))
+    np.testing.assert_allclose(c_res.state_hourly_net_mw, w_res.state_hourly_net_mw,
+                               rtol=CHUNK_HOURLY_RTOL, atol=CHUNK_HOURLY_ATOL,
+                               err_msg="[3c] chunked vs whole state-hourly")
+    worst["state_hourly_net_mw"] = float(np.max(np.abs(
+        c_res.state_hourly_net_mw - w_res.state_hourly_net_mw)))
+    bits = {f: bool(np.array_equal(c_res.agent[f][:, :n], w_res.agent[f]))
+            for f in CHUNK_FIELDS}
+    log(f"    chunked vs whole within rtol {CHUNK_RTOL}/atol {CHUNK_ATOL} per agent "
+        f"and rtol {CHUNK_HOURLY_RTOL}/atol {CHUNK_HOURLY_ATOL} state-hourly; largest "
+        f"absolute gaps {worst}; bit for bit per field {bits}")
+
+
+def national_path(presets, whole_per_year: dict) -> None:
+    """[3d]: national-all-sector at its full width under the automatic
+    chunk for NATIONAL_END_YEAR's model years, collect=False, the
+    national sums reduced on the card each year; prints the run's record,
+    the memory model beside the measured peaks, the health verdict and
+    the launch counts, and raises unless the chunked path engaged, the
+    sums are finite and the launch counts match the chunk count
+    (``whole_per_year``: the whole-table main path's launches a year).
+    The run keeps no operands (``billkernels.CAPTURE = None``: one
+    chunk's [~88k, 8760] streams would stay pinned through it); a
+    further first year holds the first launches, past row 65,535, against
+    the plain versions (:func:`held_year`)."""
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    sim, _, meta = presets.build(NATIONAL, end_year=NATIONAL_END_YEAR, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_start
+    k = n_chunks(sim)
+    n_real = int(sim.host_mask.sum())
+    log(f"[3d] {NATIONAL} at {n_real} agents, {len(sim.years)} model years "
+        f"{sim.years} (depth cut from the preset's 19 so the script stays in its "
+        f"time), hourly {sim.with_hourly}, storage {sim.scenario.storage_enabled}: "
+        f"auto chunk {sim._agent_chunk} rows, {k} chunks, {sim.table.n_agents} padded "
+        f"rows; built in {build_s:.3f} s")
+    if not sim._agent_chunk or k < 2:
+        raise AssertionError(f"[3d] the chunked path did not engage (chunk "
+                             f"{sim._agent_chunk})")
+    mask = sim.table.mask
+    sums = []
+
+    def national(year, yi, outs):
+        sh = outs.state_hourly_net_mw
+        row = torch.stack([(outs.number_of_adopters * mask).sum(),
+                           (outs.system_kw_cum * mask).sum(),
+                           (outs.batt_kwh_cum * mask).sum(),
+                           sh.sum(), torch.isfinite(sh).all().float(),
+                           torch.tensor(float(sh.numel()), device=sh.device)])
+        sums.append((year, row.cpu().tolist()))
+
+    bk.CAPTURE = None
+    bk.reset_launches()
+    dispatch.reset_launches()
+    rec = presets.timed_run(sim, meta, t_start, build_s, callback=national)
+    launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
+    ys = rec["year_s"]
+    carry = ys[1:]
+    log(f"    per-year s {ys}: first year {ys[0]:.3f} s, carry years "
+        f"{[round(t, 3) for t in carry]} s, {n_real / (sum(carry) / len(carry)):.1f} "
+        f"agent-years/s a carry year; {n_real * len(ys) / sum(ys):.1f} agent-years/s "
+        f"over the run's years")
+    mem = sim.memory_check
+    log(f"    memory: modeled step {mem['modeled_step_bytes'] / 2**30:.2f} GiB "
+        f"({sim._per_agent_bytes} bytes a chunk row), measured peak allocated "
+        f"{mem['device_peak_allocated'] / 2**30:.2f} GiB, reserved "
+        f"{mem['device_peak_reserved'] / 2**30:.2f} GiB, card "
+        f"{mem['device_total'] / 2**30:.2f} GiB (peak/model "
+        f"{mem['peak_over_model']:.3f}; {held / 2**30:.2f} GiB of earlier phases "
+        f"held before the build, in the peak)")
+    log(f"    health {sim.health_report}; launches {launches} "
+        f"({per_year(launches, len(ys))} a year)")
+    log(f"    national sums a year (adopters, system kW, battery kWh, state-hourly "
+        f"MW sum, state-hourly all finite, its size): {sums}")
+    log(f"    record {json.dumps(rec)}")
+    for year, row in sums:
+        if not all(math.isfinite(v) for v in row) or row[4] != 1.0:
+            raise AssertionError(f"[3d] non-finite national sums in {year}: {row}")
+        if row[5] != sim.table.n_states * 8760:
+            raise AssertionError(f"[3d] state-hourly aggregate of size {row[5]}")
+    if not sums[-1][1][0] > 0:
+        raise AssertionError("[3d] no national adoption")
+    years = len(ys)
+    if launches["dispatch"] != 2 * k * years:
+        raise AssertionError(f"[3d] {launches['dispatch']} dispatch launches in "
+                             f"{years} years of {k} chunks, {2 * k * years} expected")
+    for key in ("month", "month_signed"):
+        if launches[key] != k * whole_per_year[key] * years:
+            raise AssertionError(f"[3d] {launches[key]} {key} launches, "
+                                 f"{k * whole_per_year[key] * years} expected")
+    if not sim.health_report["clean"]:
+        raise AssertionError(f"[3d] health breaches: {sim.health_report}")
+    held_year(sim, "3d")
 
 
 def dot_path(presets) -> tuple:
@@ -1479,6 +1800,15 @@ def main(argv=None) -> int:
         log(f"    card vs CPU at 64 agents x 2 years {sorted(knobs) or 'default'}: "
             f"curves agree within rtol {CURVE_RTOL} (adopters "
             f"{g_curve['adopters'].tolist()} vs {c_curve['adopters'].tolist()})")
+
+    # --- 3c: the streaming year step against the whole table ---
+    chunked_vs_whole(presets, RunConfig)
+
+    # --- 3d: national-all-sector at its full width ---
+    main_years = len(runs["main"]["res"].years)
+    national_path(presets, {k: runs["main"]["launches"][k] / main_years
+                            for k in ("month", "month_signed")})
+    torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)

@@ -5,16 +5,18 @@ path reads (the JAX package is never imported here: importing any of
 its modules imports jax). ``ScenarioConfig`` is mirrored whole;
 ``RunConfig`` carries the run settings of the ported paths: the sizing
 search's candidate count, the gated kernel paths (daylight compaction,
-pack-once, the stream engine) and the narrow profile banks (bf16, int8).
-Other knobs arrive with the slices that port them; the JAX package's
-checks that tie the bank knobs to its differentiable twin do not apply
-here (the twin is not ported).
+pack-once, the stream engine), the narrow profile banks (bf16, int8),
+the streaming agent chunk with its padding, the invariant harness and
+the health sentinel. Other knobs arrive with the slices that port them;
+the JAX package's checks that tie the bank knobs to its differentiable
+twin do not apply here (the twin is not ported), and its environment
+overrides (``RunConfig.from_env``) are not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -67,8 +69,20 @@ class ScenarioConfig:
 class RunConfig:
     """Run settings the model-year path reads."""
 
+    #: pad the agent axis to a multiple of this
+    agent_pad_multiple: int = 128
     #: candidates per refine round of the sizing search
     sizing_iters: int = 12
+    #: agent-axis chunk of the streaming year step (rows per chunk): the
+    #: sizing search runs chunk by chunk, so the [chunk, 8760] hour
+    #: streams bound the step's peak memory whatever the population.
+    #: ``None`` (default) derives the chunk from the card's memory
+    #: (models.simulation.auto_agent_chunk; 0 on the CPU); ``0`` runs the
+    #: whole table at once; ``> 0`` fixes the rows of a chunk.
+    agent_chunk: Optional[int] = None
+    #: check the carry and the outputs after every year
+    #: (utils.invariants: schema, shapes, dtypes, finiteness; host sync)
+    debug_invariants: bool = False
     #: daylight-compacted bill kernels (ops.layout.DaylightLayout): the
     #: sizing search's candidate kernels run only over the union daylight
     #: lanes of the generation bank (~half the hour axis for rooftop
@@ -109,9 +123,18 @@ class RunConfig:
     #: daylight layout is built and before any bf16 conversion. Off by
     #: default; national curves stay within 2% of the float32 run.
     quant_banks: bool = False
+    #: the numerical-health sentinel (models.health): per year, the
+    #: nonfinite and out-of-bounds counts of the monitored outputs.
+    #: On by default. Breaches warn; see ``sentinel_escalate``.
+    health_sentinel: bool = True
+    #: raise a sentinel breach as HealthBreachError instead of warning
+    sentinel_escalate: bool = False
 
     def __post_init__(self) -> None:
+        _check(self.agent_pad_multiple >= 1, "bad pad multiple")
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")
+        _check(self.agent_chunk is None or self.agent_chunk >= 0,
+               "agent_chunk must be None (auto) or >= 0")
 
 
 def resolve_device(device="cuda") -> torch.device:

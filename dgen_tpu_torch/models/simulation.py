@@ -1,25 +1,34 @@
 """The simulation runner: one model year as a sequence of tensor ops on
-one device, and the synchronous year loop (port of the unchunked,
-single-device path of ``dgen_tpu/models/simulation.py``).
+one device, and the synchronous year loop (port of the single-device
+path of ``dgen_tpu/models/simulation.py``).
 
 Per year: trajectories are applied, the NEM gate is evaluated against
 last year's state capacity, every agent is sized through the bill /
 cashflow / dispatch hot loop, the max-market-share -> Bass-diffusion
 market step runs with historical anchoring, integer battery adopters
 are allocated, and the state-hourly net load is aggregated.
+
+A population whose year step does not fit the card streams: the sizing
+search runs over chunks of agent rows (``RunConfig.agent_chunk``, by
+default derived from the card's memory by :func:`auto_agent_chunk`), so
+no whole-table ``[N, 8760]`` tensor is formed; the market step runs once
+over the whole table, and the state-hourly aggregate is rebuilt chunk by
+chunk by the hourly remat pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, List, Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from dgen_tpu_torch.config import RunConfig, ScenarioConfig, resolve_device
-from dgen_tpu_torch.models.agents import AgentTable, ProfileBank, quantize_rows
+from dgen_tpu_torch.models import health as health_mod
+from dgen_tpu_torch.models.agents import AgentTable, ProfileBank, pad_table, quantize_rows
 from dgen_tpu_torch.models.market import (
     MarketState,
     allocate_battery_adopters,
@@ -31,10 +40,12 @@ from dgen_tpu_torch.models.market import (
 )
 from dgen_tpu_torch.models.scenario import ScenarioInputs, YearAgentInputs, apply_year
 from dgen_tpu_torch.ops import bill as bill_ops
+from dgen_tpu_torch.ops import dispatch as dispatch_ops
 from dgen_tpu_torch.ops import layout as layout_ops
 from dgen_tpu_torch.ops import sizing as sizing_ops
 from dgen_tpu_torch.ops.tariff import HOURS, NET_BILLING, TariffBank
-from dgen_tpu_torch.tree import to_device
+from dgen_tpu_torch.tree import to_device, tree_map
+from dgen_tpu_torch.utils import invariants
 
 logger = logging.getLogger(__name__)
 
@@ -88,6 +99,27 @@ class YearOutputs:
 # The year step
 # ---------------------------------------------------------------------------
 
+def gather_hour_streams(profiles: ProfileBank, load_idx: torch.Tensor,
+                        cf_idx: torch.Tensor, load_kwh_per_customer: torch.Tensor):
+    """(load, gen_per_kw, load_scale, gen_scale): the agents' load in kWh
+    and generation per kW gathered from the banks, at the bank's dtype;
+    under int8 banks the codes, with the load multiplier folded into the
+    gathered load scale so the hour streams stay one byte per hour (the
+    scales are None otherwise)."""
+    load_idx, cf_idx = load_idx.long(), cf_idx.long()
+    gen_per_kw = profiles.solar_cf[cf_idx]
+    if profiles.load_scale is not None:
+        return (profiles.load[load_idx],
+                gen_per_kw,
+                profiles.load_scale[load_idx] * load_kwh_per_customer,
+                profiles.solar_cf_scale[cf_idx])
+    # the multiplier is cast to the bank dtype before the product, so
+    # bf16 banks stay bf16 through the gathered streams
+    load = profiles.load[load_idx] \
+        * load_kwh_per_customer[:, None].to(profiles.load.dtype)
+    return load, gen_per_kw, None, None
+
+
 def build_econ_inputs(
     table: AgentTable,
     profiles: ProfileBank,
@@ -120,21 +152,8 @@ def build_econ_inputs(
     # gated original tariff
     at_w = gather(table.tariff_switch_idx, gate_metering=False) if rate_switch else None
 
-    load_idx, cf_idx = table.load_idx.long(), table.cf_idx.long()
-    if profiles.load_scale is not None:
-        # int8 banks: gather the codes and fold the load multiplier into
-        # the gathered scale, so the hour streams stay one byte per hour
-        load = profiles.load[load_idx]
-        load_scale = profiles.load_scale[load_idx] * ya.load_kwh_per_customer
-        gen_per_kw = profiles.solar_cf[cf_idx]
-        gen_scale = profiles.solar_cf_scale[cf_idx]
-    else:
-        # the multiplier is cast to the bank dtype before the product, so
-        # bf16 banks stay bf16 through the gathered streams
-        load = profiles.load[load_idx] \
-            * ya.load_kwh_per_customer[:, None].to(profiles.load.dtype)
-        gen_per_kw = profiles.solar_cf[cf_idx]
-        load_scale = gen_scale = None
+    load, gen_per_kw, load_scale, gen_scale = gather_hour_streams(
+        profiles, table.load_idx, table.cf_idx, ya.load_kwh_per_customer)
     # net-billing sell rate = this year's wholesale price x retail multiplier
     ts_sell = (profiles.wholesale[table.region_idx.long()]
                * (mult * ya.wholesale_multiplier)[:, None].to(profiles.wholesale.dtype))
@@ -241,13 +260,21 @@ def year_step(
     sizing_impl: str = "auto",
     daylight: Optional[layout_ops.DaylightLayout] = None,
     pack_once: bool = False,
+    agent_chunk: int = 0,
 ) -> tuple[SimCarry, YearOutputs]:
     """One model year: trajectory application -> NEM gate -> sizing ->
     max market share -> (initial shares | diffusion) -> anchoring ->
     battery allocation -> state-hourly aggregate -> carry.
 
     ``sizing_impl`` (``"auto"``, ``"stream"`` or ``"dot"``), ``daylight``
-    and ``pack_once`` go to :func:`sizing_ops.size_agents`."""
+    and ``pack_once`` go to :func:`sizing_ops.size_agents`.
+    ``agent_chunk`` > 0 with a table of more rows streams: sizing runs
+    chunk by chunk of that many rows (the table must divide into them,
+    :func:`_n_chunks`) with every static choice of the run passed to each
+    chunk alike, and the state-hourly aggregate is rebuilt by the hourly
+    remat pass (:func:`_state_hourly_remat`), so no whole-table
+    ``[N, 8760]`` tensor is formed; the market step runs once over the
+    whole table either way."""
     n_states = table.n_states
     n_groups = table.n_groups
     g = table.group_idx.long()
@@ -262,13 +289,16 @@ def year_step(
         state_kw_last = segment_sum(carry.market.system_kw_cum, table.state_idx, n_states)
     nem_allowed = compute_nem_allowed(table, inputs, year_idx, state_kw_last)
 
-    envs = build_econ_inputs(table, profiles, tariffs, ya, nem_allowed,
-                             table.incentives, rate_switch=rate_switch)
-    res = sizing_ops.size_agents(
-        envs, n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
-        keep_hourly=with_hourly, net_billing=net_billing, impl=sizing_impl,
-        daylight=daylight, pack_once=pack_once,
-    )
+    n_chunks = _n_chunks(table.n_agents, agent_chunk)
+    sizing = dict(n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
+                  net_billing=net_billing, impl=sizing_impl, daylight=daylight,
+                  pack_once=pack_once)
+    if n_chunks > 1:
+        res = _size_chunked(table, profiles, tariffs, ya, nem_allowed,
+                            n_chunks, rate_switch, sizing)
+    else:
+        res = _size_rows(table, profiles, tariffs, ya, nem_allowed, rate_switch,
+                         dict(sizing, keep_hourly=with_hourly))
 
     # --- market step ---
     mms = max_market_share(res.payback_period, table.sector_idx,
@@ -323,12 +353,16 @@ def year_step(
         batt_mix = torch.minimum(batt_adopters_cum, adopters)
         pv_only = torch.clamp_min(adopters - batt_mix, 0.0)
         base_cnt = torch.clamp_min(ya.customers_in_bin - adopters, 0.0)
-        net = (
-            base_cnt[:, None] * res.baseline_net_hourly
-            + pv_only[:, None] * res.adopter_net_hourly_pvonly
-            + batt_mix[:, None] * res.adopter_net_hourly_with_batt
-        ) * table.mask[:, None]
-        state_hourly = segment_sum(net, table.state_idx, n_states) / 1000.0  # kW -> MW
+        if n_chunks > 1:
+            state_hourly = _state_hourly_remat(
+                table, profiles, ya, res, (base_cnt, pv_only, batt_mix), n_chunks)
+        else:
+            net = _mix_hourly(
+                (res.baseline_net_hourly, res.adopter_net_hourly_pvonly,
+                 res.adopter_net_hourly_with_batt),
+                (base_cnt, pv_only, batt_mix), table.mask)
+            state_hourly = segment_sum(net, table.state_idx, n_states)
+        state_hourly = state_hourly / 1000.0  # kW -> MW
     else:
         state_hourly = torch.zeros((0, 0), dtype=torch.float32, device=kw_cum.device)
 
@@ -371,6 +405,93 @@ def year_step(
         state_hourly_net_mw=state_hourly,
     )
     return SimCarry(market=new_market, batt_adopters_cum=batt_adopters_cum), outputs
+
+
+def _n_chunks(n: int, chunk: int) -> int:
+    """Chunks of the streaming year step (1 = the whole-table path)."""
+    if not chunk or n <= chunk:
+        return 1
+    if n % chunk:
+        raise ValueError(
+            f"agent count {n} is not a multiple of agent_chunk {chunk}; pad the "
+            "table (models.agents.pad_table)"
+        )
+    return n // chunk
+
+
+def _chunk_slices(n: int, n_chunks: int):
+    c = n // n_chunks
+    return [slice(k * c, (k + 1) * c) for k in range(n_chunks)]
+
+
+def _rows(tree, rows: slice):
+    """Every tensor leaf of ``tree`` cut to the agent rows ``rows`` (views)."""
+    return tree_map(lambda t: t[rows], tree)
+
+
+def _size_rows(table, profiles, tariffs, ya, nem_allowed, rate_switch: bool,
+               sizing: dict) -> sizing_ops.SizingResult:
+    """:func:`sizing_ops.size_agents` of the rows of ``table``; the
+    gathered economics environment lives only inside this call."""
+    envs = build_econ_inputs(table, profiles, tariffs, ya, nem_allowed,
+                             table.incentives, rate_switch=rate_switch)
+    return sizing_ops.size_agents(envs, **sizing)
+
+
+def _size_chunked(table, profiles, tariffs, ya, nem_allowed, n_chunks: int,
+                  rate_switch: bool, sizing: dict) -> sizing_ops.SizingResult:
+    """Sizing of the whole table, chunk by chunk of rows: each chunk's
+    per-agent results are written into whole-table tensors; its hourly
+    profiles are not kept (the remat pass rebuilds what the aggregate
+    needs)."""
+    out = None
+    for rows in _chunk_slices(table.n_agents, n_chunks):
+        res = _size_rows(_rows(table, rows), profiles, tariffs, _rows(ya, rows),
+                         nem_allowed[rows], rate_switch,
+                         dict(sizing, keep_hourly=False))
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((table.n_agents,) + t.shape[1:]), res)
+        tree_map(lambda o, t: o[rows].copy_(t), out, res)
+    return out
+
+
+def _mix_hourly(profiles_nh: tuple, counts: tuple, mask: torch.Tensor) -> torch.Tensor:
+    """[N, H] net load of the rows: the baseline, PV-only and PV+battery
+    profiles mixed by the agents' customer, PV-only and battery counts."""
+    (base_p, pv_p, batt_p), (base_cnt, pv_only, batt_mix) = profiles_nh, counts
+    return (base_cnt[:, None] * base_p + pv_only[:, None] * pv_p
+            + batt_mix[:, None] * batt_p) * mask[:, None]
+
+
+def _state_hourly_remat(table, profiles, ya, res, counts: tuple,
+                        n_chunks: int) -> torch.Tensor:
+    """[n_states, H] kW: the state-hourly aggregate rebuilt chunk by
+    chunk (sizing kept no hourly profiles), summed into one float32
+    accumulator."""
+    acc = torch.zeros((table.n_states, profiles.hours), dtype=torch.float32,
+                      device=table.mask.device)
+    for rows in _chunk_slices(table.n_agents, n_chunks):
+        acc.index_add_(0, table.state_idx[rows].long(), _hourly_rows(
+            _rows(table, rows), profiles, _rows(ya, rows), _rows(res, rows),
+            tuple(c[rows] for c in counts)))
+    return acc
+
+
+def _hourly_rows(table, profiles, ya, res, counts: tuple) -> torch.Tensor:
+    """[C, H] net load of a chunk's rows, as the whole-table path forms
+    it: the streams gathered from the banks (int8 codes dequantized
+    through their row scales), priced at float32 as sizing prices them,
+    the battery dispatched again at the sized battery (one more dispatch
+    launch a chunk), and the net profiles mixed by the counts."""
+    load, gen_per_kw, load_scale, gen_scale = gather_hour_streams(
+        profiles, table.load_idx, table.cf_idx, ya.load_kwh_per_customer)
+    _, gen_f32, load_f32 = sizing_ops.float32_streams(
+        load, gen_per_kw, load_scale, gen_scale)
+    gen = gen_f32 * res.system_kw[:, None]
+    dr = dispatch_ops.dispatch_battery(load_f32, gen, res.batt_kw, res.batt_kwh,
+                                       ya.batt_rt_eff)
+    return _mix_hourly(sizing_ops.net_hourly_profiles(load_f32, gen, dr.system_out),
+                       counts, table.mask)
 
 
 def table_static_cache(table: AgentTable, tariffs: TariffBank) -> dict:
@@ -433,12 +554,20 @@ _LIVE_BUCKET_ARRAYS_RATE_SWITCH = 2
 _PERSISTENT_ROW_BYTES = 60 * 4
 #: share of the card's memory the model may plan for
 _MEMORY_BUDGET_FRAC = 0.8
+#: the smallest streaming chunk the year step runs at
+_CHUNK_FLOOR_ROWS = 128
+#: a measured peak past this multiple of the modeled step is logged as a
+#: miss of the footprint model
+_PEAK_OVER_MODEL_WARN = 3.0
 
 
 def per_agent_step_bytes(*, sizing_iters: int, econ_years: int, n_periods: int,
                          with_hourly: bool, rate_switch: bool,
                          bank_bf16: bool = False, bank_quant: bool = False) -> int:
-    """Modeled peak device bytes per agent of one year step.
+    """Modeled peak device bytes per agent row of one year step (one
+    chunk's row on the streaming path), beside the whole table's
+    persistent :data:`_PERSISTENT_ROW_BYTES` a row
+    (:func:`modeled_step_bytes`).
 
     ``bank_bf16``: the bank streams at 2 bytes, two float32 floor copies
     (load and gen for the dispatch loop, linear sums, hourly profiles),
@@ -470,8 +599,39 @@ def per_agent_step_bytes(*, sizing_iters: int, econ_years: int, n_periods: int,
     # the kernel's output stored at 2 bytes, plus the float32 copy the
     # bills take of it, where the sums are bf16 (billkernels._sums_out_dtype)
     bucket_bytes = 4 * buckets + (2 if bank_bf16 else 0)
-    return (hour_bytes * HOURS + bucket_bytes * r * 12 * n_periods
-            + _PERSISTENT_ROW_BYTES)
+    return hour_bytes * HOURS + bucket_bytes * r * 12 * n_periods
+
+
+def modeled_step_bytes(per_agent: int, rows: int, n_agents: int) -> int:
+    """Modeled peak device bytes of a year step that sizes ``rows`` agent
+    rows at a time over a table of ``n_agents`` rows."""
+    return per_agent * rows + _PERSISTENT_ROW_BYTES * n_agents
+
+
+def card_memory_bytes(device: torch.device) -> Optional[int]:
+    """The card's memory in bytes, or None off a card (no budget: the
+    CPU never streams by default)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def auto_agent_chunk(n_agents: int, *, memory_bytes: Optional[int],
+                     **footprint) -> int:
+    """The streaming chunk from the memory budget: 0 (whole table) when
+    the table fits :data:`_MEMORY_BUDGET_FRAC` of ``memory_bytes``, else
+    the largest multiple of :data:`_CHUNK_FLOOR_ROWS` rows that fits
+    beside the whole table's persistent rows, and never fewer than that
+    floor. ``footprint``: the keywords of :func:`per_agent_step_bytes`.
+    No budget (``memory_bytes`` None, as off a card) gives 0."""
+    if not memory_bytes or n_agents <= 0:
+        return 0
+    per_agent = per_agent_step_bytes(**footprint)
+    budget = int(memory_bytes * _MEMORY_BUDGET_FRAC) - n_agents * _PERSISTENT_ROW_BYTES
+    fit = budget // per_agent
+    if n_agents <= fit:
+        return 0
+    return max(_CHUNK_FLOOR_ROWS, int(fit // _CHUNK_FLOOR_ROWS) * _CHUNK_FLOOR_ROWS)
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +663,12 @@ class Simulation:
 
     ``device`` (default ``"cuda"``) is where every container is placed
     and every year runs; with no card the constructor raises unless the
-    caller asks for ``"cpu"``. On a card the modeled year-step memory
-    must fit, or the constructor raises: this slice does not stream the
-    agent axis in chunks.
+    caller asks for ``"cpu"``. ``RunConfig.agent_chunk`` picks the
+    streaming chunk (``None``: from the card's memory, whole table on the
+    CPU); a chunked table is padded with mask-0 rows to a multiple of
+    ``lcm(agent_pad_multiple, chunk)``, and results cover the padded
+    rows. The constructor raises ``MemoryError`` when not even a
+    128-row chunk fits the card.
     """
 
     def __init__(
@@ -541,9 +704,41 @@ class Simulation:
         # are narrowed
         self._daylight = self._build_daylight(profiles)
         self.profiles = self._narrow_banks(self.profiles)
-        self.modeled_step_bytes = self._check_memory()
+        self._per_agent_bytes = per_agent_step_bytes(**self._footprint())
+        chunk = self._resolve_chunk()
+        if chunk:
+            # lane alignment and chunk divisibility together
+            self.table = pad_table(
+                self.table, math.lcm(self.run_config.agent_pad_multiple, chunk))
+        # stream only when the table is larger than one chunk
+        self._agent_chunk = chunk if chunk and self.table.n_agents > chunk else 0
         self.host_agent_id = self.table.agent_id.cpu().numpy()
         self.host_mask = self.table.mask.cpu().numpy()
+        self.modeled_step_bytes = self._check_memory()
+        self.memory_check: Optional[dict] = None
+        self.health_report: Optional[dict] = None
+
+    def _footprint(self) -> dict:
+        """The :func:`per_agent_step_bytes` keywords of this run."""
+        rc = self.run_config
+        return dict(sizing_iters=rc.sizing_iters, econ_years=self.econ_years,
+                    n_periods=self.tariffs.max_periods, with_hourly=self.with_hourly,
+                    rate_switch=self._rate_switch, bank_bf16=rc.bf16_banks,
+                    bank_quant=rc.quant_banks)
+
+    def _resolve_chunk(self) -> int:
+        """The run's streaming chunk: the configured one, or with none
+        configured the one the card's memory gives (0 on the CPU)."""
+        chunk = self.run_config.agent_chunk
+        if chunk is not None:
+            return chunk
+        chunk = auto_agent_chunk(self.table.n_agents,
+                                 memory_bytes=card_memory_bytes(self.device),
+                                 **self._footprint())
+        if chunk:
+            logger.info("auto agent_chunk: %d rows (%d agents exceed the "
+                        "whole-table memory budget)", chunk, self.table.n_agents)
+        return chunk
 
     def _build_daylight(self, profiles: ProfileBank):
         """The daylight layout of the generation bank when the run asks
@@ -586,25 +781,62 @@ class Simulation:
         return profiles
 
     def _check_memory(self) -> int:
-        """Modeled year-step bytes; raises when they exceed the card's
-        budget."""
-        per_agent = per_agent_step_bytes(
-            sizing_iters=self.run_config.sizing_iters, econ_years=self.econ_years,
-            n_periods=self.tariffs.max_periods, with_hourly=self.with_hourly,
-            rate_switch=self._rate_switch, bank_bf16=self.run_config.bf16_banks,
-            bank_quant=self.run_config.quant_banks,
-        )
-        modeled = per_agent * self.table.n_agents
-        if self.device.type == "cuda":
-            total = torch.cuda.get_device_properties(self.device).total_memory
-            if modeled > _MEMORY_BUDGET_FRAC * total:
-                raise MemoryError(
-                    f"{self.table.n_agents} agents model {modeled / 2**30:.1f} GiB "
-                    f"per year step, over {_MEMORY_BUDGET_FRAC:.0%} of the "
-                    f"card's {total / 2**30:.1f} GiB; the streaming agent-chunk "
-                    "step is not ported yet"
-                )
+        """Modeled bytes of the run's year step (one chunk's rows beside
+        the whole table's persistent rows). On a card, raises
+        ``MemoryError`` when not even a :data:`_CHUNK_FLOOR_ROWS`-row
+        chunk fits the budget, and warns when the configured chunk (or
+        the whole table) models over it."""
+        n = self.table.n_agents
+        modeled = modeled_step_bytes(self._per_agent_bytes,
+                                     self._agent_chunk or n, n)
+        total = card_memory_bytes(self.device)
+        if total is None:
+            return modeled
+        budget = _MEMORY_BUDGET_FRAC * total
+        floor = modeled_step_bytes(self._per_agent_bytes, min(_CHUNK_FLOOR_ROWS, n), n)
+        if floor > budget:
+            raise MemoryError(
+                f"{n} agents model {floor / 2**30:.1f} GiB per year step at a "
+                f"{_CHUNK_FLOOR_ROWS}-row chunk, over {_MEMORY_BUDGET_FRAC:.0%} "
+                f"of the card's {total / 2**30:.1f} GiB"
+            )
+        if modeled > budget:
+            logger.warning(
+                "agent_chunk=%s models %.1f GiB per year step, over %.0f%% of the "
+                "card's %.1f GiB; agent_chunk=None derives a chunk that fits",
+                self.run_config.agent_chunk, modeled / 2**30,
+                100 * _MEMORY_BUDGET_FRAC, total / 2**30)
         return modeled
+
+    def _memory_check(self) -> dict:
+        """The modeled year-step bytes beside the card's measured peaks
+        since the last ``torch.cuda.reset_peak_memory_stats`` (None off a
+        card); kept as ``self.memory_check``. Logs a warning when the
+        measured peak passes :data:`_PEAK_OVER_MODEL_WARN` times the
+        model on a streaming run."""
+        rec = {"modeled_step_bytes": int(self.modeled_step_bytes),
+               "agent_chunk": self._agent_chunk,
+               "device_peak_allocated": None, "device_peak_reserved": None,
+               "device_total": None, "peak_over_model": None}
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device)
+            rec.update(device_peak_allocated=int(peak),
+                       device_peak_reserved=int(torch.cuda.max_memory_reserved(self.device)),
+                       device_total=int(card_memory_bytes(self.device)),
+                       peak_over_model=peak / self.modeled_step_bytes)
+            logger.info("memory model: modeled step %.2f GiB vs device peak "
+                        "%.2f GiB allocated (peak/model %.2f)",
+                        self.modeled_step_bytes / 2**30, peak / 2**30,
+                        rec["peak_over_model"])
+            if peak > _PEAK_OVER_MODEL_WARN * self.modeled_step_bytes and self._agent_chunk:
+                logger.warning(
+                    "device peak is %.1fx the chunk model: the footprint model "
+                    "under-counts this configuration (rate_switch=%s "
+                    "with_hourly=%s); a larger population may run out of memory "
+                    "at the chosen chunk", rec["peak_over_model"],
+                    self._rate_switch, self.with_hourly)
+        self.memory_check = rec
+        return rec
 
     def step_kwargs(self, first_year: bool) -> dict:
         """The :func:`year_step` arguments this run uses."""
@@ -621,6 +853,7 @@ class Simulation:
             sizing_impl="stream" if self.run_config.stream_segments else "auto",
             daylight=self._daylight,
             pack_once=self.run_config.pack_once,
+            agent_chunk=self._agent_chunk,
         )
 
     def init_carry(self) -> SimCarry:
@@ -633,7 +866,7 @@ class Simulation:
             year_idx, **self.step_kwargs(first_year),
         )
 
-    def _check_state_kw_bound(self, carry: SimCarry) -> None:
+    def _check_state_kw_bound(self, carry: SimCarry, context: str) -> None:
         """The static all-NEM proof holds only while every state's
         capacity stays under STATE_KW_BOUND; raise if it does not."""
         state_kw = np.zeros(self.table.n_states, np.float64)
@@ -641,27 +874,82 @@ class Simulation:
                   carry.market.system_kw_cum.cpu().numpy())
         if not np.all(state_kw < STATE_KW_BOUND):
             raise AssertionError(
-                "state capacity exceeds STATE_KW_BOUND; the static all-NEM "
-                "skip of the net-billing path is unsound for this run"
+                f"{context}: state capacity exceeds STATE_KW_BOUND; the static "
+                "all-NEM skip of the net-billing path is unsound for this run"
             )
 
-    def run(self) -> SimResults:
-        """Run every model year, collecting each year's outputs on the host."""
+    def _health_verdict(self, year: int, yi: int, summary, outs,
+                        escalate: bool) -> None:
+        """The sentinel's verdict on one year's summary: breaches are
+        recorded and attributed to agents from the year's outputs, then
+        raised as ``HealthBreachError`` under ``escalate`` or logged as a
+        warning."""
+        breaches = health_mod.check_host(summary)
+        if not breaches:
+            return
+        self._health_breaches[int(year)] = breaches
+        err = health_mod.breach_error(year, yi, breaches, outs,
+                                      self.host_agent_id, self.host_mask)
+        if escalate:
+            raise err
+        logger.warning("health sentinel: %s", err)
+
+    def run(
+        self,
+        callback: Optional[Callable[[int, int, YearOutputs], None]] = None,
+        collect: bool = True,
+    ) -> SimResults:
+        """Run every model year, synchronously.
+
+        ``callback(year, year_idx, outputs)`` is called after each year
+        with the year's device outputs. ``collect=False`` keeps no
+        per-agent arrays on the host (the results then hold the years
+        only). The health sentinel (``RunConfig.health_sentinel``, on by
+        default) checks every year's outputs; ``debug_invariants`` checks
+        the carry and the outputs after every year. Checkpoints and the
+        cooperative stop of the JAX package's ``run`` are not ported."""
+        rc = self.run_config
+        debug = rc.debug_invariants
+        sentinel = rc.health_sentinel
+        escalate = rc.sentinel_escalate
+        self._health_breaches: Dict[int, list] = {}
+        self.health_report = None
         agent_fields = [f.name for f in dataclasses.fields(YearOutputs)
                         if f.name != "state_hourly_net_mw"]
         collected: Dict[str, list] = {k: [] for k in agent_fields}
         hourly: List[np.ndarray] = []
         carry = self.init_carry()
-        for yi in range(len(self.years)):
+        for yi, year in enumerate(self.years):
+            prev_carry = carry
             carry, outs = self.step(carry, yi, first_year=(yi == 0))
-            for k in agent_fields:
-                collected[k].append(getattr(outs, k).cpu().numpy())
-            if self.with_hourly:
-                hourly.append(outs.state_hourly_net_mw.cpu().numpy())
-        if not self._net_billing:
-            self._check_state_kw_bound(carry)
+            if debug:
+                invariants.check_transform(prev_carry, carry,
+                                           context=f"year {year} carry")
+                invariants.check_finite(carry, context=f"year {year} carry")
+                invariants.check_finite(outs, context=f"year {year} outputs")
+                if not self._net_billing:
+                    self._check_state_kw_bound(carry, f"year {year}")
+            if sentinel:
+                self._health_verdict(
+                    year, yi, health_mod.health_summary(outs, self.table.mask).cpu(),
+                    outs, escalate)
+            if callback is not None:
+                callback(year, yi, outs)
+            if collect:
+                for k in agent_fields:
+                    collected[k].append(getattr(outs, k).cpu().numpy())
+                if self.with_hourly:
+                    hourly.append(outs.state_hourly_net_mw.cpu().numpy())
+        if not self._net_billing and not debug:
+            self._check_state_kw_bound(carry, "end of run")
+        self._memory_check()
+        if sentinel:
+            self.health_report = {
+                "breaches": {int(y): b for y, b in self._health_breaches.items()},
+                "clean": not self._health_breaches,
+            }
         return SimResults(
             years=list(self.years),
-            agent={k: np.stack(v) for k, v in collected.items()},
+            agent={k: np.stack(v) for k, v in collected.items()} if collect else {},
             state_hourly_net_mw=np.stack(hourly) if hourly else None,
         )

@@ -14,22 +14,17 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from dgen_tpu_torch.ops.tariff import MONTHS, NET_BILLING, TariffBank, hour_month_map
+from dgen_tpu_torch.ops.tariff import (
+    MONTH_HOURS, MONTHS, NET_BILLING, TariffBank, hour_month_map,
+)
 
 
 @functools.lru_cache(maxsize=None)
 def hour_month(device: torch.device) -> torch.Tensor:
     """[8760] int32 hour -> month map on ``device`` (one copy per device)."""
     return torch.from_numpy(hour_month_map()).to(device)
-
-
-@functools.lru_cache(maxsize=None)
-def month_onehot(device: torch.device) -> torch.Tensor:
-    """[8760, 12] float32 month one-hot on ``device`` (one copy per device)."""
-    return torch.from_numpy(np.eye(MONTHS, dtype=np.float32)[hour_month_map()]).to(device)
 
 
 class AgentTariff(NamedTuple):
@@ -69,13 +64,20 @@ def select_by_period(hour_period: torch.Tensor, per_period: torch.Tensor,
 def monthly_period_sums(x: torch.Tensor, hour_period: torch.Tensor,
                         n_periods: int) -> torch.Tensor:
     """Sum ``[..., 8760]`` series into ``[..., 12, P]`` month x TOU-period
-    buckets: one masked product with the month one-hot per period.
-    ``hour_period`` broadcasts against ``x``."""
-    onehot = month_onehot(x.device)
+    buckets: per period, the masked series summed over each month's
+    hours. ``hour_period`` broadcasts against ``x``.
+
+    Row-wise sums, not a product with a month one-hot: on a card the
+    library picks a matrix product's algorithm by the row count, so a
+    row's sums would depend on how many rows share the call (the
+    streaming year step sizes a chunk of the rows the whole-table step
+    sizes at once)."""
+    months = list(zip(MONTH_HOURS[:-1].tolist(), MONTH_HOURS[1:].tolist()))
     per_period = []
     for p in range(n_periods):
-        mask = (hour_period == p).to(x.dtype)
-        per_period.append((x * mask) @ onehot)
+        xp = x * (hour_period == p).to(x.dtype)
+        per_period.append(torch.stack([xp[..., a:b].sum(dim=-1) for a, b in months],
+                                      dim=-1))
     return torch.stack(per_period, dim=-1)
 
 

@@ -773,6 +773,14 @@ def sell_rate_hourly(tariff: AgentTariff, ts_sell: torch.Tensor) -> torch.Tensor
     return torch.where(has_tou, tou, ts_sell).to(ts_sell.dtype)
 
 
+def _period_charge(sums_mp: torch.Tensor, price_p: torch.Tensor) -> torch.Tensor:
+    """[N, R] sum over months and periods of ``sums_mp`` [N, R, 12, P]
+    priced at ``price_p`` [N, P], as row-wise sums (a batched matrix
+    product's algorithm, picked by the row count, would make a row's
+    charge depend on how many rows share the call)."""
+    return (sums_mp.sum(dim=2) * price_p[:, None, :]).sum(dim=-1)
+
+
 def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Tensor:
     """[N, R, 12, P] monthly sums -> [N, R] annual tiered charges, as a
     loop over the (small) tier axis so the largest temporary stays
@@ -787,10 +795,9 @@ def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Te
         lo = lower[:, t][:, None, None, None]
         seg = torch.minimum(torch.clamp_min(sums_mp - lo, 0.0),
                             width[:, t][:, None, None, None])
-        total = total + torch.einsum("nrmp,np->nr", seg, price[:, :, t])
+        total = total + _period_charge(seg, price[:, :, t])
     # negative (net-metered export) months credit at the tier-1 price
-    return total + torch.einsum(
-        "nrmp,np->nr", torch.clamp_max(sums_mp, 0.0), price[:, :, 0])
+    return total + _period_charge(torch.clamp_max(sums_mp, 0.0), price[:, :, 0])
 
 
 def bills_from_sums(signed, imports, credit, tariff: AgentTariff,

@@ -113,6 +113,27 @@ def net_hourly_profiles(load, gen, system_out):
     )
 
 
+def float32_streams(load, gen_per_kw, load_scale=None, gen_scale=None):
+    """(gen_shape, gen_f32, load_f32) of gathered hour streams: the
+    generation shape after the inverter that the candidate kernels read
+    (at the bank's dtype; the int8 codes themselves under int8 banks,
+    whose scales the kernels fold in), and the float32 generation per kW
+    and load that the dispatch, the linear sums and the hourly profiles
+    price (the state-of-charge recursion compounds rounding over 8760
+    steps). The year step's hourly remat pass prices the same copies."""
+    if load_scale is not None:
+        gen_shape = gen_per_kw                                     # codes
+        gen_f32 = gen_per_kw.float() * (gen_scale * INV_EFF)[:, None]
+        load_f32 = load.float() * load_scale[:, None]
+    else:
+        # the factor at the bank's dtype, as the JAX package multiplies a
+        # bf16 bank by its bf16-rounded constant
+        gen_shape = gen_per_kw * torch.tensor(INV_EFF, dtype=gen_per_kw.dtype)
+        gen_f32 = gen_shape.float()
+        load_f32 = load.float()
+    return gen_shape, gen_f32, load_f32
+
+
 def _switch_active(env: AgentEconInputs, kw: torch.Tensor) -> torch.Tensor:
     """Whether the DG-rate switch applies at system size ``kw``,
     broadcasting the per-agent window over a trailing candidate axis."""
@@ -184,22 +205,13 @@ def size_agents(
     # into the candidate scales (billkernels._quant_fold); the float32
     # floors below price dequantized copies, as under bf16 banks
     quant = envs.load_scale is not None
+    gen_shape, gen_f32, load_f32 = float32_streams(
+        envs.load, envs.gen_per_kw, envs.load_scale, envs.gen_scale)
     if quant:
         gen_scale_eff = envs.gen_scale * INV_EFF
-        gen_shape = envs.gen_per_kw                                # codes
-        gen_f32 = envs.gen_per_kw.float() * gen_scale_eff[:, None]
-        load_f32 = envs.load.float() * envs.load_scale[:, None]
         naep = envs.gen_per_kw.float().sum(dim=1) * envs.gen_scale
     else:
         gen_scale_eff = None
-        # the factor at the bank's dtype, as the JAX package multiplies a
-        # bf16 bank by its bf16-rounded constant
-        gen_shape = envs.gen_per_kw * torch.tensor(INV_EFF,
-                                                   dtype=envs.gen_per_kw.dtype)
-        gen_f32 = gen_shape.float()
-        # float32 dispatch and profiles (the state-of-charge recursion
-        # compounds rounding over 8760 steps); float32 8760-term sums
-        load_f32 = envs.load.float()
         naep = envs.gen_per_kw.float().sum(dim=1)                  # [N]
 
     max_system = envs.load_kwh_per_customer / torch.clamp_min(naep, 1e-9)

@@ -3,7 +3,7 @@
 The containers are frozen dataclasses and NamedTuples with tensor
 leaves (the JAX package registers the same classes as pytrees); this is
 the one traversal the port needs: moving a container to a device,
-repeating or selecting every leaf of a batch.
+repeating or selecting every leaf of a batch, naming every leaf.
 """
 
 from __future__ import annotations
@@ -40,3 +40,20 @@ def to_device(obj, device: torch.device):
     """``obj`` with every tensor moved to ``device`` (no copy when a
     tensor is already there)."""
     return tree_map(lambda t: t.to(device), obj)
+
+
+def leaf_paths(obj, prefix: str = "") -> dict:
+    """``{path: tensor}`` of every tensor leaf of ``obj``, the path in
+    attribute form (``".market.market_share"``)."""
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        items = list(zip(obj._fields, obj))
+    else:
+        return {}
+    out = {}
+    for name, v in items:
+        out.update(leaf_paths(v, f"{prefix}.{name}"))
+    return out

@@ -3,7 +3,9 @@ function: one bmm of the pre-formed relu(net) (and net) with the one-hot
 M that ``bmm_operands`` forms from a row's operands gives the row's plain
 outputs, on full-hour and compacted lanes, with periods outside [0, P)
 counted for the sell sum alone, for one tariff and two, at 12 P + 1
-columns and wider."""
+columns and wider. ``held_year`` holds the first month, signed-month and
+sizing and remat-pass dispatch launches of a streaming year against the
+plain versions, block by block, and fails on one agent off."""
 
 import importlib.util
 import os
@@ -83,3 +85,62 @@ def test_bmm_operands_cut_agent_rows():
     assert tuple(a.shape) == (2, 5, 8760) and tuple(m.shape) == (2, 8760, 50)
     whole_a, whole_m = cs.bmm_operands(terms, 0, 3, 25)
     assert torch.equal(a, whole_a[1:]) and torch.equal(m, whole_m[1:])
+
+
+@pytest.fixture(scope="module")
+def chunked_sim():
+    """A small streaming world on the CPU: 64 agents padded to 128 rows in
+    4 chunks of 32, hourly and storage on, batteries allocated."""
+    from dgen_tpu_torch import presets
+    from dgen_tpu_torch.config import RunConfig
+
+    sim, _, _ = presets.build("ercot-all-sector", n_agents=64, end_year=2014,
+                              device="cpu", attachment_rate=cs.CHUNK_ATTACHMENT,
+                              run_config=RunConfig(agent_chunk=32, sizing_iters=4))
+    assert cs.n_chunks(sim) == 4 and sim.with_hourly
+    return sim
+
+
+def test_held_year_holds_every_first_launch(chunked_sim, monkeypatch, capsys):
+    monkeypatch.setattr(cs, "HELD_ROWS", 48)     # blocks that cut a chunk
+    cs.held_year(chunked_sim, "cpu")
+    out = capsys.readouterr()
+    line = out.out + out.err
+    for key in ("'month'", "'month_signed'", "dispatch (sizing)",
+                "dispatch (remat pass)"):
+        assert key in line
+
+
+@pytest.mark.parametrize("where", ["month_signed", "dispatch (sizing)",
+                                   "dispatch (remat pass)"])
+def test_held_year_catches_a_launch_off_its_plain_version(chunked_sim, monkeypatch,
+                                                          where):
+    """A wrapper that disagrees with its plain version in one agent of a
+    later block fails the check (the mutant stands in for the kernel)."""
+    from dgen_tpu_torch.ops import dispatch
+
+    monkeypatch.setattr(cs, "HELD_ROWS", 16)
+    if where == "month_signed":
+        month = bk.month_sums
+
+        def mutant(*args):
+            out = month(*args)
+            if args[7]:
+                out[0][20] *= 1.01
+            return out
+
+        monkeypatch.setattr(bk, "month_sums", mutant)
+    else:
+        kernel, calls = dispatch.dispatch_battery, []
+        which = 0 if where == "dispatch (sizing)" else cs.n_chunks(chunked_sim)
+
+        def mutant(*args, **kw):
+            out = kernel(*args, **kw)
+            if len(calls) == which:
+                out.soc[20] += 1.0
+            calls.append(1)
+            return out
+
+        monkeypatch.setattr(dispatch, "dispatch_battery", mutant)
+    with pytest.raises(AssertionError, match="rows 16-31 .first: row 20"):
+        cs.held_year(chunked_sim, "cpu")

@@ -53,7 +53,9 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.ops.billkernels, dgen_tpu_torch.ops._build\n"
         "import dgen_tpu_torch.ops.layout, dgen_tpu_torch.ops.microkernels\n"
         "import dgen_tpu_torch.ops.dispatch\n"
+        "import dgen_tpu_torch.models.health, dgen_tpu_torch.utils.invariants\n"
         "import dgen_tpu_torch.tools.kernel_microbench\n"
+        "import dgen_tpu_torch.tools.plain_parent_ab\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
     )
@@ -93,6 +95,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         presets.build("ercot-all-sector", n_agents=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        presets.run_preset("ercot-all-sector", n_agents=16, export=False)
+    from dgen_tpu_torch.tools import plain_parent_ab
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plain_parent_ab.run(ROOT, n_agents=16, pairs=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synth.generate_population(16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
