@@ -23,9 +23,12 @@ its first launch in the path):
      at 32,768 agents for 2 model years, hourly aggregate and storage on
      and batteries allocated, once in 4 chunks of 8,192 rows and once
      whole, held to each other at the JAX package's tolerance for this
-     computation; then, in one more first year of each, the first month,
-     signed-month and dispatch launches (the remat pass's too) held
-     against the plain versions as they launch;
+     computation, in three worlds: the default path (month kernel), the
+     gated knobs on int8 banks (stream kernel) and a rate-switch world
+     (pair kernel); then, in one more first year of each run, the first
+     launch of each bucket-sums kernel the run launched and the first
+     dispatch launches (the remat pass's too) held against the plain
+     versions as they launch;
   3d. national-all-sector at its full width, 1,048,576 agents, under the
      automatic chunk, for 2 model years (depth cut from the preset's 19):
      chunks, padded rows, per-year wall, agent-years/s, modeled step
@@ -34,6 +37,18 @@ its first launch in the path):
      hourly remat pass), and the preset runner's record; the run keeps
      no operands, and one more first year holds its first launches at
      the chunk's rows (87,424 on an 80 GB card) against the plain versions as [3c] does;
+  3e. both golden fixtures on the card, through the calls a user makes:
+     golden #1 loaded from the committed port-format package
+     (tests/torch_fixtures/golden_pkg, io.package.load_population) and
+     run for 19 model years through RunConfig.from_env, held to
+     tests/fixtures/golden_adoption.json under tests/test_golden_e2e.py's
+     contract (curves rtol 1e-3, state-hourly atol 0.05, the system-size
+     histogram exact), its gated run within 1e-4 of the default run's
+     curves and its bf16 and int8 runs within 2%; golden #2, the NEM cap
+     flip of tests/test_golden_capflip.py rebuilt on the port's synthetic
+     world, held to golden_capflip.json (NEM-eligible counts exact); each
+     run's launch counts and walls, and its first launches held against
+     the plain versions as [3c] holds them;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -139,9 +154,40 @@ CHUNK_HOURLY_RTOL, CHUNK_HOURLY_ATOL = 1e-4, 1e-5
 #: is 0, which allocates no battery and leaves the remat pass's battery
 #: profile out of the aggregate), as tests/test_torch_chunk.py sets it
 CHUNK_ATTACHMENT = 0.4
+#: [3c]'s worlds: name -> (RunConfig knobs, rate_switch_frac, the kernels
+#: its years must launch): the default path (month kernel), the gated
+#: knobs on int8 banks (stream kernel on int8 codes and compacted lanes)
+#: and a rate-switch world (pair kernel)
+CHUNK_WORLDS = {
+    "default": ({}, 0.0, ("month", "month_signed")),
+    "gated int8": (dict(daylight_compact=True, pack_once=True, stream_segments=True,
+                        quant_banks=True), 0.0, ("stream", "stream_signed")),
+    "rate switch": ({}, 0.4, ("month_pair", "month_signed")),
+}
 #: agent rows of one plain-version block where [3c] and [3d] hold a
 #: kernel's launch against its plain version (held_rows)
 HELD_ROWS = 16384
+#: [3e]: the golden fixtures. Golden #1 (tests/test_golden_e2e.py) from
+#: the committed port-format package; golden #2, the NEM cap flip
+#: (tests/test_golden_capflip.py), rebuilt on the port's synthetic world
+GOLDEN_PKG = "tests/torch_fixtures/golden_pkg"
+GOLDEN_JSON = "tests/fixtures/golden_adoption.json"
+CAPFLIP_JSON = "tests/fixtures/golden_capflip.json"
+GOLDEN_ATTACHMENT = 0.35
+CAPFLIP_AGENTS = 192
+CAPFLIP_STATES = ("DE", "CA", "TX")
+CAP_FRACTION = 0.30
+#: the golden contract: exact metrics, curves within GOLDEN_RTOL, state-
+#: hourly MWh within GOLDEN_RTOL and GOLDEN_HOURLY_ATOL; the gated path
+#: within GOLDEN_GATED_RTOL of the default run's curves
+GOLDEN_EXACT = ("years", "kw_histogram", "nem_allowed")
+GOLDEN_CURVES = ("adopters", "system_kw_cum", "batt_kwh_cum", "cash_flow_total",
+                 "adoption_checksum")
+GOLDEN_HOURLY = ("state_hourly_net_mwh", "state_hourly_abs_mwh")
+GOLDEN_RTOL = 1e-3
+GOLDEN_HOURLY_ATOL = 0.05
+GOLDEN_GATED_RTOL = 1e-4
+KW_BINS = (0.0, 1e-6, 2, 4, 6, 8, 12, 20, 50, 200, 1e9)
 SWITCH_AGENTS = 1024
 SWITCH_END_YEAR = 2016        # model years 2014, 2016
 DAYLIGHT_AGENTS = 1024
@@ -1414,17 +1460,21 @@ def counted_run(sim) -> tuple:
     return res, {**bk.LAUNCHES, **dispatch.LAUNCHES}, seconds
 
 
-def held_rows(name: str, got: tuple, args: tuple, plain, same) -> float:
-    """Holds the kernel's outputs ``got`` on the operands ``args`` (agent
-    rows first in each of the first five) against ``plain`` on the same
-    rows, HELD_ROWS agents at a time so the plain version's temporaries
-    stay small; ``same(g, r)`` -> the [rows] agents that disagree. Raises
-    on a disagreement; returns the largest absolute error."""
+def held_rows(name: str, got, args: tuple, plain, same) -> float:
+    """Holds the kernel's outputs ``got`` on the operands ``args`` against
+    ``plain`` on the same rows, HELD_ROWS agents at a time so the plain
+    version's temporaries stay small (every tensor argument whose leading
+    dimension is the agent rows is sliced); ``same(g, r)`` -> the [rows]
+    agents that disagree. Raises on a disagreement; returns the largest
+    absolute error."""
+    import torch
+
     n = args[0].shape[0]
     err = 0.0
     for a in range(0, n, HELD_ROWS):
         rows = slice(a, min(a + HELD_ROWS, n))
-        ref = plain(*(t[rows] for t in args[:5]), *args[5:])
+        ref = plain(*(t[rows] if isinstance(t, torch.Tensor) and t.dim()
+                      and t.shape[0] == n else t for t in args))
         for i, (g, r) in enumerate(zip(got, ref, strict=True)):
             g = g[rows]
             if g.dtype != r.dtype or g.shape != r.shape:
@@ -1448,35 +1498,61 @@ def not_equal(g, r):
     return (g != r).flatten(1).any(1) if g.ndim > 1 else g != r
 
 
-def held_year(sim, tag: str) -> None:
+def sums_agree(g, r):
+    """[rows] agents whose bucket sums disagree at the main path's
+    tolerance (:func:`bad_agents`; bf16 sums at BF16_RTOL)."""
+    import torch
+
+    rtol = BF16_RTOL if g.dtype == r.dtype == torch.bfloat16 else RTOL
+    return bad_agents(g.float(), r.float(), rtol)
+
+
+#: launch-count key -> (billkernels wrapper, its plain version): the bucket
+#: sums kernels held_year holds as they launch
+HELD_SUMS = {
+    "month": ("month_sums", "month_sums_plain"),
+    "stream": ("stream_sums", "month_sums_plain"),
+    "month_pair": ("month_pair_sums", "month_pair_sums_plain"),
+}
+
+
+def held_year(sim, tag: str, launches: dict) -> None:
     """One more first model year of ``sim`` after its counted run (so
     that run's launch counts and memory peaks stand as it left them), in
-    which the first launch of the month kernel and of the signed month
-    kernel, and the first battery dispatch of sizing and, on a streaming
+    which the first launch of each bucket-sums kernel the counted run
+    launched (``launches``: month, signed month, stream, signed stream,
+    pair), and the first battery dispatch of sizing and, on a streaming
     run with hourly on, of the remat pass, are each held against the
-    plain version as they launch, at the shapes the path gives them:
-    the bucket sums per agent at RTOL (:func:`bad_agents`), the dispatch
-    bit for bit. Nothing is kept past its check, so no chunk's operands
-    stay pinned; raises on a disagreement or a check that never ran."""
+    plain version as they launch, at the shapes the path gives them: the
+    bucket sums per agent at RTOL (:func:`sums_agree`), the dispatch bit
+    for bit. Nothing is kept past its check, so no chunk's operands stay
+    pinned; raises on a disagreement or a check that never ran."""
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
     from dgen_tpu_torch.ops import dispatch
 
-    month, disp = bk.month_sums, dispatch.dispatch_battery
+    wrappers = {key: getattr(bk, fn) for key, (fn, _) in HELD_SUMS.items()}
+    disp = dispatch.dispatch_battery
     remat = n_chunks(sim) if sim._agent_chunk and sim.with_hourly else None
     dispatches = []
     held = {}
 
-    def month_held(*args):
-        got = month(*args)
-        key = "month_signed" if args[7] else "month"
-        if key not in held:
-            err = held_rows(f"[{tag}] {key}", got, args, bk.month_sums_plain,
-                            lambda g, r: bad_agents(g.float(), r.float()))
-            held[key] = (f"N={args[0].shape[0]} R={args[4].shape[1]} "
-                         f"P={args[6]} max_abs_err={err:.3e}")
-        return got
+    def sums_held(key):
+        kernel, plain = wrappers[key], getattr(bk, HELD_SUMS[key][1])
+
+        def run(*args):
+            got = kernel(*args)
+            pair = key == "month_pair"
+            name = key + ("_signed" if not pair and args[7] else "")
+            if name not in held:
+                err = held_rows(f"[{tag}] {name}", got, args, plain, sums_agree)
+                scales, p = (args[6], args[8]) if pair else (args[4], args[6])
+                held[name] = (f"N={scales.shape[0]} R={scales.shape[1]} P={p} "
+                              f"lanes={args[0].shape[1]} {args[0].dtype} "
+                              f"max_abs_err={err:.3e}")
+            return got
+        return run
 
     def dispatch_held(*args, **kw):
         i = len(dispatches)
@@ -1492,12 +1568,18 @@ def held_year(sim, tag: str) -> None:
         return got
 
     bk.CAPTURE = None
-    bk.month_sums, dispatch.dispatch_battery = month_held, dispatch_held
+    for key, (fn, _) in HELD_SUMS.items():
+        setattr(bk, fn, sums_held(key))
+    dispatch.dispatch_battery = dispatch_held
     try:
         sim.step(sim.init_carry(), 0, True)
     finally:
-        bk.month_sums, dispatch.dispatch_battery = month, disp
-    want = ["month", "month_signed", "dispatch (sizing)"]
+        for key, (fn, _) in HELD_SUMS.items():
+            setattr(bk, fn, wrappers[key])
+        dispatch.dispatch_battery = disp
+    want = [k for k in ("month", "month_signed", "stream", "stream_signed",
+                        "month_pair") if launches.get(k)]
+    want.append("dispatch (sizing)")
     if remat is not None:
         want.append("dispatch (remat pass)")
     missing = [k for k in want if k not in held]
@@ -1517,73 +1599,90 @@ def per_year(launches: dict, years: int) -> dict:
 def chunked_vs_whole(presets, RunConfig) -> None:
     """[3c]: the streaming year step (4 chunks) against the whole table
     at CHUNK_AGENTS with batteries allocated (CHUNK_ATTACHMENT), per
-    agent and state-hourly; each run's first launches held against the
-    plain versions (:func:`held_year`); raises on a mismatch, a world
-    with no battery adopters or a launch count off the chunk count."""
+    agent and state-hourly, in each of CHUNK_WORLDS; each run's first
+    launches held against the plain versions (:func:`held_year`); raises
+    on a mismatch, a world with no battery adopters, a kernel of the
+    world that never launched or a launch count off the chunk count."""
     import numpy as np
     import torch
 
-    out = {}
-    for tag, chunk in (("chunked", CHUNK_ROWS), ("whole", 0)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        sim, _, _ = presets.build("ercot-all-sector", n_agents=CHUNK_AGENTS,
-                                  end_year=CHUNK_END_YEAR, device="cuda",
-                                  run_config=RunConfig(agent_chunk=chunk),
-                                  attachment_rate=CHUNK_ATTACHMENT)
-        if not (sim.with_hourly and sim.scenario.storage_enabled):
-            raise AssertionError("the [3c] world runs without hourly or storage")
-        res, launches, secs = counted_run(sim)
-        check_outputs(res, sim)
-        mem = sim.memory_check
-        years = len(res.years)
-        log(f"[3c] {tag}: {int(sim.host_mask.sum())} agents, {sim.table.n_agents} "
-            f"rows, chunk {sim._agent_chunk} ({n_chunks(sim)} chunks) x {years} "
-            f"years {res.years}; per-year s {[round(t, 3) for t in secs]}; launches "
-            f"a year {per_year(launches, years)}; modeled step "
-            f"{mem['modeled_step_bytes'] / 2**30:.2f} GiB, measured peak allocated "
-            f"{mem['device_peak_allocated'] / 2**30:.2f} GiB, reserved "
-            f"{mem['device_peak_reserved'] / 2**30:.2f} GiB; health "
-            f"{sim.health_report}")
-        if launches["dispatch"] != dispatch_per_year(sim) * years:
-            raise AssertionError(f"[3c] {tag}: {launches['dispatch']} dispatch launches")
-        batt = float(res.agent["new_batt_adopters"].sum())
-        log(f"    [3c] {tag}: {batt:.1f} battery adopters allocated over the run")
-        if not batt > 0:
-            raise AssertionError(f"[3c] {tag}: no battery adopters, so the remat "
-                                 "pass's battery profile is not compared")
-        held_year(sim, f"3c {tag}")
-        out[tag] = (sim, res, launches)
-        del sim
-    (c_sim, c_res, c_l), (w_sim, w_res, w_l) = out["chunked"], out["whole"]
-    if c_sim._agent_chunk != CHUNK_ROWS or n_chunks(c_sim) != CHUNK_AGENTS // CHUNK_ROWS:
-        raise AssertionError(f"[3c] the chunked path did not engage: chunk "
-                             f"{c_sim._agent_chunk}, rows {c_sim.table.n_agents}")
-    if w_sim._agent_chunk:
-        raise AssertionError("[3c] the whole-table run streamed")
-    k = n_chunks(c_sim)
-    for key in ("month", "month_signed"):
-        if c_l[key] != k * w_l[key] or not w_l[key]:
-            raise AssertionError(f"[3c] {key}: {c_l[key]} chunked launches, "
-                                 f"{w_l[key]} whole-table")
-    m = w_sim.host_mask
-    n = len(m)
-    worst = {}
-    for f in CHUNK_FIELDS:
-        a, b = w_res.agent[f] * m, c_res.agent[f][:, :n] * m
-        np.testing.assert_allclose(b, a, rtol=CHUNK_RTOL, atol=CHUNK_ATOL,
-                                   err_msg=f"[3c] chunked vs whole {f}")
-        worst[f] = float(np.max(np.abs(a - b)))
-    np.testing.assert_allclose(c_res.state_hourly_net_mw, w_res.state_hourly_net_mw,
-                               rtol=CHUNK_HOURLY_RTOL, atol=CHUNK_HOURLY_ATOL,
-                               err_msg="[3c] chunked vs whole state-hourly")
-    worst["state_hourly_net_mw"] = float(np.max(np.abs(
-        c_res.state_hourly_net_mw - w_res.state_hourly_net_mw)))
-    bits = {f: bool(np.array_equal(c_res.agent[f][:, :n], w_res.agent[f]))
-            for f in CHUNK_FIELDS}
-    log(f"    chunked vs whole within rtol {CHUNK_RTOL}/atol {CHUNK_ATOL} per agent "
-        f"and rtol {CHUNK_HOURLY_RTOL}/atol {CHUNK_HOURLY_ATOL} state-hourly; largest "
-        f"absolute gaps {worst}; bit for bit per field {bits}")
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    for world, (knobs, switch, kernels) in CHUNK_WORLDS.items():
+        out = {}
+        for tag, chunk in (("chunked", CHUNK_ROWS), ("whole", 0)):
+            tag = f"{world}, {tag}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sim, _, _ = presets.build("ercot-all-sector", n_agents=CHUNK_AGENTS,
+                                      end_year=CHUNK_END_YEAR, device="cuda",
+                                      run_config=RunConfig(agent_chunk=chunk, **knobs),
+                                      attachment_rate=CHUNK_ATTACHMENT,
+                                      rate_switch_frac=switch)
+            if not (sim.with_hourly and sim.scenario.storage_enabled):
+                raise AssertionError("the [3c] world runs without hourly or storage")
+            res, launches, secs = counted_run(sim)
+            narrow = dict(bk.NARROW_LAUNCHES)
+            check_outputs(res, sim)
+            mem = sim.memory_check
+            years = len(res.years)
+            log(f"[3c] {tag}: {int(sim.host_mask.sum())} agents, "
+                f"{sim.table.n_agents} rows, chunk {sim._agent_chunk} "
+                f"({n_chunks(sim)} chunks) x {years} years {res.years}, knobs "
+                f"{sorted(knobs) or 'none'}, rate switch {sim._rate_switch}; per-year "
+                f"s {[round(t, 3) for t in secs]}; launches a year "
+                f"{per_year(launches, years)}"
+                + (f", on narrow streams {per_year(narrow, years)}" if narrow else "")
+                + f"; modeled step {mem['modeled_step_bytes'] / 2**30:.2f} GiB, "
+                f"measured peak allocated {mem['device_peak_allocated'] / 2**30:.2f} "
+                f"GiB, reserved {mem['device_peak_reserved'] / 2**30:.2f} GiB; "
+                f"health {sim.health_report}")
+            if launches["dispatch"] != dispatch_per_year(sim) * years:
+                raise AssertionError(f"[3c] {tag}: {launches['dispatch']} dispatch "
+                                     "launches")
+            need_launches(f"[3c] {tag}", launches, kernels)
+            if knobs.get("quant_banks") and narrow.get("stream/int8") != launches["stream"]:
+                raise AssertionError(f"[3c] {tag}: stream launches on int8 codes "
+                                     f"{narrow}, of {launches['stream']}")
+            batt = float(res.agent["new_batt_adopters"].sum())
+            log(f"    [3c] {tag}: {batt:.1f} battery adopters allocated over the run")
+            if not batt > 0:
+                raise AssertionError(f"[3c] {tag}: no battery adopters, so the "
+                                     "remat pass's battery profile is not compared")
+            held_year(sim, f"3c {tag}", launches)
+            out[tag] = (sim, res, launches)
+            del sim
+        (c_sim, c_res, c_l), (w_sim, w_res, w_l) = out.values()
+        if c_sim._agent_chunk != CHUNK_ROWS or n_chunks(c_sim) != CHUNK_AGENTS // CHUNK_ROWS:
+            raise AssertionError(f"[3c] {world}: the chunked path did not engage: "
+                                 f"chunk {c_sim._agent_chunk}, rows {c_sim.table.n_agents}")
+        if w_sim._agent_chunk:
+            raise AssertionError(f"[3c] {world}: the whole-table run streamed")
+        k = n_chunks(c_sim)
+        for key in set(kernels) | {key for key, v in w_l.items() if v}:
+            if key != "dispatch" and c_l[key] != k * w_l[key]:
+                raise AssertionError(f"[3c] {world}, {key}: {c_l[key]} chunked "
+                                     f"launches, {w_l[key]} whole-table")
+        m = w_sim.host_mask
+        n = len(m)
+        worst = {}
+        for f in CHUNK_FIELDS:
+            a, b = w_res.agent[f] * m, c_res.agent[f][:, :n] * m
+            np.testing.assert_allclose(b, a, rtol=CHUNK_RTOL, atol=CHUNK_ATOL,
+                                       err_msg=f"[3c] {world}: chunked vs whole {f}")
+            worst[f] = float(np.max(np.abs(a - b)))
+        np.testing.assert_allclose(c_res.state_hourly_net_mw, w_res.state_hourly_net_mw,
+                                   rtol=CHUNK_HOURLY_RTOL, atol=CHUNK_HOURLY_ATOL,
+                                   err_msg=f"[3c] {world}: chunked vs whole state-hourly")
+        worst["state_hourly_net_mw"] = float(np.max(np.abs(
+            c_res.state_hourly_net_mw - w_res.state_hourly_net_mw)))
+        bits = {f: bool(np.array_equal(c_res.agent[f][:, :n], w_res.agent[f]))
+                for f in CHUNK_FIELDS}
+        log(f"    [3c] {world}: chunked vs whole within rtol {CHUNK_RTOL}/atol "
+            f"{CHUNK_ATOL} per agent and rtol {CHUNK_HOURLY_RTOL}/atol "
+            f"{CHUNK_HOURLY_ATOL} state-hourly; largest absolute gaps {worst}; bit "
+            f"for bit per field {bits}")
+        del out, c_sim, w_sim
 
 
 def national_path(presets, whole_per_year: dict) -> None:
@@ -1673,7 +1772,267 @@ def national_path(presets, whole_per_year: dict) -> None:
                                  f"{k * whole_per_year[key] * years} expected")
     if not sim.health_report["clean"]:
         raise AssertionError(f"[3d] health breaches: {sim.health_report}")
-    held_year(sim, "3d")
+    held_year(sim, "3d", launches)
+
+
+def golden_curves(res, mask, ids) -> dict:
+    """A run's metrics of the golden contract (tests/test_golden_e2e.py):
+    national curves, cash-flow totals, the id-weighted adoption checksum,
+    state-hourly net and absolute MWh, and the final system-size
+    histogram."""
+    import numpy as np
+
+    s = res.summary(mask)
+    sh = res.state_hourly_net_mw
+    return {
+        "years": [int(y) for y in res.years],
+        "adopters": s["adopters"],
+        "system_kw_cum": s["system_kw_cum"],
+        "batt_kwh_cum": s["batt_kwh_cum"],
+        "cash_flow_total": [float((cf * mask[:, None]).sum())
+                            for cf in res.agent["cash_flow"]],
+        "adoption_checksum": float((res.agent["number_of_adopters"][-1] * mask
+                                    * (ids % 97 + 1)).sum()),
+        "state_hourly_net_mwh": sh.sum(axis=2),
+        "state_hourly_abs_mwh": np.abs(sh).sum(axis=2),
+        "kw_histogram": np.histogram((res.agent["system_kw"][-1] * mask)[mask > 0],
+                                     bins=KW_BINS)[0].tolist(),
+    }
+
+
+def check_golden(curves: dict, golden: dict, what: str) -> dict:
+    """Holds ``curves`` to the pinned ``golden`` under the golden contract:
+    every metric the golden file pins, GOLDEN_EXACT ones equal, curves
+    within GOLDEN_RTOL and the state-hourly MWh within GOLDEN_RTOL and
+    GOLDEN_HOURLY_ATOL (``np.testing.assert_allclose``'s rule). Returns
+    each metric's worst relative error (|port - golden| over |golden|,
+    floored at the metric's atol, or at 1e-12) and, for the exact
+    metrics, the count of entries that differ; raises naming every
+    metric outside its bound."""
+    import numpy as np
+
+    worst, failed = {}, []
+    for key, ref in golden.items():
+        if key not in curves:
+            failed.append(f"{key} not computed")
+            continue
+        if key in GOLDEN_EXACT:
+            got, ref = list(curves[key]), list(ref)
+            worst[key] = sum(a != b for a, b in zip(got, ref)) + abs(len(got) - len(ref))
+            if worst[key]:
+                failed.append(f"{key} {got} != {ref}")
+            continue
+        if key not in GOLDEN_CURVES + GOLDEN_HOURLY:
+            failed.append(f"{key} is outside the contract")
+            continue
+        got = np.asarray(curves[key], np.float64)
+        ref = np.asarray(ref, np.float64)
+        if got.shape != ref.shape:
+            failed.append(f"{key} of shape {got.shape}, golden {ref.shape}")
+            continue
+        atol = GOLDEN_HOURLY_ATOL if key in GOLDEN_HOURLY else 0.0
+        diff = np.abs(got - ref)
+        worst[key] = float(np.max(diff / np.maximum(np.abs(ref), atol or 1e-12)))
+        if np.any(diff > atol + GOLDEN_RTOL * np.abs(ref)):
+            failed.append(f"{key} (worst relative error {worst[key]:.3e}, rtol "
+                          f"{GOLDEN_RTOL}, atol {atol})")
+    if failed:
+        raise AssertionError(f"{what}: the golden contract fails: " + "; ".join(failed))
+    return worst
+
+
+def golden_run(sim, tag: str, n_years: int) -> dict:
+    """Every model year of a golden world through :func:`run_path` (launch
+    counts set to 0 before and read after), its walls logged, and one
+    more first year whose first launches are held against the plain
+    versions (:func:`held_year`)."""
+    run = run_path(sim)
+    run.pop("capture")
+    ys = run["year_s"]
+    if len(run["res"].years) != n_years:
+        raise AssertionError(f"[3e] {tag}: {len(run['res'].years)} model years, "
+                             f"{n_years} expected")
+    log(f"[3e] {tag}: {run['n_real']} agents ({sim.table.n_agents} rows) x "
+        f"{n_years} years, knobs {run_knobs(sim.run_config)}; run wall "
+        f"{run['wall']:.3f} s, first year {ys[0]:.4f} s, the {len(ys) - 1} carry "
+        f"years {sum(ys[1:]):.4f} s ({min(ys[1:]):.4f}-{max(ys[1:]):.4f} s each); "
+        f"launches {run['launches']}"
+        + (f"; on narrow streams {run['narrow']}" if run["narrow"] else ""))
+    held_year(sim, f"3e {tag}", run["launches"])
+    return run
+
+
+def run_knobs(rc) -> list:
+    """The gated and bank knobs a RunConfig turns on."""
+    return [k for k in ("daylight_compact", "pack_once", "stream_segments",
+                        "bf16_banks", "quant_banks") if getattr(rc, k)]
+
+
+def golden_fixtures(RunConfig) -> None:
+    """[3e]: both golden fixtures on the card with the kernels, through the
+    calls a user makes: golden #1 loaded from the committed package
+    (``io.package.load_population``) and run through
+    ``RunConfig.from_env``, held to golden_adoption.json, its gated run to
+    the default run's curves and its bf16 and int8 runs to the 2%
+    envelope; golden #2, the cap flip, held to golden_capflip.json. Each
+    run's launch counts are asserted and its first launches held against
+    the plain versions. Every contract is checked before the phase
+    raises, so one run reports both fixtures."""
+    import os
+
+    import numpy as np
+
+    from dgen_tpu_torch.config import ScenarioConfig
+    from dgen_tpu_torch.io import package
+    from dgen_tpu_torch.models import scenario
+    from dgen_tpu_torch.models.simulation import Simulation
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    failures = []
+
+    def hold(curves, golden_file, what):
+        with open(os.path.join(root, golden_file)) as f:
+            golden = json.load(f)
+        try:
+            worst = check_golden(curves, golden, what)
+        except AssertionError as e:
+            failures.append(str(e))
+            log(f"    FAILED {e}")
+        else:
+            log(f"    {what} holds {golden_file} (rtol {GOLDEN_RTOL}, state-hourly "
+                f"atol {GOLDEN_HOURLY_ATOL}); worst relative error per metric "
+                f"(exact metrics: entries that differ) {worst}")
+
+    # --- golden #1: the committed package, 19 model years ---
+    t0 = time.perf_counter()
+    pop = package.load_population(os.path.join(root, GOLDEN_PKG), pad_multiple=32,
+                                  device="cuda")
+    load_s = time.perf_counter() - t0
+    table = pop.table
+    cfg = ScenarioConfig(name="golden", start_year=2014, end_year=2050,
+                         anchor_years=())
+    inputs = scenario.uniform_inputs(
+        cfg, n_groups=table.n_groups, n_regions=pop.profiles.wholesale.shape[0],
+        overrides={"attachment_rate": np.full(table.n_groups, GOLDEN_ATTACHMENT,
+                                              np.float32)},
+        n_states=table.n_states, device="cuda")
+    log(f"[3e] golden #1: {GOLDEN_PKG} loaded on the card in {load_s:.3f} s "
+        f"({int(table.mask.sum())} agents, {table.n_agents} rows, "
+        f"{pop.tariffs.n_tariffs} tariffs, states {pop.states})")
+    n_years = len(cfg.model_years)
+    # agents whose NEM limit is 0 price under net billing, so the sizing
+    # rounds launch the import sums and the battery run the signed sums:
+    # on the month kernel, or with stream_segments the stream kernel
+    month = ("month", "month_signed")
+    stream = ("stream", "stream_signed")
+    for tag, knobs, (kernels, other) in (
+            ("default", {}, (month, stream)), ("gated", GATED, (stream, month)),
+            ("bf16", BF16, (month, stream)), ("int8", QUANT, (stream, month))):
+        sim = Simulation(table, pop.profiles, pop.tariffs, inputs, cfg,
+                         RunConfig.from_env(sizing_iters=8, **knobs), with_hourly=True)
+        if not sim._net_billing or sim._rate_switch:
+            raise AssertionError(f"[3e] golden #1: net billing {sim._net_billing}, "
+                                 f"rate switch {sim._rate_switch}")
+        run = golden_run(sim, f"golden #1 {tag}", n_years)
+        need_launches(f"[3e] golden #1 {tag}", run["launches"], kernels + ("dispatch",),
+                      zero=("month_pair", "dot", "dot_signed") + other)
+        if tag == "default":
+            hold(golden_curves(run["res"], sim.host_mask, sim.host_agent_id),
+                 GOLDEN_JSON, "golden #1 on the card")
+            default = run["res"].summary(sim.host_mask)
+            continue
+        gap = curves_gap(run["res"].summary(sim.host_mask), default)
+        bound = GOLDEN_GATED_RTOL if tag == "gated" else BANK_CURVE_RTOL
+        log(f"    national curves within {gap:.3e} (relative) of the default "
+            f"run's (bound {bound})")
+        if gap > bound:
+            failures.append(f"golden #1 {tag}: curves {gap:.3e} from the default "
+                            f"run's, bound {bound}")
+
+    # --- golden #2: the cap flip ---
+    def capflip_sim(caps=None):
+        from dgen_tpu_torch.io import synth
+
+        cfg = ScenarioConfig(name="capflip", start_year=2014, end_year=2050,
+                             storage_enabled=True)
+        cpop = synth.generate_population(CAPFLIP_AGENTS, states=list(CAPFLIP_STATES),
+                                         seed=11, pad_multiple=32,
+                                         rate_switch_frac=0.5, device="cuda")
+        overrides = {"attachment_rate": np.full(cpop.table.n_groups,
+                                                GOLDEN_ATTACHMENT, np.float32)}
+        if caps is not None:
+            overrides["nem_cap_kw"] = np.tile(caps.astype(np.float32),
+                                              (len(cfg.model_years), 1))
+        cin = scenario.uniform_inputs(cfg, n_groups=cpop.table.n_groups,
+                                      n_regions=cpop.n_regions, overrides=overrides,
+                                      device="cuda")
+        return Simulation(cpop.table, cpop.profiles, cpop.tariffs, cin, cfg,
+                          RunConfig.from_env(sizing_iters=8), with_hourly=True)
+
+    sim0 = capflip_sim()
+    pre = golden_run(sim0, "golden #2 uncapped pre-run", n_years)
+    final_kw = state_kw_by_year(pre["res"], sim0)[-1]
+    populated = np.zeros(sim0.table.n_states, bool)
+    populated[np.unique(sim0.table.state_idx.cpu().numpy()[sim0.host_mask > 0])] = True
+    if not (final_kw[populated] > 0).all():
+        raise AssertionError(f"[3e] the uncapped pre-run did not adopt in every "
+                             f"populated state: {final_kw[populated]}")
+    caps = np.where(populated, final_kw * CAP_FRACTION, 1e30)
+    sim = capflip_sim(caps)
+    if not (sim._net_billing and sim._rate_switch):
+        raise AssertionError("[3e] finite caps must open net billing in the "
+                             "rate-switch capflip world")
+    run = golden_run(sim, "golden #2 capped", n_years)
+    need_launches("[3e] golden #2", run["launches"], ("month_pair", "dispatch"))
+    log(f"    golden #2 month kernel (imports) launches: {run['launches']['month']}")
+    curves = golden_curves(run["res"], sim.host_mask, sim.host_agent_id)
+    curves["nem_allowed"] = counts = nem_allowed_per_year(sim, run["res"])
+    log(f"    NEM-eligible agents a year {counts}; caps {caps[populated].tolist()} kW")
+    adopters = curves["adopters"]
+    drops = [i for i in range(1, len(counts)) if counts[i] < counts[i - 1]]
+    if not (counts[0] > 0 and drops and adopters[-1] > adopters[drops[0]]):
+        failures.append(f"golden #2: the caps did not bind mid-run with adoption "
+                        f"going on after the flip (allowed {counts})")
+    hold(curves, CAPFLIP_JSON, "golden #2 on the card")
+    if failures:
+        raise AssertionError("[3e] " + " | ".join(failures))
+
+
+def state_kw_by_year(res, sim):
+    """[n_years, n_states] cumulative installed kW of the real agents."""
+    import numpy as np
+
+    kw = res.agent["system_kw_cum"] * sim.host_mask[None, :]
+    st = sim.table.state_idx.cpu().numpy()
+    out = np.zeros((kw.shape[0], sim.table.n_states), np.float64)
+    for yi in range(kw.shape[0]):
+        np.add.at(out[yi], st, kw[yi])
+    return out
+
+
+def nem_allowed_per_year(sim, res) -> list:
+    """Per-year count of NEM-eligible real agents through the year step's
+    own predicate, its cap gate fed last year's installed capacity
+    (tests/test_golden_capflip.py)."""
+    import numpy as np
+
+    from dgen_tpu_torch.models.simulation import _nem_allowed_arrays
+
+    t = sim.table
+    host = {k: getattr(t, k).cpu().numpy() for k in
+            ("state_idx", "nem_first_year", "nem_sunset_year", "nem_kw_limit")}
+    state_kw = state_kw_by_year(res, sim)
+    years = sim.inputs.years.cpu().numpy()
+    caps = sim.inputs.nem_cap_kw.cpu().numpy()
+    counts = []
+    for yi, yr in enumerate(years):
+        last = (np.zeros(t.n_states, np.float32) if yi == 0
+                else state_kw[yi - 1].astype(np.float32))
+        allowed = _nem_allowed_arrays(host["state_idx"], host["nem_first_year"],
+                                      host["nem_sunset_year"], host["nem_kw_limit"],
+                                      caps[yi], np.float32(yr), last)
+        counts.append(int((allowed & (sim.host_mask > 0)).sum()))
+    return counts
 
 
 def dot_path(presets) -> tuple:
@@ -1808,6 +2167,10 @@ def main(argv=None) -> int:
     main_years = len(runs["main"]["res"].years)
     national_path(presets, {k: runs["main"]["launches"][k] / main_years
                             for k in ("month", "month_signed")})
+    torch.cuda.empty_cache()
+
+    # --- 3e: both golden fixtures on the card ---
+    golden_fixtures(RunConfig)
     torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---

@@ -9,13 +9,18 @@ pack-once, the stream engine), the narrow profile banks (bf16, int8),
 the streaming agent chunk with its padding, the invariant harness and
 the health sentinel. Other knobs arrive with the slices that port them;
 the JAX package's checks that tie the bank knobs to its differentiable
-twin do not apply here (the twin is not ported), and its environment
-overrides (``RunConfig.from_env``) are not read.
+twin do not apply here (the twin is not ported).
+
+``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
+of the ported fields, and refuses a switch that asks for a feature the
+port does not have; ``DGEN_TPU_SENTINEL`` is read at run time
+(``RunConfig.sentinel_enabled``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -125,8 +130,10 @@ class RunConfig:
     quant_banks: bool = False
     #: the numerical-health sentinel (models.health): per year, the
     #: nonfinite and out-of-bounds counts of the monitored outputs.
-    #: On by default. Breaches warn; see ``sentinel_escalate``.
-    health_sentinel: bool = True
+    #: None (default) = on unless the DGEN_TPU_SENTINEL kill switch says
+    #: 0/false/off (``sentinel_enabled``); True/False set it outright.
+    #: Breaches warn; see ``sentinel_escalate``.
+    health_sentinel: Optional[bool] = None
     #: raise a sentinel breach as HealthBreachError instead of warning
     sentinel_escalate: bool = False
 
@@ -135,6 +142,62 @@ class RunConfig:
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")
         _check(self.agent_chunk is None or self.agent_chunk >= 0,
                "agent_chunk must be None (auto) or >= 0")
+
+    @property
+    def sentinel_enabled(self) -> bool:
+        """The resolved health-sentinel decision: the explicit field when
+        set, else on unless ``DGEN_TPU_SENTINEL`` says 0/false/off (read
+        at run time, so an operator can switch it off on a built
+        config)."""
+        if self.health_sentinel is not None:
+            return self.health_sentinel
+        return os.environ.get("DGEN_TPU_SENTINEL", "") not in ("0", "false", "off")
+
+    @classmethod
+    def from_env(cls, **overrides) -> "RunConfig":
+        """A RunConfig from the ``DGEN_TPU_*`` switches, as the JAX
+        package's ``RunConfig.from_env`` reads them, ``overrides`` winning
+        over the environment: ``DGEN_TPU_AGENT_CHUNK`` (rows),
+        ``DGEN_TPU_DEBUG``, ``DGEN_TPU_DAYLIGHT``, ``DGEN_TPU_BF16_BANKS``,
+        ``DGEN_TPU_QUANT_BANKS``, ``DGEN_TPU_PACK_ONCE`` and
+        ``DGEN_TPU_STREAM`` (a flag is on unless empty, "0" or "false").
+
+        A switch that asks for a feature the port lacks raises
+        ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
+        ``DGEN_TPU_SOFT``, ``DGEN_TPU_CLUSTER``, ``DGEN_TPU_GUARD`` or
+        ``DGEN_TPU_FAULTS`` on. ``DGEN_TPU_VALIDATE`` and
+        ``DGEN_TPU_ASYNC_IO`` only switch off what the port does not do,
+        and ``DGEN_TPU_SOFT_TAU`` tunes a path it does not have: all three
+        are ignored."""
+        env = os.environ
+
+        def flag(name: str) -> bool:
+            return env.get(name, "") not in ("", "0", "false")
+
+        devices = env.get("DGEN_TPU_DEVICES")
+        if devices and int(devices) > 1:
+            raise NotImplementedError(
+                f"DGEN_TPU_DEVICES={devices}: the port runs on one device")
+        for name, feature in (("DGEN_TPU_SOFT", "soft_boundaries"),
+                              ("DGEN_TPU_CLUSTER", "cluster_tariffs"),
+                              ("DGEN_TPU_GUARD", "guard_retrace")):
+            if flag(name):
+                raise NotImplementedError(
+                    f"{name}={env[name]}: {feature} is not ported")
+        if env.get("DGEN_TPU_FAULTS", "").strip():
+            raise NotImplementedError(
+                "DGEN_TPU_FAULTS is set: fault injection is not ported")
+        if "agent_chunk" not in overrides and env.get("DGEN_TPU_AGENT_CHUNK"):
+            overrides["agent_chunk"] = int(env["DGEN_TPU_AGENT_CHUNK"])
+        for field, name in (("debug_invariants", "DGEN_TPU_DEBUG"),
+                            ("daylight_compact", "DGEN_TPU_DAYLIGHT"),
+                            ("bf16_banks", "DGEN_TPU_BF16_BANKS"),
+                            ("quant_banks", "DGEN_TPU_QUANT_BANKS"),
+                            ("pack_once", "DGEN_TPU_PACK_ONCE"),
+                            ("stream_segments", "DGEN_TPU_STREAM")):
+            if field not in overrides and flag(name):
+                overrides[field] = True
+        return cls(**overrides)
 
 
 def resolve_device(device="cuda") -> torch.device:

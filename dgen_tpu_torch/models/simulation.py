@@ -904,13 +904,14 @@ class Simulation:
         ``callback(year, year_idx, outputs)`` is called after each year
         with the year's device outputs. ``collect=False`` keeps no
         per-agent arrays on the host (the results then hold the years
-        only). The health sentinel (``RunConfig.health_sentinel``, on by
-        default) checks every year's outputs; ``debug_invariants`` checks
-        the carry and the outputs after every year. Checkpoints and the
+        only). The health sentinel (``RunConfig.sentinel_enabled``, on
+        unless switched off) checks every year's outputs;
+        ``debug_invariants`` checks the carry and the outputs after every
+        year. Checkpoints and the
         cooperative stop of the JAX package's ``run`` are not ported."""
         rc = self.run_config
         debug = rc.debug_invariants
-        sentinel = rc.health_sentinel
+        sentinel = rc.sentinel_enabled
         escalate = rc.sentinel_escalate
         self._health_breaches: Dict[int, list] = {}
         self.health_report = None

@@ -8,6 +8,7 @@ sizing and remat-pass dispatch launches of a streaming year against the
 plain versions, block by block, and fails on one agent off."""
 
 import importlib.util
+import json
 import os
 
 import pytest
@@ -17,6 +18,8 @@ from dgen_tpu_torch.ops import billkernels as bk
 from dgen_tpu_torch.ops import layout
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = {name: os.path.join(ROOT, "tests", "fixtures", name)
+          for name in ("golden_adoption.json", "golden_capflip.json")}
 
 
 def _chip_smoke():
@@ -87,6 +90,11 @@ def test_bmm_operands_cut_agent_rows():
     assert torch.equal(a, whole_a[1:]) and torch.equal(m, whole_m[1:])
 
 
+#: the launch counts of a default-path run: held_year holds the first
+#: launch of each kernel a run launched (the plain path here launches none)
+MONTH_LAUNCHES = {"month": 1, "month_signed": 1}
+
+
 @pytest.fixture(scope="module")
 def chunked_sim():
     """A small streaming world on the CPU: 64 agents padded to 128 rows in
@@ -103,7 +111,7 @@ def chunked_sim():
 
 def test_held_year_holds_every_first_launch(chunked_sim, monkeypatch, capsys):
     monkeypatch.setattr(cs, "HELD_ROWS", 48)     # blocks that cut a chunk
-    cs.held_year(chunked_sim, "cpu")
+    cs.held_year(chunked_sim, "cpu", MONTH_LAUNCHES)
     out = capsys.readouterr()
     line = out.out + out.err
     for key in ("'month'", "'month_signed'", "dispatch (sizing)",
@@ -143,4 +151,90 @@ def test_held_year_catches_a_launch_off_its_plain_version(chunked_sim, monkeypat
 
         monkeypatch.setattr(dispatch, "dispatch_battery", mutant)
     with pytest.raises(AssertionError, match="rows 16-31 .first: row 20"):
-        cs.held_year(chunked_sim, "cpu")
+        cs.held_year(chunked_sim, "cpu", MONTH_LAUNCHES)
+
+
+def test_held_year_holds_the_pair_kernel_and_catches_it(monkeypatch, capsys):
+    """In a rate-switch world the pair kernel's first launch is held too,
+    and a pair launch off its plain version in one agent fails."""
+    from dgen_tpu_torch import presets
+    from dgen_tpu_torch.config import RunConfig
+
+    sim, _, _ = presets.build("ercot-all-sector", n_agents=64, end_year=2014,
+                              device="cpu", rate_switch_frac=0.4,
+                              run_config=RunConfig(agent_chunk=32, sizing_iters=4))
+    assert sim._rate_switch and sim._net_billing
+    launches = {"month_pair": 1, "month_signed": 1}
+    monkeypatch.setattr(cs, "HELD_ROWS", 16)
+    cs.held_year(sim, "cpu", launches)
+    assert "'month_pair'" in capsys.readouterr().out
+    pair = bk.month_pair_sums
+
+    def mutant(*args):
+        out = pair(*args)
+        out[2][20] *= 1.01
+        return out
+
+    monkeypatch.setattr(bk, "month_pair_sums", mutant)
+    with pytest.raises(AssertionError, match="month_pair: output 2 .* rows 16-31"):
+        cs.held_year(sim, "cpu", launches)
+
+
+def _golden(name):
+    with open(GOLDEN[name]) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_golden_checker_passes_the_pinned_curves(name):
+    golden = _golden(name)
+    worst = cs.check_golden(json.loads(json.dumps(golden)), golden, name)
+    assert set(worst) == set(golden) and not any(worst.values())
+
+
+def _moved(golden, key, how):
+    curves = json.loads(json.dumps(golden))
+    if how == "count":
+        curves[key][len(curves[key]) // 2] += 1
+    elif key == "adoption_checksum":
+        curves[key] *= how
+    elif isinstance(curves[key][-1], list):
+        curves[key][-1][0] = curves[key][-1][0] * how + (0.06 if how > 1.001 else 0.0)
+    else:
+        curves[key][-1] *= how
+    return curves
+
+
+@pytest.mark.parametrize("name, key, how, fails", [
+    ("golden_adoption.json", "adopters", 1.002, True),
+    ("golden_adoption.json", "system_kw_cum", 1.002, True),
+    ("golden_adoption.json", "cash_flow_total", 0.998, True),
+    ("golden_adoption.json", "adoption_checksum", 1.002, True),
+    ("golden_adoption.json", "state_hourly_abs_mwh", 1.002, True),
+    ("golden_adoption.json", "kw_histogram", "count", True),
+    ("golden_adoption.json", "adopters", 1.0005, False),
+    ("golden_capflip.json", "batt_kwh_cum", 1.002, True),
+    ("golden_capflip.json", "state_hourly_net_mwh", 1.002, True),
+    ("golden_capflip.json", "nem_allowed", "count", True),
+    ("golden_capflip.json", "system_kw_cum", 0.9995, False),
+])
+def test_golden_checker_catches_a_moved_metric(name, key, how, fails):
+    """One curve moved by 0.2%, one histogram or NEM-eligible count moved
+    by one, fails the contract and names the metric; 0.05% passes."""
+    golden = _golden(name)
+    curves = _moved(golden, key, how)
+    if not fails:
+        assert cs.check_golden(curves, golden, name)[key] > 0
+        return
+    with pytest.raises(AssertionError, match=f"contract fails: {key}"):
+        cs.check_golden(curves, golden, name)
+
+
+def test_golden_checker_refuses_missing_and_unknown_metrics():
+    golden = _golden("golden_adoption.json")
+    curves = json.loads(json.dumps(golden))
+    del curves["kw_histogram"]
+    with pytest.raises(AssertionError, match="kw_histogram not computed"):
+        cs.check_golden(curves, golden, "golden")
+    with pytest.raises(AssertionError, match="outside the contract"):
+        cs.check_golden({**golden, "extra": [1.0]}, {**golden, "extra": [1.0]}, "golden")

@@ -1,9 +1,11 @@
-"""Golden gate of the PyTorch port: the committed golden fixture, loaded
-through the JAX package's converter and package loader (the port has no
-loaders yet), carried across with convert.py, run for 19 model years on
-the port, and held to tests/fixtures/golden_adoption.json under the
-contract of tests/test_golden_e2e.py: curves within rtol 1e-3 and the
-final system-size histogram exact. The gated sizing path is held to the
+"""Golden gate of the PyTorch port: the committed port-format copy of the
+golden package (tests/torch_fixtures/golden_pkg, which
+dgen_tpu_torch/tools/make_golden_package.py makes from the golden
+fixture's pickles with the port's converter), loaded through the port's
+own loader, run for 19 model years on the port, and held to
+tests/fixtures/golden_adoption.json under the contract of
+tests/test_golden_e2e.py: curves within rtol 1e-3 and the final
+system-size histogram exact. The gated sizing path is held to the
 default run as tests/test_golden_e2e.py holds the JAX package's, and the
 bf16 and int8 profile banks are held to the port's own float32 run within
 the JAX package's 2% envelope (tests/test_golden_e2e.py:265-361). The
@@ -13,14 +15,11 @@ import json
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 import torch
 
-from dgen_tpu.io import convert as jconvert
-from dgen_tpu.io import package
-from dgen_tpu_torch import convert
 from dgen_tpu_torch.config import RunConfig, ScenarioConfig
+from dgen_tpu_torch.io import package
 from dgen_tpu_torch.models import scenario
 from dgen_tpu_torch.models.simulation import Simulation
 from dgen_tpu_torch.ops import bill as bill_ops
@@ -29,32 +28,19 @@ from dgen_tpu_torch.ops import sizing
 
 pytestmark = pytest.mark.slow
 
-FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-GOLDEN_PATH = os.path.join(FIXTURES, "golden_adoption.json")
+TESTS = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_PATH = os.path.join(TESTS, "fixtures", "golden_adoption.json")
+GOLDEN_PKG = os.path.join(TESTS, "torch_fixtures", "golden_pkg")
 RTOL = 1e-3
 
 
 @pytest.fixture(scope="module")
-def golden_world(tmp_path_factory):
+def golden_world():
     """The golden population on the port's CPU tensors, with its
     scenario config and inputs."""
-    frame = pd.read_pickle(os.path.join(FIXTURES, "golden_agents.pkl"))
-    load_df = pd.read_pickle(os.path.join(FIXTURES, "golden_load_profiles.pkl"))
-    cf_df = pd.read_pickle(os.path.join(FIXTURES, "golden_solar_profiles.pkl"))
-    out = str(tmp_path_factory.mktemp("golden") / "pkg")
-    jconvert.from_reference_pickle(
-        frame, out, load_df, cf_df,
-        wholesale_by_region={"SA": np.full(8760, 0.03)},
-        state_incentives=pd.read_csv(os.path.join(FIXTURES, "golden_incentives.csv")),
-        nem_state_by_sector=pd.read_csv(os.path.join(FIXTURES, "golden_state_nem.csv")),
-        nem_utility_by_sector=pd.read_csv(os.path.join(FIXTURES, "golden_util_nem.csv")),
-    )
-    pop = package.load_population(out, pad_multiple=32)
-
     device = "cpu"
-    table = convert.agent_table(convert.to_numpy_dict(pop.table), device=device)
-    profiles = convert.profile_bank(convert.to_numpy_dict(pop.profiles), device=device)
-    tariffs = convert.tariff_bank(convert.to_numpy_dict(pop.tariffs), device=device)
+    pop = package.load_population(GOLDEN_PKG, pad_multiple=32, device=device)
+    table, profiles, tariffs = pop.table, pop.profiles, pop.tariffs
     cfg = ScenarioConfig(name="golden", start_year=2014, end_year=2050,
                          anchor_years=())
     inputs = scenario.uniform_inputs(

@@ -166,3 +166,136 @@ def test_chip_smoke_alone_exits_2(tmp_path):
         assert proc.returncode == 2, (proc.stdout, proc.stderr)
         assert '"ok"' not in proc.stdout
     assert "not beside this script" in proc.stderr
+
+
+GOLDEN_PKG = os.path.join(ROOT, "tests", "torch_fixtures", "golden_pkg")
+
+
+def test_card_path_loads_a_package_without_pandas_or_jax():
+    """The package loader and the run settings, the card path's data
+    plane, import and load the committed golden package with pandas,
+    pyarrow, jax and the JAX package all unavailable."""
+    code = (
+        "import sys\n"
+        "for name in ('pandas', 'pyarrow', 'jax', 'jaxlib', 'dgen_tpu', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "from dgen_tpu_torch.io import package\n"
+        "from dgen_tpu_torch.config import RunConfig\n"
+        f"pop = package.load_population({GOLDEN_PKG!r}, pad_multiple=32, device='cpu')\n"
+        "rc = RunConfig.from_env(sizing_iters=8)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        "assert not loaded & {'pandas', 'pyarrow', 'jax', 'dgen_tpu'}, loaded\n"
+        "print(int(pop.table.mask.sum()), pop.table.n_agents, pop.tariffs.n_tariffs,\n"
+        "      rc.sizing_iters)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["96", "96", "5", "8"]
+
+
+#: each ported switch of dgen_tpu/config.py's RunConfig.from_env and the
+#: field it sets
+PORTED_FLAGS = {
+    "DGEN_TPU_DEBUG": "debug_invariants",
+    "DGEN_TPU_DAYLIGHT": "daylight_compact",
+    "DGEN_TPU_BF16_BANKS": "bf16_banks",
+    "DGEN_TPU_QUANT_BANKS": "quant_banks",
+    "DGEN_TPU_PACK_ONCE": "pack_once",
+    "DGEN_TPU_STREAM": "stream_segments",
+}
+ALL_SWITCHES = (*PORTED_FLAGS, "DGEN_TPU_AGENT_CHUNK", "DGEN_TPU_DEVICES",
+                "DGEN_TPU_SOFT", "DGEN_TPU_SOFT_TAU", "DGEN_TPU_CLUSTER",
+                "DGEN_TPU_FAULTS", "DGEN_TPU_VALIDATE", "DGEN_TPU_ASYNC_IO",
+                "DGEN_TPU_GUARD", "DGEN_TPU_SENTINEL")
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for name in ALL_SWITCHES:
+        monkeypatch.delenv(name, raising=False)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_FLAGS))
+def test_from_env_maps_each_ported_switch(clean_env, name):
+    from dgen_tpu_torch.config import RunConfig
+
+    field = PORTED_FLAGS[name]
+    assert getattr(RunConfig.from_env(), field) is False
+    for value, on in (("1", True), ("true", True), ("yes", True), ("0", False),
+                      ("false", False), ("", False)):
+        clean_env.setenv(name, value)
+        assert getattr(RunConfig.from_env(), field) is on, (name, value)
+    clean_env.setenv(name, "1")
+    assert getattr(RunConfig.from_env(**{field: False}), field) is False
+
+
+def test_from_env_chunk_devices_and_ignored_switches(clean_env):
+    from dgen_tpu_torch.config import RunConfig
+
+    assert RunConfig.from_env().agent_chunk is None
+    clean_env.setenv("DGEN_TPU_AGENT_CHUNK", "4096")
+    assert RunConfig.from_env().agent_chunk == 4096
+    assert RunConfig.from_env(agent_chunk=0).agent_chunk == 0
+    assert RunConfig.from_env(sizing_iters=8).sizing_iters == 8
+    for name, value in (("DGEN_TPU_DEVICES", "1"), ("DGEN_TPU_VALIDATE", "0"),
+                        ("DGEN_TPU_ASYNC_IO", "0"), ("DGEN_TPU_SOFT_TAU", "0.5"),
+                        ("DGEN_TPU_SOFT", "0"), ("DGEN_TPU_GUARD", "false"),
+                        ("DGEN_TPU_FAULTS", "  ")):
+        clean_env.setenv(name, value)
+    assert RunConfig.from_env() == RunConfig(agent_chunk=4096)
+
+
+@pytest.mark.parametrize("name, value", [
+    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_SOFT", "1"), ("DGEN_TPU_CLUSTER", "1"),
+    ("DGEN_TPU_GUARD", "true"), ("DGEN_TPU_FAULTS", "ckpt_save@2")])
+def test_from_env_refuses_unported_switches(clean_env, name, value):
+    from dgen_tpu_torch.config import RunConfig
+
+    clean_env.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=name):
+        RunConfig.from_env()
+
+
+def test_sentinel_switch_is_read_at_run_time(clean_env):
+    from dgen_tpu_torch.config import RunConfig
+
+    rc, on, off = RunConfig.from_env(), RunConfig(health_sentinel=True), \
+        RunConfig(health_sentinel=False)
+    assert rc.health_sentinel is None and rc.sentinel_enabled
+    for value, enabled in (("0", False), ("false", False), ("off", False),
+                           ("1", True), ("", True)):
+        clean_env.setenv("DGEN_TPU_SENTINEL", value)
+        assert rc.sentinel_enabled is enabled, value
+        assert on.sentinel_enabled and not off.sentinel_enabled
+
+
+def test_load_population_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from dgen_tpu_torch.io import package
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        package.load_population(GOLDEN_PKG, pad_multiple=32)
+    pop = package.load_population(GOLDEN_PKG, pad_multiple=32, device="cpu")
+    assert pop.table.mask.device.type == "cpu"
+
+
+def test_chip_smoke_imports_no_pandas_side_of_the_port():
+    """chip_smoke.py loads the golden package through io.package alone:
+    the converter and the NEM compiler (pandas) stay on the CPU side."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+            names.add(node.module)
+        elif isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+    assert "dgen_tpu_torch.io.package" in names
+    bad = {n for n in names if n.split(".")[0] in ("pandas", "pyarrow")
+           or n.startswith(("dgen_tpu_torch.io.convert", "dgen_tpu_torch.io.nem"))}
+    assert not bad, bad
