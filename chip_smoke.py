@@ -49,6 +49,27 @@ its first launch in the path):
      world, held to golden_capflip.json (NEM-eligible counts exact); each
      run's launch counts and walls, and its first launches held against
      the plain versions as [3c] holds them;
+  3f. the run outputs at national-all-sector's full width (1,048,576
+     agents, the automatic chunk, 2 model years, in a temporary directory
+     the phase removes), in four runs through the calls a user makes: (a)
+     no host consumer, the floor; (b) the host-I/O pipeline (pinned copies
+     on a side CUDA stream) with the preset runner's exporter, a checkpoint
+     a year and collect=True; (c) the serialized path with the exporter
+     and the checkpoints; (d) a fresh Simulation resumed from (b)'s 2014
+     checkpoint. (b)'s and (c)'s agent_outputs, finance_series and
+     agents.npz files must be byte for byte equal, state-hourly within
+     [3c]'s tolerance; (d)'s 2016 outputs equal (b)'s per agent bit for
+     bit; every compact-quantized value of (b) within max|x| / 65532 of
+     its collected float32, its int16 codes the CPU's; each run launches
+     the month and dispatch kernels as [3d] counts them. Logs the four
+     walls and their ratios to (a), the pipeline's stats, the bytes
+     fetched and written a year, and the checkpoint's save and restore
+     seconds; (e), the pipeline with the exporter and the checkpoints but
+     no collect, beside (c); the fetch stage alone; year 2 traced with and
+     without the exporter (device idle share, where the main thread's
+     host time goes); and, below national scale, sim.run() on the
+     pipeline against the serialized path (96 and 8,192 agents, collect on,
+     4 alternated pairs);
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -1331,6 +1352,18 @@ YEAR_PIECES = (
 )
 
 
+def busy_us(device_events) -> float:
+    """Microseconds the device was busy: the union of the events' time
+    intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_year(sim, title: str) -> None:
     """One carry year of ``sim`` (its first year run just before, outside
     the trace) under torch.profiler, its outputs collected to the host as
@@ -1388,12 +1421,7 @@ def profile_year(sim, title: str) -> None:
     for e in device:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = busy_us(device)
     copies = sum(us for name, (_, us) in by_name.items()
                  if name.startswith(("Memcpy", "Memset")))
     kernels = sum(us for _, us in by_name.values()) - copies
@@ -1773,6 +1801,467 @@ def national_path(presets, whole_per_year: dict) -> None:
     if not sim.health_report["clean"]:
         raise AssertionError(f"[3d] health breaches: {sim.health_report}")
     held_year(sim, "3d", launches)
+
+
+#: [3f]: the run outputs at national-all-sector's full width, over
+#: NATIONAL_END_YEAR's model years; the year (d) resumes after
+RESUME_YEAR = 2014
+#: compact quantization: each quantized value within max|x| / 65532 of
+#: the collected float32 (its column's for the cash-flow series), with the
+#: 1% margin of tests/test_io_runtime.py for float32 rounding
+QUANT_BOUND = 1.0 / 65532 * 1.01
+
+
+class _CountingExporter:
+    """A preset-runner exporter (``presets._TimedExporter``) that also
+    records the bytes of each year's device payload, the export's share
+    of the fetch."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.payload_bytes = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, year, year_idx, outs):
+        self.inner(year, year_idx, outs)
+
+    def device_payload(self, year, year_idx, outs):
+        from dgen_tpu_torch.io import hostio
+
+        p = self.inner.device_payload(year, year_idx, outs)
+        self.payload_bytes.append(hostio.tree_bytes(p))
+        return p
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def _year_bytes(run_dir: str, year: int) -> int:
+    """Bytes written for one model year: its three surface partitions."""
+    import os
+
+    from dgen_tpu_torch.io import export
+
+    return sum(os.path.getsize(os.path.join(run_dir, s, f"year={year}.npz"))
+               for s in export.SURFACES)
+
+
+def outputs_run(presets, RunConfig, *, name: str, n_agents,
+                end_year: int, device: str, knobs: dict, async_io=None,
+                export_dir=None, checkpoint_dir=None, collect=False,
+                resume_year=None) -> dict:
+    """One counted run of [3f] on a freshly built Simulation: launch counts
+    set to 0 before and read after, the run's wall ending in a
+    synchronize; with ``export_dir`` a preset-runner exporter writes the
+    surfaces, ``checkpoint_dir`` checkpoints every year, ``resume_year``
+    resumes after that year from ``checkpoint_dir``."""
+    import torch
+
+    from dgen_tpu_torch.io import export, synth
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+    from dgen_tpu_torch.utils import timing
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    sim, pop, meta = presets.build(name, n_agents=n_agents, end_year=end_year,
+                                   device=device,
+                                   run_config=RunConfig(async_host_io=async_io, **knobs))
+    exporter = None
+    if export_dir is not None:
+        exporter = _CountingExporter(presets._TimedExporter(export.RunExporter(
+            export_dir, agent_id=sim.host_agent_id, mask=sim.host_mask, meta=meta,
+            device=sim.device,
+            static_frame=export.static_frame_from_table(pop.table,
+                                                        states=list(synth.STATES)))))
+    bk.CAPTURE = None
+    bk.reset_launches()
+    dispatch.reset_launches()
+    timing.reset_timings()
+    sim._sync()
+    t0 = time.perf_counter()
+    res = sim.run(callback=exporter, collect=collect, checkpoint_dir=checkpoint_dir,
+                  resume=resume_year is not None, resume_year=resume_year)
+    sim._sync()
+    wall = time.perf_counter() - t0
+    timings = timing.timing_report()
+    return dict(sim=sim, res=res, wall=wall, exporter=exporter,
+                launches={**bk.LAUNCHES, **dispatch.LAUNCHES}, timings=timings,
+                stats=sim.hostio_stats)
+
+
+def fetch_seconds(nbytes: int, device: str) -> dict:
+    """Seconds of the pipeline's fetch stage (``io.hostio.to_host`` on a
+    side stream) for one tensor of ``nbytes`` on an idle ``device``: into
+    new pinned buffers ("cold"), then again into buffers the caching host
+    allocator gives back ("warm")."""
+    import torch
+
+    from dgen_tpu_torch.io import hostio
+
+    x = torch.ones(nbytes // 4, dtype=torch.float32, device=device)
+    side = torch.cuda.Stream() if device == "cuda" else None
+    out = {}
+    for key in ("cold", "warm"):
+        ready = None
+        if side is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = hostio.to_host({"x": x}, ready=ready, stream=side)
+        out[key] = time.perf_counter() - t0
+        del h
+    return out
+
+
+def trace_outputs_year(presets, RunConfig, work: str, *, name: str, n_agents,
+                       end_year: int, device: str, knobs: dict) -> dict:
+    """The second model year of ``name`` under torch.profiler, once with no
+    host consumer and once on the pipeline with the exporter and a
+    checkpoint a year (so the first year's writes run beside the traced
+    step), the card synchronized before and after the traced step. Logs,
+    for each, the step's wall, device busy time (union of intervals), the
+    device's idle share, the side stream's copies, and where the run loop
+    thread's host time goes (its ten largest operations by self time);
+    returns the walls and idle shares."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgen_tpu_torch.io import export
+
+    out = {}
+    for tag, exp in (("no consumer", False), ("pipeline, export + checkpoint", True)):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        sim, pop, meta = presets.build(name, n_agents=n_agents, end_year=end_year,
+                                       device=device,
+                                       run_config=RunConfig(async_host_io=True, **knobs))
+        step = sim.step
+        rec = {}
+
+        def traced(carry, yi, first_year):
+            if yi != 1:
+                return step(carry, yi, first_year)
+            sim._sync()
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device == "cuda" else [])
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                got = step(carry, yi, first_year)
+                sim._sync()
+                rec["wall_us"] = (time.perf_counter() - t0) * 1e6
+            rec["prof"] = prof
+            return got
+
+        sim.step = traced
+        kw = {}
+        if exp:
+            kw = dict(callback=export.RunExporter(
+                os.path.join(work, "run"), sim.host_agent_id, sim.host_mask,
+                device=sim.device), checkpoint_dir=os.path.join(work, "ckpt"))
+        sim.run(collect=False, **kw)
+        events = rec["prof"].events()
+        wall_us = rec["wall_us"]
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy = busy_us(dev)
+        d2h = sum(e.time_range.elapsed_us() for e in dev if "DtoH" in e.name)
+        # the main thread: the one that recorded the most operations (the
+        # profiler numbers threads itself)
+        cpu = [e for e in events if e.device_type == DeviceType.CPU]
+        counts: dict = {}
+        for e in cpu:
+            counts[e.thread] = counts.get(e.thread, 0) + 1
+        main_tid = max(counts, key=counts.get)
+        host: dict = {}
+        for e in cpu:
+            if e.thread == main_tid:
+                host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+        idle = 1.0 - busy / wall_us
+        log(f"    [3f] traced year 2 ({tag}): wall {wall_us / 1e3:.3f} ms, device busy "
+            f"{busy / 1e3:.3f} ms, idle share {idle:.4f}, device-to-host copies "
+            f"{d2h / 1e3:.3f} ms; main thread's largest host operations (self ms): "
+            + ", ".join(f"{n[:48]} {us / 1e3:.1f}" for n, us in
+                        sorted(host.items(), key=lambda kv: -kv[1])[:10]))
+        out[tag] = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3, idle=idle,
+                        d2h_ms=d2h / 1e3)
+        del sim, rec, events
+    return out
+
+
+#: [3f]: the pipeline against the serialized path below national scale,
+#: collect=True (what ``sim.run()`` does by default): (agents, end year)
+#: of the ercot-all-sector world, a golden-sized run and the main path's
+SMALL_AB = ((96, 2050), (MAIN_AGENTS, MAIN_END_YEAR))
+SMALL_AB_PAIRS = 4
+
+
+def pipeline_ab(presets, RunConfig, sizes=SMALL_AB, pairs=SMALL_AB_PAIRS,
+                device="cuda") -> dict:
+    """[3f]: ``sim.run()`` (collect=True) on the host-I/O pipeline against
+    the serialized path, each on its own freshly built Simulation after a
+    warm-up run, in ``pairs`` alternated pairs at each of ``sizes``; logs
+    each side's walls, the medians and the pairs each side won; returns
+    the medians by size."""
+    import statistics
+
+    import torch
+
+    out = {}
+    for n, end in sizes:
+        walls = {True: [], False: []}
+        for i in range(pairs):
+            for async_io in ((True, False) if i % 2 == 0 else (False, True)):
+                sim = presets.build("ercot-all-sector", n_agents=n, end_year=end,
+                                    device=device,
+                                    run_config=RunConfig(async_host_io=async_io))[0]
+                sim.run()
+                sim._sync()
+                t0 = time.perf_counter()
+                sim.run()
+                sim._sync()
+                walls[async_io].append(time.perf_counter() - t0)
+                del sim
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        won = sum(a < s for a, s in zip(walls[True], walls[False]))
+        log(f"    [3f] sim.run() (collect=True) at {n} agents x "
+            f"{len(range(2014, end + 1, 2))} years, pipeline vs serialized, {pairs} "
+            f"alternated pairs: walls s {walls[True]} vs {walls[False]}; medians "
+            f"{med[True]:.4f} vs {med[False]:.4f} (pipeline / serialized "
+            f"{med[True] / med[False]:.4f}); the pipeline won {won} of {pairs}")
+        out[n] = dict(pipeline=med[True], serialized=med[False], won=won)
+    return out
+
+
+def run_outputs(presets, RunConfig, whole_per_year, *, name=NATIONAL, n_agents=None,
+                end_year=NATIONAL_END_YEAR, device="cuda", knobs=None,
+                workdir=None) -> dict:
+    """[3f]: the run outputs at ``name``'s full width (NATIONAL_END_YEAR's
+    model years, in a temporary directory the phase removes), in four
+    runs: (a) no host consumer, the floor; (b) the host-I/O pipeline with
+    the preset runner's exporter, a checkpoint a year and collect=True;
+    (c) the serialized path (``async_host_io=False``) with the exporter
+    and the checkpoints; (d) a fresh Simulation resumed from (b)'s
+    RESUME_YEAR checkpoint, collecting. Raises unless (b)'s and (c)'s
+    agent_outputs, finance_series and agents.npz files are byte for byte
+    equal and their state-hourly within [3c]'s tolerance; (d)'s later
+    years equal (b)'s per agent bit for bit (and its checkpoints (b)'s),
+    state-hourly within [3c]'s tolerance; every compact-quantized value of
+    (b)'s files lies within max|x| / 65532 of (b)'s collected float32, its
+    codes are the CPU's quantization of those values, the card's codes on
+    them equal the CPU's, and the exact fields are the collected values;
+    and, where ``whole_per_year`` is given (the main path's month and
+    signed-month launches a year), every run launched the month and
+    dispatch kernels as [3d] counts them. A fifth run, (e), is (b)
+    without collect: the pipeline's counterpart of (c). Logs the five
+    walls and their ratios to (a), the pipeline's stats, the bytes fetched
+    and written a year, the checkpoint's save and restore seconds and the
+    fetch stage alone (:func:`fetch_seconds`), then traces the second year
+    with and without the exporter (:func:`trace_outputs_year`); returns
+    the figures."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.io import checkpoint, export
+
+    knobs = dict(knobs or {})
+    work = tempfile.mkdtemp(prefix="dgen-3f-", dir=workdir)
+    try:
+        kw = dict(name=name, n_agents=n_agents, end_year=end_year, device=device,
+                  knobs=knobs)
+        run = {}
+        run["a"] = outputs_run(presets, RunConfig, **kw)
+        run["b"] = outputs_run(presets, RunConfig, async_io=True,
+                               export_dir=os.path.join(work, "b"),
+                               checkpoint_dir=os.path.join(work, "b-ckpt"),
+                               collect=True, **kw)
+        run["c"] = outputs_run(presets, RunConfig, async_io=False,
+                               export_dir=os.path.join(work, "c"),
+                               checkpoint_dir=os.path.join(work, "c-ckpt"), **kw)
+        run["e"] = outputs_run(presets, RunConfig, async_io=True,
+                               export_dir=os.path.join(work, "e"),
+                               checkpoint_dir=os.path.join(work, "e-ckpt"), **kw)
+        shutil.copytree(os.path.join(work, "b-ckpt"), os.path.join(work, "d-ckpt"))
+        run["d"] = outputs_run(presets, RunConfig, collect=True,
+                               checkpoint_dir=os.path.join(work, "d-ckpt"),
+                               resume_year=RESUME_YEAR, **kw)
+        sim_b, res_b = run["b"]["sim"], run["b"]["res"]
+        years = list(sim_b.years)
+        n_real = int(sim_b.host_mask.sum())
+        if run["b"]["stats"] is None or run["c"]["stats"] is not None:
+            raise AssertionError("[3f] (b) did not run on the pipeline, or (c) did")
+        if res_b.years != years or run["d"]["res"].years != years[1:]:
+            raise AssertionError(f"[3f] years: (b) {res_b.years}, (d) "
+                                 f"{run['d']['res'].years}, grid {years}")
+
+        # (b) against (c): the files, byte for byte
+        same = {}
+        for sub in ("agent_outputs", "finance_series", "state_hourly"):
+            for y in years:
+                f = os.path.join(sub, f"year={y}.npz")
+                with open(os.path.join(work, "b", f), "rb") as fb, \
+                        open(os.path.join(work, "c", f), "rb") as fc:
+                    same[f] = fb.read() == fc.read()
+        with open(os.path.join(work, "b", "agents.npz"), "rb") as fb, \
+                open(os.path.join(work, "c", "agents.npz"), "rb") as fc:
+            same["agents.npz"] = fb.read() == fc.read()
+        gaps = {}
+        for sub in ("agent_outputs", "finance_series", "state_hourly"):
+            sb = export.load_surface(os.path.join(work, "b"), sub)
+            sc = export.load_surface(os.path.join(work, "c"), sub)
+            for k in sb:
+                if sb[k].dtype.kind == "f":
+                    gaps[f"{sub}.{k}"] = float(np.max(np.abs(sb[k] - sc[k])))
+            if sub == "state_hourly":
+                np.testing.assert_allclose(
+                    sb["net_load_mw"], sc["net_load_mw"], rtol=CHUNK_HOURLY_RTOL,
+                    atol=CHUNK_HOURLY_ATOL, err_msg="[3f] (b) vs (c) state-hourly")
+        differ = sorted(f for f, ok in same.items()
+                        if not ok and not f.startswith("state_hourly"))
+        log(f"[3f] {name} at {n_real} agents ({sim_b.table.n_agents} rows, chunk "
+            f"{sim_b._agent_chunk}), {len(years)} model years {years}: (b) pipeline "
+            f"vs (c) serialized files byte for byte: "
+            f"{ {f: ok for f, ok in same.items()} }; largest absolute gaps "
+            f"{ {k: v for k, v in gaps.items() if v} or 'none'}")
+        if differ:
+            raise AssertionError(f"[3f] (b) and (c) differ in {differ}: gaps {gaps}")
+
+        # (d), resumed after RESUME_YEAR, against (b)
+        res_d = run["d"]["res"]
+        off = [k for k in res_b.agent
+               if not np.array_equal(res_d.agent[k], res_b.agent[k][1:])]
+        if off:
+            raise AssertionError(f"[3f] (d) resumed differs from (b) in {off}")
+        np.testing.assert_allclose(res_d.state_hourly_net_mw, res_b.state_hourly_net_mw[1:],
+                                   rtol=CHUNK_HOURLY_RTOL, atol=CHUNK_HOURLY_ATOL,
+                                   err_msg="[3f] (d) vs (b) state-hourly")
+        ck_same = {}
+        for y in years[1:]:
+            with open(os.path.join(work, "b-ckpt", str(y), checkpoint.CARRY_FILE),
+                      "rb") as fb, open(os.path.join(work, "d-ckpt", str(y),
+                                                     checkpoint.CARRY_FILE), "rb") as fd:
+                ck_same[y] = fb.read() == fd.read()
+        if not all(ck_same.values()):
+            raise AssertionError(f"[3f] (d)'s checkpoints differ from (b)'s: {ck_same}")
+        hourly_gap = float(np.max(np.abs(res_d.state_hourly_net_mw
+                                         - res_b.state_hourly_net_mw[1:])))
+        log(f"    (d) resumed after {RESUME_YEAR}: {res_d.years} per agent bit for bit "
+            f"with (b) ({len(res_b.agent)} fields), checkpoints {ck_same}, "
+            f"state-hourly largest gap {hourly_gap} MW")
+
+        # (b)'s compact quantization against its collected float32
+        keep = sim_b.host_mask > 0
+        ao = export.load_surface(os.path.join(work, "b"), "agent_outputs")
+        fin = export.load_surface(os.path.join(work, "b"), "finance_series")
+        dev = torch.device(device)
+        worst = {}
+        codes_equal = True
+        for yi, y in enumerate(years):
+            rows = ao["year"] == y
+            q_names = [f for f, q in zip(export.AGENT_OUTPUT_FIELDS,
+                                         export._AGENT_OUTPUT_QUANT) if q]
+            fields = [res_b.agent[f][yi] for f in q_names] + [res_b.agent["cash_flow"][yi]]
+            got = [ao[f][rows] for f in q_names] + [fin["cash_flow"][rows]]
+            cq, cs, _ = export._quantize_i16([torch.from_numpy(x) for x in fields])
+            gq, gs, _ = export._quantize_i16([torch.from_numpy(x).to(dev) for x in fields])
+            for f, x, g, q, s, q2, s2 in zip(q_names + ["cash_flow"], fields, got, cq, cs,
+                                             gq, gs):
+                codes_equal &= bool(torch.equal(q, q2.cpu()) and torch.equal(s, s2.cpu()))
+                want = (q.numpy().astype(np.float32) * s.numpy())[keep]
+                if not np.array_equal(g, want):
+                    raise AssertionError(f"[3f] (b) {f} {y}: the file is not the CPU's "
+                                         "quantization of the collected values")
+                m = np.abs(x).max(axis=0) if x.ndim > 1 else np.abs(x).max()
+                err = np.abs(g - x[keep])
+                if not np.all(err <= m * QUANT_BOUND):
+                    raise AssertionError(f"[3f] (b) {f} {y}: quantization error "
+                                         f"{err.max()} over max|x|/65532")
+                worst[f] = max(worst.get(f, 0.0), float(np.max(err / np.maximum(m, 1e-30))))
+            for f in export._EXACT_FIELDS:
+                if not np.array_equal(ao[f][rows], res_b.agent[f][yi][keep]):
+                    raise AssertionError(f"[3f] (b) exact field {f} {y} differs from "
+                                         "the collected float32")
+        if not codes_equal:
+            raise AssertionError("[3f] the card's int16 codes differ from the CPU's")
+        log(f"    (b) compact quantization: every value within max|x|/65532 of the "
+            f"collected float32 (largest error / max|x|, bound {1 / 65532:.3e}: "
+            f"{ {f: float(f'{v:.3e}') for f, v in worst.items()} }); the files are the "
+            f"CPU's int16 codes of the collected values, and the {device} codes on them "
+            f"equal the CPU's; the {len(export._EXACT_FIELDS)} exact fields equal "
+            "the collected float32")
+
+        # launches, walls, bytes, seconds
+        if whole_per_year is not None:
+            k = sim_b.table.n_agents // sim_b._agent_chunk if sim_b._agent_chunk else 1
+            per = 2 if sim_b._agent_chunk and sim_b.with_hourly else 1
+            for tag, r in run.items():
+                ny = len(r["res"].years)
+                want = {"dispatch": per * k * ny,
+                        **{key: k * whole_per_year[key] * ny
+                           for key in ("month", "month_signed")}}
+                got = {key: r["launches"][key] for key in want}
+                if got != want:
+                    raise AssertionError(f"[3f] ({tag}) launches {got}, {want} expected")
+        walls = {tag: r["wall"] for tag, r in run.items()}
+        ratios = {tag: w / walls["a"] for tag, w in walls.items()}
+        stats = run["b"]["stats"]
+        ex_b = run["b"]["exporter"]
+        fetched = list(ex_b.payload_bytes)
+        written = {y: _year_bytes(os.path.join(work, "b"), y) for y in years}
+        ckpt_bytes = _dir_bytes(os.path.join(work, "b-ckpt", str(years[-1])))
+        save = run["b"]["timings"].get("ckpt_save", {})
+        save_c = run["c"]["timings"]
+        t0 = time.perf_counter()
+        checkpoint.restore_year(os.path.join(work, "b-ckpt"), sim_b.table.n_agents,
+                                RESUME_YEAR, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        log(f"    walls s: (a) no consumer {walls['a']:.4f}, (b) pipeline + export + "
+            f"checkpoint + collect {walls['b']:.4f}, (c) serialized + export + "
+            f"checkpoint {walls['c']:.4f}, (d) resumed ({len(res_d.years)} year) "
+            f"{walls['d']:.4f}, (e) pipeline + export + checkpoint {walls['e']:.4f}; "
+            f"ratios to (a) {ratios}")
+        log("    year_step timer (main thread; the serialized path's ends in a "
+            "synchronize) s: " + "; ".join(
+                f"({t}) {r['timings'].get('year_step', {}).get('total', 0.0):.4f} over "
+                f"{len(r['res'].years)}" for t, r in run.items()))
+        log(f"    (e) hostio_stats {run['e']['stats']}")
+        log(f"    (b) hostio_stats {stats}")
+        log(f"    bytes a year: the export's device payload (fetched) {fetched}, all "
+            f"of (b)'s fetches {stats['d2h_bytes'] / len(years):.0f} (collect, export, "
+            f"checkpoint, health); surfaces written {written}; a checkpoint "
+            f"{ckpt_bytes}")
+        log(f"    checkpoint save s: (b) {save}, (c) {save_c.get('ckpt_save')}; "
+            f"restore of {RESUME_YEAR} onto {device} {restore_s:.4f} s; exporter host s "
+            f"(b) {ex_b.seconds:.4f}, (c) {run['c']['exporter'].seconds:.4f}; "
+            f"(c)'s timers {save_c}")
+        fetch = fetch_seconds(fetched[0], device)
+        log(f"    the fetch stage alone on an idle {device}: {fetched[0]} bytes (the "
+            f"export's payload) to new pinned buffers {fetch['cold']:.4f} s, to cached "
+            f"ones {fetch['warm']:.4f} s ({fetched[0] / fetch['warm'] / 1e9:.2f} GB/s)")
+        del run, sim_b
+        trace = trace_outputs_year(presets, RunConfig, os.path.join(work, "t"), **kw)
+        return dict(walls=walls, ratios=ratios, stats=stats, fetched=fetched,
+                    written=written, ckpt_bytes=ckpt_bytes, restore_s=restore_s,
+                    same=same, fetch=fetch, trace=trace)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def golden_curves(res, mask, ids) -> dict:
@@ -2165,12 +2654,18 @@ def main(argv=None) -> int:
 
     # --- 3d: national-all-sector at its full width ---
     main_years = len(runs["main"]["res"].years)
-    national_path(presets, {k: runs["main"]["launches"][k] / main_years
-                            for k in ("month", "month_signed")})
+    whole_per_year = {k: runs["main"]["launches"][k] / main_years
+                      for k in ("month", "month_signed")}
+    national_path(presets, whole_per_year)
     torch.cuda.empty_cache()
 
     # --- 3e: both golden fixtures on the card ---
     golden_fixtures(RunConfig)
+    torch.cuda.empty_cache()
+
+    # --- 3f: the run outputs at national-all-sector's full width ---
+    run_outputs(presets, RunConfig, whole_per_year)
+    pipeline_ab(presets, RunConfig)
     torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---

@@ -6,15 +6,16 @@ its modules imports jax). ``ScenarioConfig`` is mirrored whole;
 ``RunConfig`` carries the run settings of the ported paths: the sizing
 search's candidate count, the gated kernel paths (daylight compaction,
 pack-once, the stream engine), the narrow profile banks (bf16, int8),
-the streaming agent chunk with its padding, the invariant harness and
-the health sentinel. Other knobs arrive with the slices that port them;
+the streaming agent chunk with its padding, the invariant harness, the
+health sentinel and the host-I/O pipeline. Other knobs arrive with the slices that port them;
 the JAX package's checks that tie the bank knobs to its differentiable
 twin do not apply here (the twin is not ported).
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
 of the ported fields, and refuses a switch that asks for a feature the
-port does not have; ``DGEN_TPU_SENTINEL`` is read at run time
-(``RunConfig.sentinel_enabled``).
+port does not have; ``DGEN_TPU_SENTINEL`` and ``DGEN_TPU_ASYNC_IO`` are
+read at run time (``RunConfig.sentinel_enabled``,
+``RunConfig.async_io_enabled``).
 """
 
 from __future__ import annotations
@@ -136,6 +137,15 @@ class RunConfig:
     health_sentinel: Optional[bool] = None
     #: raise a sentinel breach as HealthBreachError instead of warning
     sentinel_escalate: bool = False
+    #: the background host-I/O pipeline (io.hostio): result collection,
+    #: RunExporter writes and checkpoint saves run on worker threads, the
+    #: year's outputs copied to pinned host memory on a side CUDA stream,
+    #: while the run loop dispatches the next year. None (default) = on
+    #: unless the DGEN_TPU_ASYNC_IO kill switch says 0/false/off
+    #: (``async_io_enabled``); False restores the serialized per-year
+    #: path (the bit-exact parity oracle); True forces it on.
+    #: debug_invariants always serializes.
+    async_host_io: Optional[bool] = None
 
     def __post_init__(self) -> None:
         _check(self.agent_pad_multiple >= 1, "bad pad multiple")
@@ -153,6 +163,16 @@ class RunConfig:
             return self.health_sentinel
         return os.environ.get("DGEN_TPU_SENTINEL", "") not in ("0", "false", "off")
 
+    @property
+    def async_io_enabled(self) -> bool:
+        """The resolved host-I/O pipeline decision: the explicit field
+        when set, else on unless ``DGEN_TPU_ASYNC_IO`` says 0/false/off
+        (read at run time, so an operator can switch a built config back
+        to the serialized path)."""
+        if self.async_host_io is not None:
+            return self.async_host_io
+        return os.environ.get("DGEN_TPU_ASYNC_IO", "") not in ("0", "false", "off")
+
     @classmethod
     def from_env(cls, **overrides) -> "RunConfig":
         """A RunConfig from the ``DGEN_TPU_*`` switches, as the JAX
@@ -165,10 +185,11 @@ class RunConfig:
         A switch that asks for a feature the port lacks raises
         ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
         ``DGEN_TPU_SOFT``, ``DGEN_TPU_CLUSTER``, ``DGEN_TPU_GUARD`` or
-        ``DGEN_TPU_FAULTS`` on. ``DGEN_TPU_VALIDATE`` and
-        ``DGEN_TPU_ASYNC_IO`` only switch off what the port does not do,
-        and ``DGEN_TPU_SOFT_TAU`` tunes a path it does not have: all three
-        are ignored."""
+        ``DGEN_TPU_FAULTS`` on. ``DGEN_TPU_VALIDATE`` only switches off
+        what the port does not do, and ``DGEN_TPU_SOFT_TAU`` tunes a path it
+        does not have: both are ignored. ``DGEN_TPU_SENTINEL`` and
+        ``DGEN_TPU_ASYNC_IO`` are not baked in: their fields stay None, so
+        the switches are read at run time."""
         env = os.environ
 
         def flag(name: str) -> bool:

@@ -1,6 +1,7 @@
 """The simulation runner: one model year as a sequence of tensor ops on
-one device, and the synchronous year loop (port of the single-device
-path of ``dgen_tpu/models/simulation.py``).
+one device, and the year loop with its host consumers (exports,
+checkpoints and resume, collection; port of the single-device path of
+``dgen_tpu/models/simulation.py``).
 
 Per year: trajectories are applied, the NEM gate is evaluated against
 last year's state capacity, every agent is sized through the bill /
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -45,7 +47,7 @@ from dgen_tpu_torch.ops import layout as layout_ops
 from dgen_tpu_torch.ops import sizing as sizing_ops
 from dgen_tpu_torch.ops.tariff import HOURS, NET_BILLING, TariffBank
 from dgen_tpu_torch.tree import to_device, tree_map
-from dgen_tpu_torch.utils import invariants
+from dgen_tpu_torch.utils import invariants, timing
 
 logger = logging.getLogger(__name__)
 
@@ -894,63 +896,301 @@ class Simulation:
             raise err
         logger.warning("health sentinel: %s", err)
 
+    def _sanitize_restored_carry(self, carry: SimCarry) -> SimCarry:
+        """The restored carry as the run resumes it. The JAX package zeroes
+        the quarantined agents' rows here; the port has no quarantine yet
+        (``ROADMAP.md`` §1 item 4), so the carry comes back unchanged."""
+        return carry
+
+    def _sync(self) -> None:
+        """Wait for the work queued on the run's card (no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def run(
         self,
         callback: Optional[Callable[[int, int, YearOutputs], None]] = None,
         collect: bool = True,
+        checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
+        resume_year: Optional[int] = None,
+        should_stop: Optional[Callable[[int, int], bool]] = None,
     ) -> SimResults:
-        """Run every model year, synchronously.
+        """Run every model year; returns the host results.
 
-        ``callback(year, year_idx, outputs)`` is called after each year
-        with the year's device outputs. ``collect=False`` keeps no
-        per-agent arrays on the host (the results then hold the years
-        only). The health sentinel (``RunConfig.sentinel_enabled``, on
-        unless switched off) checks every year's outputs;
-        ``debug_invariants`` checks the carry and the outputs after every
-        year. Checkpoints and the
-        cooperative stop of the JAX package's ``run`` are not ported."""
+        ``callback(year, year_idx, outputs)`` fires after each year with
+        the year's device outputs (an ``io.export.RunExporter``, say).
+        ``collect=False`` keeps no per-agent arrays on the host (the
+        results then hold the years only). ``checkpoint_dir`` saves the
+        cross-year carry after every year (``io.checkpoint``); with
+        ``resume=True`` the run restarts after the latest checkpointed
+        year, or after ``resume_year`` when given. A checkpointed year off
+        this scenario's year grid is refused. ``should_stop(year,
+        year_idx)``, evaluated after each year's exports and checkpoint
+        are issued, ends the run early when it returns True; the results
+        then cover the years run.
+
+        Host consumers (collection, the callback, checkpoint saves) run
+        on the host-I/O pipeline (``io.hostio``) by default: the run loop
+        dispatches year after year while worker threads fetch each
+        finished year on a side CUDA stream and write it out, with the
+        same results bit for bit. ``RunConfig.async_host_io=False``
+        (``DGEN_TPU_ASYNC_IO=0``) keeps the serialized per-year path, which
+        ``debug_invariants`` always takes. A worker's error fails the run.
+        The health sentinel (``RunConfig.sentinel_enabled``) checks every
+        year's outputs; ``debug_invariants`` checks the carry and the
+        outputs after every year.
+        """
         rc = self.run_config
-        debug = rc.debug_invariants
-        sentinel = rc.sentinel_enabled
-        escalate = rc.sentinel_escalate
-        self._health_breaches: Dict[int, list] = {}
-        self.health_report = None
+        start_idx = 0
+        carry = self.init_carry()
+        if resume:
+            if not checkpoint_dir:
+                raise ValueError("resume=True requires checkpoint_dir")
+            from dgen_tpu_torch.io import checkpoint as ckpt
+
+            last = resume_year if resume_year is not None else ckpt.latest_year(
+                checkpoint_dir)
+            if last is not None and last not in self.years:
+                # restarting from scratch would also overwrite the
+                # existing (incompatible) checkpoints
+                raise ValueError(
+                    f"checkpointed year {last} is not on this scenario's year grid "
+                    f"{self.years}; refusing to resume")
+            if last is not None:
+                _, restored = ckpt.restore_year(checkpoint_dir, self.table.n_agents,
+                                                last, device=self.device)
+                carry = self._sanitize_restored_carry(restored)
+                start_idx = self.years.index(last) + 1
+                logger.info("resuming after year %d (index %d)", last, start_idx)
+
         agent_fields = [f.name for f in dataclasses.fields(YearOutputs)
                         if f.name != "state_hourly_net_mw"]
-        collected: Dict[str, list] = {k: [] for k in agent_fields}
-        hourly: List[np.ndarray] = []
-        carry = self.init_carry()
-        for yi, year in enumerate(self.years):
-            prev_carry = carry
-            carry, outs = self.step(carry, yi, first_year=(yi == 0))
-            if debug:
-                invariants.check_transform(prev_carry, carry,
-                                           context=f"year {year} carry")
-                invariants.check_finite(carry, context=f"year {year} carry")
-                invariants.check_finite(outs, context=f"year {year} outputs")
-                if not self._net_billing:
-                    self._check_state_kw_bound(carry, f"year {year}")
-            if sentinel:
-                self._health_verdict(
-                    year, yi, health_mod.health_summary(outs, self.table.mask).cpu(),
-                    outs, escalate)
-            if callback is not None:
-                callback(year, yi, outs)
-            if collect:
-                for k in agent_fields:
-                    collected[k].append(getattr(outs, k).cpu().numpy())
-                if self.with_hourly:
-                    hourly.append(outs.state_hourly_net_mw.cpu().numpy())
+        ckpt_writer = None
+        if checkpoint_dir is not None:
+            from dgen_tpu_torch.io import checkpoint as ckpt
+
+            ckpt_writer = ckpt.Writer(checkpoint_dir)
+        debug = rc.debug_invariants
+        async_io = (rc.async_io_enabled and not debug
+                    and (collect or callback is not None or ckpt_writer is not None))
+        self.hostio_stats = None
+        self._stop_idx: Optional[int] = None
+        self.health_report = None
+        self._health_breaches: Dict[int, list] = {}
+        try:
+            if async_io:
+                carry, collected, hourly = self._run_years_async(
+                    carry, start_idx, callback, collect, ckpt_writer, agent_fields,
+                    should_stop)
+            else:
+                carry, collected, hourly = self._run_years_sync(
+                    carry, start_idx, callback, collect, ckpt_writer, agent_fields,
+                    debug, should_stop)
+        finally:
+            if ckpt_writer is not None:
+                ckpt_writer.close()
         if not self._net_billing and not debug:
             self._check_state_kw_bound(carry, "end of run")
         self._memory_check()
-        if sentinel:
+        end_idx = self._stop_idx if self._stop_idx is not None else len(self.years)
+        if rc.sentinel_enabled:
             self.health_report = {
                 "breaches": {int(y): b for y, b in self._health_breaches.items()},
                 "clean": not self._health_breaches,
             }
         return SimResults(
-            years=list(self.years),
-            agent={k: np.stack(v) for k, v in collected.items()} if collect else {},
+            years=self.years[start_idx:end_idx],
+            agent=({k: np.stack(v) for k, v in collected.items()}
+                   if collect and collected[agent_fields[0]] else {}),
             state_hourly_net_mw=np.stack(hourly) if hourly else None,
         )
+
+    def _run_years_async(self, carry: SimCarry, start_idx: int, callback,
+                         collect: bool, ckpt_writer, agent_fields: List[str],
+                         should_stop=None):
+        """The year loop on the host-I/O pipeline: years are dispatched
+        back to back and every host consumer runs on the pipeline's
+        worker threads against one fetch a year. The carry is snapshotted
+        (a device copy queued right behind its step) before the next step
+        when checkpointing. The ``finally`` drain flushes every completed
+        year exactly once and never masks the loop's own error."""
+        from dgen_tpu_torch.io import hostio
+
+        rc = self.run_config
+        consumers: list = []
+        # the sentinel first: a breached year is caught before its export
+        # and checkpoint consumers run
+        if rc.sentinel_enabled:
+            consumers.append(hostio.HealthConsumer(
+                mask=self.table.mask, agent_ids_host=self.host_agent_id,
+                mask_host=self.host_mask, escalate=bool(rc.sentinel_escalate),
+                breaches_out=self._health_breaches))
+        collector = None
+        if collect:
+            collector = hostio.CollectConsumer(agent_fields, self.with_hourly)
+            consumers.append(collector)
+        if callback is not None:
+            consumers.append(hostio.consumer_for_callback(callback))
+        if ckpt_writer is not None:
+            consumers.append(hostio.CheckpointConsumer(ckpt_writer))
+
+        pipeline = None
+        loop_failed = False
+        try:
+            for yi, year in enumerate(self.years):
+                if yi < start_idx:
+                    continue
+                t0 = time.perf_counter()
+                with timing.timer("year_step"):
+                    carry, outs = self.step(carry, yi, first_year=(yi == 0))
+                if pipeline is None:
+                    pipeline = hostio.pipeline_for(
+                        consumers, outs,
+                        carry=carry if ckpt_writer is not None else None)
+                snap = hostio.snapshot_carry(carry) if ckpt_writer is not None else None
+                pipeline.submit(year, yi, outs, carry=snap)
+                del outs, snap
+                logger.info("year %d (%d/%d) %.2fs (queued)", year, yi + 1,
+                            len(self.years), time.perf_counter() - t0)
+                if should_stop is not None and should_stop(year, yi):
+                    logger.info("cooperative stop after year %d (%d/%d)", year,
+                                yi + 1, len(self.years))
+                    self._stop_idx = yi + 1
+                    break
+        except BaseException:
+            loop_failed = True
+            raise
+        finally:
+            if pipeline is not None:
+                self.hostio_stats = pipeline.drain(failed=loop_failed)
+        with timing.timer("device_drain"):
+            self._sync()
+        if collector is not None:
+            return carry, collector.collected, collector.hourly
+        return carry, {k: [] for k in agent_fields}, []
+
+    def _run_years_sync(self, carry: SimCarry, start_idx: int, callback,
+                        collect: bool, ckpt_writer, agent_fields: List[str],
+                        debug: bool, should_stop=None):
+        """The serialized year loop, the parity oracle of the pipeline.
+
+        The card is waited on each year only when something reads the
+        year on the host (checkpoints, collection, invariants). A callback
+        alone is deferred one year: it runs after the next year's step is
+        dispatched, its ``prepare`` hook right behind its own step, and
+        the deferred year's health verdict gates it. With no consumer the
+        years run back to back and the health summaries are fetched once
+        at the end. A ``finally`` flushes the last completed year's
+        deferred callback exactly once."""
+        from dgen_tpu_torch.io.hostio import to_host
+
+        rc = self.run_config
+        collected: Dict[str, list] = {k: [] for k in agent_fields}
+        hourly: List[np.ndarray] = []
+        sentinel = rc.sentinel_enabled
+        escalate = bool(rc.sentinel_escalate)
+        queued_health: List[tuple] = []
+        pending_health = None          # (year, yi, summary, outs)
+        sync_per_year = bool(ckpt_writer is not None or collect or debug)
+        defer_callback = callback is not None and not sync_per_year
+        pending_cb = None              # (year, yi, outs)
+        loop_failed = False
+        try:
+            for yi, year in enumerate(self.years):
+                if yi < start_idx:
+                    continue
+                t0 = time.perf_counter()
+                with timing.timer("year_step"):
+                    prev_carry = carry
+                    carry, outs = self.step(carry, yi, first_year=(yi == 0))
+                    if sync_per_year:
+                        self._sync()
+                if debug:
+                    invariants.check_transform(prev_carry, carry,
+                                               context=f"year {year} carry")
+                    invariants.check_finite(carry, context=f"year {year} carry")
+                    invariants.check_finite(outs, context=f"year {year} outputs")
+                    if not self._net_billing:
+                        self._check_state_kw_bound(carry, f"year {year}")
+                summary = None
+                if sentinel:
+                    summary = health_mod.health_summary(outs, self.table.mask)
+                    if sync_per_year:
+                        self._health_verdict(year, yi, to_host(summary), outs, escalate)
+                    elif not defer_callback:
+                        queued_health.append((year, yi, summary))
+                logger.info("year %d (%d/%d) %.2fs%s", year, yi + 1, len(self.years),
+                            time.perf_counter() - t0,
+                            "" if sync_per_year else " (queued)")
+                if callback is not None:
+                    if defer_callback:
+                        if pending_cb is not None:
+                            # handed off before the call: if it raises
+                            # partway, the finally flush must not write
+                            # the same year again
+                            prev, pending_cb = pending_cb, None
+                            prev_h, pending_health = pending_health, None
+                            if prev_h is not None and prev_h[2] is not None:
+                                self._health_verdict(prev_h[0], prev_h[1],
+                                                     to_host(prev_h[2]), prev_h[3],
+                                                     escalate)
+                            callback(*prev)
+                        pending_cb = (year, yi, outs)
+                        pending_health = (year, yi, summary, outs)
+                        # the callback's device-side preparation (the
+                        # compact quantization) right behind this step
+                        prep = getattr(callback, "prepare", None)
+                        if prep is not None:
+                            prep(year, yi, outs)
+                    else:
+                        callback(year, yi, outs)
+                if ckpt_writer is not None:
+                    with timing.timer("ckpt_save"):
+                        ckpt_writer.save(year, carry)
+                if collect:
+                    to_fetch = {k: getattr(outs, k) for k in agent_fields}
+                    if self.with_hourly:
+                        to_fetch["_hourly"] = outs.state_hourly_net_mw
+                    # kept as copies, so the pinned fetch buffers go back
+                    # to the pool (as hostio.CollectConsumer keeps them)
+                    host = to_host(to_fetch)
+                    for k in agent_fields:
+                        collected[k].append(np.array(host[k]))
+                    if self.with_hourly:
+                        hourly.append(np.array(host["_hourly"]))
+                if should_stop is not None and should_stop(year, yi):
+                    logger.info("cooperative stop after year %d (%d/%d)", year,
+                                yi + 1, len(self.years))
+                    self._stop_idx = yi + 1
+                    break
+        except BaseException:
+            loop_failed = True
+            raise
+        finally:
+            if pending_cb is not None:
+                # the deferred trailing callback: the final year on
+                # success, the last completed year on failure
+                try:
+                    if pending_health is not None and pending_health[2] is not None:
+                        self._health_verdict(pending_health[0], pending_health[1],
+                                             to_host(pending_health[2]),
+                                             pending_health[3], escalate)
+                    callback(*pending_cb)
+                except Exception:  # noqa: BLE001
+                    if not loop_failed:
+                        # success path: a failed final-year export surfaces
+                        raise
+                    # failure path: the loop's own error wins
+                    logger.exception("deferred year export failed")
+                pending_cb = None
+        if not sync_per_year:
+            with timing.timer("device_drain"):
+                self._sync()
+        if queued_health:
+            # no consumer: one fetch of every year's verdict at the end
+            # (detected; the device outputs are gone, so unattributed)
+            hosts = to_host([s for _, _, s in queued_health])
+            for (qy, qyi, _), h in zip(queued_health, hosts):
+                self._health_verdict(qy, qyi, h, None, escalate)
+        return carry, collected, hourly

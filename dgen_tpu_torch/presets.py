@@ -5,12 +5,15 @@ Populations are synthetic at the config's scale and sector mix and the
 scenario trajectories are the uniform synthetic defaults; the reference
 CSV trajectories are not read by the port yet.
 
-    python -m dgen_tpu_torch.presets NAME --no-export [--agents N] [--device cpu]
+    python -m dgen_tpu_torch.presets NAME [--agents N] [--run-dir DIR]
+        [--no-export] [--checkpoint] [--device cpu]
 
 builds the preset, runs every model year on the card (``--device cpu``:
-the plain versions on the CPU) and prints the run's one-line JSON record
-last. Exports and checkpoints are not ported: without ``--no-export``, or
-with ``--checkpoint``, the command exits 2.
+the plain versions on the CPU), writes the three result surfaces of every
+year into the run directory (``io.export``; ``--no-export`` writes none),
+checkpoints the carry every year under ``<run dir>/ckpt`` with
+``--checkpoint``, and prints the run's one-line JSON record last. The run
+directory defaults to ``runs/preset-<name>-<unix time>``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -138,11 +142,6 @@ def build(
     return sim, pop, meta
 
 
-#: what the runner cannot do yet, and where the work is queued
-NOT_PORTED = ("exports and checkpoints are not ported yet (ROADMAP.md §1, "
-              "modules to port: Run outputs)")
-
-
 def device_label(device: torch.device) -> str:
     """``"cpu"``, or the card's name and power limit as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
@@ -184,26 +183,63 @@ def year_timer(sim, year_s: list):
         sim.step = orig_step
 
 
+class _TimedExporter:
+    """RunExporter wrapper that adds up the exporter's host seconds. It
+    forwards the split fetch/write protocol too, so the host-I/O pipeline
+    drives the exporter through its fetch stage, and times the writes."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+
+    def prepare(self, year, year_idx, outs):
+        self.inner.prepare(year, year_idx, outs)
+
+    def __call__(self, year, year_idx, outs):
+        t0 = time.perf_counter()
+        self.inner(year, year_idx, outs)
+        self.seconds += time.perf_counter() - t0
+
+    def device_payload(self, year, year_idx, outs):
+        return self.inner.device_payload(year, year_idx, outs)
+
+    def write_host(self, year, year_idx, host):
+        t0 = time.perf_counter()
+        self.inner.write_host(year, year_idx, host)
+        self.seconds += time.perf_counter() - t0
+
+    def stamp_hostio(self, stats):
+        self.inner.stamp_hostio(stats)
+
+
 def timed_run(sim, meta: dict, t_start: float, build_s: float,
-              callback: Optional[Callable] = None) -> Dict[str, object]:
+              callback: Optional[Callable] = None,
+              checkpoint_dir: Optional[str] = None,
+              run_dir: Optional[str] = None) -> Dict[str, object]:
     """Run every model year of a built preset with ``collect=False``
-    and return its record (the keys of the JAX package's
-    ``run_preset``, plus ``device`` and ``year_s``). ``year_s``: each
-    year's wall, ending in ``torch.cuda.synchronize()`` on a card;
-    ``compile_s``: the first year less the median of the others (the
-    first year's one-time costs); ``steady_year_s``: the run's wall net of
-    ``compile_s``, a year; ``agent_years_per_sec``: real agents x years
-    over the total wall, set-up included, as the JAX package counts it."""
+    (``callback`` and ``checkpoint_dir`` as ``Simulation.run`` takes them)
+    and return its record: the keys of the JAX package's ``run_preset``,
+    plus ``device``, ``year_s`` and the host-I/O pipeline's ``host_io_s``,
+    ``host_blocked_s`` and ``overlap_efficiency`` (None when the run had
+    no pipeline). ``year_s``: each year's step wall, ending in
+    ``torch.cuda.synchronize()`` on a card; ``compile_s``: the first year
+    less the median of the others (the first year's one-time costs);
+    ``steady_year_s``: the run's wall net of ``compile_s``, a year;
+    ``export_overlapped_s``: the exporter's host seconds (a callback's
+    ``seconds``), overlapped with the device, so not subtracted;
+    ``agent_years_per_sec``: real agents x years over the total wall,
+    set-up included, as the JAX package counts it."""
     year_s: list = []
     t0 = time.perf_counter()
     with year_timer(sim, year_s):
-        res = sim.run(callback=callback, collect=False)
+        res = sim.run(callback=callback, collect=False, checkpoint_dir=checkpoint_dir)
     run_s = time.perf_counter() - t0
     total_s = time.perf_counter() - t_start
     n_real = int(np.asarray(sim.host_mask).sum())
     n_years = len(res.years)
     compile_s = (max(year_s[0] - float(np.median(year_s[1:])), 0.0)
                  if len(year_s) > 1 else 0.0)
+    stats = sim.hostio_stats or {}
     name = meta["preset"]
     return {
         "preset": name,
@@ -217,33 +253,52 @@ def timed_run(sim, meta: dict, t_start: float, build_s: float,
         "run_s": round(run_s, 3),
         "compile_s": round(compile_s, 3),
         "steady_year_s": round(max(run_s - compile_s, 0.0) / max(n_years, 1), 4),
-        "export_overlapped_s": 0.0,
+        "export_overlapped_s": round(getattr(callback, "seconds", 0.0), 3),
         "agent_years_per_sec": round(n_real * n_years / total_s, 1),
-        "run_dir": None,
+        "run_dir": run_dir,
         "data_sources": meta["data_sources"],
         "device": device_label(sim.device),
         "year_s": [round(t, 4) for t in year_s],
+        "host_io_s": stats.get("host_io_s"),
+        "host_blocked_s": stats.get("host_blocked_s"),
+        "overlap_efficiency": stats.get("overlap_efficiency"),
     }
 
 
 def run_preset(
     name: str,
     n_agents: Optional[int] = None,
+    run_dir: Optional[str] = None,
     export: bool = True,
     checkpoint: bool = False,
     device="cuda",
 ) -> Dict[str, object]:
     """Build and run a preset end to end on ``device`` (the card by
     default) at its full depth; returns the run's record
-    (:func:`timed_run`). ``export`` and ``checkpoint`` are not ported
-    and raise ``NotImplementedError``."""
-    if export or checkpoint:
-        raise NotImplementedError(NOT_PORTED)
+    (:func:`timed_run`): cold start, every model year, and with
+    ``export`` the three surfaces of every year written to ``run_dir``
+    (``runs/preset-<name>-<unix time>`` by default); ``checkpoint`` saves
+    the carry every year under ``<run_dir>/ckpt``."""
+    from dgen_tpu_torch.io import synth
+    from dgen_tpu_torch.io.export import RunExporter, static_frame_from_table
+
     t_start = time.perf_counter()
-    sim, _, meta = build(name, n_agents=n_agents, device=device)
+    sim, pop, meta = build(name, n_agents=n_agents, device=device)
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
-    return timed_run(sim, meta, t_start, time.perf_counter() - t_start)
+    build_s = time.perf_counter() - t_start
+    callback = None
+    if export or checkpoint:
+        # checkpointing needs a run directory even when exports are off
+        run_dir = run_dir or os.path.join("runs", f"preset-{name}-{int(time.time())}")
+    if export:
+        callback = _TimedExporter(RunExporter(
+            run_dir, agent_id=sim.host_agent_id, mask=sim.host_mask,
+            state_names=None, meta=meta, device=sim.device,
+            static_frame=static_frame_from_table(pop.table, states=list(synth.STATES))))
+    return timed_run(sim, meta, t_start, build_s, callback=callback,
+                     checkpoint_dir=os.path.join(run_dir, "ckpt") if checkpoint else None,
+                     run_dir=run_dir)
 
 
 def main(argv=None) -> int:
@@ -253,24 +308,26 @@ def main(argv=None) -> int:
         description="Run a BASELINE.json preset end to end")
     ap.add_argument("name", choices=sorted(PRESETS))
     ap.add_argument("--agents", type=int, default=None)
-    ap.add_argument("--no-export", action="store_true")
-    ap.add_argument("--checkpoint", action="store_true")
+    ap.add_argument("--run-dir", default=None,
+                    help="where the surfaces and checkpoints go (default "
+                         "runs/preset-<name>-<unix time>)")
+    ap.add_argument("--no-export", action="store_true",
+                    help="write no surfaces")
+    ap.add_argument("--checkpoint", action="store_true",
+                    help="checkpoint the carry every year under <run dir>/ckpt")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
-    if not args.no_export or args.checkpoint:
-        print(f"{NOT_PORTED}; pass --no-export (and no --checkpoint) to run "
-              "without them", file=sys.stderr)
-        return 2
 
     p = PRESETS[args.name]
     print(f"preset {p.name}: {p.baseline_config}")
-    rec = run_preset(args.name, n_agents=args.agents, export=False,
+    rec = run_preset(args.name, n_agents=args.agents, run_dir=args.run_dir,
+                     export=not args.no_export, checkpoint=args.checkpoint,
                      device=args.device)
     print(f"build {rec['build_s']}s | compile ~{rec['compile_s']}s | "
           f"steady year {rec['steady_year_s']}s | total {rec['total_s']}s "
           f"({rec['agent_years_per_sec']} agent-years/sec) | chunk "
-          f"{rec['agent_chunk']} | {rec['device']}")
+          f"{rec['agent_chunk']} | {rec['device']} | run dir {rec['run_dir']}")
     print(json.dumps(rec))
     return 0
 

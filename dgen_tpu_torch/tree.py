@@ -3,13 +3,15 @@
 The containers are frozen dataclasses and NamedTuples with tensor
 leaves (the JAX package registers the same classes as pytrees); this is
 the one traversal the port needs: moving a container to a device,
-repeating or selecting every leaf of a batch, naming every leaf.
+repeating or selecting every leaf of a batch, naming every leaf (of a
+checkpoint, say).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -43,9 +45,10 @@ def to_device(obj, device: torch.device):
 
 
 def leaf_paths(obj, prefix: str = "") -> dict:
-    """``{path: tensor}`` of every tensor leaf of ``obj``, the path in
-    attribute form (``".market.market_share"``)."""
-    if isinstance(obj, torch.Tensor):
+    """``{path: leaf}`` of every tensor (or numpy array, as in a container
+    fetched to the host) leaf of ``obj``, the path in attribute form
+    (``".market.market_share"``)."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
         return {prefix: obj}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         items = [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]

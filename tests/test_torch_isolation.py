@@ -97,6 +97,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         presets.build("ercot-all-sector", n_agents=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         presets.run_preset("ercot-all-sector", n_agents=16, export=False)
+    from dgen_tpu_torch.io import checkpoint
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.restore_year(os.path.join(ROOT, "runs", "none"), 16)
     from dgen_tpu_torch.tools import plain_parent_ab
     with pytest.raises(RuntimeError, match="no CUDA device"):
         plain_parent_ab.run(ROOT, n_agents=16, pairs=1)
@@ -281,6 +284,78 @@ def test_load_population_defaults_to_the_card():
         package.load_population(GOLDEN_PKG, pad_multiple=32)
     pop = package.load_population(GOLDEN_PKG, pad_multiple=32, device="cpu")
     assert pop.table.mask.device.type == "cpu"
+
+
+#: the run-output modules: every one imports, and a run exports and
+#: checkpoints through them, with these unavailable
+RUN_OUTPUT_MODULES = ("dgen_tpu_torch.io.export", "dgen_tpu_torch.io.checkpoint",
+                      "dgen_tpu_torch.io.hostio", "dgen_tpu_torch.utils.atomic",
+                      "dgen_tpu_torch.utils.timing")
+BLOCKED = ("pandas", "pyarrow", "orbax", "jax", "jaxlib", "dgen_tpu")
+
+
+def test_run_outputs_need_no_pandas_pyarrow_orbax_or_jax(tmp_path):
+    """The exporter, the checkpoint writer and the host-I/O pipeline import,
+    and a run writes its surfaces and checkpoints and resumes from them,
+    with pandas, pyarrow, orbax, jax and the JAX package unavailable;
+    ``to_parquet``, the CPU-side rewrite into parquet, is the one piece
+    that needs pandas."""
+    run_dir = str(tmp_path / "run")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {RUN_OUTPUT_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "from dgen_tpu_torch import presets\n"
+        "from dgen_tpu_torch.config import RunConfig\n"
+        "from dgen_tpu_torch.io import export, checkpoint\n"
+        "sim, pop, _ = presets.build('delaware-res', n_agents=32, end_year=2016,\n"
+        "                            device='cpu', run_config=RunConfig(sizing_iters=4))\n"
+        f"ex = export.RunExporter({run_dir!r}, sim.host_agent_id, sim.host_mask,\n"
+        "    device='cpu', static_frame=export.static_frame_from_table(pop.table))\n"
+        f"sim.run(callback=ex, collect=True, checkpoint_dir={run_dir!r} + '/ck')\n"
+        f"assert sim.run(checkpoint_dir={run_dir!r} + '/ck', resume=True,\n"
+        "               resume_year=2014).years == [2016]\n"
+        f"print(len(export.load_surface({run_dir!r}, 'agent_outputs')['npv']),\n"
+        f"      checkpoint.valid_years({run_dir!r} + '/ck'))\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+        "try:\n"
+        f"    export.to_parquet({run_dir!r}, {run_dir!r} + '-pq')\n"
+        "except ImportError:\n"
+        "    print('to_parquet needs pandas')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == ["64 [2014, 2016]", "to_parquet needs pandas"]
+
+
+def test_pandas_is_imported_only_inside_to_parquet():
+    """In the run-output modules, pandas (or pyarrow, or orbax) is
+    imported nowhere but inside ``io.export.to_parquet``."""
+    for mod in RUN_OUTPUT_MODULES:
+        path = os.path.join(ROOT, *mod.split(".")) + ".py"
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        owners = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    owners.setdefault(id(node), fn.name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            heavy = [m for m in mods if m.split(".")[0] in BLOCKED]
+            if heavy:
+                assert (mod, owners.get(id(node))) == ("dgen_tpu_torch.io.export",
+                                                       "to_parquet"), (mod, heavy)
 
 
 def test_chip_smoke_imports_no_pandas_side_of_the_port():

@@ -1,11 +1,17 @@
 """The preset runner of the PyTorch port: ``run_preset`` gives the JAX
-package's record keys plus ``device`` and ``year_s``; ``python -m
-dgen_tpu_torch.presets`` prints that record as its last line; without
-``--no-export`` (exports are not ported) it exits 2 and runs nothing."""
+package's record keys plus ``device``, ``year_s`` and the host-I/O
+pipeline's ``host_io_s``, ``host_blocked_s`` and ``overlap_efficiency``;
+with ``export`` and ``checkpoint`` it writes the three result surfaces
+and the per-year checkpoints into the run directory its record names;
+``python -m dgen_tpu_torch.presets`` exports by default, honours
+``--run-dir`` and prints the record as its last line."""
 
 import json
+import os
 import subprocess
 import sys
+
+import numpy as np
 
 import pytest
 
@@ -15,6 +21,8 @@ from dgen_tpu_torch import presets
 JAX_KEYS = {"preset", "agents", "years", "agent_chunk", "with_hourly", "storage",
             "total_s", "build_s", "run_s", "compile_s", "steady_year_s",
             "export_overlapped_s", "agent_years_per_sec", "run_dir", "data_sources"}
+#: the port's keys beside them
+PORT_KEYS = {"device", "year_s", "host_io_s", "host_blocked_s", "overlap_efficiency"}
 
 
 def test_record_keys_are_the_jax_package_runners():
@@ -37,7 +45,7 @@ def record():
 
 
 def test_run_preset_record(record):
-    assert set(record) == JAX_KEYS | {"device", "year_s"}
+    assert set(record) == JAX_KEYS | PORT_KEYS
     p = presets.PRESETS["delaware-res"]
     n_years = len(range(p.start_year, p.end_year + 1, 2))
     assert record["preset"] == "delaware-res" and record["agents"] == 64
@@ -45,16 +53,38 @@ def test_run_preset_record(record):
     assert record["device"] == "cpu" and record["agent_chunk"] == 0
     assert record["with_hourly"] is True and record["storage"] is False
     assert record["run_dir"] is None and record["export_overlapped_s"] == 0.0
+    assert record["host_io_s"] is None and record["overlap_efficiency"] is None
     assert 0 < record["build_s"] < record["total_s"]
     assert record["run_s"] >= sum(record["year_s"]) * 0.999
     assert record["agent_years_per_sec"] == pytest.approx(
         64 * n_years / record["total_s"], rel=1e-2)
 
 
-def test_export_and_checkpoint_are_refused():
-    for kw in (dict(export=True), dict(export=False, checkpoint=True)):
-        with pytest.raises(NotImplementedError, match="Run outputs"):
-            presets.run_preset("delaware-res", n_agents=64, device="cpu", **kw)
+def test_export_and_checkpoint_are_refused(tmp_path):
+    """Exports and checkpoints are ported: ``run_preset(export=True,
+    checkpoint=True)`` writes the three surfaces of every year and a
+    checkpoint a year into the run directory the record names (the
+    name of this test predates the port of the run outputs)."""
+    from dgen_tpu_torch.io import checkpoint, export
+
+    run_dir = str(tmp_path / "run")
+    rec = presets.run_preset("delaware-res", n_agents=64, device="cpu", run_dir=run_dir,
+                             export=True, checkpoint=True)
+    p = presets.PRESETS["delaware-res"]
+    years = list(range(p.start_year, p.end_year + 1, 2))
+    assert rec["run_dir"] == run_dir and set(rec) == JAX_KEYS | PORT_KEYS
+    for name in export.SURFACES:
+        assert sorted(os.listdir(os.path.join(run_dir, name))) == \
+            [f"year={y}.npz" for y in years], name
+    ao = export.load_surface(run_dir, "agent_outputs")
+    assert len(ao["agent_id"]) == 64 * len(years)
+    with np.load(os.path.join(run_dir, "agents.npz")) as z:
+        assert z["state_abbr"].tolist() == ["DE"] * 64
+    meta = json.load(open(os.path.join(run_dir, "meta.json")))
+    assert meta["preset"] == "delaware-res" and meta["async_io"] is True
+    assert checkpoint.valid_years(os.path.join(run_dir, "ckpt")) == years
+    assert rec["export_overlapped_s"] > 0 and rec["host_io_s"] > 0
+    assert 0.0 <= rec["overlap_efficiency"] <= 1.0
 
 
 def test_cli_prints_the_record_last(capsys):
@@ -62,16 +92,23 @@ def test_cli_prints_the_record_last(capsys):
                          "--no-export"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     rec = json.loads(lines[-1])
-    assert set(rec) == JAX_KEYS | {"device", "year_s"}
+    assert set(rec) == JAX_KEYS | PORT_KEYS
     assert rec["preset"] == "delaware-res" and rec["agents"] == 64
     assert lines[0].startswith("preset delaware-res:")
 
 
-def test_cli_without_no_export_exits_2():
-    for extra in ([], ["--no-export", "--checkpoint"]):
-        proc = subprocess.run(
-            [sys.executable, "-m", "dgen_tpu_torch.presets", "delaware-res",
-             "--agents", "64", "--device", "cpu", *extra],
-            capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 2, (proc.stdout, proc.stderr)
-        assert "not ported" in proc.stderr and proc.stdout == ""
+def test_cli_without_no_export_exits_2(tmp_path):
+    """Without ``--no-export`` the CLI exports (the name of this test
+    predates the port of the run outputs): it exits 0, writes the
+    surfaces into ``--run-dir`` and names it in its record;
+    ``--checkpoint`` adds the checkpoints."""
+    run_dir = str(tmp_path / "cli-run")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dgen_tpu_torch.presets", "delaware-res",
+         "--agents", "64", "--device", "cpu", "--run-dir", run_dir, "--checkpoint"],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["run_dir"] == run_dir and rec["host_io_s"] is not None
+    assert sorted(os.listdir(run_dir)) == ["agent_outputs", "agents.npz", "ckpt",
+                                           "finance_series", "meta.json", "state_hourly"]
