@@ -70,6 +70,25 @@ its first launch in the path):
      host time goes); and, below national scale, sim.run() on the
      pipeline against the serialized path (96 and 8,192 agents, collect on,
      4 alternated pairs);
+  3g. resilience on the card, in a temporary directory the phase
+     removes: (a) load-time containment at national-all-sector's full
+     width for 1 model year: the clean population validates clean (the
+     same objects back, the validation's seconds logged), the population
+     built with ingest_corrupt_row injected quarantines exactly rows 3
+     and 17 with the JAX package's reasons and its files equal a
+     clean-population run under the same report, and bank_corrupt_row@1
+     is refused (row 3 is referenced by more agents than MAX_QUARANTINE);
+     (b) the fault drill and the quarantine drill on [3c]'s world and
+     chunk for 3 model years: every fault site recovered, its files
+     equal the clean run's (the chunk-halved OOM re-entry within the OOM
+     tolerance), the manifest verifying, and the ingest, bank and
+     sentinel rounds; (c) run_supervised at national width with an
+     explicit agent_chunk of 262,144 rows: real torch.OutOfMemoryErrors
+     recovered by halving the chunk, the allocated bytes back at their
+     level after each failed attempt, the outputs within the OOM
+     tolerance of the automatic chunk's; (d), in [9], NaN and +Inf loads
+     through the month, stream and pair kernels, their non-finite
+     positions equal to the plain versions';
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -2264,6 +2283,385 @@ def run_outputs(presets, RunConfig, whole_per_year, *, name=NATIONAL, n_agents=N
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# [3g]: resilience on the card
+# ---------------------------------------------------------------------------
+
+#: [3g] (a) and (c): one model year of national-all-sector; (b): three
+#: model years of [3c]'s world in [3c]'s chunk
+RESIL_END_YEAR = 2014
+DRILL_WORLD = "ercot-all-sector"
+DRILL_END_YEAR = 2018
+#: (c): an explicit chunk past the card's memory (~475 KB a chunk row
+#: measured at national width, PERF.md section 7: ~124 GB)
+OOM_CHUNK = 262144
+#: (c): the OOM halving's floor (the supervisor's default)
+OOM_MIN_CHUNK = 128
+#: on a card the state-hourly aggregate sums with atomics (index_add_),
+#: so two runs of a year match there at [3c]'s tolerance (the drills'
+#: APPROX_RTOL / APPROX_ATOL), and byte for byte in every other surface
+DRILL_APPROX = ("state_hourly",)
+#: (d): the captured operands' first agent rows each kernel runs on, the
+#: row whose load turns NaN on NAN_HOURS of its lanes and the row whose
+#: load turns +Inf on one
+NAN_AGENTS = 64
+NAN_ROW, NAN_HOURS, INF_ROW = 1, 3, 4
+#: (d): the first launches held, (label, capture path, capture key, kind)
+NAN_KERNELS = (("month imports", "main", "month", "month"),
+               ("month signed", "main", "month_signed", "month"),
+               ("stream imports", "gated", "stream", "stream"),
+               ("pair", "switch", "month_pair", "pair"))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _column_gaps(dir_a: str, dir_b: str, rels) -> dict:
+    """Per partition in ``rels``, the columns of two run directories that
+    differ: {column: (elements that differ, max |a - b|)}."""
+    import os
+
+    import numpy as np
+
+    out = {}
+    for rel in rels:
+        with np.load(os.path.join(dir_a, rel)) as za, np.load(os.path.join(dir_b, rel)) as zb:
+            gaps = {}
+            for k in za.files:
+                a, b = za[k], zb[k]
+                if a.dtype.kind in "fc":
+                    diff = a != b
+                    if diff.any():
+                        gaps[k] = (int(diff.sum()), float(np.max(np.abs(a - b))))
+                elif not np.array_equal(a, b):
+                    gaps[k] = (int((a != b).sum()), None)
+        out[rel] = gaps
+    return out
+
+
+def _world(world, econ_years=None):
+    """A drill world, with its cash-flow horizon cut to ``econ_years``
+    where given."""
+    import dataclasses
+
+    return world if econ_years is None else dataclasses.replace(world,
+                                                               econ_years=econ_years)
+
+
+def _exported_run(world, pop, cfg, rc, run_dir: str, report=None):
+    """One model run of ``pop`` under ``rc`` with the exporter writing
+    ``run_dir``; the Simulation (built under ``report`` when given) and its
+    build seconds."""
+    from dgen_tpu_torch.io import export
+
+    t0 = time.perf_counter()
+    sim = world.runner(pop, cfg, prequarantine=report)(rc)
+    _sync(world.device)
+    build_s = time.perf_counter() - t0
+    ex = export.RunExporter(run_dir, sim.host_agent_id, sim.host_mask, device=sim.device)
+    sim.run(callback=ex, collect=False)
+    return sim, build_s
+
+
+def containment(presets, RunConfig, *, name=NATIONAL, n_agents=None, device="cuda",
+                workdir: str, knobs=None, econ_years=None) -> dict:
+    """[3g] (a): load-time containment at ``name``'s full width for
+    RESIL_END_YEAR's model year. The clean population validates clean and
+    comes back as the same objects; the population built with
+    ``ingest_corrupt_row`` injected quarantines exactly the corrupt rows
+    with the JAX package's reasons, and its exported files equal, byte for
+    byte (the state-hourly aggregate at [3c]'s tolerance), a
+    clean-population run under the same report (the JAX drill's ingest
+    contract); with ``bank_corrupt_row@1`` injected the inputs are refused
+    with the JAX package's error, more agents referencing the row than
+    ``MAX_QUARANTINE``. ``knobs``: RunConfig fields of every run;
+    ``econ_years`` cuts the cash-flow horizon (the CPU tests'). Raises on
+    any miss; returns the figures."""
+    import os
+
+    import torch
+
+    from dgen_tpu_torch.resilience import faults, quarantine
+    from dgen_tpu_torch.resilience.drill import compare_run_dirs, preset_world
+
+    rc = RunConfig(**(knobs or {}))
+    world = _world(preset_world(name, device=device), econ_years)
+    cfg = world.scenario(RESIL_END_YEAR, name=name)
+    n = int(n_agents or presets.PRESETS[name].default_agents)
+    pop = world.make_population(n)
+    n_real = int((pop.table.mask > 0).sum())
+    _sync(device)
+    t0 = time.perf_counter()
+    rep = quarantine.validate_population(pop.table, pop.profiles, pop.tariffs)
+    validate_s = time.perf_counter() - t0
+    back = quarantine.apply_quarantine(pop.table, pop.profiles, rep)
+    if not rep.is_clean or back[0] is not pop.table or back[1] is not pop.profiles:
+        raise AssertionError(f"[3g] (a) the clean population did not validate clean "
+                             f"or came back as other objects: {rep.summary()}")
+    with faults.injected("ingest_corrupt_row@1:corrupt") as reg:
+        pop_c = world.make_population(n)
+    rows = [int(r) % n_real for r in faults.corrupt_rows()]
+    want = {rows[0]: ["nonfinite:customers_in_bin"], rows[1]: ["index:tariff_idx"]}
+    d_c, d_b = os.path.join(workdir, "ingest"), os.path.join(workdir, "ingest_baseline")
+    sim_c, build_c = _exported_run(world, pop_c, cfg, rc, d_c)
+    q = sim_c.quarantine_report
+    got = {a: q.reasons_for(a) for a in q.ids}
+    validation_c = sim_c.validation_s
+    del sim_c, pop_c
+    if reg.fired("ingest_corrupt_row") != 1 or got != want:
+        raise AssertionError(f"[3g] (a) the corrupt build quarantined {got}, {want} "
+                             "expected")
+    sim_b, build_b = _exported_run(world, pop, cfg, rc, d_b, report=q)
+    validation_b = sim_b.validation_s
+    del sim_b
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    cmp = compare_run_dirs(d_b, d_c, approx=DRILL_APPROX)
+    if not cmp["ok"]:
+        raise AssertionError(f"[3g] (a) the contained run's files differ from the "
+                             f"clean run's under the same report: {cmp}")
+    # a bank row that more agents reference than the cap: refused
+    row = int(faults.corrupt_rows()[0]) % int(pop.profiles.load.shape[0])
+    refs = int(((pop.table.load_idx == row) & (pop.table.mask > 0)).sum())
+    cap = quarantine.MAX_QUARANTINE
+    with faults.injected("bank_corrupt_row@1:corrupt"):
+        try:
+            world.runner(pop, cfg)(rc)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+    if refusal is None or refs <= cap or "refusing" not in refusal or \
+            f"more than {cap} of {n_real} agents (first overflow at " \
+            f"'bank:load[{row}]')" not in refusal:
+        raise AssertionError(f"[3g] (a) bank row {row} ({refs} referencing agents, "
+                             f"cap {cap}) was not refused with the JAX package's error: "
+                             f"{refusal}")
+    log(f"[3g] (a) {name} at {n_real} agents, {RESIL_END_YEAR}: validation of the clean "
+        f"population {validate_s:.4f} s alone (the same objects back); in the builds "
+        f"{validation_c:.4f} s (ingest-corrupt, build {build_c:.3f} s) and "
+        f"{validation_b:.4f} s (clean under the report, build {build_b:.3f} s); "
+        f"quarantined {got}; {cmp['compared']} files equal the clean run's under the "
+        f"same report ({len(cmp['approx_equal'])} state-hourly at [3c]'s tolerance, "
+        f"the rest byte for byte); bank row {row} ({refs} agents, cap {cap}) refused: "
+        f"{refusal[:96]}...")
+    return dict(validate_s=validate_s, validation_s=[validation_c, validation_b],
+                build_s=[build_c, build_b], quarantined=got, compare=cmp,
+                bank_refs=refs)
+
+
+def drills(RunConfig, *, name=DRILL_WORLD, n_agents=CHUNK_AGENTS, chunk=CHUNK_ROWS,
+           end_year=DRILL_END_YEAR, device="cuda", workdir: str, sites=None,
+           fast=False, knobs=None, econ_years=None) -> dict:
+    """[3g] (b): the fault drill and the quarantine drill on ``name``'s
+    world, ``n_agents`` in chunks of ``chunk``, to ``end_year``. Every
+    fault site fires, the supervisor recovers it and the files equal the
+    clean run's (byte for byte; state-hourly at [3c]'s tolerance; within
+    the OOM tolerance under ``year_step_oom``, whose chunk halves) with
+    the manifest verifying; the quarantine drill's rounds hold (ingest,
+    bank, and unless ``fast`` the sentinel's). ``sites`` limits the fault
+    sites; ``knobs``: further RunConfig fields; ``econ_years`` cuts the
+    cash-flow horizon (the CPU tests'). Raises on any miss; returns both
+    records."""
+    import os
+
+    from dgen_tpu_torch.resilience import quarantine
+    from dgen_tpu_torch.resilience.drill import DRILL_SPECS, preset_world, run_drill
+    from dgen_tpu_torch.resilience.quarantinedrill import run_quarantine_drill
+
+    world = _world(preset_world(name, device=device), econ_years)
+    rc = RunConfig(agent_chunk=chunk, **(knobs or {}))
+    specs = tuple(s for s in DRILL_SPECS if sites is None or s[0] in sites)
+    t0 = time.perf_counter()
+    rec = run_drill(os.path.join(workdir, "faults"), n_agents=n_agents,
+                    end_year=end_year, specs=specs, world=world, run_config=rc,
+                    approx=DRILL_APPROX)
+    fault_wall = time.perf_counter() - t0
+    log(f"[3g] (b) fault drill, {name} at {n_agents} agents in chunks of {chunk}, "
+        f"{len(world.scenario(end_year).model_years)} model years: clean run "
+        f"{rec['clean_wall_s']} s; {fault_wall:.3f} s in all")
+    for site, r in rec["sites"].items():
+        log(f"    {site} ({r['spec']}): fired {r['fired']}, retries {r['retries']}, "
+            f"recovery {r['recovery_wall_s']} s, site wall {r['drill_wall_s']} s, "
+            f"degradations {r['degradations']}, {r['npz']['compared']} files "
+            f"compared ({len(r['npz']['approx_equal'])} at [3c]'s tolerance), "
+            f"verify {r['verify_ok']}: {'ok' if r['ok'] else 'FAILED'}")
+    oom = rec["sites"].get("year_step_oom")
+    if not rec["ok"] or (oom is not None and oom["final_agent_chunk"] != chunk // 2):
+        raise AssertionError(f"[3g] (b) the fault drill failed: {json.dumps(rec)}")
+    t0 = time.perf_counter()
+    qrec = run_quarantine_drill(os.path.join(workdir, "quarantine"), n_agents=n_agents,
+                                end_year=end_year, fast=fast, world=world,
+                                run_config=rc, approx=DRILL_APPROX)
+    for rnd, r in qrec["rounds"].items():
+        log(f"    quarantine drill {rnd}: {json.dumps(r)}")
+    bank = qrec["rounds"].get("bank", {})
+    if not qrec["ok"] or not 0 < bank.get("n_quarantined", 0) <= quarantine.MAX_QUARANTINE:
+        raise AssertionError(f"[3g] (b) the quarantine drill failed: {json.dumps(qrec)}")
+    log(f"    quarantine drill: {time.perf_counter() - t0:.3f} s, rounds "
+        f"{sorted(qrec['rounds'])} ok")
+    return dict(faults=rec, quarantine=qrec, fault_wall_s=fault_wall)
+
+
+def real_oom(presets, RunConfig, *, name=NATIONAL, n_agents=None, chunk=OOM_CHUNK,
+             min_chunk=OOM_MIN_CHUNK, device="cuda", workdir: str, inject=None,
+             knobs=None, econ_years=None) -> dict:
+    """[3g] (c): ``run_supervised`` on ``name``'s full width for
+    RESIL_END_YEAR's model year with an explicit ``agent_chunk=chunk``
+    the card cannot hold. The run must succeed after one or more ``oom``
+    degradations (on the card real ``torch.OutOfMemoryError``s; ``inject``
+    names a fault spec where there is none to be had, as on the CPU),
+    with the card's allocated bytes after each failed attempt back at
+    their level before it, and its per-agent outputs within the OOM
+    tolerance of a run at the automatic chunk (whether they are bit for
+    bit is logged). ``knobs``: further RunConfig fields; ``econ_years``
+    cuts the cash-flow horizon (the CPU tests'). Raises on any miss;
+    returns the figures."""
+    import contextlib
+    import os
+
+    import torch
+
+    from dgen_tpu_torch.resilience import faults
+    from dgen_tpu_torch.resilience.drill import compare_run_dirs, preset_world
+    from dgen_tpu_torch.resilience.supervisor import OOM, RetryPolicy, run_supervised
+
+    world = _world(preset_world(name, device=device), econ_years)
+    cfg = world.scenario(RESIL_END_YEAR, name=name)
+    pop = world.make_population(int(n_agents or presets.PRESETS[name].default_agents))
+    make_sim = world.runner(pop, cfg)
+    policy = RetryPolicy(max_retries=4, backoff_base_s=0.01, min_agent_chunk=min_chunk)
+    d_oom, d_auto = os.path.join(workdir, "oom"), os.path.join(workdir, "auto")
+    ctx = faults.injected(inject) if inject else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with ctx:
+        _, rep = run_supervised(make_sim, RunConfig(agent_chunk=chunk, **(knobs or {})),
+                                run_dir=d_oom, collect=False, policy=policy)
+    oom_wall = time.perf_counter() - t0
+    chunks = [chunk] + [int(d.rsplit(" ", 1)[1]) for d in rep.degradations]
+    fails = rep.attempts
+    real = device != "cpu" and inject is None
+    if not rep.succeeded or not fails or any(a.error_class != OOM for a in fails):
+        raise AssertionError(f"[3g] (c) no recovery by chunk halving: {rep.to_json()}")
+    if real and not all(a.error.startswith("OutOfMemoryError") for a in fails):
+        raise AssertionError(f"[3g] (c) an attempt failed on something other than a "
+                             f"torch.OutOfMemoryError: {[a.error for a in fails]}")
+    leaked = [(a.device_bytes_before, a.device_bytes_after) for a in fails
+              if a.device_bytes_after != a.device_bytes_before]
+    if leaked:
+        raise AssertionError(f"[3g] (c) allocated bytes after a failed attempt differ "
+                             f"from before it (before, after): {leaked}")
+    t0 = time.perf_counter()
+    _, rep_auto = run_supervised(make_sim, RunConfig(**(knobs or {})), run_dir=d_auto,
+                                 collect=False, policy=policy)
+    auto_wall = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    close = compare_run_dirs(d_auto, d_oom, numeric=True, approx=DRILL_APPROX)
+    bits = compare_run_dirs(d_auto, d_oom)
+    if rep_auto.retries or not close["ok"]:
+        raise AssertionError(f"[3g] (c) the recovered outputs are not within the OOM "
+                             f"tolerance of the automatic chunk's: {close}")
+    log(f"[3g] (c) {name}, {RESIL_END_YEAR}, agent_chunk {chunk}: chunks tried {chunks}; "
+        f"failed attempts' walls s {[round(a.wall_s, 4) for a in fails]} "
+        f"({[a.error[:60] for a in fails]}); allocated bytes before / after each "
+        f"failed attempt {[(a.device_bytes_before, a.device_bytes_after) for a in fails]}; "
+        f"supervised run {oom_wall:.3f} s (recovery {rep.recovery_wall_s:.3f} s); the "
+        f"automatic chunk's run {auto_wall:.3f} s; per-agent outputs within the OOM "
+        f"tolerance ({close['compared']} files); bit for bit: "
+        f"{'all' if bits['ok'] else 'all but ' + str(bits['mismatched'])}")
+    gaps = _column_gaps(d_auto, d_oom, bits["mismatched"])
+    if gaps:
+        log(f"    [3g] (c) columns that differ (elements, max |difference|): {gaps}")
+    return dict(chunks=chunks, fail_walls=[a.wall_s for a in fails],
+                bytes=[(a.device_bytes_before, a.device_bytes_after) for a in fails],
+                oom_wall_s=oom_wall, auto_wall_s=auto_wall, bit_for_bit=bits["ok"],
+                mismatched=bits["mismatched"], gaps=gaps)
+
+
+def resilience(presets, RunConfig, *, device="cuda", containment_kw=None,
+               drills_kw=None, oom_kw=None, workdir=None) -> dict:
+    """[3g]: (a) :func:`containment`, (b) :func:`drills` and (c)
+    :func:`real_oom`, in a temporary directory the phase removes; (d)
+    runs in [9] on the paths' captured operands
+    (:func:`nan_through_kernels`). Logs the phase's wall."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dgen-3g-", dir=workdir)
+    try:
+        out = {
+            "a": containment(presets, RunConfig, device=device, workdir=work,
+                             **(containment_kw or {})),
+            "b": drills(RunConfig, device=device, workdir=work, **(drills_kw or {})),
+            "c": real_oom(presets, RunConfig, device=device, workdir=work,
+                          **(oom_kw or {})),
+        }
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[3g] resilience phase (a)-(c): {out['wall_s']:.3f} s")
+    return out
+
+
+def nan_through_kernels(captures: dict, bk, n_agents: int = NAN_AGENTS) -> dict:
+    """[3g] (d): the month imports, month signed, stream and pair kernels
+    on copies of their first launches' operands (the first ``n_agents``
+    rows), agent NAN_ROW's load NaN on NAN_HOURS of its real lanes and
+    agent INF_ROW's +Inf on one, against the plain versions on the same
+    operands: the NaN, +Inf and -Inf positions of every output must be
+    equal, exactly, the kernel's import sums non-finite at all, and the
+    finite values within [9]'s tolerance. Raises on any miss."""
+    import torch
+
+    fns = {"month": (bk.month_sums, bk.month_sums_plain),
+           "stream": (bk.stream_sums, bk.month_sums_plain),
+           "pair": (bk.month_pair_sums, bk.month_pair_sums_plain)}
+    out = {}
+    for label, path, key, kind in NAN_KERNELS:
+        full = captures[path][key]
+        rows = full[0].shape[0]
+        n = min(n_agents, rows)
+        args = [a[:n].contiguous() if isinstance(a, torch.Tensor) and a.ndim
+                and a.shape[0] == rows else a for a in full]
+        load = args[0].clone()
+        real = torch.nonzero(load[NAN_ROW] != 0).flatten()
+        load[NAN_ROW, real[torch.linspace(0, real.numel() - 1, NAN_HOURS).long()]] = \
+            float("nan")
+        load[INF_ROW, torch.nonzero(load[INF_ROW] != 0).flatten()[0]] = float("inf")
+        args[0] = load
+        kernel, plain = fns[kind]
+        got, ref = kernel(*args), plain(*args)
+        worst, n_bad = 0.0, 0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            for what in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(what(g), what(r)):
+                    raise AssertionError(
+                        f"[3g] (d) {label}: output {i}'s {what.__name__} positions "
+                        f"differ from the plain version's ({int(what(g).sum())} vs "
+                        f"{int(what(r).sum())})")
+            fin = torch.isfinite(r)
+            n_bad += int((~fin).sum())
+            scale = torch.where(fin, r.abs(), torch.zeros_like(r)).reshape(n, -1).amax(1)
+            tol = RTOL * r.abs() + ATOL_FRAC * scale.reshape((n,) + (1,) * (r.ndim - 1))
+            diff = torch.where(fin, (g - r).abs() - tol, torch.zeros_like(r))
+            worst = max(worst, float(diff.max()))
+        if torch.isfinite(got[0]).all() or worst > 0:
+            raise AssertionError(f"[3g] (d) {label}: the NaN did not reach the import "
+                                 f"sums, or finite sums differ beyond the tolerance "
+                                 f"(worst excess {worst})")
+        out[label] = n_bad
+        log(f"    [3g] (d) {label}: {n_bad} non-finite sums over {n} agents, every NaN, "
+            f"+Inf and -Inf at the plain version's positions; finite sums within rtol "
+            f"{RTOL} and {ATOL_FRAC} x the agent's max|plain|")
+    return out
+
+
 def golden_curves(res, mask, ids) -> dict:
     """A run's metrics of the golden contract (tests/test_golden_e2e.py):
     national curves, cash-flow totals, the id-weighted adoption checksum,
@@ -2573,6 +2971,7 @@ def main(argv=None) -> int:
         help="another checkout whose sums_variant and sums_monthdot kernels "
              "[9] times against this one's (skipped where absent)")
     parent_root = ap.parse_args(argv).parent
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2666,6 +3065,10 @@ def main(argv=None) -> int:
     # --- 3f: the run outputs at national-all-sector's full width ---
     run_outputs(presets, RunConfig, whole_per_year)
     pipeline_ab(presets, RunConfig)
+    torch.cuda.empty_cache()
+
+    # --- 3g: resilience on the card ((d) runs in [9]) ---
+    resilience(presets, RunConfig)
     torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---
@@ -2808,6 +3211,9 @@ def main(argv=None) -> int:
     month_kernel_ab(captures["main"]["month"], captures["main"]["month_signed"])
     log("  settings of sums_variant beside its base row, not in the kernels line:")
     check_variant_forms(captures["micro"]["variant"], mk, tool)
+    log("  [3g] (d) NaN and +Inf loads through the staged kernels on copies of "
+        "their first launches' operands, against the plain versions:")
+    nan_through_kernels(captures, bk)
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -2855,6 +3261,7 @@ def main(argv=None) -> int:
     kernels.append(drow)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of its path never launched: {kernels}")
+    log(f"[10] script wall {time.perf_counter() - t_script:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

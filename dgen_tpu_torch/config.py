@@ -7,14 +7,17 @@ its modules imports jax). ``ScenarioConfig`` is mirrored whole;
 search's candidate count, the gated kernel paths (daylight compaction,
 pack-once, the stream engine), the narrow profile banks (bf16, int8),
 the streaming agent chunk with its padding, the invariant harness, the
-health sentinel and the host-I/O pipeline. Other knobs arrive with the slices that port them;
+health sentinel, the host-I/O pipeline, load-time validation and
+quarantine, and the fault spec of the run supervisor. Other knobs
+arrive with the slices that port them;
 the JAX package's checks that tie the bank knobs to its differentiable
 twin do not apply here (the twin is not ported).
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
 of the ported fields, and refuses a switch that asks for a feature the
-port does not have; ``DGEN_TPU_SENTINEL`` and ``DGEN_TPU_ASYNC_IO`` are
-read at run time (``RunConfig.sentinel_enabled``,
+port does not have; ``DGEN_TPU_VALIDATE`` is read when a Simulation is
+built (``RunConfig.validate_enabled``), ``DGEN_TPU_SENTINEL`` and
+``DGEN_TPU_ASYNC_IO`` at run time (``RunConfig.sentinel_enabled``,
 ``RunConfig.async_io_enabled``).
 """
 
@@ -135,8 +138,11 @@ class RunConfig:
     #: 0/false/off (``sentinel_enabled``); True/False set it outright.
     #: Breaches warn; see ``sentinel_escalate``.
     health_sentinel: Optional[bool] = None
-    #: raise a sentinel breach as HealthBreachError instead of warning
-    sentinel_escalate: bool = False
+    #: raise a sentinel breach as HealthBreachError instead of warning:
+    #: the run supervisor's detect -> attribute -> quarantine -> resume
+    #: loop rides this (``run_supervised`` turns None on, unless it is
+    #: set False). None/False = warn only.
+    sentinel_escalate: Optional[bool] = None
     #: the background host-I/O pipeline (io.hostio): result collection,
     #: RunExporter writes and checkpoint saves run on worker threads, the
     #: year's outputs copied to pinned host memory on a side CUDA stream,
@@ -146,12 +152,44 @@ class RunConfig:
     #: path (the bit-exact parity oracle); True forces it on.
     #: debug_invariants always serializes.
     async_host_io: Optional[bool] = None
+    #: load-time bad-data validation (resilience.quarantine): finiteness,
+    #: range and reference checks over the agent table, the profile banks
+    #: (int8 scale sidecars included) and the tariff bank at Simulation
+    #: construction, on the tensors' device; malformed rows are
+    #: quarantined (rewritten to inert padding, mask 0) with a reasoned
+    #: report instead of poisoning their state. None (default) = on
+    #: unless the DGEN_TPU_VALIDATE kill switch says 0/false/off
+    #: (``validate_enabled``, read when a Simulation is built); clean
+    #: inputs come back as the same objects, so a clean run launches what
+    #: it launched before.
+    validate_inputs: Optional[bool] = None
+    #: stable agent ids quarantined by fiat at Simulation construction,
+    #: on top of the validation's findings: the supervisor's sentinel
+    #: escalation brings the attributed ids back through here
+    quarantine_ids: Optional[Tuple[int, ...]] = None
+    #: deterministic fault-injection spec (resilience.faults grammar,
+    #: e.g. ``"ckpt_save@2;year_step@3:oom"``), installed by the run
+    #: supervisor before its first attempt. None injects nothing; a plain
+    #: Simulation.run ignores the field.
+    faults: Optional[str] = None
 
     def __post_init__(self) -> None:
         _check(self.agent_pad_multiple >= 1, "bad pad multiple")
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")
         _check(self.agent_chunk is None or self.agent_chunk >= 0,
                "agent_chunk must be None (auto) or >= 0")
+        if self.quarantine_ids is not None:
+            _check(all(int(a) == a for a in self.quarantine_ids),
+                   "quarantine_ids must be integer agent ids")
+
+    @property
+    def validate_enabled(self) -> bool:
+        """The resolved load-time validation decision: the explicit field
+        when set, else on unless the ``DGEN_TPU_VALIDATE`` kill switch
+        says 0/false/off (read when a Simulation is constructed)."""
+        if self.validate_inputs is not None:
+            return self.validate_inputs
+        return os.environ.get("DGEN_TPU_VALIDATE", "") not in ("0", "false", "off")
 
     @property
     def sentinel_enabled(self) -> bool:
@@ -184,10 +222,12 @@ class RunConfig:
 
         A switch that asks for a feature the port lacks raises
         ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
-        ``DGEN_TPU_SOFT``, ``DGEN_TPU_CLUSTER``, ``DGEN_TPU_GUARD`` or
-        ``DGEN_TPU_FAULTS`` on. ``DGEN_TPU_VALIDATE`` only switches off
-        what the port does not do, and ``DGEN_TPU_SOFT_TAU`` tunes a path it
-        does not have: both are ignored. ``DGEN_TPU_SENTINEL`` and
+        ``DGEN_TPU_SOFT``, ``DGEN_TPU_CLUSTER`` or ``DGEN_TPU_GUARD`` on.
+        ``DGEN_TPU_SOFT_TAU`` tunes a path the port does not have and is
+        ignored. ``DGEN_TPU_VALIDATE`` is read when a Simulation is built
+        (``validate_enabled``); ``DGEN_TPU_FAULTS`` is not a field here:
+        the run supervisor or ``resilience.faults.install_from_env``
+        installs it, as in the JAX package. ``DGEN_TPU_SENTINEL`` and
         ``DGEN_TPU_ASYNC_IO`` are not baked in: their fields stay None, so
         the switches are read at run time."""
         env = os.environ
@@ -205,9 +245,6 @@ class RunConfig:
             if flag(name):
                 raise NotImplementedError(
                     f"{name}={env[name]}: {feature} is not ported")
-        if env.get("DGEN_TPU_FAULTS", "").strip():
-            raise NotImplementedError(
-                "DGEN_TPU_FAULTS is set: fault injection is not ported")
         if "agent_chunk" not in overrides and env.get("DGEN_TPU_AGENT_CHUNK"):
             overrides["agent_chunk"] = int(env["DGEN_TPU_AGENT_CHUNK"])
         for field, name in (("debug_invariants", "DGEN_TPU_DEBUG"),

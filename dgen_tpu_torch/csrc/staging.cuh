@@ -9,6 +9,8 @@
 // period instead turns the sums into one walk over P + 1 runs: per
 // staged hour one broadcast 16-byte shared-memory load feeds a fused
 // multiply-add, a max, an add and a multiply-add per scale, whatever P.
+// The max carries NaN (relu_keep_nan), as the TPU kernels' jnp.maximum
+// does, so a non-finite hour reaches its sums.
 //
 // The sort is a stable counting sort over the lanes' classes (periods
 // 0 .. P - 1, then the out-of-range periods, counted in the sell sums
@@ -32,6 +34,16 @@
 namespace staging {
 
 using lanes::kMaxPeriods;
+
+// relu that carries NaN, as jnp.maximum(x, 0) and torch.clamp_min(x, 0)
+// do: PTX max.NaN.f32 (sm_80 and later) gives NaN when either operand is
+// NaN, where fmaxf (IEEE maxNum) would give 0. One instruction, the same
+// as fmaxf's; on finite x the two agree bit for bit.
+__device__ __forceinline__ float relu_keep_nan(float x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(0.f));
+  return r;
+}
 
 // Most classes a sort takes: the periods, the out-of-range periods and
 // one class a caller drops.
@@ -176,7 +188,7 @@ __device__ __forceinline__ void sum_runs(
 #pragma unroll
       for (int j = 0; j < SPT; ++j) {
         const float net = fmaf(-s[j], v.y, v.x);
-        const float pos = fmaxf(net, 0.f);
+        const float pos = relu_keep_nan(net);
         ai[j] += pos;
         mi[j] = fmaf(pos, v.z, mi[j]);
         if (SIGNED) {

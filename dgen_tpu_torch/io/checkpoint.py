@@ -32,6 +32,7 @@ import torch
 
 from dgen_tpu_torch.config import resolve_device
 from dgen_tpu_torch.models.simulation import SimCarry
+from dgen_tpu_torch.resilience.faults import fault_point
 from dgen_tpu_torch.tree import leaf_paths
 from dgen_tpu_torch.utils.atomic import write_npz
 
@@ -65,6 +66,10 @@ class Writer:
     def save(self, year: int, carry) -> None:
         """Commit ``carry`` (tensors, or the numpy arrays of a fetched
         carry) as ``year``, replacing a year saved before."""
+        # fault site: a ``kill`` here models a process dying mid-save;
+        # the rename protocol leaves the committed years restorable and
+        # the torn one invisible
+        fault_point("ckpt_save")
         arrays = {k: _host(v) for k, v in _leaves(carry).items()}
         final = os.path.join(self.directory, str(int(year)))
         tmp = tempfile.mkdtemp(prefix=f".tmp-{int(year)}-", dir=self.directory)

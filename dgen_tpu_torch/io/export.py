@@ -24,9 +24,15 @@ Compact transfer (``DGEN_TPU_EXPORT_COMPACT``, on by default) quantizes
 the bulky float fields to int16 on the device before the host fetch
 (:func:`_quantize_i16`) and drops the ``energy_value`` detail column.
 
+With a run manifest (``manifest=``, a
+:class:`~dgen_tpu_torch.resilience.manifest.RunManifest`), every landed
+partition and ``agents.npz`` is content-hash recorded after its rename,
+and a year is marked complete once its surfaces are all on disk: the
+run supervisor's resume frontier. The atomic writes carry the
+``export_write`` and ``export_torn`` fault sites (``utils.atomic``).
+
 Not ported yet: the multi-process part files (``-p<proc>``) and the
-sharding realignment, the run manifest and fault points, and
-``stamp_quarantine``.
+sharding realignment (``ROADMAP.md`` item 7).
 """
 
 from __future__ import annotations
@@ -203,8 +209,13 @@ class RunExporter:
         compact: Optional[bool] = None,
         static_frame: Optional[Dict[str, np.ndarray]] = None,
         device=None,
+        manifest=None,
     ) -> None:
         self.run_dir = run_dir
+        # the crash-consistent artifact ledger (resilience.manifest): each
+        # landed partition is recorded, each year marked complete once its
+        # surfaces are all written
+        self._manifest = manifest
         self.keep = np.asarray(mask) > 0
         self.agent_id = np.asarray(agent_id)[self.keep]
         self.state_names = list(state_names) if state_names else None
@@ -236,6 +247,8 @@ class RunExporter:
         self._write_meta()
         if static_frame is not None:
             atomic_write_npz(os.path.join(run_dir, "agents.npz"), static_frame)
+            if self._manifest is not None:
+                self._manifest.record_run_artifact("agents.npz")
 
     @staticmethod
     def _quant_dispatch(arrs, quant):
@@ -324,6 +337,7 @@ class RunExporter:
         if outs.state_hourly_net_mw.numel():
             self.write_state_hourly(year, to_host(outs.state_hourly_net_mw))
         self._flush_meta()
+        self._mark_year_complete(year)
 
     # --- the host-I/O pipeline's split fetch/write protocol ------------
     # (io.hostio.ExportConsumer; __call__ above stays the serialized
@@ -359,6 +373,7 @@ class RunExporter:
         if host.get("hourly") is not None:
             self.write_state_hourly(year, host["hourly"])
         self._flush_meta()
+        self._mark_year_complete(year)
 
     def stamp_hostio(self, stats: Dict[str, object]) -> None:
         """Stamp the pipeline's provenance into meta.json: ``async_io``,
@@ -377,10 +392,30 @@ class RunExporter:
                           indent=2, default=str)
 
     def stamp_meta(self, **kv: object) -> None:
-        """Merge extra provenance into meta.json and publish it."""
+        """Merge extra provenance into meta.json and publish it (the
+        supervisor stamps its recovery report here)."""
         self.meta.update(kv)
         self._meta_dirty = True
         self._flush_meta()
+
+    def stamp_quarantine(self, summary: Dict[str, object]) -> None:
+        """Merge a quarantine report's summary (resilience.quarantine)
+        into the ``quarantine`` meta block: merged, not replaced, so the
+        exporter's own ``nonfinite_zeroed_by_field`` and the load-time
+        containment record stand side by side."""
+        block = dict(self.meta.get("quarantine") or {})
+        block.update(summary)
+        self.meta["quarantine"] = block
+        self._meta_dirty = True
+        self._flush_meta()
+
+    def _record(self, year: int, relpath: str) -> None:
+        if self._manifest is not None:
+            self._manifest.record_artifact(year, relpath)
+
+    def _mark_year_complete(self, year: int) -> None:
+        if self._manifest is not None:
+            self._manifest.mark_year_complete(year)
 
     def _flush_meta(self) -> None:
         """Re-stamp meta.json when the provenance counters changed."""
@@ -402,6 +437,7 @@ class RunExporter:
             os.path.join(_dir(self.run_dir, "agent_outputs"), _part_name(year)),
             {"agent_id": self.agent_id, "year": np.full(n, int(year), np.int64),
              **dict(zip(AGENT_OUTPUT_FIELDS, rows))})
+        self._record(year, os.path.join("agent_outputs", _part_name(year)))
 
     def write_agent_outputs(self, year: int, outs, prepared=None) -> None:
         self._write_ao_frame(year, self._local_fields(
@@ -417,6 +453,7 @@ class RunExporter:
             cols["energy_value"] = ev
         atomic_write_npz(
             os.path.join(_dir(self.run_dir, "finance_series"), _part_name(year)), cols)
+        self._record(year, os.path.join("finance_series", _part_name(year)))
 
     def write_finance_series(self, year: int, outs, prepared=None) -> None:
         # compact runs drop energy_value, the detail column and half the
@@ -436,6 +473,7 @@ class RunExporter:
             {"state": np.asarray(names, dtype=str),
              "year": np.full(n_states, int(year), np.int64),
              "net_load_mw": np.asarray(hourly, dtype=np.float32)})
+        self._record(year, os.path.join("state_hourly", _part_name(year)))
 
 
 def static_frame_from_table(table, states: Optional[Sequence[str]] = None

@@ -54,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from dgen_tpu_torch.resilience.faults import fault_point
 from dgen_tpu_torch.utils import timing
 
 logger = logging.getLogger(__name__)
@@ -477,6 +478,9 @@ class HostPipeline:
     def _fetch_job(self, item: _Item) -> None:
         host = None
         try:
+            # fault site: a fetch worker dying mid-year surfaces through
+            # _record_error at submit or drain, never hangs the run loop
+            fault_point("hostio_fetch")
             if item.payloads and self._should_run(item):
                 t0 = time.perf_counter()
                 with timing.timer("d2h_fetch", ctx=self.timing_ctx):
@@ -500,6 +504,8 @@ class HostPipeline:
     # -- consume stage (io thread) --------------------------------------
     def _io_job(self, item: _Item, host) -> None:
         try:
+            # fault site: the ordered consume worker dying mid-year
+            fault_point("hostio_io")
             if self._should_run(item):
                 t0 = time.perf_counter()
                 for c in self.consumers:

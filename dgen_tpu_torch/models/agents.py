@@ -17,6 +17,7 @@ import torch
 
 from dgen_tpu_torch.config import SECTORS, resolve_device
 from dgen_tpu_torch.ops.cashflow import IncentiveParams
+from dgen_tpu_torch.resilience.faults import corrupt_point, corrupt_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +172,19 @@ def build_agent_table(
     """
     dev = resolve_device(device)
     n = int(state_idx.shape[0])
+
+    # fault site (kind ``corrupt``): malformed rows entering the table, a
+    # NaN customer count and an out-of-range tariff reference on the
+    # deterministic DGEN_TPU_FAULT_CORRUPT_ROWS rows. Load-time validation
+    # (resilience.quarantine) must quarantine exactly these rows.
+    if corrupt_point("ingest_corrupt_row") and n:
+        rows = [int(r) % n for r in corrupt_rows()]
+        customers_in_bin = np.array(np.asarray(customers_in_bin), dtype=np.float64)
+        customers_in_bin[rows[0]] = np.nan
+        if len(rows) > 1:
+            tariff_idx = np.array(np.asarray(tariff_idx), dtype=np.int64)
+            tariff_idx[rows[1]] = 2 ** 24
+
     n_pad = pad_to_multiple(max(n, 1), pad_multiple)
 
     def pad_i(a, fill=0):

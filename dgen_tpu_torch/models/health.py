@@ -49,8 +49,14 @@ ATTRIBUTION_LEAVES = frozenset((
     "cash_flow",
 ))
 
-#: more offending rows than this and the report is truncated (it says so)
-MAX_ATTRIBUTED = 4096
+#: more offending rows than this and the report is truncated (it says
+#: so). The JAX package's cap is 4096; the port's is the quarantine cap
+#: (resilience.quarantine.MAX_QUARANTINE), because the run supervisor
+#: quarantines exactly the attributed agents: a bank row referenced by
+#: more than 4096 agents (one of the 12 synthetic load rows at 32,768
+#: agents) would otherwise be contained only in part, and a corruption
+#: that does not recur would leave the rest in the run.
+MAX_ATTRIBUTED = 65536
 
 
 class HealthBreachError(RuntimeError):

@@ -46,6 +46,12 @@ from dgen_tpu_torch.ops import dispatch as dispatch_ops
 from dgen_tpu_torch.ops import layout as layout_ops
 from dgen_tpu_torch.ops import sizing as sizing_ops
 from dgen_tpu_torch.ops.tariff import HOURS, NET_BILLING, TariffBank
+from dgen_tpu_torch.resilience.faults import corrupt_point, corrupt_rows, fault_point
+from dgen_tpu_torch.resilience.quarantine import (
+    QuarantineReport,
+    apply_quarantine,
+    validate_population,
+)
 from dgen_tpu_torch.tree import to_device, tree_map
 from dgen_tpu_torch.utils import invariants, timing
 
@@ -640,6 +646,23 @@ def auto_agent_chunk(n_agents: int, *, memory_bytes: Optional[int],
 # Host-side year loop
 # ---------------------------------------------------------------------------
 
+def _corrupt_bank_rows(profiles: ProfileBank) -> ProfileBank:
+    """The ``bank_corrupt_row`` fault payload (kind ``corrupt``): one
+    deterministic load-bank row set to NaN, or under int8 banks that
+    row's float32 scale (a code cannot hold a NaN), on the bank's device.
+    Models a bad bank file at load (hit #1, Simulation construction: the
+    validator's case) and silent corruption mid-run (later hits, before a
+    year step: the health sentinel's case)."""
+    row = int(corrupt_rows()[0]) % int(profiles.load.shape[0])
+    if profiles.load_scale is not None:
+        sc = profiles.load_scale.clone()
+        sc[row] = float("nan")
+        return dataclasses.replace(profiles, load_scale=sc)
+    load = profiles.load.clone()
+    load[row] = float("nan")
+    return dataclasses.replace(profiles, load=load)
+
+
 @dataclasses.dataclass
 class SimResults:
     """Host-side stacked run outputs: numpy [n_years, ...] arrays keyed by
@@ -671,6 +694,13 @@ class Simulation:
     ``lcm(agent_pad_multiple, chunk)``, and results cover the padded
     rows. The constructor raises ``MemoryError`` when not even a
     128-row chunk fits the card.
+
+    The inputs are validated on their device first
+    (``RunConfig.validate_enabled``, on by default:
+    ``resilience.quarantine``), and the malformed rows, the ids of
+    ``RunConfig.quarantine_ids`` and those of an explicit ``quarantine``
+    report are contained as inert padding; the merged report is
+    ``self.quarantine_report``. Clean inputs pass through untouched.
     """
 
     def __init__(
@@ -684,6 +714,7 @@ class Simulation:
         with_hourly: bool = False,
         econ_years: int = 25,
         device="cuda",
+        quarantine=None,
     ) -> None:
         self.device = resolve_device(device)
         self.scenario = scenario
@@ -700,11 +731,38 @@ class Simulation:
         self.profiles = to_device(profiles, self.device)
         self.tariffs = to_device(tariffs, self.device)
         self.inputs = to_device(inputs, self.device)
+        # fault site (kind ``corrupt``): a profile-bank row going bad at
+        # load; hit #1 lands here, before validation, which must catch
+        # it; later hits fire in step (mid-run corruption, the sentinel's)
+        if corrupt_point("bank_corrupt_row"):
+            self.profiles = _corrupt_bank_rows(self.profiles)
+        # bad-data quarantine before anything reads the inputs: the static
+        # flags index metering[tariff_idx], and the daylight layout and
+        # the int8 quantization assume finite banks
+        self.quarantine_report = None
+        #: seconds of the validation and containment (its count fetch
+        #: waits for the card)
+        self.validation_s = 0.0
+        rc = self.run_config
+        if rc.validate_enabled or rc.quarantine_ids or quarantine is not None:
+            t0 = time.perf_counter()
+            rep = (validate_population(self.table, self.profiles, self.tariffs)
+                   if rc.validate_enabled else
+                   QuarantineReport(n_agents=int((self.table.mask > 0).sum())))
+            if quarantine is not None:
+                rep.merge(quarantine)
+            if rc.quarantine_ids:
+                rep.add_ids(rc.quarantine_ids, "config:quarantine_ids")
+            if not rep.is_clean:
+                self.table, self.profiles = apply_quarantine(
+                    self.table, self.profiles, rep)
+            self.quarantine_report = rep
+            self.validation_s = time.perf_counter() - t0
         self._rate_switch, self._net_billing = run_static_flags(
             self.table, self.tariffs, self.inputs, self.years)
         # the daylight layout comes from the float32 bank, before the banks
         # are narrowed
-        self._daylight = self._build_daylight(profiles)
+        self._daylight = self._build_daylight(self.profiles)
         self.profiles = self._narrow_banks(self.profiles)
         self._per_agent_bytes = per_agent_step_bytes(**self._footprint())
         chunk = self._resolve_chunk()
@@ -863,6 +921,14 @@ class Simulation:
 
     def step(self, carry: SimCarry, year_idx: int,
              first_year: bool) -> tuple[SimCarry, YearOutputs]:
+        # fault site: the year step's dispatch; an ``oom`` here raises what
+        # an allocator OOM raises, so the supervisor's chunk halving runs
+        fault_point("year_step")
+        # fault site (kind ``corrupt``): a bank row turning NaN between
+        # year steps (same shapes and dtypes); only the health sentinel's
+        # breach -> attribute -> quarantine escalation catches it
+        if corrupt_point("bank_corrupt_row"):
+            self.profiles = _corrupt_bank_rows(self.profiles)
         return year_step(
             self.table, self.profiles, self.tariffs, self.inputs, carry,
             year_idx, **self.step_kwargs(first_year),
@@ -897,10 +963,28 @@ class Simulation:
         logger.warning("health sentinel: %s", err)
 
     def _sanitize_restored_carry(self, carry: SimCarry) -> SimCarry:
-        """The restored carry as the run resumes it. The JAX package zeroes
-        the quarantined agents' rows here; the port has no quarantine yet
-        (``ROADMAP.md`` §1 item 4), so the carry comes back unchanged."""
-        return carry
+        """A restored carry with the quarantined agents' rows zeroed on
+        its device: a checkpoint written before a mid-run quarantine still
+        holds their market state, and the state-capacity segment sums read
+        the carry without the mask, so a contained agent would go on
+        contributing. The carry itself (object identity) when nothing is
+        quarantined."""
+        rep = self.quarantine_report
+        if rep is None or not rep.n_quarantined:
+            return carry
+        ids = torch.as_tensor(np.asarray(rep.ids, dtype=np.int64), device=self.device)
+        q = torch.isin(self.table.agent_id.long(), ids)
+        if not bool(q.any()):
+            return carry
+        keep = (~q).to(torch.float32)
+        n = self.table.n_agents
+
+        def zero(x):
+            if x.ndim >= 1 and x.shape[0] == n:
+                return x * keep.reshape((n,) + (1,) * (x.ndim - 1)).to(x.dtype)
+            return x
+
+        return tree_map(zero, carry)
 
     def _sync(self) -> None:
         """Wait for the work queued on the run's card (no-op on the CPU)."""

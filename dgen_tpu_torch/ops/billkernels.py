@@ -202,10 +202,26 @@ def _lane_month_onehot(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.eye(MONTHS, dtype=np.float32)[month_of_lane]).to(device)
 
 
-def _bucketize(x: torch.Tensor, masks: list, onehot: torch.Tensor) -> torch.Tensor:
-    """[N, rc, L] -> [N, rc, 12 * P] month-major bucket sums."""
-    cols = [(x * m[:, None, :]) @ onehot for m in masks]
-    return torch.stack(cols, dim=-1).reshape(x.shape[0], x.shape[1], -1)
+def _bucketize(x: torch.Tensor, period: torch.Tensor, masks: list,
+               onehot: torch.Tensor) -> torch.Tensor:
+    """[N, rc, L] -> [N, rc, 12 * P] month-major bucket sums: per period,
+    the masked lanes times the lane-month one-hot. A non-finite lane
+    reaches its own (month, period) bucket only, as in the kernels: the
+    products would spread its NaN (NaN * 0) over every bucket of its row,
+    so such lanes are zeroed for the products and added to their buckets
+    after. Finite ``x`` (one sum tells) takes the products alone."""
+    fin = None if bool(torch.isfinite(x.sum())) else torch.isfinite(x)
+    x0 = x if fin is None else torch.where(fin, x, torch.zeros_like(x))
+    out = torch.stack([(x0 * m[:, None, :]) @ onehot for m in masks], dim=-1)
+    if fin is None:
+        return out.reshape(x.shape[0], x.shape[1], -1)
+    a, r, lane = torch.nonzero(~fin, as_tuple=True)
+    p = period[a, lane].long()
+    keep = p < len(masks)           # out-of-range periods count in sell sums only
+    a, r, lane, p = a[keep], r[keep], lane[keep], p[keep]
+    month = onehot[lane].argmax(dim=1)
+    out.index_put_((a, r, month, p), x[a, r, lane], accumulate=True)
+    return out.reshape(x.shape[0], x.shape[1], -1)
 
 
 def _sums_buffers(n: int, r: int, n_periods: int, with_signed: bool,
@@ -241,7 +257,9 @@ def month_sums_plain(load, gen, sell, period, scales, offsets, n_periods: int,
     lanes with month ``m`` in ``[offsets[m], offsets[m + 1])``:
     (imports [N, R, 12P], imp_sell [N, R]) and, when ``with_signed``,
     also (signed, sgn_sell). Loops over chunks of scales with per-period
-    masks against the lane-month one-hot. Narrow streams are upcast and
+    masks against the lane-month one-hot; a non-finite hour lands in its
+    own bucket and the sell sums, as in the kernels (:func:`_bucketize`).
+    Narrow streams are upcast and
     the float32 sums stored at :func:`_sums_out_dtype`, as the kernels
     do."""
     out_dtype, (load, gen, sell) = _upcast(load, gen, sell)
@@ -255,10 +273,10 @@ def month_sums_plain(load, gen, sell, period, scales, offsets, n_periods: int,
         s = scales[:, r0:r0 + rc]
         net = load[:, None, :] - s[:, :, None] * gen[:, None, :]
         pos = torch.clamp_min(net, 0.0)
-        imp[:, r0:r0 + rc] = _bucketize(pos, masks, onehot)
+        imp[:, r0:r0 + rc] = _bucketize(pos, period, masks, onehot)
         imp_sell[:, r0:r0 + rc] = (pos * sell[:, None, :]).sum(dim=2)
         if with_signed:
-            sgn[:, r0:r0 + rc] = _bucketize(net, masks, onehot)
+            sgn[:, r0:r0 + rc] = _bucketize(net, period, masks, onehot)
             sgn_sell[:, r0:r0 + rc] = (net * sell[:, None, :]).sum(dim=2)
     if with_signed:
         return _store((imp, imp_sell, sgn, sgn_sell), out_dtype)
@@ -280,9 +298,9 @@ def month_pair_sums_plain(load, gen, sell_a, period_a, sell_b, period_b,
     for r0 in range(0, r, rc):
         s = scales[:, r0:r0 + rc]
         pos = torch.clamp_min(load[:, None, :] - s[:, :, None] * gen[:, None, :], 0.0)
-        out[0][:, r0:r0 + rc] = _bucketize(pos, masks_a, onehot)
+        out[0][:, r0:r0 + rc] = _bucketize(pos, period_a, masks_a, onehot)
         out[1][:, r0:r0 + rc] = (pos * sell_a[:, None, :]).sum(dim=2)
-        out[2][:, r0:r0 + rc] = _bucketize(pos, masks_b, onehot)
+        out[2][:, r0:r0 + rc] = _bucketize(pos, period_b, masks_b, onehot)
         out[3][:, r0:r0 + rc] = (pos * sell_b[:, None, :]).sum(dim=2)
     return _store(out, out_dtype)
 

@@ -89,6 +89,20 @@ PRESETS: Dict[str, Preset] = {p.name: p for p in (
 )}
 
 
+def population(name: str, n_agents: int, rate_switch_frac: float = 0.0,
+               device="cuda"):
+    """The synthetic population of a named preset (``io.synth``, seed 7,
+    10 regions) on ``device``: what :func:`build` runs, without the
+    Simulation."""
+    from dgen_tpu_torch.io import synth
+
+    p = PRESETS[name]
+    return synth.generate_population(
+        int(n_agents), states=p.states, seed=7, sector_weights=p.sector_weights,
+        n_regions=10, rate_switch_frac=rate_switch_frac, device=device,
+    )
+
+
 def build(
     name: str,
     n_agents: Optional[int] = None,
@@ -105,7 +119,6 @@ def build(
     rate switch on adoption; ``attachment_rate`` sets every group's
     battery attachment rate (the synthetic default's is 0, so no
     battery adopters are allocated)."""
-    from dgen_tpu_torch.io import synth
     from dgen_tpu_torch.models.scenario import uniform_inputs
     from dgen_tpu_torch.models.simulation import Simulation
 
@@ -117,22 +130,18 @@ def build(
         storage_enabled=p.storage_enabled, anchor_years=(),
     )
     n = int(n_agents or p.default_agents)
-    n_regions = 10
     meta: Dict[str, object] = {
         "preset": p.name, "baseline_config": p.baseline_config,
         "n_agents": n,
         "data_sources": {"all": "synthetic_default"},
         "market_curves": {"mms": "synthetic_default", "bass": "synthetic_default"},
     }
-    pop = synth.generate_population(
-        n, states=p.states, seed=7, sector_weights=p.sector_weights,
-        n_regions=n_regions, rate_switch_frac=rate_switch_frac, device=dev,
-    )
+    pop = population(name, n, rate_switch_frac=rate_switch_frac, device=dev)
     overrides = None
     if attachment_rate is not None:
         overrides = {"attachment_rate": np.full(pop.table.n_groups, attachment_rate,
                                                 np.float32)}
-    inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups, n_regions=n_regions,
+    inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups, n_regions=pop.n_regions,
                             overrides=overrides, device=dev)
     sim = Simulation(
         pop.table, pop.profiles, pop.tariffs, inputs, cfg,
@@ -228,7 +237,8 @@ def timed_run(sim, meta: dict, t_start: float, build_s: float,
     ``export_overlapped_s``: the exporter's host seconds (a callback's
     ``seconds``), overlapped with the device, so not subtracted;
     ``agent_years_per_sec``: real agents x years over the total wall,
-    set-up included, as the JAX package counts it."""
+    set-up included, as the JAX package counts it (to 3 decimals where it
+    rounds to 1: on the CPU the rate can be a few agent-years a second)."""
     year_s: list = []
     t0 = time.perf_counter()
     with year_timer(sim, year_s):
@@ -254,7 +264,7 @@ def timed_run(sim, meta: dict, t_start: float, build_s: float,
         "compile_s": round(compile_s, 3),
         "steady_year_s": round(max(run_s - compile_s, 0.0) / max(n_years, 1), 4),
         "export_overlapped_s": round(getattr(callback, "seconds", 0.0), 3),
-        "agent_years_per_sec": round(n_real * n_years / total_s, 1),
+        "agent_years_per_sec": round(n_real * n_years / total_s, 3),
         "run_dir": run_dir,
         "data_sources": meta["data_sources"],
         "device": device_label(sim.device),

@@ -1,0 +1,316 @@
+"""Crash-consistent run manifests: the content-hashed, per-year artifact
+ledger of a run directory (port of the single-process part of
+``dgen_tpu/resilience/manifest.py``).
+
+A run directory's ``.npz`` partitions say which files exist; they cannot
+say whether a file is complete, whether all of a year's surfaces landed,
+or what a resumed run must write again. The manifest does:
+
+* every landed artifact gets a per-year entry ``{sha256, bytes}``,
+  recorded after the atomic rename published it;
+* a year is marked **complete** only once every one of its surfaces is
+  recorded: the exporter calls :meth:`RunManifest.mark_year_complete` at
+  the end of its year;
+* the manifest file itself is written by temp file and rename
+  (:mod:`dgen_tpu_torch.utils.atomic`), so a killed run leaves the
+  previous consistent ledger or the new one, never a torn one;
+* :meth:`RunManifest.verify` re-hashes the ledger against the directory
+  and flags missing and corrupt (truncated, damaged) files, the audit
+  behind ``python -m dgen_tpu_torch.resilience verify``;
+* :meth:`RunManifest.complete_through` gives the supervisor its resume
+  frontier: the latest model year through which every year's exports are
+  durably and verifiably on disk.
+
+Checkpoint entries are recorded after the run
+(:meth:`record_checkpoints`): mid-run the checkpoint directory's
+committed years are themselves the truth.
+
+Not ported: the multi-process shard ledgers (``manifest-p<i>.json``),
+``GangManifest`` and ``discover_shards`` (``ROADMAP.md`` item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+from typing import Dict, List, Optional, Sequence
+
+from dgen_tpu_torch.utils.atomic import atomic_write_json
+
+MANIFEST_NAME = "manifest.json"
+_VERSION = 1
+
+#: surface directories the exporter writes ``year=<Y>.npz`` partitions
+#: into: the scan set of :meth:`RunManifest.verify`'s unrecorded check
+SURFACE_DIRS = ("agent_outputs", "finance_series", "state_hourly")
+#: the partition suffix of the port's surfaces
+PART_SUFFIX = ".npz"
+
+
+def _part_year(name: str) -> Optional[int]:
+    """Model year of a ``year=<Y>.npz`` (or ``.npz.tmp``) surface file;
+    None for anything else."""
+    if not name.startswith("year="):
+        return None
+    digits = ""
+    for ch in name[len("year="):]:
+        if not ch.isdigit():
+            break
+        digits += ch
+    return int(digits) if digits else None
+
+
+def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(chunk)
+            if not b:
+                break
+            h.update(b)
+    return h.hexdigest()
+
+
+def _hash_tree(root: str) -> tuple[str, int]:
+    """(digest, bytes) over a directory tree: per file the sha256 of
+    (relpath, size, content hash), folded in sorted order, so stable
+    across filesystems and listing orders."""
+    h = hashlib.sha256()
+    total = 0
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        for name in sorted(filenames):
+            p = os.path.join(dirpath, name)
+            rel = os.path.relpath(p, root)
+            size = os.path.getsize(p)
+            total += size
+            h.update(f"{rel}\0{size}\0".encode())
+            h.update(_sha256_file(p).encode())
+    return h.hexdigest(), total
+
+
+@dataclasses.dataclass
+class VerifyReport:
+    """Result of :meth:`RunManifest.verify`."""
+
+    run_dir: str
+    #: recorded artifacts whose file is gone
+    missing: List[str] = dataclasses.field(default_factory=list)
+    #: recorded artifacts whose bytes or hash no longer match (truncation,
+    #: torn writes, bit rot)
+    corrupt: List[str] = dataclasses.field(default_factory=list)
+    #: partitions present under the known surfaces but absent from the
+    #: ledger (a writer died between rename and record; harmless: resume
+    #: writes the year again over them)
+    unrecorded: List[str] = dataclasses.field(default_factory=list)
+    #: leftover ``*.tmp`` siblings of killed writers
+    stale_tmp: List[str] = dataclasses.field(default_factory=list)
+    #: checkpoint entries that no longer hash-match
+    bad_checkpoints: List[int] = dataclasses.field(default_factory=list)
+    years_complete: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return not (self.missing or self.corrupt or self.bad_checkpoints)
+
+    def to_json(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["ok"] = self.ok
+        return d
+
+
+class RunManifest:
+    """The artifact ledger of one run directory (module docstring).
+    Loading an existing ``manifest.json`` resumes its ledger: a re-entered
+    run keeps the completed years' entries and overwrites the years it
+    writes again."""
+
+    def __init__(self, run_dir: str) -> None:
+        self.run_dir = run_dir
+        self.path = os.path.join(run_dir, MANIFEST_NAME)
+        self._years: Dict[int, dict] = {}
+        self._checkpoints: Dict[int, dict] = {}
+        self._run_artifacts: Dict[str, dict] = {}
+        self.notes: List[str] = []
+        if os.path.isfile(self.path):
+            try:
+                with open(self.path) as f:
+                    doc = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                # an atomic write cannot tear it; one damaged from outside
+                # counts as absent (the run writes everything again: safe,
+                # not minimal)
+                doc = {}
+            for y, rec in (doc.get("years") or {}).items():
+                self._years[int(y)] = rec
+            for y, rec in (doc.get("checkpoints") or {}).items():
+                self._checkpoints[int(y)] = rec
+            self._run_artifacts = dict(doc.get("run_artifacts") or {})
+            self.notes = list(doc.get("notes") or [])
+
+    # -- recording ------------------------------------------------------
+
+    def _entry(self, relpath: str) -> dict:
+        p = os.path.join(self.run_dir, relpath)
+        return {"sha256": _sha256_file(p), "bytes": os.path.getsize(p)}
+
+    def record_artifact(self, year: int, relpath: str) -> None:
+        """Hash and record one landed artifact (call after the atomic
+        rename published it). Recording a year that was complete reopens
+        it until :meth:`mark_year_complete`."""
+        rec = self._years.setdefault(int(year), {"complete": False, "artifacts": {}})
+        rec["artifacts"][relpath] = self._entry(relpath)
+        rec["complete"] = False
+
+    def record_run_artifact(self, relpath: str) -> None:
+        """Record a year-independent artifact (``agents.npz``,
+        ``quarantine.json``); verified beside the per-year entries."""
+        self._run_artifacts[relpath] = self._entry(relpath)
+
+    def mark_year_complete(self, year: int) -> None:
+        """Declare every surface of ``year`` recorded, and publish the
+        ledger (one atomic write a year)."""
+        rec = self._years.setdefault(int(year), {"complete": False, "artifacts": {}})
+        rec["complete"] = True
+        self.flush()
+
+    def record_checkpoints(self, ckpt_dir: str, years: Sequence[int]) -> None:
+        """After the run: hash each committed checkpoint year's directory
+        into the ledger."""
+        for y in years:
+            step_dir = os.path.join(ckpt_dir, str(int(y)))
+            if not os.path.isdir(step_dir):
+                continue
+            digest, nbytes = _hash_tree(step_dir)
+            self._checkpoints[int(y)] = {
+                "dir": os.path.relpath(step_dir, self.run_dir)
+                if step_dir.startswith(self.run_dir) else step_dir,
+                "sha256": digest,
+                "bytes": nbytes,
+            }
+        self.flush()
+
+    def note(self, msg: str) -> None:
+        """Append an operational note (degradations are stamped here)
+        and publish."""
+        self.notes.append(msg)
+        self.flush()
+
+    def flush(self) -> None:
+        os.makedirs(self.run_dir, exist_ok=True)
+        atomic_write_json(
+            self.path,
+            {
+                "version": _VERSION,
+                "years": {str(y): self._years[y] for y in sorted(self._years)},
+                "checkpoints": {str(y): self._checkpoints[y]
+                                for y in sorted(self._checkpoints)},
+                "run_artifacts": {k: self._run_artifacts[k]
+                                  for k in sorted(self._run_artifacts)},
+                "notes": self.notes,
+            },
+            indent=2,
+        )
+
+    # -- queries --------------------------------------------------------
+
+    def complete_years(self) -> List[int]:
+        return sorted(y for y, r in self._years.items() if r["complete"])
+
+    def artifacts(self, year: int) -> Dict[str, dict]:
+        return dict(self._years.get(int(year), {}).get("artifacts", {}))
+
+    def complete_through(self, years: Sequence[int], deep: bool = True) -> Optional[int]:
+        """The resume frontier: the largest ``Y`` in ``years`` such that
+        every grid year ``<= Y`` is complete and (``deep``) verifies
+        against the directory. None when not even the first year is
+        durably exported."""
+        frontier: Optional[int] = None
+        for y in years:
+            rec = self._years.get(int(y))
+            if not rec or not rec["complete"]:
+                break
+            if deep and not self._year_ok(int(y)):
+                break
+            frontier = int(y)
+        return frontier
+
+    def _file_ok(self, rel: str, meta: dict, deep: bool) -> Optional[str]:
+        """None when the recorded file verifies, else "missing" or
+        "corrupt"."""
+        p = os.path.join(self.run_dir, rel)
+        if not os.path.isfile(p):
+            return "missing"
+        if os.path.getsize(p) != meta["bytes"] or (
+                deep and _sha256_file(p) != meta["sha256"]):
+            return "corrupt"
+        return None
+
+    def _year_ok(self, year: int) -> bool:
+        return all(self._file_ok(rel, meta, True) is None
+                   for rel, meta in self._years[year]["artifacts"].items())
+
+    # -- audit ----------------------------------------------------------
+
+    def verify(self, deep: bool = True) -> VerifyReport:
+        """Audit the run directory against the ledger. ``deep`` re-hashes
+        every recorded artifact; shallow checks existence and byte counts
+        only (cheap triage on large runs)."""
+        rep = VerifyReport(run_dir=self.run_dir)
+        recorded = set(self._run_artifacts)
+        for rel, meta in self._run_artifacts.items():
+            bad = self._file_ok(rel, meta, deep)
+            if bad is not None:
+                getattr(rep, bad).append(rel)
+        for y in sorted(self._years):
+            rec = self._years[y]
+            year_bad = False
+            for rel, meta in rec["artifacts"].items():
+                recorded.add(rel)
+                bad = self._file_ok(rel, meta, deep)
+                if bad is not None:
+                    getattr(rep, bad).append(rel)
+                    year_bad = True
+            if rec["complete"] and not year_bad:
+                rep.years_complete.append(y)
+        for y, meta in self._checkpoints.items():
+            step_dir = meta["dir"] if os.path.isabs(meta["dir"]) else \
+                os.path.join(self.run_dir, meta["dir"])
+            if not os.path.isdir(step_dir):
+                rep.bad_checkpoints.append(y)
+            elif deep and _hash_tree(step_dir)[0] != meta["sha256"]:
+                rep.bad_checkpoints.append(y)
+        # files the ledger does not know, and killed writers' leftovers
+        for d in SURFACE_DIRS:
+            root = os.path.join(self.run_dir, d)
+            if not os.path.isdir(root):
+                continue
+            for name in sorted(os.listdir(root)):
+                rel = os.path.join(d, name)
+                if name.endswith(".tmp"):
+                    rep.stale_tmp.append(rel)
+                elif name.endswith(PART_SUFFIX) and rel not in recorded:
+                    rep.unrecorded.append(rel)
+        return rep
+
+
+def verify_run_dir(run_dir: str, deep: bool = True) -> List[VerifyReport]:
+    """Audit a run directory, or each manifested subdirectory of it.
+    Raises FileNotFoundError when no manifest is found."""
+    reports: List[VerifyReport] = []
+    if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)):
+        reports.append(RunManifest(run_dir).verify(deep=deep))
+    else:
+        for name in sorted(os.listdir(run_dir)):
+            sub = os.path.join(run_dir, name)
+            if os.path.isfile(os.path.join(sub, MANIFEST_NAME)):
+                reports.append(RunManifest(sub).verify(deep=deep))
+    if not reports:
+        raise FileNotFoundError(
+            f"no {MANIFEST_NAME} under {run_dir} (not a manifested run "
+            "directory: run it under the resilience supervisor, or pass an "
+            "exporter a RunManifest)"
+        )
+    return reports

@@ -3,7 +3,11 @@
 
 A reader never sees a partly written file at the final path: it sees the
 previous complete version or the new complete one. A killed writer
-leaves at most a ``*.tmp`` sibling. The JAX package's parquet writer
+leaves at most a ``*.tmp`` sibling. Fault sites
+(:mod:`dgen_tpu_torch.resilience.faults`): ``export_write`` fires before
+the rename (the writer died, nothing landed) and ``export_torn`` after
+it (torn storage damaged a landed artifact, what the run manifest's
+hashes catch). The JAX package's parquet writer
 becomes :func:`atomic_write_npz`: the port writes its run surfaces as
 numpy ``.npz`` archives, so the card path needs neither pandas nor
 pyarrow.
@@ -17,6 +21,8 @@ import zipfile
 from typing import Any, Callable, Mapping
 
 import numpy as np
+
+from dgen_tpu_torch.resilience.faults import fault_point
 
 #: the modification time stamped on every ``.npz`` entry, so that the
 #: same arrays always give the same bytes (``np.savez`` stamps the
@@ -32,6 +38,7 @@ def atomic_write(path: str, write_fn: Callable[[str], None]) -> None:
     ok = False
     try:
         write_fn(tmp)
+        fault_point("export_write", path=path)
         os.replace(tmp, path)
         ok = True
     finally:
@@ -40,6 +47,7 @@ def atomic_write(path: str, write_fn: Callable[[str], None]) -> None:
                 os.remove(tmp)
             except OSError:
                 pass
+    fault_point("export_torn", path=path)
 
 
 def atomic_write_text(path: str, text: str, **open_kw: Any) -> None:

@@ -253,13 +253,29 @@ def test_from_env_chunk_devices_and_ignored_switches(clean_env):
 
 @pytest.mark.parametrize("name, value", [
     ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_SOFT", "1"), ("DGEN_TPU_CLUSTER", "1"),
-    ("DGEN_TPU_GUARD", "true"), ("DGEN_TPU_FAULTS", "ckpt_save@2")])
+    ("DGEN_TPU_GUARD", "true")])
 def test_from_env_refuses_unported_switches(clean_env, name, value):
     from dgen_tpu_torch.config import RunConfig
 
     clean_env.setenv(name, value)
     with pytest.raises(NotImplementedError, match=name):
         RunConfig.from_env()
+
+
+def test_from_env_leaves_faults_to_the_supervisor_and_validate_to_the_build(clean_env):
+    """``DGEN_TPU_FAULTS`` is no field of the config: the run supervisor
+    (or ``faults.install_from_env``) installs it, as in the JAX package;
+    ``DGEN_TPU_VALIDATE`` is read when a Simulation is built."""
+    from dgen_tpu_torch.config import RunConfig
+
+    clean_env.setenv("DGEN_TPU_FAULTS", "ckpt_save@2")
+    rc = RunConfig.from_env()
+    assert rc == RunConfig() and rc.faults is None
+    assert rc.validate_inputs is None and rc.validate_enabled
+    for value, enabled in (("0", False), ("false", False), ("off", False), ("1", True)):
+        clean_env.setenv("DGEN_TPU_VALIDATE", value)
+        assert rc.validate_enabled is enabled, value
+    assert RunConfig(validate_inputs=True).validate_enabled
 
 
 def test_sentinel_switch_is_read_at_run_time(clean_env):
@@ -374,3 +390,44 @@ def test_chip_smoke_imports_no_pandas_side_of_the_port():
     bad = {n for n in names if n.split(".")[0] in ("pandas", "pyarrow")
            or n.startswith(("dgen_tpu_torch.io.convert", "dgen_tpu_torch.io.nem"))}
     assert not bad, bad
+
+
+RESILIENCE_MODULES = tuple(
+    f"dgen_tpu_torch.resilience.{m}" for m in (
+        "faults", "quarantine", "manifest", "supervisor", "drill", "quarantinedrill",
+        "__main__"))
+
+
+def test_resilience_needs_no_pandas_pyarrow_orbax_or_jax(tmp_path):
+    """The resilience modules and their CLI import, a supervised run
+    recovers an injected fault with its manifest, quarantine.json and
+    exports, and the CLI verifies the directory, with pandas, pyarrow,
+    orbax, jax and the JAX package unavailable."""
+    run_dir = str(tmp_path / "run")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {RESILIENCE_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "import dataclasses, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from dgen_tpu_torch.config import RunConfig\n"
+        "from dgen_tpu_torch.resilience.__main__ import main\n"
+        "from dgen_tpu_torch.resilience.drill import synth_world\n"
+        "from dgen_tpu_torch.resilience.supervisor import run_supervised\n"
+        "w = dataclasses.replace(synth_world(sizing_iters=4, device='cpu'),\n"
+        "                        storage_enabled=False, econ_years=5)\n"
+        "make_sim = w.runner(w.make_population(4), w.scenario(2014))\n"
+        "_, rep = run_supervised(make_sim, RunConfig(faults='ckpt_save@1'),\n"
+        f"                       run_dir={run_dir!r}, collect=False)\n"
+        "print(rep.retries, main(['verify', '--shallow', " + repr(run_dir) + "]))\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "1 0"
+    assert os.path.isfile(os.path.join(run_dir, "quarantine.json"))

@@ -983,3 +983,44 @@ def test_dispatch_kernel_exact_division_tiles_equal_plain_loop(cuda):
     for k in ("system_out", "soc", "charge", "discharge"):
         a, b = getattr(got, k), getattr(ref, k)
         assert torch.equal(a, b), (k, float((a - b).abs().max()))
+
+
+def _nonfinite_load(x, rows=(1, 4)):
+    """One agent's load NaN on three lanes, another's +Inf on one."""
+    load = x["load"].clone()
+    n_lanes = load.shape[1]
+    load[rows[0], [3, n_lanes // 2, n_lanes - 5]] = float("nan")
+    load[rows[1], n_lanes // 3] = float("inf")
+    return {**x, "load": load}
+
+
+@pytest.mark.parametrize("lanes", ["full", "uniform"])
+@pytest.mark.parametrize("kernel", ["month", "month_signed", "stream", "stream_signed",
+                                    "pair"])
+def test_staged_kernels_carry_nan_and_inf_as_the_plain_versions(cuda, kernel, lanes):
+    """The staged kernels' relu keeps NaN (as jnp.maximum and
+    torch.clamp_min do; fmaxf would give 0): a NaN or +Inf load hour
+    reaches its own (month, period) bucket and the sell sums, at exactly
+    the plain version's NaN, +Inf and -Inf positions; the finite sums
+    within the kernels' tolerance."""
+    offsets = _offsets(lanes)
+    x = _nonfinite_load(_inputs(cuda, 16, 25, 3, seed=5, offsets=offsets))
+    signed = kernel.endswith("_signed")
+    if kernel == "pair":
+        args = (x["load"], x["gen"], x["sell"], x["period"], x["sell_b"], x["period_b"],
+                x["scales"], offsets, 3)
+        got, ref = bk.month_pair_sums(*args), bk.month_pair_sums_plain(*args)
+    else:
+        fn = bk.stream_sums if kernel.startswith("stream") else bk.month_sums
+        args = _lane_args(x, offsets, 3, signed)
+        got, ref = fn(*args), bk.month_sums_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        for what in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(what(g), what(r)), what.__name__
+        fin = torch.isfinite(r)
+        assert not bool(fin.all())
+        row_max = torch.where(fin, r.abs(), torch.zeros_like(r)).flatten(1).amax(1)
+        tol = 1e-4 * r.abs() + 1e-3 * row_max.view(-1, *[1] * (r.ndim - 1))
+        assert bool(((g - r).abs() <= tol)[fin].all())
+    assert not bool(torch.isfinite(got[0][1]).all())      # the NaN reached imports
