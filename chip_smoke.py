@@ -86,9 +86,32 @@ its first launch in the path):
      explicit agent_chunk of 262,144 rows: real torch.OutOfMemoryErrors
      recovered by halving the chunk, the allocated bytes back at their
      level after each failed attempt, the outputs within the OOM
-     tolerance of the automatic chunk's; (d), in [9], NaN and +Inf loads
+     tolerance of the automatic chunk's, and both runs collected and
+     compared float32 per agent by agent_id, stage by stage (sizing,
+     market step, the exporter's int16 codes): a row's sizing and market
+     results may not depend on the chunk (the int16 codes may, through
+     the column's scale); (d), in [9], NaN and +Inf loads
      through the month, stream and pair kernels, their non-finite
      positions equal to the plain versions';
+  3h. the tariff-clustered mixed national world, in a temporary directory
+     the phase removes: (a) NationalSpec(n_agents=1,048,576,
+     tariff_mix="mixed", seed=0) generated on the card by the port's
+     generator (models.synth), saved with int8 banks (save_world),
+     verified clean (verify_world) and loaded back (io.package) with its
+     agent columns equal to the generated table's, and its cluster report
+     (ops.tariffcluster); (b) the loaded world run clustered and
+     unclustered under the automatic chunk for 2 model years, per agent
+     by agent_id within the JAX package's rtol = atol = 1e-5
+     (tests/test_tariffcluster.py), every masked row (chunk padding and
+     cluster filler) inert, the layout held to every agent exactly once;
+     per-year walls, the layout's segments and filler share, the
+     bucket-sums launches by period count P, and one more first year of
+     each run holding each kernel's first launch (at each P, clustered)
+     against the plain version; (c) a mixed world of 32,768 agents run
+     clustered in chunks of 8,192 rows and clustered whole, equal bit for
+     bit per agent, in the default world and [3c]'s gated int8 world; the
+     default whole run's first month launches (P = 1) give [9] the month
+     kernel's rows at P = 1, logged beside the kernels line;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -428,6 +451,40 @@ def ab_specs(bk) -> dict:
             ("quant", "stream/float32"), bk.stream_sums, bk.month_sums_plain, 6,
             RTOL, "stream", f"{bp}:840"),
     }
+
+
+def p1_specs(bk) -> dict:
+    """As :func:`kernel_specs`, for the month kernel's rows logged beside
+    the kernels line at P = 1: imports and signed on the first launches of
+    [3h] (c)'s clustered whole run (default world), whose first
+    net-billing cluster is single-period."""
+    bp = "dgen_tpu/ops/billpallas.py"
+    month = (bk.month_sums, bk.month_sums_plain)
+    return {
+        "bucket_sums_month_p1": (("cluster", "month"), *month, 6, RTOL, "month",
+                                 f"{bp}:343"),
+        "bucket_sums_month_signed_p1": (("cluster", "month_signed"), *month, 9, RTOL,
+                                        "month", f"{bp}:343"),
+    }
+
+
+def p1_rows(capture: dict, bk, launches_p1: dict) -> list:
+    """[9]'s month kernel rows at P = 1 (:func:`p1_specs`): checked against
+    the plain version and timed as :func:`check_and_time` times every row,
+    with its bound and torch.bmm time; ``launches_p1``: the row name ->
+    its launches at P = 1 in [3h] (b)'s clustered national run. Raises
+    unless the captured launches are at P = 1."""
+    for key in ("month", "month_signed"):
+        if capture[key][6] != 1:
+            raise AssertionError(f"[3h] the first {key} launch of the clustered run "
+                                 f"is at P = {capture[key][6]}, not 1")
+    rows = check_and_time({"cluster": capture}, p1_specs(bk), {"cluster": None},
+                          micro_library=0.0)
+    for r in rows:
+        r["launches"] = launches_p1[r["name"]]
+        log(f"    {r['name']}: {r['launches']} launches at P = 1 in [3h] (b)'s "
+            f"clustered national run")
+    return rows
 
 
 def float32_copies(captures: dict) -> None:
@@ -1469,11 +1526,23 @@ def n_chunks(sim) -> int:
     return sim.table.n_agents // sim._agent_chunk if sim._agent_chunk else 1
 
 
+def sizing_dispatches(sim) -> int:
+    """Battery dispatch launches of one model year's sizing: one a chunk,
+    and on a tariff-clustered run one a chunk of each cluster's segment
+    (a segment no longer than the chunk is one)."""
+    lay = getattr(sim, "_cluster_layout", None)
+    if lay is None:
+        return n_chunks(sim)
+    c = sim._agent_chunk
+    return sum(s.seg_len // c if c and s.seg_len > c else 1 for s in lay.clusters)
+
+
 def dispatch_per_year(sim) -> int:
-    """Battery dispatch launches of one model year: one a chunk in
-    sizing, and one more a chunk in the hourly remat pass of a streaming
-    run with the state-hourly aggregate on."""
-    return n_chunks(sim) * (2 if sim._agent_chunk and sim.with_hourly else 1)
+    """Battery dispatch launches of one model year: those of sizing
+    (:func:`sizing_dispatches`), and one more a chunk in the hourly remat
+    pass of a streaming run with the state-hourly aggregate on."""
+    return sizing_dispatches(sim) + (n_chunks(sim) if sim._agent_chunk
+                                     and sim.with_hourly else 0)
 
 
 def check_outputs(res, sim) -> None:
@@ -1563,7 +1632,7 @@ HELD_SUMS = {
 }
 
 
-def held_year(sim, tag: str, launches: dict) -> None:
+def held_year(sim, tag: str, launches: dict, by_p: bool = False) -> None:
     """One more first model year of ``sim`` after its counted run (so
     that run's launch counts and memory peaks stand as it left them), in
     which the first launch of each bucket-sums kernel the counted run
@@ -1572,8 +1641,11 @@ def held_year(sim, tag: str, launches: dict) -> None:
     run with hourly on, of the remat pass, are each held against the
     plain version as they launch, at the shapes the path gives them: the
     bucket sums per agent at RTOL (:func:`sums_agree`), the dispatch bit
-    for bit. Nothing is kept past its check, so no chunk's operands stay
-    pinned; raises on a disagreement or a check that never ran."""
+    for bit. ``by_p``: the first launch of each kernel at each period
+    count P is held (a tariff-clustered run; ``launches`` then holds the
+    counted run's ``<kernel>@P<p>`` keys, :func:`launches_by_p`). Nothing
+    is kept past its check, so no chunk's operands stay pinned; raises on
+    a disagreement or a check that never ran."""
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
@@ -1581,7 +1653,7 @@ def held_year(sim, tag: str, launches: dict) -> None:
 
     wrappers = {key: getattr(bk, fn) for key, (fn, _) in HELD_SUMS.items()}
     disp = dispatch.dispatch_battery
-    remat = n_chunks(sim) if sim._agent_chunk and sim.with_hourly else None
+    remat = sizing_dispatches(sim) if sim._agent_chunk and sim.with_hourly else None
     dispatches = []
     held = {}
 
@@ -1592,6 +1664,8 @@ def held_year(sim, tag: str, launches: dict) -> None:
             got = kernel(*args)
             pair = key == "month_pair"
             name = key + ("_signed" if not pair and args[7] else "")
+            if by_p:
+                name += f"@P{args[8] if pair else args[6]}"
             if name not in held:
                 err = held_rows(f"[{tag}] {name}", got, args, plain, sums_agree)
                 scales, p = (args[6], args[8]) if pair else (args[4], args[6])
@@ -1626,6 +1700,8 @@ def held_year(sim, tag: str, launches: dict) -> None:
         dispatch.dispatch_battery = disp
     want = [k for k in ("month", "month_signed", "stream", "stream_signed",
                         "month_pair") if launches.get(k)]
+    if by_p:
+        want = sorted(k for k, v in launches.items() if "@P" in k and v)
     want.append("dispatch (sizing)")
     if remat is not None:
         want.append("dispatch (remat pass)")
@@ -2518,11 +2594,14 @@ def real_oom(presets, RunConfig, *, name=NATIONAL, n_agents=None, chunk=OOM_CHUN
     with the card's allocated bytes after each failed attempt back at
     their level before it, and its per-agent outputs within the OOM
     tolerance of a run at the automatic chunk (whether they are bit for
-    bit is logged). ``knobs``: further RunConfig fields; ``econ_years``
-    cuts the cash-flow horizon (the CPU tests'). Raises on any miss;
-    returns the figures."""
+    bit is logged). Both runs are collected and compared per agent
+    (:func:`stage_gaps`): an agent whose sizing or market results differ
+    fails the phase, whatever the export codes show. ``knobs``: further
+    RunConfig fields; ``econ_years`` cuts the cash-flow horizon (the CPU
+    tests'). Raises on any miss; returns the figures."""
     import contextlib
     import os
+    import types
 
     import torch
 
@@ -2533,14 +2612,24 @@ def real_oom(presets, RunConfig, *, name=NATIONAL, n_agents=None, chunk=OOM_CHUN
     world = _world(preset_world(name, device=device), econ_years)
     cfg = world.scenario(RESIL_END_YEAR, name=name)
     pop = world.make_population(int(n_agents or presets.PRESETS[name].default_agents))
-    make_sim = world.runner(pop, cfg)
+    runner = world.runner(pop, cfg)
+    rows = []       # the latest attempt's row keys (a held sim would hold its tensors)
+
+    def make_sim(rc):
+        sim = runner(rc)
+        rows[:] = [types.SimpleNamespace(host_agent_id=sim.host_agent_id.copy(),
+                                         host_mask=sim.host_mask.copy())]
+        return sim
+
     policy = RetryPolicy(max_retries=4, backoff_base_s=0.01, min_agent_chunk=min_chunk)
     d_oom, d_auto = os.path.join(workdir, "oom"), os.path.join(workdir, "auto")
     ctx = faults.injected(inject) if inject else contextlib.nullcontext()
     t0 = time.perf_counter()
     with ctx:
-        _, rep = run_supervised(make_sim, RunConfig(agent_chunk=chunk, **(knobs or {})),
-                                run_dir=d_oom, collect=False, policy=policy)
+        res_oom, rep = run_supervised(
+            make_sim, RunConfig(agent_chunk=chunk, **(knobs or {})), run_dir=d_oom,
+            collect=True, policy=policy)
+    rows_oom = rows[0]
     oom_wall = time.perf_counter() - t0
     chunks = [chunk] + [int(d.rsplit(" ", 1)[1]) for d in rep.degradations]
     fails = rep.attempts
@@ -2556,9 +2645,10 @@ def real_oom(presets, RunConfig, *, name=NATIONAL, n_agents=None, chunk=OOM_CHUN
         raise AssertionError(f"[3g] (c) allocated bytes after a failed attempt differ "
                              f"from before it (before, after): {leaked}")
     t0 = time.perf_counter()
-    _, rep_auto = run_supervised(make_sim, RunConfig(**(knobs or {})), run_dir=d_auto,
-                                 collect=False, policy=policy)
+    res_auto, rep_auto = run_supervised(make_sim, RunConfig(**(knobs or {})),
+                                        run_dir=d_auto, collect=True, policy=policy)
     auto_wall = time.perf_counter() - t0
+    rows_auto = rows[0]
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     close = compare_run_dirs(d_auto, d_oom, numeric=True, approx=DRILL_APPROX)
@@ -2577,10 +2667,34 @@ def real_oom(presets, RunConfig, *, name=NATIONAL, n_agents=None, chunk=OOM_CHUN
     gaps = _column_gaps(d_auto, d_oom, bits["mismatched"])
     if gaps:
         log(f"    [3g] (c) columns that differ (elements, max |difference|): {gaps}")
+    per_agent = chunk_gaps_checked((rows_oom, res_oom), (rows_auto, res_auto),
+                                   chunks[-1])
     return dict(chunks=chunks, fail_walls=[a.wall_s for a in fails],
                 bytes=[(a.device_bytes_before, a.device_bytes_after) for a in fails],
                 oom_wall_s=oom_wall, auto_wall_s=auto_wall, bit_for_bit=bits["ok"],
-                mismatched=bits["mismatched"], gaps=gaps)
+                mismatched=bits["mismatched"], gaps=gaps, per_agent=per_agent)
+
+
+def chunk_gaps_checked(run_chunk: tuple, run_auto: tuple, chunk: int) -> dict:
+    """[3g] (c)'s per-agent check of a run at ``chunk`` rows a chunk
+    against one at the automatic chunk, each ``(sim, res)`` collected:
+    :func:`stage_gaps` of the two, logged. Raises when an agent's sizing
+    or market result differs (the section 2 contract: a row's result does
+    not depend on the rows that share its launch); the export's int16
+    codes may differ through the column's scale. Returns the record."""
+    rec = stage_gaps(run_chunk, run_auto)
+    log(f"    [3g] (c) per agent, float32 by agent_id ({rec['agents']} agents), "
+        f"agent_chunk {chunk} against the automatic: first stage that differs "
+        f"{rec['first_stage']}")
+    for stage, r in rec["stages"].items():
+        log(f"      {stage}: {r['agents_differ']} agents differ; per field "
+            f"{json.dumps(r['fields'])}"
+            + (f"; scales (chunk, automatic) {json.dumps(r['scales'])}"
+               if "scales" in r else ""))
+    if rec["first_stage"] in ("sizing", "market"):
+        raise AssertionError(f"[3g] (c) a row's {rec['first_stage']} result depends on "
+                             f"the chunk: {json.dumps(rec['stages'])}")
+    return rec
 
 
 def resilience(presets, RunConfig, *, device="cuda", containment_kw=None,
@@ -2961,6 +3075,427 @@ def dot_path(presets) -> tuple:
     return launches, capture, curves_gap(dot, ref), dot, ref
 
 
+# ---------------------------------------------------------------------------
+# [3h]: the tariff-clustered national world
+# ---------------------------------------------------------------------------
+
+#: [3g] (c)'s per-agent comparison of two chunks: the fields compared, by
+#: the stage that computes them: the sizing result, then the market step;
+#: the export's int16 codes are the third stage (the quantized ones of
+#: these fields)
+STAGE_FIELDS = (("sizing", ("system_kw", "npv", "payback_period", "batt_kwh")),
+                ("market", ("number_of_adopters",)))
+
+
+def keyed_rows(sim, res, fields, year_idx: int = 0) -> dict:
+    """{"ids": the real (mask 1) rows' agent ids in ascending order, field:
+    those rows' values of ``year_idx``} from a collected run."""
+    import numpy as np
+
+    keep = sim.host_mask > 0
+    ids = sim.host_agent_id[keep]
+    order = np.argsort(ids, kind="stable")
+    out = {"ids": ids[order]}
+    for f in fields:
+        out[f] = res.agent[f][year_idx][keep][order]
+    return out
+
+
+def export_codes(sim, res, fields, year_idx: int = 0) -> dict:
+    """The exporter's int16 codes and scales of ``fields`` (its
+    ``_quantize_i16`` over every row of the table, as the exporter takes
+    them), keyed like :func:`keyed_rows`."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.io.export import _quantize_i16
+
+    cols = [torch.from_numpy(np.ascontiguousarray(res.agent[f][year_idx])) for f in fields]
+    qs, scales, _ = _quantize_i16(cols)
+    keep = sim.host_mask > 0
+    order = np.argsort(sim.host_agent_id[keep], kind="stable")
+    out = {"ids": sim.host_agent_id[keep][order]}
+    for f, q, s in zip(fields, qs, scales):
+        out[f] = q.numpy()[keep][order]
+        out[f + ".scale"] = float(s)
+    return out
+
+
+def agent_gaps(a: dict, b: dict, fields) -> dict:
+    """Per field of two :func:`keyed_rows` records: the agents whose values
+    differ (bit for bit), the largest absolute and relative differences.
+    Raises when the two cover other agents."""
+    import numpy as np
+
+    if not np.array_equal(a["ids"], b["ids"]):
+        raise AssertionError("the two runs cover different agents")
+    out = {}
+    for f in fields:
+        x = np.asarray(a[f]).astype(np.float64)
+        y = np.asarray(b[f]).astype(np.float64)
+        diff = np.asarray(a[f]) != np.asarray(b[f])
+        gap = np.abs(x - y)
+        den = np.maximum(np.abs(x), np.abs(y))
+        rel = np.where(den > 0, gap / np.where(den > 0, den, 1.0), 0.0)
+        out[f] = {"differ": int(diff.sum()), "max_abs": float(gap.max(initial=0.0)),
+                  "max_rel": float(rel.max(initial=0.0))}
+    return out
+
+
+def stage_gaps(run_a: tuple, run_b: tuple) -> dict:
+    """[3g] (c)'s comparison of two collected runs ``(sim, res)`` of the same
+    world: per stage of :data:`STAGE_FIELDS` and the export's int16 codes,
+    the per-field gaps (:func:`agent_gaps`), the agents that differ in any
+    field of the stage, and ``first_stage``, the first stage in that order
+    where an agent differs (None where none does)."""
+    import numpy as np
+
+    fields = [f for _, fs in STAGE_FIELDS for f in fs]
+    ka, kb = keyed_rows(*run_a, fields), keyed_rows(*run_b, fields)
+    from dgen_tpu_torch.io.export import _EXACT_FIELDS
+
+    quant = [f for f in fields if f not in _EXACT_FIELDS]
+    ca, cb = export_codes(*run_a, quant), export_codes(*run_b, quant)
+    out = {"agents": int(len(ka["ids"])), "stages": {}, "first_stage": None}
+    stages = list(STAGE_FIELDS) + [("export codes", tuple(quant))]
+    for stage, fs in stages:
+        src_a, src_b = (ca, cb) if stage == "export codes" else (ka, kb)
+        gaps = agent_gaps(src_a, src_b, fs)
+        any_diff = np.zeros(len(ka["ids"]), bool)
+        for f in fs:
+            any_diff |= np.asarray(src_a[f]) != np.asarray(src_b[f])
+        rec = {"fields": gaps, "agents_differ": int(any_diff.sum())}
+        if stage == "export codes":
+            rec["scales"] = {f: (ca[f + ".scale"], cb[f + ".scale"]) for f in fs}
+        out["stages"][stage] = rec
+        if out["first_stage"] is None and rec["agents_differ"]:
+            out["first_stage"] = stage
+    return out
+
+
+#: (a), (b): the mixed national world (models.synth, the "mixed" corpus)
+MIXED_AGENTS = 1_048_576
+MIXED_SEED = 0
+MIXED_END_YEAR = 2016         # 2 model years
+#: (b): clustered against unclustered per agent, at the JAX package's
+#: tolerance for it (tests/test_tariffcluster.py:172, :229)
+CLUSTER_RTOL = CLUSTER_ATOL = 1e-5
+CLUSTER_FIELDS = ("system_kw_cum", "number_of_adopters", "npv", "batt_kwh_cum")
+#: (b): fields every masked row (chunk padding and cluster filler) keeps
+#: at zero
+MASKED_ZERO_FIELDS = ("new_adopters", "number_of_adopters", "system_kw_cum")
+#: (c): a mixed world of [3c]'s size, clustered in [3c]'s chunk against
+#: clustered whole, in the default world and [3c]'s gated int8 world
+MIXED_CHUNK_AGENTS = CHUNK_AGENTS
+CLUSTER_CHUNK_WORLDS = {"default": {}, "gated int8": CHUNK_WORLDS["gated int8"][0]}
+
+
+@contextlib.contextmanager
+def count_by_p(counts: dict):
+    """Inside the block, each bucket-sums kernel launch (a call on card
+    tensors) adds one to ``counts["<kernel>@P<p>"]`` (``_signed`` for the
+    signed month and stream launches); the calls run as they would."""
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    wrappers = {key: getattr(bk, fn) for key, (fn, _) in HELD_SUMS.items()}
+
+    def counted(key):
+        kernel = wrappers[key]
+
+        def run(*args):
+            pair = key == "month_pair"
+            if args[0].device.type == "cuda":
+                name = key + ("_signed" if not pair and args[7] else "")
+                name += f"@P{args[8] if pair else args[6]}"
+                counts[name] = counts.get(name, 0) + 1
+            return kernel(*args)
+        return run
+
+    for key, (fn, _) in HELD_SUMS.items():
+        setattr(bk, fn, counted(key))
+    try:
+        yield counts
+    finally:
+        for key, (fn, _) in HELD_SUMS.items():
+            setattr(bk, fn, wrappers[key])
+
+
+def mixed_sim(pop, knobs: dict, *, end_year: int, device="cuda", agent_chunk=None,
+              econ_years: int = 25):
+    """A Simulation of ``pop`` (a loaded package or a generated world) as
+    the national preset runs: storage and the state-hourly aggregate on,
+    uniform scenario inputs, ``knobs`` on the RunConfig."""
+    from dgen_tpu_torch.config import RunConfig, ScenarioConfig
+    from dgen_tpu_torch.models.scenario import uniform_inputs
+    from dgen_tpu_torch.models.simulation import Simulation
+
+    cfg = ScenarioConfig(name="mixed-national", start_year=2014, end_year=end_year,
+                         storage_enabled=True, anchor_years=())
+    inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups,
+                            n_regions=int(pop.profiles.wholesale.shape[0]),
+                            device=device)
+    return Simulation(pop.table, pop.profiles, pop.tariffs, inputs, cfg,
+                      RunConfig(agent_chunk=agent_chunk, **knobs), with_hourly=True,
+                      econ_years=econ_years, device=device)
+
+
+def keyed_years(sim, res, fields) -> dict:
+    """{"ids": the real rows' agent ids ascending, field: [years, agents]}."""
+    import numpy as np
+
+    keep = sim.host_mask > 0
+    ids = sim.host_agent_id[keep]
+    order = np.argsort(ids, kind="stable")
+    out = {"ids": ids[order]}
+    for f in fields:
+        out[f] = res.agent[f][:, keep][:, order]
+    return out
+
+
+def clustered_parity(run_c: tuple, run_u: tuple, *, rtol=CLUSTER_RTOL,
+                     atol=CLUSTER_ATOL, fields=CLUSTER_FIELDS) -> dict:
+    """[3h] (b)'s checks of a clustered run against an unclustered one of
+    the same world, each ``(sim, res)`` collected: the clustered layout
+    holds every real agent of the unclustered table exactly once; every
+    field of ``fields`` agrees per agent by agent id within ``rtol`` /
+    ``atol``; every masked row of the clustered table (chunk padding and
+    cluster filler) keeps MASKED_ZERO_FIELDS at zero. Raises
+    AssertionError on a miss; returns the largest gaps."""
+    import numpy as np
+
+    (sc, rc_), (su, ru) = run_c, run_u
+    ids_c = sc.host_agent_id[sc.host_mask > 0]
+    ids_u = su.host_agent_id[su.host_mask > 0]
+    if len(np.unique(ids_c)) != len(ids_c) or not np.array_equal(
+            np.sort(ids_c), np.sort(ids_u)):
+        missing = np.setdiff1d(ids_u, ids_c)
+        raise AssertionError(
+            f"[3h] the cluster layout does not hold every agent once: "
+            f"{len(ids_c)} real rows ({len(np.unique(ids_c))} distinct) for "
+            f"{len(ids_u)} agents, {len(missing)} missing (first {missing[:5].tolist()})")
+    kc, ku = keyed_years(sc, rc_, fields), keyed_years(su, ru, fields)
+    gaps = {}
+    for f in fields:
+        np.testing.assert_allclose(kc[f], ku[f], rtol=rtol, atol=atol,
+                                   err_msg=f"[3h] clustered vs unclustered {f}")
+        d = np.abs(kc[f].astype(np.float64) - ku[f])
+        gaps[f] = {"max_abs": float(d.max(initial=0.0)),
+                   "differ": int((kc[f] != ku[f]).sum())}
+    masked = sc.host_mask == 0
+    for f in MASKED_ZERO_FIELDS:
+        bad = int(np.count_nonzero(rc_.agent[f][:, masked]))
+        if bad:
+            raise AssertionError(f"[3h] {bad} values of {f} on masked rows of the "
+                                 "clustered table are not zero")
+    return {"agents": int(len(ids_c)), "masked_rows": int(masked.sum()), "fields": gaps}
+
+
+def mixed_world(n_agents: int, workdir: str, *, seed=MIXED_SEED, device="cuda") -> dict:
+    """[3h] (a): the mixed world generated on ``device`` by the port's
+    generator, saved with int8 banks (``save_world``), verified clean
+    (``verify_world``), loaded back (``load_population``; its agent columns
+    must equal the generated table's), and its cluster report; logged.
+    Returns the loaded population and the record."""
+    import os
+
+    import torch
+
+    from dgen_tpu_torch.io import package
+    from dgen_tpu_torch.models import synth
+    from dgen_tpu_torch.ops import tariffcluster
+
+    spec = synth.NationalSpec(n_agents=n_agents, tariff_mix="mixed", seed=seed)
+    t0 = time.perf_counter()
+    world = synth.generate_world(spec, device=device)
+    _sync(device)
+    rec = {"generate_s": time.perf_counter() - t0}
+    pkg = os.path.join(workdir, "mixed-world")
+    t0 = time.perf_counter()
+    manifest = synth.save_world(spec, pkg)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["bytes"] = _dir_bytes(pkg)
+    t0 = time.perf_counter()
+    problems = synth.verify_world(pkg)
+    rec["verify_s"] = time.perf_counter() - t0
+    if problems:
+        raise AssertionError(f"[3h] (a) verify_world found {problems}")
+    t0 = time.perf_counter()
+    pop = package.load_population(pkg, device=device)
+    _sync(device)
+    rec["load_s"] = time.perf_counter() - t0
+    differ = [c for c in package.AGENT_COLUMNS
+              if not torch.equal(getattr(pop.table, c), getattr(world.table, c))]
+    if differ or pop.table.n_agents != world.table.n_agents:
+        raise AssertionError(f"[3h] (a) the loaded table differs from the generated "
+                             f"one in {differ}")
+    del world
+    report = tariffcluster.cluster_report(
+        pop.tariffs, pop.table.tariff_idx.cpu().numpy(), pop.table.mask.cpu().numpy())
+    rec["report"] = report
+    log(f"[3h] (a) mixed world NationalSpec(n_agents={n_agents}, tariff_mix='mixed', "
+        f"seed={seed}): generated on {device} in {rec['generate_s']:.3f} s; "
+        f"save_world (int8 banks) {rec['save_s']:.3f} s, {rec['bytes']} bytes "
+        f"written; verify_world clean in {rec['verify_s']:.3f} s; loaded on {device} "
+        f"in {rec['load_s']:.3f} s, agent columns equal to the generated table's; "
+        f"residential shape mix {manifest['tariff_shape_mix']['residential_histogram']}")
+    log(f"    cluster report: {report['n_clusters']} signatures over "
+        f"{report['n_tariffs']} tariffs (global pad {report['global_pad']}); "
+        + "; ".join(f"(metering {c['metering']}, P {c['n_periods']}, T {c['n_tiers']}): "
+                    f"{c['n_agents']} agents, {c['n_rates']} rates"
+                    for c in report["clusters"])
+        + f"; modeled lane savings {report['modeled_lane_savings']}")
+    return {"pop": pop, **rec}
+
+
+def layout_line(sim) -> str:
+    lay = sim._cluster_layout
+    return (f"{len(lay.clusters)} segments "
+            + str([(c.metering, c.n_periods, c.n_tiers, c.seg_len, c.net_billing)
+                   for c in lay.clusters])
+            + f" (metering, P, T, seg_len, net billing), {sim.table.n_agents} rows, "
+            f"{sim.cluster_filler_rows} filler rows "
+            f"({sim.cluster_filler_rows / sim.table.n_agents:.4f} of the table)")
+
+
+def clustered_national(pop, *, end_year=MIXED_END_YEAR, device="cuda", knobs=None,
+                       econ_years: int = 25) -> dict:
+    """[3h] (b): ``pop`` run clustered and unclustered under the automatic
+    chunk for the model years to ``end_year``, each counted (launches, and
+    on a card the bucket-sums launches by P and the dispatch launches a
+    year), then held per agent by :func:`clustered_parity`. On a card,
+    one more first year of each run holds its first launches against the
+    plain versions, the clustered run's at each P. Logs the walls, the
+    layout and the filler share; returns the record."""
+    import torch
+
+    runs = {}
+    for tag, cluster in (("clustered", True), ("unclustered", False)):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        sim = mixed_sim(pop, dict(knobs or {}, cluster_tariffs=cluster),
+                        end_year=end_year, device=device, econ_years=econ_years)
+        if cluster and sim._cluster_layout is None:
+            raise AssertionError("[3h] (b) the clustered run built no cluster layout")
+        with count_by_p({}) as by_p:
+            res, launches, secs = counted_run(sim)
+        check_outputs(res, sim)
+        years = len(res.years)
+        log(f"[3h] (b) {tag}: {int(sim.host_mask.sum())} agents, {sim.table.n_agents} "
+            f"rows, chunk {sim._agent_chunk} x {years} years {res.years}; per-year s "
+            f"{[round(t, 3) for t in secs]}; launches a year "
+            f"{per_year(launches, years)}; by P a year {per_year(by_p, years)}")
+        if cluster:
+            log(f"    [3h] (b) layout: {layout_line(sim)}")
+        if device == "cuda":
+            if launches["dispatch"] != dispatch_per_year(sim) * years:
+                raise AssertionError(f"[3h] (b) {tag}: {launches['dispatch']} dispatch "
+                                     f"launches, {dispatch_per_year(sim) * years} expected")
+            if cluster and not {"month@P1", "month@P2"} <= set(by_p):
+                raise AssertionError(f"[3h] (b) the clustered run launched the month "
+                                     f"kernel at {sorted(by_p)}, not at P = 1 and 2")
+            held_year(sim, f"3h {tag}", by_p if cluster else launches, by_p=cluster)
+        runs[tag] = (sim, res, secs, launches, by_p)
+    rec = clustered_parity(runs["clustered"][:2], runs["unclustered"][:2])
+    sim_c = runs["clustered"][0]
+    rec.update(years=list(runs["clustered"][1].years),
+               walls={k: v[2] for k, v in runs.items()},
+               by_p={k: per_year(v[4], len(v[1].years)) for k, v in runs.items()},
+               rows=sim_c.table.n_agents, filler=sim_c.cluster_filler_rows,
+               segments=[c.seg_len for c in sim_c._cluster_layout.clusters])
+    log(f"    [3h] (b) clustered vs unclustered per agent by agent_id within rtol "
+        f"{CLUSTER_RTOL} / atol {CLUSTER_ATOL} over {rec['agents']} agents; masked rows "
+        f"({rec['masked_rows']}) inert; largest gaps {json.dumps(rec['fields'])}")
+    return rec
+
+
+def cluster_chunk_invariance(n_agents=MIXED_CHUNK_AGENTS, chunk=CHUNK_ROWS, *,
+                             end_year=CHUNK_END_YEAR, device="cuda",
+                             worlds=CLUSTER_CHUNK_WORLDS, seed=MIXED_SEED,
+                             knobs=None, econ_years: int = 25) -> dict:
+    """[3h] (c): a mixed world of ``n_agents`` generated on ``device``, run
+    clustered in chunks of ``chunk`` rows and clustered whole in each of
+    ``worlds``; every CHUNK_FIELDS value equal per agent by agent id, bit
+    for bit. The default world's whole run keeps its first launches
+    (:func:`run_path`), for [9]'s rows at P = 1. Raises on a difference
+    or a chunked run that did not stream; returns the record."""
+    import numpy as np
+
+    from dgen_tpu_torch.models import synth
+
+    pop = synth.generate_world(synth.NationalSpec(
+        n_agents=n_agents, tariff_mix="mixed", seed=seed), device=device)
+    out = {}
+    for world, wknobs in worlds.items():
+        runs = {}
+        for tag, c in (("chunked", chunk), ("whole", 0)):
+            sim = mixed_sim(pop, dict(wknobs, **(knobs or {}), cluster_tariffs=True),
+                            end_year=end_year, device=device, agent_chunk=c,
+                            econ_years=econ_years)
+            if device == "cuda":
+                run = run_path(sim)
+                capture = run.pop("capture")
+                if world == "default" and tag == "whole":
+                    out["capture"] = capture
+                del capture
+            else:
+                res, launches, secs = counted_run(sim)
+                run = dict(res=res, launches=launches, year_s=secs)
+            runs[tag] = (sim, run["res"])
+            log(f"[3h] (c) {world}, clustered {tag}: {int(sim.host_mask.sum())} agents, "
+                f"chunk {sim._agent_chunk}, {layout_line(sim)}; per-year s "
+                f"{[round(t, 3) for t in run['year_s']]}; launches "
+                f"{per_year(run['launches'], len(run['res'].years))} a year")
+        if runs["chunked"][0]._agent_chunk != chunk:
+            raise AssertionError(f"[3h] (c) {world}: the chunked run did not stream")
+        kc = keyed_years(*runs["chunked"], CHUNK_FIELDS)
+        kw = keyed_years(*runs["whole"], CHUNK_FIELDS)
+        if not np.array_equal(kc["ids"], kw["ids"]):
+            raise AssertionError(f"[3h] (c) {world}: the two layouts hold other agents")
+        differ = {f: int((kc[f] != kw[f]).sum()) for f in CHUNK_FIELDS}
+        if any(differ.values()):
+            raise AssertionError(f"[3h] (c) {world}: clustered chunked differs from "
+                                 f"clustered whole per agent: {differ}")
+        log(f"    [3h] (c) {world}: clustered in chunks of {chunk} equals clustered "
+            f"whole bit for bit per agent ({len(kc['ids'])} agents, {CHUNK_FIELDS})")
+        out[world] = differ
+    return out
+
+
+def p1_launches(b: dict) -> dict:
+    """:func:`p1_rows`' launch counts: the month kernel's launches at P = 1
+    over [3h] (b)'s clustered run."""
+    by_p, years = b["by_p"]["clustered"], len(b["years"])
+    return {"bucket_sums_month_p1": int(round(by_p.get("month@P1", 0) * years)),
+            "bucket_sums_month_signed_p1": int(round(by_p.get("month_signed@P1", 0)
+                                                     * years))}
+
+
+def mixed_clusters(*, workdir=None) -> dict:
+    """[3h]: (a) :func:`mixed_world` at MIXED_AGENTS, (b)
+    :func:`clustered_national` on it and (c)
+    :func:`cluster_chunk_invariance`, in a temporary directory the phase
+    removes. Logs the phase's wall; returns (c)'s first launches at P = 1
+    and the records."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dgen-3h-", dir=workdir)
+    try:
+        a = mixed_world(MIXED_AGENTS, work)
+        b = clustered_national(a.pop("pop"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    c = cluster_chunk_invariance()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[3h] tariff-clustered phase (a)-(c): {wall:.3f} s")
+    return {"a": a, "b": b, "c": c, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -2970,7 +3505,8 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__)), "build", "parent"),
         help="another checkout whose sums_variant and sums_monthdot kernels "
              "[9] times against this one's (skipped where absent)")
-    parent_root = ap.parse_args(argv).parent
+    args = ap.parse_args(argv)
+    parent_root = args.parent
     t_script = time.perf_counter()
     try:
         import torch
@@ -3070,6 +3606,9 @@ def main(argv=None) -> int:
     # --- 3g: resilience on the card ((d) runs in [9]) ---
     resilience(presets, RunConfig)
     torch.cuda.empty_cache()
+
+    # --- 3h: the tariff-clustered mixed national world ---
+    mixed = mixed_clusters()
 
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
@@ -3214,6 +3753,9 @@ def main(argv=None) -> int:
     log("  [3g] (d) NaN and +Inf loads through the staged kernels on copies of "
         "their first launches' operands, against the plain versions:")
     nan_through_kernels(captures, bk)
+    log("  [3h] the month kernel at P = 1 on a single-period cluster's first "
+        "launches (a clustered run's), not in the kernels line:")
+    p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     del captures
     for v in runs.values():
         v.pop("capture", None)

@@ -115,6 +115,16 @@ class RunConfig:
     #: the signed launch (R = 25, full-hour lanes), and level with it on
     #: full-hour imports (PERF.md).
     stream_segments: bool = False
+    #: tariff-clustered sizing (ops.tariffcluster): the compiled tariff
+    #: corpus is split into structural clusters keyed by (metering, true
+    #: periods, true tiers, demand presence), the agents are reordered
+    #: cluster-major, and sizing runs once per cluster at the cluster's
+    #: tight period and tier widths against its deduplicated rate bank;
+    #: a net-metered cluster whose NEM gate never closes prices by the
+    #: linear identity. Results keyed by agent_id are unchanged. Left off
+    #: (with a log line) when rate switching is live: a base/switch
+    #: tariff pair can straddle two clusters. Env: DGEN_TPU_CLUSTER.
+    cluster_tariffs: bool = False
     #: store the hourly load / gen / wholesale profile banks in bfloat16:
     #: the gathered [N, 8760] streams of the sizing search are half the
     #: bytes, the kernels upcast them when read and sum in float32, and
@@ -217,12 +227,13 @@ class RunConfig:
         package's ``RunConfig.from_env`` reads them, ``overrides`` winning
         over the environment: ``DGEN_TPU_AGENT_CHUNK`` (rows),
         ``DGEN_TPU_DEBUG``, ``DGEN_TPU_DAYLIGHT``, ``DGEN_TPU_BF16_BANKS``,
-        ``DGEN_TPU_QUANT_BANKS``, ``DGEN_TPU_PACK_ONCE`` and
-        ``DGEN_TPU_STREAM`` (a flag is on unless empty, "0" or "false").
+        ``DGEN_TPU_QUANT_BANKS``, ``DGEN_TPU_PACK_ONCE``,
+        ``DGEN_TPU_STREAM`` and ``DGEN_TPU_CLUSTER`` (``cluster_tariffs``)
+        (a flag is on unless empty, "0" or "false").
 
         A switch that asks for a feature the port lacks raises
         ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
-        ``DGEN_TPU_SOFT``, ``DGEN_TPU_CLUSTER`` or ``DGEN_TPU_GUARD`` on.
+        ``DGEN_TPU_SOFT`` or ``DGEN_TPU_GUARD`` on.
         ``DGEN_TPU_SOFT_TAU`` tunes a path the port does not have and is
         ignored. ``DGEN_TPU_VALIDATE`` is read when a Simulation is built
         (``validate_enabled``); ``DGEN_TPU_FAULTS`` is not a field here:
@@ -240,7 +251,6 @@ class RunConfig:
             raise NotImplementedError(
                 f"DGEN_TPU_DEVICES={devices}: the port runs on one device")
         for name, feature in (("DGEN_TPU_SOFT", "soft_boundaries"),
-                              ("DGEN_TPU_CLUSTER", "cluster_tariffs"),
                               ("DGEN_TPU_GUARD", "guard_retrace")):
             if flag(name):
                 raise NotImplementedError(
@@ -252,7 +262,8 @@ class RunConfig:
                             ("bf16_banks", "DGEN_TPU_BF16_BANKS"),
                             ("quant_banks", "DGEN_TPU_QUANT_BANKS"),
                             ("pack_once", "DGEN_TPU_PACK_ONCE"),
-                            ("stream_segments", "DGEN_TPU_STREAM")):
+                            ("stream_segments", "DGEN_TPU_STREAM"),
+                            ("cluster_tariffs", "DGEN_TPU_CLUSTER")):
             if field not in overrides and flag(name):
                 overrides[field] = True
         return cls(**overrides)

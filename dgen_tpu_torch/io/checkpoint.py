@@ -7,11 +7,19 @@ simulation.SimCarry` (ten ``[N]`` float32 leaves), so a checkpoint is one
 names (``market.market_share``, ..., ``batt_adopters_cum``)::
 
     <directory>/<year>/carry.npz
+    <directory>/<year>/rows.npy      (a tariff-clustered run's only)
+
+A clustered run's rows are in its cluster layout's order, which moves
+with the quarantine set and the chunk, so each of its years keeps the
+agent id of every row (-1 on a masked row) beside the carry. A restore
+into a clustered run moves the year's rows to the run's by agent id; a
+checkpoint of the other kind (clustered into unclustered, or the other
+way round) is refused.
 
 A save writes into a temporary directory and renames it into place: a
 torn save is invisible (:func:`valid_years` lists committed years only),
 and a save over an existing year replaces it. A restore checks every
-leaf's name and shape against ``SimCarry.zeros(n_agents)``.
+leaf's name and shape against ``SimCarry.zeros`` of the year's rows.
 
 Not ported yet: ``scenario_dir``/``member_dir`` and the stacked-scenario
 restore (sweeps and ensembles), and a restore onto a sharding
@@ -40,6 +48,9 @@ logger = logging.getLogger(__name__)
 
 #: the file of a committed year's carry
 CARRY_FILE = "carry.npz"
+#: a clustered run's row order in a committed year: [rows] int64 agent
+#: ids, -1 on a masked row
+ROWS_FILE = "rows.npy"
 
 
 def _leaves(carry) -> Dict[str, object]:
@@ -57,10 +68,12 @@ def _host(leaf) -> np.ndarray:
 class Writer:
     """Per-run checkpoint writer. Each save is complete when ``save``
     returns (nothing runs in the background), so ``close`` only marks the
-    end of the run."""
+    end of the run. ``rows``: a clustered run's row order (agent ids, -1
+    on masked rows), saved with every year."""
 
-    def __init__(self, directory: str) -> None:
+    def __init__(self, directory: str, rows: Optional[np.ndarray] = None) -> None:
         self.directory = os.path.abspath(directory)
+        self.rows = None if rows is None else np.asarray(rows, np.int64)
         os.makedirs(self.directory, exist_ok=True)
 
     def save(self, year: int, carry) -> None:
@@ -75,6 +88,8 @@ class Writer:
         tmp = tempfile.mkdtemp(prefix=f".tmp-{int(year)}-", dir=self.directory)
         try:
             write_npz(os.path.join(tmp, CARRY_FILE), arrays)
+            if self.rows is not None:
+                np.save(os.path.join(tmp, ROWS_FILE), self.rows)
             if os.path.isdir(final):
                 # a directory cannot be renamed onto a full one: move the
                 # old year aside, commit, then drop it
@@ -122,16 +137,16 @@ def latest_year(directory: str) -> Optional[int]:
 
 
 def latest_valid_year(directory: str, n_agents: int, max_year: Optional[int] = None,
-                      device="cuda") -> Optional[int]:
+                      device="cuda", rows: Optional[np.ndarray] = None) -> Optional[int]:
     """The newest committed year that restores (walking back past one
     that does not), optionally capped at ``max_year``; None when nothing
     restores. Each candidate is validated by a full restore onto
-    ``device``."""
+    ``device`` (``rows`` as :func:`restore_year` takes them)."""
     for y in reversed(valid_years(directory)):
         if max_year is not None and y > max_year:
             continue
         try:
-            restore_year(directory, n_agents, y, device=device)
+            restore_year(directory, n_agents, y, device=device, rows=rows)
         except Exception as e:  # noqa: BLE001 — any failure: not valid
             logger.warning("checkpoint year %d under %s does not restore (%r); "
                            "walking back", y, directory, e)
@@ -140,11 +155,33 @@ def latest_valid_year(directory: str, n_agents: int, max_year: Optional[int] = N
     return None
 
 
+def _rows_source(saved: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """[len(rows)] int64: for each of ``rows``' agent ids the row of
+    ``saved`` that holds it, -1 on a masked row and on an agent
+    ``saved`` does not hold."""
+    held = np.nonzero(saved >= 0)[0]
+    held = held[np.argsort(saved[held], kind="stable")]
+    keys = saved[held]
+    src = np.full(len(rows), -1, np.int64)
+    real = np.nonzero(rows >= 0)[0]
+    if len(keys) and len(real):
+        at = np.minimum(np.searchsorted(keys, rows[real]), len(keys) - 1)
+        found = keys[at] == rows[real]
+        src[real[found]] = held[at[found]]
+    return src
+
+
 def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
-                 device="cuda") -> Tuple[int, SimCarry]:
+                 device="cuda", rows: Optional[np.ndarray] = None) -> Tuple[int, SimCarry]:
     """(year, carry) of ``year`` (default: the latest committed year) on
     ``device``. Raises unless the file holds exactly the leaves of
-    ``SimCarry.zeros(n_agents)``, each of its shape."""
+    ``SimCarry.zeros`` of the year's rows, each of its shape.
+
+    ``rows``: a clustered run's row order ([n_agents] agent ids, -1 on
+    masked rows). The year's rows are then moved to it by agent id (an
+    agent the year does not hold starts from zero). A year saved with
+    rows restores only with ``rows`` and one saved without them only
+    without."""
     dev = resolve_device(device)
     if year is None:
         year = latest_year(directory)
@@ -153,8 +190,17 @@ def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
     path = os.path.join(directory, str(int(year)), CARRY_FILE)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no checkpoint of year {year} under {directory}")
-    zeros = SimCarry.zeros(n_agents, "cpu")
-    want = _leaves(zeros)
+    rows = None if rows is None else np.asarray(rows, np.int64)
+    rows_path = os.path.join(os.path.dirname(path), ROWS_FILE)
+    saved = np.load(rows_path) if os.path.isfile(rows_path) else None
+    if (saved is None) != (rows is None):
+        kind = ("a clustered", "an unclustered")
+        raise ValueError(f"checkpoint {path} was saved by {kind[saved is None]} run; "
+                         f"refusing to restore it into {kind[rows is None]} one")
+    if rows is not None and len(rows) != n_agents:
+        raise ValueError(f"{len(rows)} row ids for {n_agents} agents")
+    n_saved = n_agents if saved is None else len(saved)
+    want = _leaves(SimCarry.zeros(n_saved, "cpu"))
     with np.load(path, allow_pickle=False) as z:
         got = {k: z[k] for k in z.files}
     if set(got) != set(want):
@@ -163,7 +209,14 @@ def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
     for k, z0 in want.items():
         if tuple(got[k].shape) != tuple(z0.shape):
             raise ValueError(f"checkpoint {path}: leaf {k} has shape {got[k].shape}, "
-                             f"{tuple(z0.shape)} expected for {n_agents} agents")
+                             f"{tuple(z0.shape)} expected for {n_saved} agents")
+    if saved is not None and not np.array_equal(saved, rows):
+        src = _rows_source(saved, rows)
+        take, keep = np.maximum(src, 0), src >= 0
+        logger.info("checkpoint %s: rows moved to this run's layout by agent id (%d of "
+                    "%d real rows found)", path, int(keep.sum()), int((rows >= 0).sum()))
+        got = {k: np.where(keep, v[take], np.zeros((), v.dtype)) for k, v in got.items()}
+    zeros = SimCarry.zeros(n_agents, "cpu")
 
     def build(obj, prefix=""):
         if isinstance(obj, torch.Tensor):

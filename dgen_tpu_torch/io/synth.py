@@ -152,6 +152,12 @@ def make_tariff_specs() -> list:
     return specs
 
 
+def make_tariff_bank(seed: int = 3, device="cuda") -> TariffBank:
+    """The synthetic tariff corpus (:func:`make_tariff_specs`) compiled on
+    ``device``; ``seed`` is unused, as in the JAX package."""
+    return compile_tariffs(make_tariff_specs(), device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class SynthPopulation:
     table: AgentTable

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -269,6 +270,9 @@ def year_step(
     daylight: Optional[layout_ops.DaylightLayout] = None,
     pack_once: bool = False,
     agent_chunk: int = 0,
+    cluster=None,
+    cluster_banks=None,
+    cluster_tidx: Optional[torch.Tensor] = None,
 ) -> tuple[SimCarry, YearOutputs]:
     """One model year: trajectory application -> NEM gate -> sizing ->
     max market share -> (initial shares | diffusion) -> anchoring ->
@@ -282,7 +286,13 @@ def year_step(
     chunk alike, and the state-hourly aggregate is rebuilt by the hourly
     remat pass (:func:`_state_hourly_remat`), so no whole-table
     ``[N, 8760]`` tensor is formed; the market step runs once over the
-    whole table either way."""
+    whole table either way.
+
+    ``cluster``: an ``ops.tariffcluster.ClusterLayout`` of the table (laid
+    out cluster-major): sizing runs once per tariff cluster, at the
+    cluster's period count and net-billing flag, against its compact bank
+    in ``cluster_banks``, indexed by ``cluster_tidx`` ([N] local rows)
+    (:func:`_size_clustered`); a rate-switch call is refused."""
     n_states = table.n_states
     n_groups = table.n_groups
     g = table.group_idx.long()
@@ -301,7 +311,18 @@ def year_step(
     sizing = dict(n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
                   net_billing=net_billing, impl=sizing_impl, daylight=daylight,
                   pack_once=pack_once)
-    if n_chunks > 1:
+    if cluster is not None:
+        if rate_switch:
+            raise ValueError(
+                "cluster layouts cannot price rate-switch runs: a "
+                "base/switch tariff pair can straddle two clusters"
+            )
+        # hourly profiles are kept only when the whole table is one
+        # chunk; otherwise the remat pass below rebuilds the aggregate
+        res = _size_clustered(table, profiles, ya, nem_allowed, cluster,
+                              cluster_banks, cluster_tidx, agent_chunk, sizing,
+                              keep_hourly=with_hourly and n_chunks == 1)
+    elif n_chunks > 1:
         res = _size_chunked(table, profiles, tariffs, ya, nem_allowed,
                             n_chunks, rate_switch, sizing)
     else:
@@ -457,9 +478,46 @@ def _size_chunked(table, profiles, tariffs, ya, nem_allowed, n_chunks: int,
         res = _size_rows(_rows(table, rows), profiles, tariffs, _rows(ya, rows),
                          nem_allowed[rows], rate_switch,
                          dict(sizing, keep_hourly=False))
-        if out is None:
-            out = tree_map(lambda t: t.new_empty((table.n_agents,) + t.shape[1:]), res)
-        tree_map(lambda o, t: o[rows].copy_(t), out, res)
+        out = _write_rows(out, res, rows, table.n_agents)
+    return out
+
+
+def _write_rows(out, res, rows: slice, n: int):
+    """``res`` written into the whole-table results ``out`` at ``rows``
+    (``out`` allocated at ``n`` rows from ``res``'s leaves when None)."""
+    if out is None:
+        out = tree_map(lambda t: t.new_empty((n,) + t.shape[1:]), res)
+    tree_map(lambda o, t: o[rows].copy_(t), out, res)
+    return out
+
+
+def _size_clustered(table, profiles, ya, nem_allowed, cluster, cluster_banks,
+                    cluster_tidx, agent_chunk: int, sizing: dict,
+                    keep_hourly: bool) -> sizing_ops.SizingResult:
+    """Sizing one tariff cluster at a time (port of the JAX package's
+    ``_size_clustered`` on one device): each cluster's segment of the
+    cluster-major table is sized against its compact bank at the
+    cluster's ``n_periods``, with the run's ``net_billing`` and the
+    cluster's flag both required for the bucket-sums path, whole or in
+    chunks of ``agent_chunk`` rows (:func:`_n_chunks` of the segment;
+    a chunked segment keeps no hourly profiles). The results land in
+    table order."""
+    out = None
+    for spec, bank in zip(cluster.clusters, cluster_banks):
+        rows = slice(spec.offset, spec.offset + spec.seg_len)
+        tidx = cluster_tidx[rows]
+        tbl = dataclasses.replace(_rows(table, rows), tariff_idx=tidx,
+                                  tariff_switch_idx=tidx)
+        sz = dict(sizing, n_periods=spec.n_periods,
+                  net_billing=sizing["net_billing"] and spec.net_billing)
+        n_c = _n_chunks(spec.seg_len, agent_chunk)
+        if n_c > 1:
+            res = _size_chunked(tbl, profiles, bank, _rows(ya, rows),
+                                nem_allowed[rows], n_c, False, sz)
+        else:
+            res = _size_rows(tbl, profiles, bank, _rows(ya, rows),
+                             nem_allowed[rows], False, dict(sz, keep_hourly=keep_hourly))
+        out = _write_rows(out, res, rows, table.n_agents)
     return out
 
 
@@ -770,6 +828,21 @@ class Simulation:
             # lane alignment and chunk divisibility together
             self.table = pad_table(
                 self.table, math.lcm(self.run_config.agent_pad_multiple, chunk))
+        # the tariff-clustered layout, after the chunk padding and before
+        # the host copies of the row order are taken
+        self._cluster_layout = None
+        self._cluster_banks = None
+        self._cluster_tidx = None
+        self._cluster_host = None
+        #: masked filler rows the cluster layout added to pad its segments
+        self.cluster_filler_rows = 0
+        if rc.cluster_tariffs and self._rate_switch:
+            logger.info(
+                "cluster_tariffs requested but rate switching is live "
+                "(base/switch pairs can straddle clusters); running the "
+                "unclustered program")
+        elif rc.cluster_tariffs:
+            self._lay_out_clusters(chunk)
         # stream only when the table is larger than one chunk
         self._agent_chunk = chunk if chunk and self.table.n_agents > chunk else 0
         self.host_agent_id = self.table.agent_id.cpu().numpy()
@@ -777,6 +850,70 @@ class Simulation:
         self.modeled_step_bytes = self._check_memory()
         self.memory_check: Optional[dict] = None
         self.health_report: Optional[dict] = None
+
+    def _lay_out_clusters(self, chunk: int) -> None:
+        """Reorder the table cluster-major (``ops.tariffcluster``): the
+        corpus split into structural clusters, each cluster's real rows
+        in one segment padded to a multiple of ``lcm(agent_pad_multiple,
+        chunk)`` with masked filler rows (one device: ``n_dev`` 1). Every
+        ``[n_agents, ...]`` table leaf is gathered on the device and the
+        mask multiplied by the layout's valid rows; the compact banks,
+        the rows' compact tariff indices and the host columns of the
+        per-cluster NEM proof are kept."""
+        from dgen_tpu_torch.ops import tariffcluster
+
+        pad_mult = math.lcm(self.run_config.agent_pad_multiple, chunk or 1)
+        plan = tariffcluster.analyze_bank(self.tariffs)
+        layout, gather, valid, ctidx = tariffcluster.plan_layout(
+            plan, self.table.tariff_idx.cpu().numpy(),
+            self.table.mask.cpu().numpy(), 1, pad_mult)
+        n_old = self.table.n_agents
+        idx = torch.from_numpy(gather).to(self.device)
+
+        def _gather(x):
+            return x[idx] if x.ndim >= 1 and x.shape[0] == n_old else x
+
+        table = tree_map(_gather, self.table)
+        self.table = dataclasses.replace(
+            table, mask=table.mask * torch.from_numpy(valid).to(self.device))
+        h = lambda t: t.cpu().numpy()
+        self._cluster_host = dict(
+            cid=layout.cluster_of_rows(),
+            real=h(self.table.mask) > 0,
+            state_idx=h(self.table.state_idx),
+            nem_first_year=h(self.table.nem_first_year),
+            nem_sunset_year=h(self.table.nem_sunset_year),
+            nem_kw_limit=h(self.table.nem_kw_limit),
+        )
+        self._cluster_banks = tariffcluster.banks_for_layout(plan, layout)
+        self._cluster_tidx = torch.from_numpy(ctidx).to(self.device)
+        self._cluster_layout = layout
+        self._cluster_layout = layout.with_flags(self._cluster_flags(self.inputs))
+        self.cluster_filler_rows = int(len(valid) - int(valid.sum()))
+        logger.info(
+            "tariff clusters: %d signatures over %d tariffs, segments %s "
+            "rows/device (was %d rows/device global-pad), %d filler rows",
+            layout.n_clusters, self.tariffs.n_tariffs,
+            [c.seg_len for c in self._cluster_layout.clusters], n_old,
+            self.cluster_filler_rows)
+
+    def _cluster_flags(self, inputs: ScenarioInputs) -> tuple:
+        """Per-cluster net-billing flags for ``inputs``: a net-metered
+        cluster prices by the linear identity only when its own members'
+        NEM gate provably never closes (:func:`nem_gate_never_closes` on
+        the cluster's real rows)."""
+        h = self._cluster_host
+        caps = inputs.nem_cap_kw.cpu().numpy()
+        flags = []
+        for ci, spec in enumerate(self._cluster_layout.clusters):
+            if spec.metering == NET_BILLING:
+                flags.append(True)
+                continue
+            sel = (h["cid"] == ci) & h["real"]
+            flags.append(not nem_gate_never_closes(
+                h["state_idx"][sel], caps, h["nem_first_year"][sel],
+                h["nem_sunset_year"][sel], h["nem_kw_limit"][sel], self.years))
+        return tuple(flags)
 
     def _footprint(self) -> dict:
         """The :func:`per_agent_step_bytes` keywords of this run."""
@@ -914,7 +1051,17 @@ class Simulation:
             daylight=self._daylight,
             pack_once=self.run_config.pack_once,
             agent_chunk=self._agent_chunk,
+            cluster=self._cluster_layout,
         )
+
+    def step_operands(self) -> dict:
+        """The tensors that go with a cluster layout into :func:`year_step`
+        (the compact banks and the rows' compact tariff indices); empty
+        when the run is unclustered."""
+        if self._cluster_layout is None:
+            return {}
+        return dict(cluster_banks=self._cluster_banks,
+                    cluster_tidx=self._cluster_tidx)
 
     def init_carry(self) -> SimCarry:
         return SimCarry.zeros(self.table.n_agents, self.device)
@@ -931,7 +1078,7 @@ class Simulation:
             self.profiles = _corrupt_bank_rows(self.profiles)
         return year_step(
             self.table, self.profiles, self.tariffs, self.inputs, carry,
-            year_idx, **self.step_kwargs(first_year),
+            year_idx, **self.step_kwargs(first_year), **self.step_operands(),
         )
 
     def _check_state_kw_bound(self, carry: SimCarry, context: str) -> None:
@@ -985,6 +1132,23 @@ class Simulation:
             return x
 
         return tree_map(zero, carry)
+
+    @property
+    def checkpoint_rows(self) -> Optional[np.ndarray]:
+        """A clustered run's row order, saved with each checkpointed year
+        so that a resume under another layout restores by agent id
+        (``io.checkpoint``): [n_agents] int64 agent ids, -1 on a masked
+        row. None for an unclustered run."""
+        if self._cluster_layout is None:
+            return None
+        return np.where(self.host_mask > 0, self.host_agent_id.astype(np.int64), -1)
+
+    def _restore_carry(self, checkpoint_dir: str, year: int) -> SimCarry:
+        """The carry checkpointed for ``year`` in this run's row order."""
+        from dgen_tpu_torch.io import checkpoint as ckpt
+
+        return ckpt.restore_year(checkpoint_dir, self.table.n_agents, year,
+                                 device=self.device, rows=self.checkpoint_rows)[1]
 
     def _sync(self) -> None:
         """Wait for the work queued on the run's card (no-op on the CPU)."""
@@ -1042,9 +1206,8 @@ class Simulation:
                     f"checkpointed year {last} is not on this scenario's year grid "
                     f"{self.years}; refusing to resume")
             if last is not None:
-                _, restored = ckpt.restore_year(checkpoint_dir, self.table.n_agents,
-                                                last, device=self.device)
-                carry = self._sanitize_restored_carry(restored)
+                carry = self._sanitize_restored_carry(
+                    self._restore_carry(checkpoint_dir, last))
                 start_idx = self.years.index(last) + 1
                 logger.info("resuming after year %d (index %d)", last, start_idx)
 
@@ -1054,7 +1217,7 @@ class Simulation:
         if checkpoint_dir is not None:
             from dgen_tpu_torch.io import checkpoint as ckpt
 
-            ckpt_writer = ckpt.Writer(checkpoint_dir)
+            ckpt_writer = ckpt.Writer(checkpoint_dir, rows=self.checkpoint_rows)
         debug = rc.debug_invariants
         async_io = (rc.async_io_enabled and not debug
                     and (collect or callback is not None or ckpt_writer is not None))

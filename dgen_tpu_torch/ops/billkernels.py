@@ -802,9 +802,21 @@ def _period_charge(sums_mp: torch.Tensor, price_p: torch.Tensor) -> torch.Tensor
 def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Tensor:
     """[N, R, 12, P] monthly sums -> [N, R] annual tiered charges, as a
     loop over the (small) tier axis so the largest temporary stays
-    [N, R, 12, P]. Sums stored at bank precision are upcast first."""
+    [N, R, 12, P]. Sums stored at bank precision are upcast first.
+
+    Single-period sums are priced as two periods, the second empty (its
+    sums zero, its price period 0's, as ``compile_tariffs`` pads one):
+    the months then reduce over the same layout, strided by the period
+    axis, as the same tariff's sums padded to a corpus-wide P = 2. A
+    reduction over a contiguous month axis groups its terms otherwise, so
+    a tariff-clustered run (each cluster at its own P) would price a
+    single-period tariff a last bit apart from an unclustered run and
+    move an agent's size."""
     sums_mp = sums_mp.float()
     price = tariff.price          # [N, P, T]
+    if sums_mp.shape[-1] == 1:
+        sums_mp = torch.cat([sums_mp, torch.zeros_like(sums_mp)], dim=-1)
+        price = torch.cat([price, price], dim=1)
     caps = tariff.tier_cap        # [N, T]
     lower = torch.cat([torch.zeros_like(caps[:, :1]), caps[:, :-1]], dim=1)
     width = caps - lower

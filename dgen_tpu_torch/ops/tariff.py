@@ -174,6 +174,17 @@ def normalize_tariff_spec(spec: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def flat_tariff(price: float, fixed: float = 0.0, metering: int = NET_METERING,
+                sell_frac_of_buy: float = 0.0) -> Dict[str, Any]:
+    """A single-period, single-tier flat-rate tariff spec."""
+    return {
+        "price": [[price]],
+        "fixed_charge": fixed,
+        "metering": metering,
+        "sell_frac_of_buy": sell_frac_of_buy,
+    }
+
+
 def compile_tariffs(
     specs: List[Dict[str, Any]],
     max_periods: Optional[int] = None,

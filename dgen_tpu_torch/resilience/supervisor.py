@@ -507,12 +507,14 @@ def run_supervised(
                     resume_year = ckpt.latest_valid_year(
                         checkpoint_dir, sim.table.n_agents,
                         max_year=frontier, device=sim.device,
+                        rows=sim.checkpoint_rows,
                     )
             else:
                 # no exporter: checkpoints are the only artifact, so
                 # the newest valid one is the frontier
                 resume_year = ckpt.latest_valid_year(
                     checkpoint_dir, sim.table.n_agents, device=sim.device,
+                    rows=sim.checkpoint_rows,
                 )
             if resume_year is None:
                 do_resume = False

@@ -315,3 +315,143 @@ def test_pipeline_ab_runs_both_paths_on_the_cpu(capsys):
     assert set(out) == {32} and out[32]["pipeline"] > 0 and out[32]["serialized"] > 0
     assert 0 <= out[32]["won"] <= 2
     assert "pipeline vs serialized, 2 alternated pairs" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# [3h]: the tariff-clustered mixed world; [3g] (c): chunk invariance per agent
+# ---------------------------------------------------------------------------
+
+#: [3h] on the CPU: segments padded to 16 rows, 4 sizing iterations, a
+#: 5-year cash-flow horizon, one model year
+SMALL_3H = dict(agent_pad_multiple=16, sizing_iters=4)
+SMALL_3H_RUN = dict(device="cpu", end_year=2014, knobs=SMALL_3H, econ_years=5)
+
+
+@pytest.fixture(scope="module")
+def mixed_runs(tmp_path_factory):
+    """[3h] (a) and (b) on a 48-agent mixed world on the CPU; (b)'s two
+    runs as its checker received them."""
+    a = cs.mixed_world(48, str(tmp_path_factory.mktemp("3h")), device="cpu")
+    seen = []
+    real = cs.clustered_parity
+
+    def keep(run_c, run_u, **kw):
+        seen.append((run_c, run_u))
+        return real(run_c, run_u, **kw)
+
+    cs.clustered_parity = keep
+    try:
+        rec = cs.clustered_national(a["pop"], **SMALL_3H_RUN)
+    finally:
+        cs.clustered_parity = real
+    return a, rec, seen[0]
+
+
+def test_3h_mixed_world_and_clustered_parity_pass_on_the_cpu(mixed_runs):
+    a, rec, (run_c, run_u) = mixed_runs
+    assert a["report"]["n_clusters"] == 6 and a["bytes"] > 0
+    assert rec["agents"] == 48 and rec["masked_rows"] == run_c[0].cluster_filler_rows > 0
+    assert set(rec["fields"]) == set(cs.CLUSTER_FIELDS)
+    assert run_c[0]._cluster_layout is not None and run_u[0]._cluster_layout is None
+
+
+def _broken(run, how):
+    import types
+
+    import numpy as np
+
+    sim, res = run
+    mask = sim.host_mask.copy()
+    agent = {k: v.copy() for k, v in res.agent.items()}
+    if how == "moved":
+        agent["npv"] = agent["npv"] * np.float32(1 + 1e-4)
+    elif how == "dropped":
+        mask[np.nonzero(mask > 0)[0][5]] = 0.0
+    else:
+        agent["new_adopters"][:, np.nonzero(mask == 0)[0][0]] = 1.0
+    return (types.SimpleNamespace(host_agent_id=sim.host_agent_id, host_mask=mask),
+            types.SimpleNamespace(agent=agent))
+
+
+@pytest.mark.parametrize("how, match", [
+    ("moved", "clustered vs unclustered npv"),
+    ("dropped", "does not hold every agent once"),
+    ("filler", "masked rows"),
+])
+def test_3h_checker_catches_a_broken_clustered_run(mixed_runs, how, match):
+    _, _, (run_c, run_u) = mixed_runs
+    cs.clustered_parity(run_c, run_u)
+    with pytest.raises(AssertionError, match=match):
+        cs.clustered_parity(_broken(run_c, how), run_u)
+
+
+def test_3h_clustered_chunked_equals_whole_on_the_cpu(capsys):
+    out = cs.cluster_chunk_invariance(48, 16, worlds={"default": {}}, **SMALL_3H_RUN)
+    assert out["default"] == {f: 0 for f in cs.CHUNK_FIELDS}
+    assert "equals clustered whole bit for bit" in capsys.readouterr().out
+
+
+def _fake_run(payback, adopters, mask):
+    import types
+
+    import numpy as np
+
+    n = len(mask)
+    agent = {f: np.ones((1, n), np.float32) for f in ("system_kw", "npv", "batt_kwh")}
+    agent["payback_period"] = np.asarray([payback], np.float32)
+    agent["number_of_adopters"] = np.asarray([adopters], np.float32)
+    return (types.SimpleNamespace(host_agent_id=np.arange(n), host_mask=np.asarray(mask)),
+            types.SimpleNamespace(agent=agent))
+
+
+@pytest.mark.parametrize("change, first", [
+    (None, None),
+    ("payback", "sizing"),
+    ("adopters", "market"),
+    ("padding", "export codes"),
+])
+def test_3h0_stage_gaps_name_the_first_stage_that_differs(change, first):
+    mask = [1.0, 1.0, 1.0, 1.0, 0.0]
+    payback, adopters = [3.0, 4.5, 7.25, 11.0, 0.0], [1.0, 2.0, 3.0, 4.0, 0.0]
+    other_p, other_a = list(payback), list(adopters)
+    if change == "payback":
+        other_p[2] = 7.3
+    elif change == "adopters":
+        other_a[1] = 2.5
+    elif change == "padding":
+        other_p[4] = 30.1     # a padding row's payback grows the column's scale
+    rec = cs.stage_gaps(_fake_run(payback, adopters, mask),
+                        _fake_run(other_p, other_a, mask))
+    assert rec["first_stage"] == first
+    if change == "padding":
+        assert rec["stages"]["sizing"]["agents_differ"] == 0
+        assert rec["stages"]["export codes"]["agents_differ"] > 0
+
+
+@pytest.mark.parametrize("change, fails", [
+    (None, None),
+    ("payback", "sizing"),
+    ("adopters", "market"),
+    ("padding", None),
+])
+def test_3g_chunk_check_fails_on_a_row_that_depends_on_the_chunk(change, fails, capsys):
+    """[3g] (c)'s per-agent check: an agent whose sizing or market result
+    moved with the chunk fails it; a padding row that only moves the
+    export codes' scale is logged."""
+    mask = [1.0, 1.0, 1.0, 1.0, 0.0]
+    payback, adopters = [3.0, 4.5, 7.25, 11.0, 0.0], [1.0, 2.0, 3.0, 4.0, 0.0]
+    other_p, other_a = list(payback), list(adopters)
+    if change == "payback":
+        other_p[0] = 3.0001
+    elif change == "adopters":
+        other_a[3] = 4.5
+    elif change == "padding":
+        other_p[4] = 30.1
+    runs = _fake_run(other_p, other_a, mask), _fake_run(payback, adopters, mask)
+    if fails:
+        with pytest.raises(AssertionError, match=f"a row's {fails} result depends"):
+            cs.chunk_gaps_checked(*runs, 64)
+        return
+    rec = cs.chunk_gaps_checked(*runs, 64)
+    assert rec["first_stage"] == ("export codes" if change else None)
+    assert "agent_chunk 64 against the automatic" in capsys.readouterr().out

@@ -78,6 +78,8 @@ def test_resilience_phase_passes_on_the_cpu(tmp_path, small_cap, capsys):
     assert b["faults"]["sites"]["export_torn"]["retries"] == 1
     assert set(b["quarantine"]["rounds"]) == {"ingest", "bank"}
     assert c["chunks"] == [128, 64] and c["bit_for_bit"] in (True, False)
+    assert c["per_agent"]["agents"] == 16
+    assert c["per_agent"]["first_stage"] in (None, "export codes")
     assert os.listdir(tmp_path) == []
     log = capsys.readouterr().out
     for part in ("[3g] (a)", "refused", "[3g] (b) fault drill", "quarantine drill ingest",

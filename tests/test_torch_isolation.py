@@ -207,6 +207,7 @@ PORTED_FLAGS = {
     "DGEN_TPU_QUANT_BANKS": "quant_banks",
     "DGEN_TPU_PACK_ONCE": "pack_once",
     "DGEN_TPU_STREAM": "stream_segments",
+    "DGEN_TPU_CLUSTER": "cluster_tariffs",
 }
 ALL_SWITCHES = (*PORTED_FLAGS, "DGEN_TPU_AGENT_CHUNK", "DGEN_TPU_DEVICES",
                 "DGEN_TPU_SOFT", "DGEN_TPU_SOFT_TAU", "DGEN_TPU_CLUSTER",
@@ -252,8 +253,7 @@ def test_from_env_chunk_devices_and_ignored_switches(clean_env):
 
 
 @pytest.mark.parametrize("name, value", [
-    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_SOFT", "1"), ("DGEN_TPU_CLUSTER", "1"),
-    ("DGEN_TPU_GUARD", "true")])
+    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_SOFT", "1"), ("DGEN_TPU_GUARD", "true")])
 def test_from_env_refuses_unported_switches(clean_env, name, value):
     from dgen_tpu_torch.config import RunConfig
 
@@ -431,3 +431,43 @@ def test_resilience_needs_no_pandas_pyarrow_orbax_or_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1] == "1 0"
     assert os.path.isfile(os.path.join(run_dir, "quarantine.json"))
+
+
+#: the modules of the national generator, the URDB tooling and tariff
+#: clustering
+CLUSTER_MODULES = ("dgen_tpu_torch.models.synth", "dgen_tpu_torch.io.urdb",
+                   "dgen_tpu_torch.ops.tariffcluster")
+
+
+def test_generator_urdb_and_clustering_need_no_pandas_pyarrow_or_jax(tmp_path):
+    """The national generator, the URDB tooling and tariff clustering
+    import, a mixed world is saved, verified, loaded and laid out cluster
+    by cluster, and a URDB record parses, with pandas, pyarrow, orbax, jax
+    and the JAX package unavailable."""
+    world = str(tmp_path / "world")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {CLUSTER_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "from dgen_tpu_torch.io import package, urdb\n"
+        "from dgen_tpu_torch.models import synth\n"
+        "from dgen_tpu_torch.ops import tariffcluster as tc\n"
+        "spec = synth.NationalSpec(n_agents=300, tariff_mix='mixed')\n"
+        f"synth.save_world(spec, {world!r})\n"
+        f"assert synth.verify_world({world!r}) == []\n"
+        f"pop = package.load_population({world!r}, device='cpu')\n"
+        "plan = tc.analyze_bank(pop.tariffs)\n"
+        "lay = tc.plan_layout(plan, pop.table.tariff_idx.numpy(),\n"
+        "                     pop.table.mask.numpy(), 1, 16)[0]\n"
+        "e, d = urdb.urdb_rate_to_specs({'energyratestructure': [[{'rate': 0.1}]]})\n"
+        "print(plan.n_clusters, len(lay.clusters), e['e_prices'], d)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "6 6 [[0.1]] None"
