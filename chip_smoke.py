@@ -112,6 +112,30 @@ its first launch in the path):
      bit per agent, in the default world and [3c]'s gated int8 world; the
      default whole run's first month launches (P = 1) give [9] the month
      kernel's rows at P = 1, logged beside the kernels line;
+  3i. sweeps and ensembles, through SweepSimulation and
+     EnsembleSimulation, in a temporary directory the phase removes: (a)
+     national-all-sector at its full width, 2 model years, S = 2 (the
+     preset's inputs, and no ITC), planned on the card's memory (one vmap
+     group, chunked: S x chunk rows a kernel launch) and again with
+     max_vmap_scenarios=1 (loop mode), both collected and equal bit for
+     bit by agent_id in system_kw, npv, payback_period,
+     number_of_adopters and batt_kwh; the siblings share the base's
+     tensors and grow the allocated bytes by less than a bank; the plan,
+     modeled step bytes beside the measured peak, each scenario-year's
+     wall, agent-years/s beside [3d]'s, the launch counts held as [3d]
+     holds them, and one more first year holding the vmap run's first
+     launches against the plain versions; (b) [3c]'s world, S = 3 ITC
+     levels over 3 model years, default and gated int8: the vmap sweep
+     equals each scenario's own Simulation.run bit for bit per agent, and
+     a loop-mode sweep exporting as it runs, under the supervisor with
+     sweep_scenario@2 injected, resumes at (scenario, year) with the
+     clean sweep's files byte for byte (state_hourly within [3c]'s
+     tolerance); (c) [3c]'s world, E = 8 members under DEFAULT_DRAWS with
+     2,048 rows entering in 2015, 3 model years: vmap (planned) and loop
+     mode equal bit for bit by agent_id, the device quantiles within 1e-6
+     of numpy's on the members' curves, E = 1 with zero draws equal to
+     Simulation.run, and a vmap run killed in its last year and resumed
+     with the same statistics;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -227,9 +251,12 @@ CHUNK_WORLDS = {
                         quant_banks=True), 0.0, ("stream", "stream_signed")),
     "rate switch": ({}, 0.4, ("month_pair", "month_signed")),
 }
-#: agent rows of one plain-version block where [3c] and [3d] hold a
-#: kernel's launch against its plain version (held_rows)
-HELD_ROWS = 16384
+#: agent rows of one plain-version block where [3c], [3d], [3h] and [3i]
+#: hold a kernel's launch against its plain version (held_rows): on the
+#: card the plain dispatch loop takes about the same wall for 16,384 rows
+#: as for 43,520 (it is launch-bound), so blocks of 32,768 rows halve the
+#: national holds' plain passes at ~9 GB of plain temporaries
+HELD_ROWS = 32768
 #: [3e]: the golden fixtures. Golden #1 (tests/test_golden_e2e.py) from
 #: the committed port-format package; golden #2, the NEM cap flip
 #: (tests/test_golden_capflip.py), rebuilt on the port's synthetic world
@@ -1632,7 +1659,7 @@ HELD_SUMS = {
 }
 
 
-def held_year(sim, tag: str, launches: dict, by_p: bool = False) -> None:
+def held_year(sim, tag: str, launches: dict, by_p: bool = False, step=None) -> None:
     """One more first model year of ``sim`` after its counted run (so
     that run's launch counts and memory peaks stand as it left them), in
     which the first launch of each bucket-sums kernel the counted run
@@ -1645,7 +1672,9 @@ def held_year(sim, tag: str, launches: dict, by_p: bool = False) -> None:
     count P is held (a tariff-clustered run; ``launches`` then holds the
     counted run's ``<kernel>@P<p>`` keys, :func:`launches_by_p`). Nothing
     is kept past its check, so no chunk's operands stay pinned; raises on
-    a disagreement or a check that never ran."""
+    a disagreement or a check that never ran. ``step``: the first year to
+    run instead of ``sim``'s own (a sweep's, whose launches carry S x chunk
+    rows; ``sim`` then gives the chunk and the hourly switch)."""
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
@@ -1681,9 +1710,14 @@ def held_year(sim, tag: str, launches: dict, by_p: bool = False) -> None:
         got = disp(*args, **kw)
         if i in (0, remat):
             fields = ("system_out", "soc", "charge", "discharge")
+
+            def plain(*a):
+                # one plain loop a block, its four outputs held together
+                res = dispatch.dispatch_battery_plain(*a)
+                return [getattr(res, k) for k in fields]
+
             held_rows(f"[{tag}] dispatch {i}", [getattr(got, k) for k in fields],
-                      args, lambda *a: [getattr(dispatch.dispatch_battery_plain(*a), k)
-                                        for k in fields], not_equal)
+                      args, plain, not_equal)
             held["dispatch (sizing)" if i == 0 else "dispatch (remat pass)"] = (
                 f"N={args[0].shape[0]} H={args[0].shape[1]} bit for bit")
         return got
@@ -1693,7 +1727,10 @@ def held_year(sim, tag: str, launches: dict, by_p: bool = False) -> None:
         setattr(bk, fn, sums_held(key))
     dispatch.dispatch_battery = dispatch_held
     try:
-        sim.step(sim.init_carry(), 0, True)
+        if step is None:
+            sim.step(sim.init_carry(), 0, True)
+        else:
+            step()
     finally:
         for key, (fn, _) in HELD_SUMS.items():
             setattr(bk, fn, wrappers[key])
@@ -1808,7 +1845,7 @@ def chunked_vs_whole(presets, RunConfig) -> None:
         del out, c_sim, w_sim
 
 
-def national_path(presets, whole_per_year: dict) -> None:
+def national_path(presets, whole_per_year: dict) -> float:
     """[3d]: national-all-sector at its full width under the automatic
     chunk for NATIONAL_END_YEAR's model years, collect=False, the
     national sums reduced on the card each year; prints the run's record,
@@ -1819,7 +1856,8 @@ def national_path(presets, whole_per_year: dict) -> None:
     The run keeps no operands (``billkernels.CAPTURE = None``: one
     chunk's [~88k, 8760] streams would stay pinned through it); a
     further first year holds the first launches, past row 65,535, against
-    the plain versions (:func:`held_year`)."""
+    the plain versions (:func:`held_year`). Returns the run's agent-years
+    a second over its years."""
     import torch
 
     from dgen_tpu_torch.ops import billkernels as bk
@@ -1896,6 +1934,7 @@ def national_path(presets, whole_per_year: dict) -> None:
     if not sim.health_report["clean"]:
         raise AssertionError(f"[3d] health breaches: {sim.health_report}")
     held_year(sim, "3d", launches)
+    return n_real * len(ys) / sum(ys)
 
 
 #: [3f]: the run outputs at national-all-sector's full width, over
@@ -3496,6 +3535,556 @@ def mixed_clusters(*, workdir=None) -> dict:
     return {"a": a, "b": b, "c": c, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# [3i]: sweeps and ensembles on the card
+# ---------------------------------------------------------------------------
+
+#: (a): national-all-sector's 2014 and 2016, S = 2: the preset's inputs,
+#: and the same with no ITC in any year
+SWEEP_END_YEAR = 2016
+#: the per-agent fields the two modes of a sweep or an ensemble, and a
+#: sweep and its single runs, must give bit for bit (by agent_id)
+SWEEP_FIELDS = ("system_kw", "npv", "payback_period", "number_of_adopters", "batt_kwh")
+#: (b): [3c]'s world, S = 3 ITC levels over 3 model years
+SWEEP_ITCS = (0.30, 0.10, 0.0)
+SWEEP_SMALL_END_YEAR = 2018
+#: (c): E = 8 members under DEFAULT_DRAWS, a cohort of 2,048 rows that
+#: enters in 2015 (alive from the 2016 model year), 3 model years
+ENS_MEMBERS = 8
+ENS_COHORT_ROWS = 2048
+ENS_COHORT_YEAR = 2015.0
+#: (c): the device quantiles against numpy's on the members' curves
+QUANTILE_RTOL = 1e-6
+
+
+def by_agent(res, host_agent_id, host_mask, fields=SWEEP_FIELDS) -> dict:
+    """{field: [Y, real agents]} of one run's collected outputs, the
+    columns ordered by agent_id."""
+    import numpy as np
+
+    real = np.flatnonzero(host_mask > 0)
+    order = real[np.argsort(host_agent_id[real], kind="stable")]
+    return {f: res.agent[f][:, order] for f in fields}
+
+
+def check_same_members(a, b, tag: str, fields=SWEEP_FIELDS) -> int:
+    """Raises unless every run of ``a`` equals the same run of ``b`` bit
+    for bit per agent (by agent_id) in ``fields``; ``a`` and ``b`` are
+    (runs, host_agent_id, host_mask). Returns the values compared."""
+    import numpy as np
+
+    runs_a, ids_a, mask_a = a
+    runs_b, ids_b, mask_b = b
+    if len(runs_a) != len(runs_b):
+        raise AssertionError(f"[{tag}] {len(runs_a)} runs against {len(runs_b)}")
+    n = 0
+    for i, (ra, rb) in enumerate(zip(runs_a, runs_b)):
+        if list(ra.years) != list(rb.years):
+            raise AssertionError(f"[{tag}] run {i}: years {ra.years} against {rb.years}")
+        xa, xb = by_agent(ra, ids_a, mask_a, fields), by_agent(rb, ids_b, mask_b, fields)
+        ids = np.sort(ids_a[mask_a > 0])
+        if not np.array_equal(ids, np.sort(ids_b[mask_b > 0])):
+            raise AssertionError(f"[{tag}] run {i}: the two hold other agents")
+        for f in fields:
+            va, vb = xa[f].view(np.int32), xb[f].view(np.int32)
+            bad = (va != vb).reshape(va.shape[0], va.shape[1], -1).any(axis=(0, 2))
+            if bad.any():
+                raise AssertionError(
+                    f"[{tag}] run {i}, {f}: {int(bad.sum())} agents differ (first: agent "
+                    f"{int(ids[np.flatnonzero(bad)[0]])})")
+            n += va.size
+    return n
+
+
+def check_shared_banks(sweep, grown_bytes) -> int:
+    """Raises unless every sibling of ``sweep`` (a SweepSimulation) holds
+    the base's table, profile banks and tariffs themselves, and the
+    siblings grew the card's allocated bytes (``grown_bytes``; None off a
+    card) by less than the smallest bank tensor. Returns that size."""
+    import torch
+
+    from dgen_tpu_torch.tree import leaf_paths
+
+    base = sweep.base
+    banks = leaf_paths(base.profiles)
+    smallest = min(t.numel() * t.element_size() for t in banks.values())
+    for i, sim in enumerate(sweep.sims):
+        for name in ("table", "profiles", "tariffs"):
+            mine, theirs = leaf_paths(getattr(sim, name)), leaf_paths(getattr(base, name))
+            if set(mine) != set(theirs) or any(
+                    not isinstance(t, torch.Tensor) or t.data_ptr() != theirs[k].data_ptr()
+                    for k, t in mine.items()):
+                raise AssertionError(f"[3i] sibling {i} holds its own copy of the {name}")
+    if grown_bytes is not None and grown_bytes >= smallest:
+        raise AssertionError(f"[3i] the siblings grew the card's allocated bytes by "
+                             f"{grown_bytes}, a bank's worth ({smallest})")
+    return smallest
+
+
+def member_curves(res, ens) -> dict:
+    """{metric: [E, Y]} national curves of an ensemble's collected
+    members, reduced on the run's device by ``ensemble.stats.
+    member_aggregates`` over each year's ``[E, N]`` outputs and alive
+    mask, as the run reduced them."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.ensemble import stats as estats
+
+    table = ens.base.table
+    curves = {m: [] for m in estats.METRIC_FIELDS}
+    for yi, year in enumerate(res[0].years):
+        outs = types.SimpleNamespace(**{
+            f: torch.from_numpy(np.stack([r.agent[f][yi] for r in res.runs])).to(table.mask.device)
+            for f in estats.METRIC_FIELDS.values()})
+        nat, _ = estats.member_aggregates(outs, ens._alive(year), table.state_idx,
+                                          n_states=table.n_states)
+        for m, v in nat.items():
+            curves[m].append(v.cpu().numpy())
+    return {m: np.stack(v, axis=1) for m, v in curves.items()}
+
+
+def check_quantiles(stats, curves: dict, rtol: float = QUANTILE_RTOL) -> float:
+    """Raises unless the ensemble's national quantiles equal numpy's
+    (``quantiles_np``) of the members' curves within ``rtol``; returns the
+    largest relative gap."""
+    import numpy as np
+
+    from dgen_tpu_torch.ensemble.stats import quantiles_np
+
+    worst = 0.0
+    for m, c in curves.items():
+        want = quantiles_np(c, stats.quantiles).transpose(1, 0)
+        got = stats.national[m]
+        gap = np.abs(got.astype(np.float64) - want) / np.maximum(np.abs(want), 1e-30)
+        gap = float(np.where(want == got, 0.0, gap).max())
+        if gap > rtol:
+            raise AssertionError(f"[3i] (c) {m} quantiles {got.tolist()} against numpy's "
+                                 f"{want.tolist()}: relative gap {gap:.3e} > {rtol}")
+        worst = max(worst, gap)
+    return worst
+
+
+def _itc(inputs, v: float):
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(inputs, itc_fraction=torch.full_like(inputs.itc_fraction, v))
+
+
+def _counted_sweep_run(sweep, **kw) -> tuple:
+    """``sweep.run(**kw)`` with the launch counts set to 0 before and read
+    after, no operands captured; (results, launches, wall seconds)."""
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    bk.CAPTURE = None
+    bk.reset_launches()
+    dispatch.reset_launches()
+    _sync(sweep.device)
+    t0 = time.perf_counter()
+    res = sweep.run(**kw)
+    _sync(sweep.device)
+    return res, {**bk.LAUNCHES, **dispatch.LAUNCHES}, time.perf_counter() - t0
+
+
+def national_sweep(presets, whole_per_year: dict, single_rate: float, *, name=NATIONAL,
+                   n_agents=None, end_year=SWEEP_END_YEAR, device="cuda",
+                   econ_years=25, knobs=None) -> dict:
+    """[3i] (a): ``name`` at its full width (``n_agents``: the preset's),
+    S = 2 (the preset's inputs, and no ITC), run planned on the card's
+    memory (one vmap group, chunked) and with ``max_vmap_scenarios=1``
+    (loop mode), both collected; each scenario's SWEEP_FIELDS equal bit
+    for bit by agent_id. Logs the plan, the modeled step bytes beside the
+    measured peak, the banks' bytes and the siblings' growth of the
+    allocated bytes, each scenario-year's wall, agent-years/s beside the
+    single run's ``single_rate``, and the launch counts, held as [3d]
+    holds them; one more first year holds the vmap run's first launches,
+    at S x chunk rows, against the plain versions."""
+    import torch
+
+    from dgen_tpu_torch.config import RunConfig
+    from dgen_tpu_torch.sweep import MODE_LOOP, MODE_VMAP, SweepSimulation, sweep_year_step
+    from dgen_tpu_torch.sweep.driver import group_step_kwargs, stacked_carry
+    from dgen_tpu_torch.utils import timing
+
+    cuda = torch.device(device).type == "cuda"
+    pop, cfg, inputs, hourly, _ = presets.world(name, n_agents, end_year=end_year,
+                                                device=device)
+    members = [inputs, _itc(inputs, 0.0)]
+    s = len(members)
+    rc = RunConfig(async_host_io=False, **(knobs or {}))
+    out = {}
+    for mode, kw in ((MODE_VMAP, {}), (MODE_LOOP, dict(max_vmap_scenarios=1))):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sweep = SweepSimulation(pop.table, pop.profiles, pop.tariffs, members, cfg, rc,
+                                with_hourly=hourly, econ_years=econ_years, device=device,
+                                labels=["preset", "no_itc"], **kw)
+        build_s = time.perf_counter() - t0
+        group = sweep.plan.groups[0]
+        if [g.mode for g in sweep.plan.groups] != [mode]:
+            raise AssertionError(f"[3i] (a) plan {sweep.plan.groups}, one {mode} group "
+                                 "expected")
+        if cuda and mode == MODE_VMAP and not sweep.base._agent_chunk:
+            raise AssertionError("[3i] (a) the planned vmap group does not stream")
+        smallest = check_shared_banks(sweep, sweep.sibling_bytes)
+        timing.reset_timings()
+        res, launches, wall = _counted_sweep_run(sweep, collect=True)
+        years = len(res[0].years)
+        k = n_chunks(sweep.base)
+        walls = (timing.timing_samples("sweep_year_step", "group0") if mode == MODE_VMAP
+                 else [t for lab in sweep.labels
+                       for t in timing.timing_samples("year_step", lab)])
+        n_real = int(sweep.base.host_mask.sum())
+        rate = s * n_real * years / sum(walls)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        log(f"[3i] (a) {name} {mode}: {n_real} agents x {s} scenarios x {years} years, plan "
+            f"{[(g.mode, g.n_scenarios, g.net_billing) for g in sweep.plan.groups]}, chunk "
+            f"{sweep.base._agent_chunk} ({k} chunks, {sweep.base.table.n_agents} rows, "
+            f"{s if mode == MODE_VMAP else 1} x chunk rows a launch); built in {build_s:.3f} s; "
+            f"{'group' if mode == MODE_VMAP else 'scenario'}-year walls "
+            f"{[round(t, 4) for t in walls]} s, run wall {wall:.3f} s; {rate:.1f} "
+            f"agent-years/s (S x N x years / the year walls) beside [3d]'s single run "
+            f"{single_rate:.1f}; modeled step {sweep.modeled_step_bytes(group) / 2**30:.2f} "
+            f"GiB, measured peak allocated "
+            f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}; bank_bytes_shared "
+            f"{sweep.bank_bytes_shared}, the siblings grew the allocated bytes by "
+            f"{sweep.sibling_bytes} (smallest bank {smallest}); launches "
+            f"{per_year(launches, s * years)} a scenario-year")
+        if cuda:
+            width = s if mode == MODE_VMAP else 1
+            runs = years * (1 if mode == MODE_VMAP else s)
+            if launches["dispatch"] != dispatch_per_year(sweep.base) * runs:
+                raise AssertionError(f"[3i] (a) {mode}: {launches['dispatch']} dispatch "
+                                     f"launches, {dispatch_per_year(sweep.base) * runs} expected")
+            for key in ("month", "month_signed"):
+                if launches[key] != k * whole_per_year[key] * runs:
+                    raise AssertionError(f"[3i] (a) {mode}: {launches[key]} {key} launches, "
+                                         f"{k * whole_per_year[key] * runs} expected")
+            log(f"    [3i] (a) {mode}: {launches['month'] / (s * years):g} month, "
+                f"{launches['month_signed'] / (s * years):g} signed and "
+                f"{launches['dispatch'] / (s * years):g} dispatch launches a scenario-year "
+                f"({width} scenario(s) a launch)")
+            if mode == MODE_VMAP:
+                base = sweep.base
+
+                def first_year():
+                    return sweep_year_step(base.table, base.profiles, base.tariffs,
+                                           sweep.group_inputs(group), stacked_carry(base, s),
+                                           0, **group_step_kwargs(base, group.net_billing,
+                                                                  True))
+
+                t0 = time.perf_counter()
+                held_year(base, "3i (a) vmap", launches, step=first_year)
+                log(f"    [3i] (a) the held first year: {time.perf_counter() - t0:.3f} s")
+        out[mode] = (res.runs, sweep.base.host_agent_id, sweep.base.host_mask)
+        del sweep, res
+    n = check_same_members(out[MODE_VMAP], out[MODE_LOOP], "3i (a) vmap vs loop")
+    log(f"    [3i] (a) vmap and loop mode equal bit for bit by agent_id: {n} values of "
+        f"{list(SWEEP_FIELDS)}")
+    return {"compared": n}
+
+
+def sweeps_vs_singles(presets, *, workdir: str, name="ercot-all-sector",
+                      n_agents=CHUNK_AGENTS, end_year=SWEEP_SMALL_END_YEAR, device="cuda",
+                      worlds=("default", "gated int8"), econ_years=25,
+                      knobs=None) -> dict:
+    """[3i] (b): ``name`` at ``n_agents`` with batteries allocated, S = 3
+    ITC levels (SWEEP_ITCS) over ``end_year``'s model years, in each of
+    ``worlds`` (CHUNK_WORLDS): the planned vmap sweep equals each
+    scenario's own ``Simulation.run`` bit for bit per agent (the
+    state-hourly aggregate within [3c]'s tolerance, atomics on a card);
+    a loop-mode sweep exporting as it runs, under the supervisor with
+    ``sweep_scenario@2`` injected, resumes at (scenario, year), and its
+    agent_outputs and finance_series files equal a clean loop sweep's
+    byte for byte, its state_hourly within [3c]'s tolerance."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.config import RunConfig
+    from dgen_tpu_torch.models.simulation import Simulation
+    from dgen_tpu_torch.resilience import faults
+    from dgen_tpu_torch.resilience.supervisor import RetryPolicy, Supervisor
+    from dgen_tpu_torch.sweep import MODE_VMAP, SweepSimulation
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for world in worlds:
+        world_knobs, _, kernels = CHUNK_WORLDS[world]
+        pop, cfg, inputs, hourly, _ = presets.world(name, n_agents, end_year=end_year,
+                                                    device=device,
+                                                    attachment_rate=CHUNK_ATTACHMENT)
+        members = [_itc(inputs, v) for v in SWEEP_ITCS]
+        labels = [f"itc{v:g}" for v in SWEEP_ITCS]
+        rc = RunConfig(**world_knobs, **(knobs or {}))
+
+        def sweep_of(**kw):
+            return SweepSimulation(pop.table, pop.profiles, pop.tariffs, members, cfg, rc,
+                                   with_hourly=hourly, econ_years=econ_years,
+                                   device=device, labels=labels, **kw)
+
+        vmap = sweep_of()
+        if [g.mode for g in vmap.plan.groups] != [MODE_VMAP]:
+            raise AssertionError(f"[3i] (b) {world}: plan {vmap.plan.groups}")
+        res_v, launches, wall = _counted_sweep_run(vmap, collect=True)
+        chunk_rows = vmap.base._agent_chunk or vmap.base.table.n_agents
+        if cuda:
+            need_launches(f"[3i] (b) {world} vmap", launches, kernels)
+        t0 = time.perf_counter()
+        singles = []
+        for m in members:
+            sim = Simulation(pop.table, pop.profiles, pop.tariffs, m, cfg, rc,
+                             with_hourly=hourly, econ_years=econ_years, device=device)
+            singles.append(sim.run())
+        single_s = time.perf_counter() - t0
+        ids, mask = vmap.base.host_agent_id, vmap.base.host_mask
+        fields = tuple(res_v[0].agent)
+        n = check_same_members((res_v.runs, ids, mask),
+                               (singles, sim.host_agent_id, sim.host_mask),
+                               f"3i (b) {world} vmap vs single runs", fields)
+        ids, mask = sim.host_agent_id, sim.host_mask
+        del sim
+        for i, single in enumerate(singles):
+            if hourly:
+                np.testing.assert_allclose(
+                    res_v[i].state_hourly_net_mw, single.state_hourly_net_mw,
+                    rtol=CHUNK_HOURLY_RTOL, atol=CHUNK_HOURLY_ATOL,
+                    err_msg=f"[3i] (b) {world} scenario {i} state-hourly")
+        del vmap, singles
+
+        clean_dir = os.path.join(workdir, f"{world}-clean")
+        clean = sweep_of(max_vmap_scenarios=1).run(collect=True, run_dir=clean_dir)
+        run_dir = os.path.join(workdir, f"{world}-supervised")
+        ckpt_dir = os.path.join(workdir, f"{world}-ckpt")
+        loop = sweep_of(max_vmap_scenarios=1)
+
+        def attempt(ctx):
+            return loop.run(collect=True, checkpoint_dir=ckpt_dir, resume=ctx.resume,
+                            run_dir=run_dir)
+
+        t0 = time.perf_counter()
+        with faults.injected("sweep_scenario@2") as reg:
+            sup_res, report = Supervisor(RetryPolicy(backoff_base_s=0.001)).run(attempt, rc)
+        sup_s = time.perf_counter() - t0
+        if reg.fired("sweep_scenario") != 1 or report.retries != 1:
+            raise AssertionError(f"[3i] (b) {world}: the fault fired "
+                                 f"{reg.fired('sweep_scenario')} times, "
+                                 f"{report.retries} retries")
+        if [r.years for r in sup_res.runs] != [[]] + [clean[0].years] * (len(members) - 1):
+            raise AssertionError(f"[3i] (b) {world}: the resumed sweep ran "
+                                 f"{[r.years for r in sup_res.runs]}")
+        n += check_same_members((sup_res.runs[1:], ids, mask), (clean.runs[1:], ids, mask),
+                                f"3i (b) {world} resumed vs clean", fields)
+        files = same_sweep_files(clean_dir, run_dir, labels, f"3i (b) {world}")
+        log(f"[3i] (b) {world} ({sorted(world_knobs) or 'no knobs'}): {int(mask.sum())} agents x "
+            f"{len(members)} scenarios x {len(res_v[0].years)} years: the vmap sweep "
+            f"({wall:.3f} s, launches {per_year(launches, len(res_v[0].years))} a year, "
+            f"{len(members)} x {chunk_rows} rows a launch) equals the single runs "
+            f"({single_s:.3f} s) bit for bit per agent; the supervised loop sweep "
+            f"({sup_s:.3f} s, {report.retries} retry, {reg.fired('sweep_scenario')} "
+            f"sweep_scenario fault) resumed at (scenario {labels[1]}, year "
+            f"{clean[1].years[0]}); {files['same']} files byte for byte, "
+            f"{files['approx']} state_hourly within rtol {CHUNK_HOURLY_RTOL}/atol "
+            f"{CHUNK_HOURLY_ATOL}; {n} per-agent values compared")
+        out[world] = {"compared": n, **files}
+        del clean, sup_res, loop
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def same_sweep_files(dir_a: str, dir_b: str, labels, tag: str) -> dict:
+    """Raises unless two sweeps' export directories hold the same
+    partitions, agent_outputs and finance_series byte for byte and
+    state_hourly within [3c]'s tolerance; {"same": n, "approx": n}."""
+    import os
+
+    import numpy as np
+
+    same = approx = 0
+    for label in labels:
+        for surface in ("agent_outputs", "finance_series", "state_hourly"):
+            sub = os.path.join(f"scenario={label}", surface)
+            if not os.path.isdir(os.path.join(dir_a, sub)):
+                continue
+            names = sorted(os.listdir(os.path.join(dir_a, sub)))
+            if names != sorted(os.listdir(os.path.join(dir_b, sub))):
+                raise AssertionError(f"[{tag}] {sub}: partitions differ")
+            for part in names:
+                pa, pb = os.path.join(dir_a, sub, part), os.path.join(dir_b, sub, part)
+                if surface == "state_hourly":
+                    with np.load(pa) as za, np.load(pb) as zb:
+                        np.testing.assert_allclose(
+                            zb["net_load_mw"], za["net_load_mw"], rtol=CHUNK_HOURLY_RTOL,
+                            atol=CHUNK_HOURLY_ATOL, err_msg=f"[{tag}] {sub}/{part}")
+                    approx += 1
+                    continue
+                with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                    if fa.read() != fb.read():
+                        raise AssertionError(f"[{tag}] {sub}/{part} differs: "
+                                             f"{_column_gaps(dir_a, dir_b, [os.path.join(sub, part)])}")
+                same += 1
+    return {"same": same, "approx": approx}
+
+
+def ensemble_phase(*, presets, name="ercot-all-sector", n_agents=CHUNK_AGENTS,
+                   end_year=SWEEP_SMALL_END_YEAR, device="cuda", members=ENS_MEMBERS,
+                   cohort_rows=ENS_COHORT_ROWS, workdir: str, econ_years=25,
+                   knobs=None) -> dict:
+    """[3i] (c): ``name`` at ``n_agents`` with batteries allocated, E =
+    ``members`` under DEFAULT_DRAWS and a cohort of ``cohort_rows`` rows
+    entering in ENS_COHORT_YEAR, over ``end_year``'s model years: vmap
+    (planned) and loop mode give the same members bit for bit by agent_id;
+    the device quantiles equal numpy's of the members' curves (rtol
+    QUANTILE_RTOL); E = 1 with zero draws equals ``Simulation.run`` bit
+    for bit; and a vmap run killed in its last year and resumed gives
+    the same national quantiles bit for bit (the state ones, summed with
+    atomics on a card, within [3c]'s tolerance)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.config import RunConfig
+    from dgen_tpu_torch.ensemble import (
+        DEFAULT_DRAWS,
+        CohortSchedule,
+        DrawSpec,
+        EnsembleSimulation,
+    )
+    from dgen_tpu_torch.ensemble import driver as edriver
+    from dgen_tpu_torch.models.simulation import Simulation
+    from dgen_tpu_torch.sweep import MODE_LOOP, MODE_VMAP
+
+    pop, cfg, inputs, hourly, _ = presets.world(name, n_agents, end_year=end_year,
+                                                device=device,
+                                                attachment_rate=CHUNK_ATTACHMENT)
+    entry = np.zeros(pop.table.n_agents, np.float32)
+    alive = np.flatnonzero(pop.table.mask.cpu().numpy() > 0)
+    entry[alive[-cohort_rows:]] = ENS_COHORT_YEAR
+    schedule = CohortSchedule(entry)
+    rc = RunConfig(**(knobs or {}))
+
+    def ens_of(**kw):
+        kw.setdefault("n_members", members)
+        kw.setdefault("draws", DEFAULT_DRAWS)
+        return EnsembleSimulation(pop.table, pop.profiles, pop.tariffs, inputs, cfg, rc,
+                                  seed=0, with_hourly=hourly, econ_years=econ_years,
+                                  device=device, **kw)
+
+    out, walls = {}, {}
+    for mode, kw in ((MODE_VMAP, {}), (MODE_LOOP, dict(max_vmap_members=1))):
+        ens = ens_of(entry_year=schedule, **kw)
+        if ens.mode != mode:
+            raise AssertionError(f"[3i] (c) {ens.mode} mode, {mode} expected")
+        _sync(device)
+        t0 = time.perf_counter()
+        res = ens.run(collect=True)
+        _sync(device)
+        walls[mode] = (time.perf_counter() - t0, ens.base._agent_chunk)
+        if mode == MODE_VMAP:
+            gap = check_quantiles(res.quantiles, member_curves(res, ens))
+            stats_v = res.quantiles
+        out[mode] = (res.runs, ens.base.host_agent_id, ens.base.host_mask)
+        del ens, res
+    n = check_same_members(out[MODE_VMAP], out[MODE_LOOP], "3i (c) vmap vs loop")
+    del out
+
+    ref = Simulation(pop.table, pop.profiles, pop.tariffs, inputs, cfg, rc,
+                     with_hourly=hourly, econ_years=econ_years, device=device)
+    ref_res = ref.run()
+    one = ens_of(n_members=1, draws=DrawSpec())
+    one_res = one.run(collect=True)
+    fields = tuple(ref_res.agent)
+    n += check_same_members(([ref_res], ref.host_agent_id, ref.host_mask),
+                            (one_res.runs, one.base.host_agent_id, one.base.host_mask),
+                            "3i (c) E = 1 vs Simulation.run", fields)
+    del ref, ref_res, one, one_res
+
+    # a vmap run killed in its last model year, resumed from its
+    # checkpoints and stats sidecar
+    ckpt = os.path.join(workdir, "ensemble-ckpt")
+    step, calls = edriver.ensemble_year_step, []
+    kill_at = len(cfg.model_years)
+
+    def dying_step(*args, **kw):
+        calls.append(1)
+        if len(calls) == kill_at:
+            raise RuntimeError("[3i] (c) killed")
+        return step(*args, **kw)
+
+    edriver.ensemble_year_step = dying_step
+    try:
+        ens_of(entry_year=schedule).run(checkpoint_dir=ckpt)
+        raise AssertionError("[3i] (c) the killed run was not killed")
+    except RuntimeError as e:
+        if "killed" not in str(e):
+            raise
+    finally:
+        edriver.ensemble_year_step = step
+    resumed = ens_of(entry_year=schedule).run(checkpoint_dir=ckpt, resume=True)
+    if [r.years for r in resumed.runs] != [list(stats_v.years[kill_at - 1:])] * members:
+        raise AssertionError(f"[3i] (c) the resumed run ran {resumed.runs[0].years}")
+    for m, v in stats_v.national.items():
+        if not np.array_equal(resumed.quantiles.national[m], v):
+            raise AssertionError(f"[3i] (c) the resumed run's national {m} quantiles "
+                                 "differ from the uninterrupted run's")
+    # the state sums add with atomics on a card (index_add_)
+    for m, v in stats_v.state.items():
+        np.testing.assert_allclose(resumed.quantiles.state[m], v, rtol=CHUNK_HOURLY_RTOL,
+                                   atol=CHUNK_HOURLY_ATOL,
+                                   err_msg=f"[3i] (c) resumed state {m} quantiles")
+    band = stats_v.band("adopters")
+    log(f"[3i] (c) ensemble {name}: {int(pop.table.mask.sum())} agents, E = {members} "
+        f"(DEFAULT_DRAWS), {schedule.n_cohort_rows} cohort rows entering "
+        f"{schedule.counts_by_year()}, years {list(stats_v.years)}: vmap "
+        f"{walls[MODE_VMAP][0]:.3f} s (chunk {walls[MODE_VMAP][1]}, {members} x chunk rows "
+        f"a launch), loop {walls[MODE_LOOP][0]:.3f} s (chunk {walls[MODE_LOOP][1]}); the "
+        f"members equal bit for bit by agent_id, and E = 1 with zero draws equals "
+        f"Simulation.run ({n} values); device quantiles within {gap:.3e} (relative) of "
+        f"numpy's; killed in year {kill_at} and resumed: the same national quantiles "
+        f"bit for bit, the state ones within rtol {CHUNK_HOURLY_RTOL}; adopters "
+        f"band {({k: [round(float(x), 3) for x in v] for k, v in band.items()})}")
+    return {"compared": n, "quantile_gap": gap}
+
+
+def sweeps(presets, whole_per_year: dict, single_rate: float, *, workdir=None) -> dict:
+    """[3i]: (a) :func:`national_sweep`, (b) :func:`sweeps_vs_singles`
+    and (c) :func:`ensemble_phase`, in a temporary directory the phase
+    removes; logs the phase's wall."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    a = national_sweep(presets, whole_per_year, single_rate)
+    torch.cuda.empty_cache()
+    walls = [time.perf_counter() - t0]
+    work = tempfile.mkdtemp(prefix="dgen-3i-", dir=workdir)
+    try:
+        b = sweeps_vs_singles(presets, workdir=work)
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter() - t0 - sum(walls))
+        c = ensemble_phase(presets=presets, workdir=work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    walls.append(wall - sum(walls))
+    log(f"[3i] sweeps and ensembles (a)-(c): {wall:.3f} s ((a) {walls[0]:.3f}, (b) "
+        f"{walls[1]:.3f}, (c) {walls[2]:.3f})")
+    return {"a": a, "b": b, "c": c, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -3591,7 +4180,7 @@ def main(argv=None) -> int:
     main_years = len(runs["main"]["res"].years)
     whole_per_year = {k: runs["main"]["launches"][k] / main_years
                       for k in ("month", "month_signed")}
-    national_path(presets, whole_per_year)
+    single_rate = national_path(presets, whole_per_year)
     torch.cuda.empty_cache()
 
     # --- 3e: both golden fixtures on the card ---
@@ -3609,6 +4198,9 @@ def main(argv=None) -> int:
 
     # --- 3h: the tariff-clustered mixed national world ---
     mixed = mixed_clusters()
+
+    # --- 3i: sweeps and ensembles ---
+    sweeps(presets, whole_per_year, single_rate)
 
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)

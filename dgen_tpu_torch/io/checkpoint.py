@@ -21,9 +21,16 @@ torn save is invisible (:func:`valid_years` lists committed years only),
 and a save over an existing year replaces it. A restore checks every
 leaf's name and shape against ``SimCarry.zeros`` of the year's rows.
 
-Not ported yet: ``scenario_dir``/``member_dir`` and the stacked-scenario
-restore (sweeps and ensembles), and a restore onto a sharding
-(multi-GPU).
+Sweeps and ensembles (``dgen_tpu_torch.sweep``, ``dgen_tpu_torch.
+ensemble``) lay their checkpoints out below the run's directory: a
+loop-mode scenario in ``scn=<label>/`` (:func:`scenario_dir`), a
+loop-mode ensemble member in ``mem=<mmm>/`` (:func:`member_dir`), and a
+vmap-mode group in ``scn=<group>/`` as one stacked carry a year, every
+leaf ``[S, N]`` (``restore_year(n_scenarios=S)``), committed by the same
+rename. ``scenario=`` selects the subdirectory in the functions below.
+
+Not ported yet: a restore onto a sharding (multi-GPU, ``ROADMAP.md``
+item 7).
 """
 
 from __future__ import annotations
@@ -53,6 +60,23 @@ CARRY_FILE = "carry.npz"
 ROWS_FILE = "rows.npy"
 
 
+def scenario_dir(directory: str, scenario: Optional[str]) -> str:
+    """Per-scenario checkpoint subdirectory of a sweep run: scenario
+    ``s`` of a sweep under ``directory`` checkpoints into
+    ``directory/scn=<s>/``, so a killed sweep resumes at (scenario,
+    year). ``None`` keeps the flat single-run layout."""
+    if scenario is None:
+        return directory
+    return os.path.join(directory, f"scn={scenario}")
+
+
+def member_dir(directory: str, member: int) -> str:
+    """Per-member checkpoint subdirectory of a loop-mode ensemble:
+    member ``m`` checkpoints into ``directory/mem=<mmm>/``, so a killed
+    ensemble resumes at (member, year)."""
+    return os.path.join(directory, f"mem={int(member):03d}")
+
+
 def _leaves(carry) -> Dict[str, object]:
     """``{name: leaf}`` of a carry of tensors or numpy arrays (a fetched
     carry): its ``tree.leaf_paths`` names without the leading dot."""
@@ -69,10 +93,13 @@ class Writer:
     """Per-run checkpoint writer. Each save is complete when ``save``
     returns (nothing runs in the background), so ``close`` only marks the
     end of the run. ``rows``: a clustered run's row order (agent ids, -1
-    on masked rows), saved with every year."""
+    on masked rows), saved with every year. ``scenario``: the sweep
+    subdirectory (:func:`scenario_dir`). A stacked carry (``[S, N]``
+    leaves) saves as it is."""
 
-    def __init__(self, directory: str, rows: Optional[np.ndarray] = None) -> None:
-        self.directory = os.path.abspath(directory)
+    def __init__(self, directory: str, rows: Optional[np.ndarray] = None,
+                 scenario: Optional[str] = None) -> None:
+        self.directory = os.path.abspath(scenario_dir(directory, scenario))
         self.rows = None if rows is None else np.asarray(rows, np.int64)
         os.makedirs(self.directory, exist_ok=True)
 
@@ -113,15 +140,16 @@ class Writer:
         self.close()
 
 
-def save_year(directory: str, year: int, carry) -> None:
+def save_year(directory: str, year: int, carry, scenario: Optional[str] = None) -> None:
     """One-shot save (prefer :class:`Writer` inside run loops)."""
-    with Writer(directory) as w:
+    with Writer(directory, scenario=scenario) as w:
         w.save(year, carry)
 
 
-def valid_years(directory: str) -> List[int]:
+def valid_years(directory: str, scenario: Optional[str] = None) -> List[int]:
     """Ascending committed years of a checkpoint directory (a save that
     died before its rename never appears)."""
+    directory = scenario_dir(directory, scenario)
     if not os.path.isdir(directory):
         return []
     years = []
@@ -131,22 +159,26 @@ def valid_years(directory: str) -> List[int]:
     return sorted(years)
 
 
-def latest_year(directory: str) -> Optional[int]:
-    years = valid_years(directory)
+def latest_year(directory: str, scenario: Optional[str] = None) -> Optional[int]:
+    years = valid_years(directory, scenario=scenario)
     return years[-1] if years else None
 
 
 def latest_valid_year(directory: str, n_agents: int, max_year: Optional[int] = None,
-                      device="cuda", rows: Optional[np.ndarray] = None) -> Optional[int]:
+                      device="cuda", rows: Optional[np.ndarray] = None,
+                      scenario: Optional[str] = None,
+                      n_scenarios: Optional[int] = None) -> Optional[int]:
     """The newest committed year that restores (walking back past one
     that does not), optionally capped at ``max_year``; None when nothing
     restores. Each candidate is validated by a full restore onto
-    ``device`` (``rows`` as :func:`restore_year` takes them)."""
-    for y in reversed(valid_years(directory)):
+    ``device`` (``rows``, ``scenario`` and ``n_scenarios`` as
+    :func:`restore_year` takes them)."""
+    for y in reversed(valid_years(directory, scenario=scenario)):
         if max_year is not None and y > max_year:
             continue
         try:
-            restore_year(directory, n_agents, y, device=device, rows=rows)
+            restore_year(directory, n_agents, y, device=device, rows=rows,
+                         scenario=scenario, n_scenarios=n_scenarios)
         except Exception as e:  # noqa: BLE001 — any failure: not valid
             logger.warning("checkpoint year %d under %s does not restore (%r); "
                            "walking back", y, directory, e)
@@ -172,7 +204,9 @@ def _rows_source(saved: np.ndarray, rows: np.ndarray) -> np.ndarray:
 
 
 def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
-                 device="cuda", rows: Optional[np.ndarray] = None) -> Tuple[int, SimCarry]:
+                 device="cuda", rows: Optional[np.ndarray] = None,
+                 scenario: Optional[str] = None,
+                 n_scenarios: Optional[int] = None) -> Tuple[int, SimCarry]:
     """(year, carry) of ``year`` (default: the latest committed year) on
     ``device``. Raises unless the file holds exactly the leaves of
     ``SimCarry.zeros`` of the year's rows, each of its shape.
@@ -181,8 +215,11 @@ def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
     masked rows). The year's rows are then moved to it by agent id (an
     agent the year does not hold starts from zero). A year saved with
     rows restores only with ``rows`` and one saved without them only
-    without."""
+    without. ``scenario`` reads a sweep's subdirectory
+    (:func:`scenario_dir`); ``n_scenarios`` restores a stacked carry,
+    every leaf ``[n_scenarios, n_agents]``."""
     dev = resolve_device(device)
+    directory = scenario_dir(directory, scenario)
     if year is None:
         year = latest_year(directory)
         if year is None:
@@ -200,22 +237,25 @@ def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
     if rows is not None and len(rows) != n_agents:
         raise ValueError(f"{len(rows)} row ids for {n_agents} agents")
     n_saved = n_agents if saved is None else len(saved)
-    want = _leaves(SimCarry.zeros(n_saved, "cpu"))
+    lead = () if n_scenarios is None else (int(n_scenarios),)
+    want = {k: lead + tuple(v.shape)
+            for k, v in _leaves(SimCarry.zeros(n_saved, "cpu")).items()}
     with np.load(path, allow_pickle=False) as z:
         got = {k: z[k] for k in z.files}
     if set(got) != set(want):
         raise ValueError(f"checkpoint {path} holds leaves {sorted(got)}, a SimCarry "
                          f"has {sorted(want)}")
     for k, z0 in want.items():
-        if tuple(got[k].shape) != tuple(z0.shape):
+        if tuple(got[k].shape) != z0:
             raise ValueError(f"checkpoint {path}: leaf {k} has shape {got[k].shape}, "
-                             f"{tuple(z0.shape)} expected for {n_saved} agents")
+                             f"{z0} expected for {n_saved} agents")
     if saved is not None and not np.array_equal(saved, rows):
         src = _rows_source(saved, rows)
         take, keep = np.maximum(src, 0), src >= 0
         logger.info("checkpoint %s: rows moved to this run's layout by agent id (%d of "
                     "%d real rows found)", path, int(keep.sum()), int((rows >= 0).sum()))
-        got = {k: np.where(keep, v[take], np.zeros((), v.dtype)) for k, v in got.items()}
+        got = {k: np.where(keep, v[..., take], np.zeros((), v.dtype))
+               for k, v in got.items()}
     zeros = SimCarry.zeros(n_agents, "cpu")
 
     def build(obj, prefix=""):

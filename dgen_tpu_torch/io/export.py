@@ -523,8 +523,12 @@ def to_parquet(run_dir: str, out_dir: str) -> str:
     ``out_dir``: ``<surface>/year=<Y>.parquet`` (zstd, list columns for
     the series), ``agents.parquet`` and ``meta.json``, so that
     ``dgen_tpu.io.export.load_surface`` and the reference-schema
-    writeback read the run. CPU side: imports pandas (and pyarrow
-    through it) here, never on the card path. Returns ``out_dir``."""
+    writeback read the run. A sweep's directory (``dgen_tpu_torch.
+    sweep``) is rewritten a ``scenario=<label>/`` subdirectory at a time,
+    with its ``sweep.json`` copied and an ensemble's ``quantiles.npz``
+    written as ``quantiles.parquet``. CPU side: imports pandas (and
+    pyarrow through it) here, never on the card path. Returns
+    ``out_dir``."""
     import pandas as pd
 
     def frame(npz_path: str) -> "pd.DataFrame":
@@ -543,6 +547,17 @@ def to_parquet(run_dir: str, out_dir: str) -> str:
         return pd.DataFrame(data)
 
     os.makedirs(out_dir, exist_ok=True)
+    for sub in sorted(os.listdir(run_dir)):
+        if sub.startswith("scenario=") and os.path.isdir(os.path.join(run_dir, sub)):
+            to_parquet(os.path.join(run_dir, sub), os.path.join(out_dir, sub))
+    for name in ("sweep.json",):
+        if os.path.exists(os.path.join(run_dir, name)):
+            shutil.copyfile(os.path.join(run_dir, name), os.path.join(out_dir, name))
+    quantiles = os.path.join(run_dir, "quantiles.npz")
+    if os.path.exists(quantiles):
+        df = frame(quantiles)
+        atomic_write(os.path.join(out_dir, "quantiles.parquet"),
+                     lambda tmp: df.to_parquet(tmp, compression=_PARQUET_COMPRESSION))
     for name in SURFACES:
         if not os.path.isdir(os.path.join(run_dir, name)):
             continue

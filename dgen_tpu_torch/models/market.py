@@ -1,7 +1,9 @@
 """Market step: max market share, Bass diffusion, historical anchoring
 and integer storage-attachment allocation, as vectorized segment ops
 over the agent axis (port of ``dgen_tpu/models/market.py``).
-``jax.ops.segment_sum`` becomes ``index_add_``.
+``jax.ops.segment_sum`` becomes :func:`segment_sum`: ``index_add_`` on
+the CPU (a sum in row order), and on a card a fixed-order sum, since the
+card's ``index_add_`` adds with atomics in no fixed order.
 """
 
 from __future__ import annotations
@@ -14,9 +16,42 @@ from dgen_tpu_torch.config import PAYBACK_GRID_N, PAYBACK_GRID_STEP
 
 
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Sums of ``x`` rows by segment id ``idx`` into ``n`` segments."""
+    """Sums of ``x`` rows by segment id ``idx`` into ``n`` segments.
+
+    On the CPU ``index_add_`` adds each segment's rows in row order. On a
+    card ``index_add_`` adds with atomics in no fixed order, so two runs
+    could round a group's sum differently, and a battery unit
+    (``allocate_battery_adopters`` rounds a group's sum) or an anchored
+    share move between them. There a ``[N]`` ``x`` is summed in a fixed
+    order instead (:func:`_fixed_order_segment_sum`), which the zero rows
+    (padding, filler, masked agents) do not enter, so it is the same
+    whatever rows pad the table. A ``[N, ...]`` ``x`` (the state-hourly
+    aggregate) keeps ``index_add_``."""
+    if x.device.type == "cuda" and x.dim() == 1 and x.is_floating_point():
+        return _fixed_order_segment_sum(x, idx, n)
     out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     return out.index_add_(0, idx.long(), x)
+
+
+def _fixed_order_segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """[n] sums of a ``[N]`` ``x`` by segment, in a fixed order on the
+    card: each segment's nonzero values, in row order, laid out as one
+    row of an ``[n, L]`` zero-filled matrix (L: the largest segment's
+    count of nonzero values), summed along the rows. The zero values go to
+    a spare segment, so the matrix, and the sums, depend only on each
+    segment's nonzero values and their order."""
+    seg = torch.where(x != 0, idx.long(), torch.full_like(idx, n, dtype=torch.long))
+    seg_sorted, order = torch.sort(seg, stable=True)
+    counts = torch.bincount(seg_sorted, minlength=n + 1)
+    width = int(counts[:n].max()) if n else 0
+    if width == 0:
+        return torch.zeros(n, dtype=x.dtype, device=x.device)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(seg.shape[0], device=x.device) - starts[seg_sorted]
+    real = seg_sorted < n
+    dense = torch.zeros((n, width), dtype=x.dtype, device=x.device)
+    dense[seg_sorted[real], pos[real]] = x[order[real]]
+    return dense.sum(dim=1)
 
 
 def max_market_share(payback_period: torch.Tensor, sector_idx: torch.Tensor,

@@ -23,6 +23,7 @@ from dgen_tpu_torch.config import (
 )
 from dgen_tpu_torch.models.agents import AgentTable
 from dgen_tpu_torch.ops.cashflow import MACRS_5, FinanceParams
+from dgen_tpu_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +72,70 @@ class ScenarioInputs:
     @property
     def n_years(self) -> int:
         return self.pv_capex_per_kw.shape[0]
+
+
+class ScenarioStackError(ValueError):
+    """Scenarios cannot share one year step: a static field (a leaf's
+    shape or dtype) differs between members. The message names the
+    offending field."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioStack:
+    """S :class:`ScenarioInputs` stacked along a leading scenario axis:
+    every leaf of ``inputs`` is ``[S, ...]``, on the members' device.
+    Scenarios differ only in these small trajectory tensors, never in the
+    profile banks, so a sweep adds O(S x Y x G) bytes to a run. Built by
+    :func:`stack_scenarios`, which validates the static configuration."""
+
+    inputs: ScenarioInputs   # every leaf [S, ...]
+
+    @property
+    def n_scenarios(self) -> int:
+        return self.inputs.pv_capex_per_kw.shape[0]
+
+    @property
+    def n_years(self) -> int:
+        return self.inputs.pv_capex_per_kw.shape[1]
+
+    def scenario(self, i: int) -> ScenarioInputs:
+        """Member ``i`` (views of the stacked leaves)."""
+        return tree_map(lambda leaf: leaf[i], self.inputs)
+
+
+def validate_scenario_statics(members: Sequence[ScenarioInputs]) -> None:
+    """Check that S scenarios share one static configuration: every leaf
+    must agree in shape and dtype across members (the year grid and the
+    group/region/state axis sizes). Raises :class:`ScenarioStackError`
+    naming the offending field, with the JAX package's message."""
+    members = list(members)
+    if not members:
+        raise ScenarioStackError("cannot stack zero scenarios")
+    ref = members[0]
+    for f in dataclasses.fields(ScenarioInputs):
+        ref_leaf = getattr(ref, f.name)
+        for i, m in enumerate(members[1:], start=1):
+            leaf = getattr(m, f.name)
+            if tuple(leaf.shape) != tuple(ref_leaf.shape):
+                raise ScenarioStackError(
+                    f"scenario {i} field '{f.name}' has shape "
+                    f"{tuple(leaf.shape)} but scenario 0 has "
+                    f"{tuple(ref_leaf.shape)}; scenarios in one stack must "
+                    "share the static grid (years / groups / regions / states)"
+                )
+            if leaf.dtype != ref_leaf.dtype:
+                raise ScenarioStackError(
+                    f"scenario {i} field '{f.name}' has dtype "
+                    f"{leaf.dtype} but scenario 0 has {ref_leaf.dtype}"
+                )
+
+
+def stack_scenarios(members: Sequence[ScenarioInputs]) -> ScenarioStack:
+    """Stack S scenarios into one :class:`ScenarioStack` (static
+    configuration validated by :func:`validate_scenario_statics`)."""
+    members = list(members)
+    validate_scenario_statics(members)
+    return ScenarioStack(inputs=tree_map(lambda *leaves: torch.stack(leaves), *members))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +223,27 @@ def federal_itc_schedule(years: Sequence[int]) -> np.ndarray:
         else:
             frac = (0.0, 0.10, 0.10)
         out[i] = frac
+    return out
+
+
+def escalator_from_multipliers(mult: np.ndarray, years: np.ndarray,
+                               year_cap: int = 2040,
+                               clip: float = 0.01) -> np.ndarray:
+    """Price escalator per model year, reference semantics
+    (agent_mutation/elec.py:63-79): the escalator for model year ``y`` is
+    the CAGR of the multiplier from ``min(y, 2040)`` to the trajectory's
+    final year, clipped to +-1%/yr. Host numpy. ``mult``: [Y, ...]
+    multiplier trajectory on the model-year grid."""
+    years = np.asarray(years)
+    out = np.zeros_like(mult)
+    final_idx = len(years) - 1
+    for i, y in enumerate(years):
+        yc = min(int(y), year_cap)
+        j = max(0, int(np.searchsorted(years, yc, side="right")) - 1)
+        span = max(float(years[final_idx] - years[j]), 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cagr = (mult[final_idx] / np.maximum(mult[j], 1e-9)) ** (1.0 / span) - 1.0
+        out[i] = np.clip(np.nan_to_num(cagr), -clip, clip)
     return out
 
 

@@ -53,7 +53,7 @@ from dgen_tpu_torch.resilience.quarantine import (
     apply_quarantine,
     validate_population,
 )
-from dgen_tpu_torch.tree import to_device, tree_map
+from dgen_tpu_torch.tree import leaf_paths, to_device, tree_map
 from dgen_tpu_torch.utils import invariants, timing
 
 logger = logging.getLogger(__name__)
@@ -256,6 +256,39 @@ def year_step(
     inputs: ScenarioInputs,
     carry: SimCarry,
     year_idx: int,
+    **static,
+) -> tuple[SimCarry, YearOutputs]:
+    """One model year: trajectory application -> NEM gate -> sizing ->
+    max market share -> (initial shares | diffusion) -> anchoring ->
+    battery allocation -> state-hourly aggregate -> carry.
+
+    The keywords are :func:`scenario_years`'. ``sizing_impl``
+    (``"auto"``, ``"stream"`` or ``"dot"``), ``daylight`` and
+    ``pack_once`` go to :func:`sizing_ops.size_agents`. ``agent_chunk`` >
+    0 with a table of more rows streams: sizing runs chunk by chunk of
+    that many rows (the table must divide into them, :func:`_n_chunks`)
+    with every static choice of the run passed to each chunk alike, and
+    the state-hourly aggregate is rebuilt by the hourly remat pass
+    (:func:`_state_hourly_remat`), so no whole-table ``[N, 8760]`` tensor
+    is formed; the market step runs once over the whole table either way.
+
+    ``cluster``: an ``ops.tariffcluster.ClusterLayout`` of the table (laid
+    out cluster-major): sizing runs once per tariff cluster, at the
+    cluster's period count and net-billing flag, against its compact bank
+    in ``cluster_banks``, indexed by ``cluster_tidx`` ([N] local rows)
+    (:func:`_size_clustered`); a rate-switch call is refused."""
+    (carry,), (outputs,) = scenario_years(table, profiles, tariffs, [inputs], [carry],
+                                          year_idx, **static)
+    return carry, outputs
+
+
+def scenario_years(
+    table: AgentTable,
+    profiles: ProfileBank,
+    tariffs: TariffBank,
+    inputs_list: List[ScenarioInputs],
+    carries: List[SimCarry],
+    year_idx: int,
     *,
     n_periods: int,
     econ_years: int,
@@ -273,63 +306,119 @@ def year_step(
     cluster=None,
     cluster_banks=None,
     cluster_tidx: Optional[torch.Tensor] = None,
-) -> tuple[SimCarry, YearOutputs]:
-    """One model year: trajectory application -> NEM gate -> sizing ->
-    max market share -> (initial shares | diffusion) -> anchoring ->
-    battery allocation -> state-hourly aggregate -> carry.
+) -> tuple[List[SimCarry], List[YearOutputs]]:
+    """One model year of S scenarios over one table (:func:`year_step`
+    is S = 1): each scenario's carry and outputs.
 
-    ``sizing_impl`` (``"auto"``, ``"stream"`` or ``"dot"``), ``daylight``
-    and ``pack_once`` go to :func:`sizing_ops.size_agents`.
-    ``agent_chunk`` > 0 with a table of more rows streams: sizing runs
-    chunk by chunk of that many rows (the table must divide into them,
-    :func:`_n_chunks`) with every static choice of the run passed to each
-    chunk alike, and the state-hourly aggregate is rebuilt by the hourly
-    remat pass (:func:`_state_hourly_remat`), so no whole-table
-    ``[N, 8760]`` tensor is formed; the market step runs once over the
-    whole table either way.
-
-    ``cluster``: an ``ops.tariffcluster.ClusterLayout`` of the table (laid
-    out cluster-major): sizing runs once per tariff cluster, at the
-    cluster's period count and net-billing flag, against its compact bank
-    in ``cluster_banks``, indexed by ``cluster_tidx`` ([N] local rows)
-    (:func:`_size_clustered`); a rate-switch call is refused."""
+    Every step that reduces across rows runs per scenario on its own
+    ``[N]`` rows (the NEM gate's state sums, the market step, the
+    battery allocation, the state-hourly aggregate), so no reduction
+    mixes scenarios. The per-row work runs once for all S: each chunk's
+    sizing, and each chunk's hourly remat pass, sees the S scenarios'
+    rows of that chunk side by side (S x chunk rows a kernel launch).
+    A row's result does not depend on how many rows share its launch, so
+    each scenario's outputs equal its own S = 1 year step's."""
+    if cluster is not None and rate_switch:
+        raise ValueError(
+            "cluster layouts cannot price rate-switch runs: a "
+            "base/switch tariff pair can straddle two clusters"
+        )
     n_states = table.n_states
-    n_groups = table.n_groups
-    g = table.group_idx.long()
-
-    ya = apply_year(table, inputs, year_idx)
-
-    # NEM gate on last year's state capacity; in the first year that is
-    # the starting installed capacity, not the zeroed carry
-    if first_year:
-        state_kw_last = starting_state_kw(table, inputs)
-    else:
-        state_kw_last = segment_sum(carry.market.system_kw_cum, table.state_idx, n_states)
-    nem_allowed = compute_nem_allowed(table, inputs, year_idx, state_kw_last)
+    yas, nems = [], []
+    for inputs, carry in zip(inputs_list, carries, strict=True):
+        yas.append(apply_year(table, inputs, year_idx))
+        # NEM gate on last year's state capacity; in the first year that
+        # is the starting installed capacity, not the zeroed carry
+        if first_year:
+            state_kw_last = starting_state_kw(table, inputs)
+        else:
+            state_kw_last = segment_sum(carry.market.system_kw_cum, table.state_idx,
+                                        n_states)
+        nems.append(compute_nem_allowed(table, inputs, year_idx, state_kw_last))
 
     n_chunks = _n_chunks(table.n_agents, agent_chunk)
     sizing = dict(n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
                   net_billing=net_billing, impl=sizing_impl, daylight=daylight,
                   pack_once=pack_once)
     if cluster is not None:
-        if rate_switch:
-            raise ValueError(
-                "cluster layouts cannot price rate-switch runs: a "
-                "base/switch tariff pair can straddle two clusters"
-            )
         # hourly profiles are kept only when the whole table is one
         # chunk; otherwise the remat pass below rebuilds the aggregate
-        res = _size_clustered(table, profiles, ya, nem_allowed, cluster,
-                              cluster_banks, cluster_tidx, agent_chunk, sizing,
-                              keep_hourly=with_hourly and n_chunks == 1)
+        ress = _size_clustered(table, profiles, yas, nems, cluster, cluster_banks,
+                               cluster_tidx, agent_chunk, sizing,
+                               keep_hourly=with_hourly and n_chunks == 1)
     elif n_chunks > 1:
-        res = _size_chunked(table, profiles, tariffs, ya, nem_allowed,
-                            n_chunks, rate_switch, sizing)
+        ress = _size_chunked(table, profiles, tariffs, yas, nems, n_chunks,
+                             rate_switch, sizing)
     else:
-        res = _size_rows(table, profiles, tariffs, ya, nem_allowed, rate_switch,
-                         dict(sizing, keep_hourly=with_hourly))
+        ress = _size_rows(table, profiles, tariffs, yas, nems, rate_switch,
+                          dict(sizing, keep_hourly=with_hourly))
 
-    # --- market step ---
+    markets = [
+        _market_year(table, inputs, carry, ya, res, year_idx, first_year=first_year,
+                     storage_enabled=storage_enabled, year_step_len=year_step_len)
+        for inputs, carry, ya, res in zip(inputs_list, carries, yas, ress)
+    ]
+
+    # --- state-hourly aggregate: baseline / PV-only / PV+batt profiles
+    # mixed by adopter counts ---
+    if with_hourly:
+        counts = [m["counts"] for m in markets]
+        if n_chunks > 1:
+            hourly = _state_hourly_remat(table, profiles, yas, ress, counts, n_chunks)
+        else:
+            hourly = [
+                segment_sum(_mix_hourly(
+                    (res.baseline_net_hourly, res.adopter_net_hourly_pvonly,
+                     res.adopter_net_hourly_with_batt), cnt, table.mask),
+                    table.state_idx, n_states)
+                for res, cnt in zip(ress, counts)
+            ]
+        hourly = [h / 1000.0 for h in hourly]  # kW -> MW
+    else:
+        hourly = [torch.zeros((0, 0), dtype=torch.float32, device=table.mask.device)
+                  for _ in inputs_list]
+
+    out_carries, outputs = [], []
+    for inputs, res, m, sh in zip(inputs_list, ress, markets, hourly):
+        carbon_t = inputs.carbon_intensity_t_per_kwh[year_idx][table.state_idx.long()]
+        new_market, batt_adopters_cum = m["market"], m["batt_adopters_cum"]
+        out_carries.append(SimCarry(market=new_market, batt_adopters_cum=batt_adopters_cum))
+        outputs.append(YearOutputs(
+            system_kw=res.system_kw,
+            npv=res.npv,
+            payback_period=res.payback_period,
+            cash_flow=res.cash_flow,
+            energy_value_pv_only=res.energy_value_pv_only,
+            first_year_bill_with_system=res.first_year_bill_with_system,
+            first_year_bill_without_system=res.first_year_bill_without_system,
+            batt_kw=res.batt_kw,
+            batt_kwh=res.batt_kwh,
+            max_market_share=new_market.max_market_share,
+            market_share=new_market.market_share,
+            new_adopters=m["new_adopters"],
+            number_of_adopters=new_market.adopters_cum,
+            new_system_kw=m["new_kw"],
+            system_kw_cum=new_market.system_kw_cum,
+            market_value=new_market.market_value,
+            new_batt_adopters=m["new_batt"],
+            batt_adopters_cum=batt_adopters_cum,
+            batt_kw_cum=new_market.batt_kw_cum,
+            batt_kwh_cum=new_market.batt_kwh_cum,
+            carbon_intensity_t_per_kwh=carbon_t,
+            avoided_co2_t=new_market.system_kw_cum * res.naep * carbon_t,
+            state_hourly_net_mw=sh,
+        ))
+    return out_carries, outputs
+
+
+def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bool,
+                 storage_enabled: bool, year_step_len: float) -> dict:
+    """One scenario's market step on its own rows: max market share ->
+    (initial shares | diffusion) -> anchoring -> battery allocation; the
+    new market state, the year's flows, and the adopter counts the
+    state-hourly mix weighs the profiles by."""
+    n_groups = table.n_groups
+    g = table.group_idx.long()
     mms = max_market_share(res.payback_period, table.sector_idx,
                            inputs.mms_table) * table.mask
     if first_year:
@@ -374,28 +463,13 @@ def year_step(
     batt_kw_cum = mstate.batt_kw_cum + new_batt * res.batt_kw
     batt_kwh_cum = mstate.batt_kwh_cum + new_batt * res.batt_kwh
 
-    # --- state-hourly aggregate: baseline / PV-only / PV+batt profiles
-    # mixed by adopter counts ---
-    if with_hourly:
-        # cap the battery-profile weight at the agent's adopter count so
-        # households are not counted twice
-        batt_mix = torch.minimum(batt_adopters_cum, adopters)
-        pv_only = torch.clamp_min(adopters - batt_mix, 0.0)
-        base_cnt = torch.clamp_min(ya.customers_in_bin - adopters, 0.0)
-        if n_chunks > 1:
-            state_hourly = _state_hourly_remat(
-                table, profiles, ya, res, (base_cnt, pv_only, batt_mix), n_chunks)
-        else:
-            net = _mix_hourly(
-                (res.baseline_net_hourly, res.adopter_net_hourly_pvonly,
-                 res.adopter_net_hourly_with_batt),
-                (base_cnt, pv_only, batt_mix), table.mask)
-            state_hourly = segment_sum(net, table.state_idx, n_states)
-        state_hourly = state_hourly / 1000.0  # kW -> MW
-    else:
-        state_hourly = torch.zeros((0, 0), dtype=torch.float32, device=kw_cum.device)
+    # cap the battery-profile weight at the agent's adopter count so
+    # households are not counted twice
+    batt_mix = torch.minimum(batt_adopters_cum, adopters)
+    pv_only = torch.clamp_min(adopters - batt_mix, 0.0)
+    base_cnt = torch.clamp_min(ya.customers_in_bin - adopters, 0.0)
 
-    new_market = MarketState(
+    market = MarketState(
         market_share=share,
         max_market_share=mms,
         adopters_cum=adopters,
@@ -406,34 +480,9 @@ def year_step(
         initial_adopters=mstate.initial_adopters,
         initial_market_share=mstate.initial_market_share,
     )
-    carbon_t = inputs.carbon_intensity_t_per_kwh[year_idx][table.state_idx.long()]
-
-    outputs = YearOutputs(
-        system_kw=res.system_kw,
-        npv=res.npv,
-        payback_period=res.payback_period,
-        cash_flow=res.cash_flow,
-        energy_value_pv_only=res.energy_value_pv_only,
-        first_year_bill_with_system=res.first_year_bill_with_system,
-        first_year_bill_without_system=res.first_year_bill_without_system,
-        batt_kw=res.batt_kw,
-        batt_kwh=res.batt_kwh,
-        max_market_share=mms,
-        market_share=share,
-        new_adopters=new_adopters,
-        number_of_adopters=adopters,
-        new_system_kw=new_kw,
-        system_kw_cum=kw_cum,
-        market_value=out.market_value,
-        new_batt_adopters=new_batt,
-        batt_adopters_cum=batt_adopters_cum,
-        batt_kw_cum=batt_kw_cum,
-        batt_kwh_cum=batt_kwh_cum,
-        carbon_intensity_t_per_kwh=carbon_t,
-        avoided_co2_t=kw_cum * res.naep * carbon_t,
-        state_hourly_net_mw=state_hourly,
-    )
-    return SimCarry(market=new_market, batt_adopters_cum=batt_adopters_cum), outputs
+    return dict(market=market, batt_adopters_cum=batt_adopters_cum,
+                new_adopters=new_adopters, new_kw=new_kw, new_batt=new_batt,
+                counts=(base_cnt, pv_only, batt_mix))
 
 
 def _n_chunks(n: int, chunk: int) -> int:
@@ -458,28 +507,53 @@ def _rows(tree, rows: slice):
     return tree_map(lambda t: t[rows], tree)
 
 
-def _size_rows(table, profiles, tariffs, ya, nem_allowed, rate_switch: bool,
-               sizing: dict) -> sizing_ops.SizingResult:
-    """:func:`sizing_ops.size_agents` of the rows of ``table``; the
-    gathered economics environment lives only inside this call."""
-    envs = build_econ_inputs(table, profiles, tariffs, ya, nem_allowed,
-                             table.incentives, rate_switch=rate_switch)
-    return sizing_ops.size_agents(envs, **sizing)
+def _side_by_side(trees: list):
+    """The S row sets of ``trees`` (same structure, ``[C, ...]`` leaves)
+    as one tree of ``[S * C, ...]`` leaves, scenario-major; one tree is
+    returned as it is."""
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *ts: torch.cat(ts), *trees)
 
 
-def _size_chunked(table, profiles, tariffs, ya, nem_allowed, n_chunks: int,
-                  rate_switch: bool, sizing: dict) -> sizing_ops.SizingResult:
-    """Sizing of the whole table, chunk by chunk of rows: each chunk's
-    per-agent results are written into whole-table tensors; its hourly
-    profiles are not kept (the remat pass rebuilds what the aggregate
-    needs)."""
-    out = None
+def _split_rows(tree, s: int) -> list:
+    """The inverse of :func:`_side_by_side`: S trees of row views."""
+    if s == 1:
+        return [tree]
+    n = None
+    for t in leaf_paths(tree).values():
+        n = t.shape[0] // s
+        break
+    return [_rows(tree, slice(k * n, (k + 1) * n)) for k in range(s)]
+
+
+def _size_rows(table, profiles, tariffs, yas, nems, rate_switch: bool,
+               sizing: dict) -> list:
+    """:func:`sizing_ops.size_agents` of the rows of ``table`` for each
+    scenario's year inputs ``yas`` and NEM gates ``nems``, all scenarios'
+    rows in one call; the gathered economics environment lives only
+    inside this call."""
+    s = len(yas)
+    tbl = _side_by_side([table] * s)
+    envs = build_econ_inputs(tbl, profiles, tariffs, _side_by_side(yas),
+                             _side_by_side(nems), tbl.incentives,
+                             rate_switch=rate_switch)
+    return _split_rows(sizing_ops.size_agents(envs, **sizing), s)
+
+
+def _size_chunked(table, profiles, tariffs, yas, nems, n_chunks: int,
+                  rate_switch: bool, sizing: dict) -> list:
+    """Sizing of the whole table, chunk by chunk of rows (each chunk for
+    every scenario at once): each chunk's per-agent results are written
+    into whole-table tensors, one set a scenario; its hourly profiles are
+    not kept (the remat pass rebuilds what the aggregate needs)."""
+    outs = [None] * len(yas)
     for rows in _chunk_slices(table.n_agents, n_chunks):
-        res = _size_rows(_rows(table, rows), profiles, tariffs, _rows(ya, rows),
-                         nem_allowed[rows], rate_switch,
-                         dict(sizing, keep_hourly=False))
-        out = _write_rows(out, res, rows, table.n_agents)
-    return out
+        ress = _size_rows(_rows(table, rows), profiles, tariffs,
+                          [_rows(ya, rows) for ya in yas], [n[rows] for n in nems],
+                          rate_switch, dict(sizing, keep_hourly=False))
+        outs = [_write_rows(o, r, rows, table.n_agents) for o, r in zip(outs, ress)]
+    return outs
 
 
 def _write_rows(out, res, rows: slice, n: int):
@@ -491,18 +565,18 @@ def _write_rows(out, res, rows: slice, n: int):
     return out
 
 
-def _size_clustered(table, profiles, ya, nem_allowed, cluster, cluster_banks,
+def _size_clustered(table, profiles, yas, nems, cluster, cluster_banks,
                     cluster_tidx, agent_chunk: int, sizing: dict,
-                    keep_hourly: bool) -> sizing_ops.SizingResult:
+                    keep_hourly: bool) -> list:
     """Sizing one tariff cluster at a time (port of the JAX package's
     ``_size_clustered`` on one device): each cluster's segment of the
     cluster-major table is sized against its compact bank at the
     cluster's ``n_periods``, with the run's ``net_billing`` and the
     cluster's flag both required for the bucket-sums path, whole or in
     chunks of ``agent_chunk`` rows (:func:`_n_chunks` of the segment;
-    a chunked segment keeps no hourly profiles). The results land in
-    table order."""
-    out = None
+    a chunked segment keeps no hourly profiles), every scenario's rows at
+    once. The results land in table order, one set a scenario."""
+    outs = [None] * len(yas)
     for spec, bank in zip(cluster.clusters, cluster_banks):
         rows = slice(spec.offset, spec.offset + spec.seg_len)
         tidx = cluster_tidx[rows]
@@ -510,15 +584,16 @@ def _size_clustered(table, profiles, ya, nem_allowed, cluster, cluster_banks,
                                   tariff_switch_idx=tidx)
         sz = dict(sizing, n_periods=spec.n_periods,
                   net_billing=sizing["net_billing"] and spec.net_billing)
+        seg_yas = [_rows(ya, rows) for ya in yas]
+        seg_nems = [n[rows] for n in nems]
         n_c = _n_chunks(spec.seg_len, agent_chunk)
         if n_c > 1:
-            res = _size_chunked(tbl, profiles, bank, _rows(ya, rows),
-                                nem_allowed[rows], n_c, False, sz)
+            ress = _size_chunked(tbl, profiles, bank, seg_yas, seg_nems, n_c, False, sz)
         else:
-            res = _size_rows(tbl, profiles, bank, _rows(ya, rows),
-                             nem_allowed[rows], False, dict(sz, keep_hourly=keep_hourly))
-        out = _write_rows(out, res, rows, table.n_agents)
-    return out
+            ress = _size_rows(tbl, profiles, bank, seg_yas, seg_nems, False,
+                              dict(sz, keep_hourly=keep_hourly))
+        outs = [_write_rows(o, r, rows, table.n_agents) for o, r in zip(outs, ress)]
+    return outs
 
 
 def _mix_hourly(profiles_nh: tuple, counts: tuple, mask: torch.Tensor) -> torch.Tensor:
@@ -529,18 +604,24 @@ def _mix_hourly(profiles_nh: tuple, counts: tuple, mask: torch.Tensor) -> torch.
             + batt_mix[:, None] * batt_p) * mask[:, None]
 
 
-def _state_hourly_remat(table, profiles, ya, res, counts: tuple,
-                        n_chunks: int) -> torch.Tensor:
-    """[n_states, H] kW: the state-hourly aggregate rebuilt chunk by
-    chunk (sizing kept no hourly profiles), summed into one float32
-    accumulator."""
-    acc = torch.zeros((table.n_states, profiles.hours), dtype=torch.float32,
-                      device=table.mask.device)
+def _state_hourly_remat(table, profiles, yas, ress, counts, n_chunks: int) -> list:
+    """[n_states, H] kW a scenario: the state-hourly aggregate rebuilt
+    chunk by chunk (sizing kept no hourly profiles), each chunk's rows of
+    every scenario formed at once, each scenario summed into its own
+    float32 accumulator."""
+    s = len(yas)
+    accs = [torch.zeros((table.n_states, profiles.hours), dtype=torch.float32,
+                        device=table.mask.device) for _ in range(s)]
     for rows in _chunk_slices(table.n_agents, n_chunks):
-        acc.index_add_(0, table.state_idx[rows].long(), _hourly_rows(
-            _rows(table, rows), profiles, _rows(ya, rows), _rows(res, rows),
-            tuple(c[rows] for c in counts)))
-    return acc
+        tbl = _rows(table, rows)
+        net = _hourly_rows(
+            _side_by_side([tbl] * s), profiles, _side_by_side([_rows(ya, rows) for ya in yas]),
+            _side_by_side([_rows(r, rows) for r in ress]),
+            tuple(_side_by_side([c[rows] for c in cs]) for cs in zip(*counts)))
+        idx = tbl.state_idx.long()
+        for acc, part in zip(accs, _split_rows(net, s)):
+            acc.index_add_(0, idx, part)
+    return accs
 
 
 def _hourly_rows(table, profiles, ya, res, counts: tuple) -> torch.Tensor:
@@ -580,11 +661,14 @@ def table_static_cache(table: AgentTable, tariffs: TariffBank) -> dict:
 
 
 def run_static_flags(table: AgentTable, tariffs: TariffBank, inputs: ScenarioInputs,
-                     years: List[int]) -> tuple[bool, bool]:
+                     years: List[int], table_cache: Optional[dict] = None
+                     ) -> tuple[bool, bool]:
     """(rate_switch, net_billing): whether any agent's DG rate differs
     from its base tariff, and whether net-billing bills can ever price
-    (a referenced net-billing tariff, or a NEM gate that can close)."""
-    tc = table_static_cache(table, tariffs)
+    (a referenced net-billing tariff, or a NEM gate that can close).
+    ``table_cache``: :func:`table_static_cache` of the table, computed
+    once for many scenarios (a sweep's planner)."""
+    tc = table_cache if table_cache is not None else table_static_cache(table, tariffs)
     net_billing = tc["any_nb_tariff"] or not nem_gate_never_closes(
         tc["state_idx"], inputs.nem_cap_kw.cpu().numpy(), tc["nem_first_year"],
         tc["nem_sunset_year"], tc["nem_kw_limit"], years,
@@ -824,10 +908,18 @@ class Simulation:
         self.profiles = self._narrow_banks(self.profiles)
         self._per_agent_bytes = per_agent_step_bytes(**self._footprint())
         chunk = self._resolve_chunk()
+        #: [n_agents] row -> row of the input table (-1: a padding row this
+        #: constructor added), composed through the chunk padding and the
+        #: cluster layout; side vectors in input-table order (an ensemble's
+        #: cohort entry years) are aligned through it
+        self.host_row_origin = np.arange(self.table.n_agents, dtype=np.int64)
         if chunk:
             # lane alignment and chunk divisibility together
             self.table = pad_table(
                 self.table, math.lcm(self.run_config.agent_pad_multiple, chunk))
+            self.host_row_origin = np.concatenate([
+                self.host_row_origin,
+                np.full(self.table.n_agents - len(self.host_row_origin), -1, np.int64)])
         # the tariff-clustered layout, after the chunk padding and before
         # the host copies of the row order are taken
         self._cluster_layout = None
@@ -850,6 +942,12 @@ class Simulation:
         self.modeled_step_bytes = self._check_memory()
         self.memory_check: Optional[dict] = None
         self.health_report: Optional[dict] = None
+        #: label of this run's phase timers (``utils.timing``; a sweep's
+        #: scenario siblings set theirs, :meth:`with_inputs`)
+        self.timing_ctx: Optional[str] = None
+        #: an ``io.hostio.HostIOPool`` the run's pipeline shares (a sweep
+        #: lends one to every scenario); None: the pipeline owns its own
+        self._hostio_pool = None
 
     def _lay_out_clusters(self, chunk: int) -> None:
         """Reorder the table cluster-major (``ops.tariffcluster``): the
@@ -876,6 +974,7 @@ class Simulation:
         table = tree_map(_gather, self.table)
         self.table = dataclasses.replace(
             table, mask=table.mask * torch.from_numpy(valid).to(self.device))
+        self.host_row_origin = np.where(valid > 0, self.host_row_origin[gather], -1)
         h = lambda t: t.cpu().numpy()
         self._cluster_host = dict(
             cid=layout.cluster_of_rows(),
@@ -1062,6 +1161,42 @@ class Simulation:
             return {}
         return dict(cluster_banks=self._cluster_banks,
                     cluster_tidx=self._cluster_tidx)
+
+    def with_inputs(self, inputs: ScenarioInputs, net_billing: Optional[bool] = None,
+                    timing_ctx: Optional[str] = None) -> "Simulation":
+        """A sibling runner driving other ScenarioInputs over this
+        simulation's placed table, profile banks, tariffs, daylight
+        layout, chunk and cluster layout, none of them copied (a sweep's
+        scenario-major loop: the banks are on the card once for S
+        scenarios). ``inputs`` must cover the same year grid; they are
+        moved to this run's device.
+
+        ``net_billing`` overrides the recomputed flag (a sweep pins it per
+        scenario group); True for an all-NEM scenario is exact, False only
+        skips the bucket-sums kernel. A pinned flag pins every cluster's
+        flag the same way; an unpinned sibling re-proves each cluster's
+        NEM gate for its inputs. ``timing_ctx`` labels the sibling's phase
+        timers (``utils.timing``)."""
+        import copy
+
+        if len(self.years) != inputs.n_years:
+            raise ValueError(
+                f"inputs cover {inputs.n_years} years but this simulation has "
+                f"{len(self.years)}")
+        inputs = to_device(inputs, self.device)
+        pinned = net_billing is not None
+        if not pinned:
+            _, net_billing = run_static_flags(self.table, self.tariffs, inputs, self.years)
+        cluster = self._cluster_layout
+        if cluster is not None:
+            cluster = (cluster.pin_net_billing(net_billing) if pinned
+                       else cluster.with_flags(self._cluster_flags(inputs)))
+        sib = copy.copy(self)
+        sib.inputs = inputs
+        sib._net_billing = net_billing
+        sib._cluster_layout = cluster
+        sib.timing_ctx = timing_ctx
+        return sib
 
     def init_carry(self) -> SimCarry:
         return SimCarry.zeros(self.table.n_agents, self.device)
@@ -1289,12 +1424,13 @@ class Simulation:
                 if yi < start_idx:
                     continue
                 t0 = time.perf_counter()
-                with timing.timer("year_step"):
+                with timing.timer("year_step", ctx=self.timing_ctx):
                     carry, outs = self.step(carry, yi, first_year=(yi == 0))
                 if pipeline is None:
                     pipeline = hostio.pipeline_for(
                         consumers, outs,
-                        carry=carry if ckpt_writer is not None else None)
+                        carry=carry if ckpt_writer is not None else None,
+                        timing_ctx=self.timing_ctx, pool=self._hostio_pool)
                 snap = hostio.snapshot_carry(carry) if ckpt_writer is not None else None
                 pipeline.submit(year, yi, outs, carry=snap)
                 del outs, snap
@@ -1311,7 +1447,7 @@ class Simulation:
         finally:
             if pipeline is not None:
                 self.hostio_stats = pipeline.drain(failed=loop_failed)
-        with timing.timer("device_drain"):
+        with timing.timer("device_drain", ctx=self.timing_ctx):
             self._sync()
         if collector is not None:
             return carry, collector.collected, collector.hourly
@@ -1348,7 +1484,7 @@ class Simulation:
                 if yi < start_idx:
                     continue
                 t0 = time.perf_counter()
-                with timing.timer("year_step"):
+                with timing.timer("year_step", ctx=self.timing_ctx):
                     prev_carry = carry
                     carry, outs = self.step(carry, yi, first_year=(yi == 0))
                     if sync_per_year:
@@ -1393,7 +1529,7 @@ class Simulation:
                     else:
                         callback(year, yi, outs)
                 if ckpt_writer is not None:
-                    with timing.timer("ckpt_save"):
+                    with timing.timer("ckpt_save", ctx=self.timing_ctx):
                         ckpt_writer.save(year, carry)
                 if collect:
                     to_fetch = {k: getattr(outs, k) for k in agent_fields}
@@ -1432,7 +1568,7 @@ class Simulation:
                     logger.exception("deferred year export failed")
                 pending_cb = None
         if not sync_per_year:
-            with timing.timer("device_drain"):
+            with timing.timer("device_drain", ctx=self.timing_ctx):
                 self._sync()
         if queued_health:
             # no consumer: one fetch of every year's verdict at the end

@@ -103,24 +103,19 @@ def population(name: str, n_agents: int, rate_switch_frac: float = 0.0,
     )
 
 
-def build(
+def world(
     name: str,
     n_agents: Optional[int] = None,
-    run_config: Optional[RunConfig] = None,
     end_year: Optional[int] = None,
     rate_switch_frac: float = 0.0,
     device="cuda",
     attachment_rate: Optional[float] = None,
 ):
-    """(Simulation, population, meta) for a named preset on ``device``.
-
-    ``end_year`` cuts the run's depth (the preset's own by default);
-    ``rate_switch_frac`` gives that share of residential agents a DG
-    rate switch on adoption; ``attachment_rate`` sets every group's
-    battery attachment rate (the synthetic default's is 0, so no
-    battery adopters are allocated)."""
+    """(population, ScenarioConfig, ScenarioInputs, with_hourly, meta) of a
+    named preset on ``device``, without a Simulation: what :func:`build`
+    runs, and what a sweep or an ensemble places once for many scenarios.
+    The keywords are :func:`build`'s."""
     from dgen_tpu_torch.models.scenario import uniform_inputs
-    from dgen_tpu_torch.models.simulation import Simulation
 
     dev = resolve_device(device)
     p = PRESETS[name]
@@ -143,9 +138,33 @@ def build(
                                                 np.float32)}
     inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups, n_regions=pop.n_regions,
                             overrides=overrides, device=dev)
+    return pop, cfg, inputs, p.with_hourly, meta
+
+
+def build(
+    name: str,
+    n_agents: Optional[int] = None,
+    run_config: Optional[RunConfig] = None,
+    end_year: Optional[int] = None,
+    rate_switch_frac: float = 0.0,
+    device="cuda",
+    attachment_rate: Optional[float] = None,
+):
+    """(Simulation, population, meta) for a named preset on ``device``.
+
+    ``end_year`` cuts the run's depth (the preset's own by default);
+    ``rate_switch_frac`` gives that share of residential agents a DG
+    rate switch on adoption; ``attachment_rate`` sets every group's
+    battery attachment rate (the synthetic default's is 0, so no
+    battery adopters are allocated)."""
+    from dgen_tpu_torch.models.simulation import Simulation
+
+    pop, cfg, inputs, with_hourly, meta = world(
+        name, n_agents, end_year=end_year, rate_switch_frac=rate_switch_frac,
+        device=device, attachment_rate=attachment_rate)
     sim = Simulation(
         pop.table, pop.profiles, pop.tariffs, inputs, cfg,
-        run_config or RunConfig(), with_hourly=p.with_hourly, device=dev,
+        run_config or RunConfig(), with_hourly=with_hourly, device=resolve_device(device),
     )
     meta["agent_chunk"] = sim._agent_chunk
     return sim, pop, meta

@@ -39,9 +39,9 @@ halves the landed file, then raises; ``hang`` sleeps
 ``DGEN_TPU_FAULT_HANG_S`` seconds and carries on; ``corrupt`` returns to
 the caller, which damages its data deterministically and carries on.
 
-The sites are those of the single-process run path that the port has.
-A spec naming one of the JAX package's other sites (input reads, sweeps,
-serving, the answer surface, the multi-process gang) raises
+The sites are those of the single-process run path and the sweep that
+the port has. A spec naming one of the JAX package's other sites (input
+reads, serving, the answer surface, the multi-process gang) raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it; a
 name neither package knows is refused with ``ValueError``, as in the
 JAX package.
@@ -97,6 +97,11 @@ SITES: Dict[str, str] = {
         "rows); load-time validation (resilience.quarantine) must "
         "quarantine exactly those rows"
     ),
+    "sweep_scenario": (
+        "sweep.driver loop mode: a scenario run dying between the "
+        "scenarios of a group; a retry with resume re-enters at "
+        "(scenario, year)"
+    ),
     "bank_corrupt_row": (
         "models.simulation: a profile-bank row going bad (``corrupt``: a "
         "NaN load row, or a NaN scale under int8 banks). Hit #1 is "
@@ -109,7 +114,6 @@ SITES: Dict[str, str] = {
 #: the JAX package's other sites -> the ROADMAP.md item that ports them
 UNPORTED_SITES: Dict[str, str] = {
     "ingest": "item 3 (the remaining host inputs)",
-    "sweep_scenario": "item 8 (sweeps and ensembles)",
     "serve_query": "item 11 (serving)",
     "serve_replica_kill": "item 11 (serving)",
     "serve_replica_hang": "item 11 (serving)",

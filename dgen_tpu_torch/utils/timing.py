@@ -52,6 +52,12 @@ def timing_report(ctx: Optional[str] = None) -> Dict[str, Dict[str, float]]:
             for k, v in items if v}
 
 
+def timing_samples(name: str, ctx: Optional[str] = None) -> List[float]:
+    """The wall seconds recorded under ``name`` (and ``ctx``), in order."""
+    with _LOCK:
+        return list(_TIMINGS.get(_key(name, ctx), []))
+
+
 def reset_timings() -> None:
     with _LOCK:
         _TIMINGS.clear()

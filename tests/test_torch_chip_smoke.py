@@ -8,8 +8,12 @@ sizing and remat-pass dispatch launches of a streaming year against the
 plain versions, block by block, and fails on one agent off. The run
 outputs phase [3f] passes its four runs on the CPU at a small size and
 fails on a pipeline write off the serialized one and on a resume that
-drops the restored carry."""
+drops the restored carry. The sweep and ensemble phase [3i] passes on the
+CPU at 16 agents, and its checkers fail on one agent's npv one ulp off
+between modes, on a quantile moved 1e-5, and on a sibling that copies a
+bank."""
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -455,3 +459,147 @@ def test_3g_chunk_check_fails_on_a_row_that_depends_on_the_chunk(change, fails, 
     rec = cs.chunk_gaps_checked(*runs, 64)
     assert rec["first_stage"] == ("export codes" if change else None)
     assert "agent_chunk 64 against the automatic" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# [3i]: sweeps and ensembles
+# ---------------------------------------------------------------------------
+
+#: [3i] on the CPU: delaware-res (no storage), 4 sizing iterations, a
+#: 10-year cash-flow horizon (agents adopt by 2016)
+SMALL_3I = dict(name="delaware-res", n_agents=16, end_year=2016, device="cpu",
+                econ_years=10, knobs=dict(sizing_iters=4))
+
+
+@contextlib.contextmanager
+def _small_pads():
+    """The preset populations padded to 16 rows, not 128: the plain
+    bucket sums' cost follows the padded rows."""
+    import functools
+
+    from dgen_tpu_torch.io import synth
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(synth, "generate_population",
+                   functools.partial(synth.generate_population, pad_multiple=16))
+        yield
+
+
+@pytest.fixture
+def small_pads():
+    with _small_pads():
+        yield
+
+
+@pytest.fixture(scope="module")
+def sweep_phase(tmp_path_factory):
+    """[3i] (a) and (c) on the CPU, with what their checkers received."""
+    from dgen_tpu_torch import presets
+
+    seen = {"same": [], "quantiles": []}
+    same, quantiles = cs.check_same_members, cs.check_quantiles
+
+    def keep_same(a, b, tag, *args):
+        seen["same"].append((a, b, tag))
+        return same(a, b, tag, *args)
+
+    def keep_quantiles(stats, curves, *args):
+        seen["quantiles"].append((stats, curves))
+        return quantiles(stats, curves, *args)
+
+    cs.check_same_members, cs.check_quantiles = keep_same, keep_quantiles
+    try:
+        with _small_pads():
+            a = cs.national_sweep(presets, {}, 1.0, **SMALL_3I)
+            c = cs.ensemble_phase(presets=presets, members=2, cohort_rows=4,
+                                  workdir=str(tmp_path_factory.mktemp("3i")), **SMALL_3I)
+    finally:
+        cs.check_same_members, cs.check_quantiles = same, quantiles
+    return a, c, seen
+
+
+def test_3i_sweep_and_ensemble_pass_on_the_cpu(sweep_phase, capsys):
+    a, c, seen = sweep_phase
+    assert a["compared"] > 0 and c["compared"] > 0
+    assert c["quantile_gap"] <= cs.QUANTILE_RTOL
+    assert [tag for *_, tag in seen["same"]] == [
+        "3i (a) vmap vs loop", "3i (c) vmap vs loop", "3i (c) E = 1 vs Simulation.run"]
+
+
+def test_3i_checker_fails_on_one_agents_npv(small_pads):
+    """A vmap/loop mismatch of one ulp in one agent's npv fails (a)."""
+    import copy
+
+    import numpy as np
+
+    from dgen_tpu_torch import presets
+
+    seen = []
+    same = cs.check_same_members
+
+    def keep(a, b, tag, *args):
+        seen.append((a, b))
+        return same(a, b, tag, *args)
+
+    cs.check_same_members = keep
+    try:
+        cs.national_sweep(presets, {}, 1.0, **dict(SMALL_3I, end_year=2014))
+    finally:
+        cs.check_same_members = same
+    (runs, ids, mask), loop = seen[0]
+    bad = copy.deepcopy(runs)
+    row = int(np.flatnonzero(mask > 0)[5])
+    npv = bad[1].agent["npv"]
+    npv[0, row] = np.nextafter(npv[0, row], np.float32(np.inf))
+    with pytest.raises(AssertionError, match=r"run 1, npv: 1 agents differ \(first: agent "
+                                             f"{int(ids[row])}"):
+        cs.check_same_members((bad, ids, mask), loop, "3i (a) vmap vs loop")
+
+
+def test_3i_checker_fails_on_a_quantile_moved_1e_5(sweep_phase):
+    import dataclasses as dc
+
+    *_, seen = sweep_phase
+    stats, curves = seen["quantiles"][0]
+    assert cs.check_quantiles(stats, curves) <= cs.QUANTILE_RTOL
+    national = dict(stats.national)
+    moved = national["adopters"].copy()
+    moved[-1, 1] *= 1.0 + 1e-5
+    national["adopters"] = moved
+    with pytest.raises(AssertionError, match="adopters quantiles"):
+        cs.check_quantiles(dc.replace(stats, national=national), curves)
+
+
+def test_3i_memory_check_fails_on_a_sibling_that_copies_a_bank(small_pads):
+    import dataclasses as dc
+
+    from dgen_tpu_torch import presets
+    from dgen_tpu_torch.sweep import SweepSimulation
+
+    pop, cfg, inputs, hourly, _ = presets.world("delaware-res", 8, end_year=2014,
+                                                device="cpu")
+    sweep = SweepSimulation(pop.table, pop.profiles, pop.tariffs, [inputs, inputs], cfg,
+                            device="cpu")
+    assert sweep.sibling_bytes is None
+    smallest = cs.check_shared_banks(sweep, sweep.sibling_bytes)
+    assert smallest == min(t.numel() * 4 for t in (pop.profiles.load, pop.profiles.solar_cf,
+                                                   pop.profiles.wholesale))
+    with pytest.raises(AssertionError, match="a bank's worth"):
+        cs.check_shared_banks(sweep, smallest)
+    sib = sweep.sims[1]
+    sib.profiles = dc.replace(sib.profiles, load=sib.profiles.load.clone())
+    with pytest.raises(AssertionError, match="sibling 1 holds its own copy of the profiles"):
+        cs.check_shared_banks(sweep, 0)
+
+
+def test_3i_sweeps_against_single_runs_and_the_fault_pass_on_the_cpu(tmp_path, capsys,
+                                                                     small_pads):
+    """[3i] (b) on the CPU: the vmap sweep equals the single runs, and the
+    supervised loop sweep resumes with the clean sweep's files."""
+    from dgen_tpu_torch import presets
+
+    out = cs.sweeps_vs_singles(presets, workdir=str(tmp_path), worlds=("default",),
+                               **dict(SMALL_3I, end_year=2016))
+    assert out["default"]["compared"] > 0
+    assert out["default"]["same"] == 2 * 3 * 2 and out["default"]["approx"] == 3 * 2
+    assert "resumed at (scenario itc0.1" in capsys.readouterr().out

@@ -471,3 +471,51 @@ def test_generator_urdb_and_clustering_need_no_pandas_pyarrow_or_jax(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1] == "6 6 [[0.1]] None"
+
+
+def test_sweep_and_ensemble_need_no_pandas_pyarrow_or_jax(tmp_path):
+    """A 2-scenario sweep (exporting and checkpointing as it runs, then
+    resumed) and a 2-member ensemble (with a cohort) import and run with
+    pandas, pyarrow, orbax, jax and the JAX package unavailable."""
+    run_dir = str(tmp_path / "sweep")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from dgen_tpu_torch.config import RunConfig, ScenarioConfig\n"
+        "from dgen_tpu_torch.ensemble import DEFAULT_DRAWS, EnsembleSimulation\n"
+        "from dgen_tpu_torch.io import synth\n"
+        "from dgen_tpu_torch.models import scenario\n"
+        "from dgen_tpu_torch.sweep import SweepSimulation\n"
+        "cfg = ScenarioConfig(start_year=2014, end_year=2016, anchor_years=())\n"
+        "pop = synth.generate_population(8, states=['DE'], pad_multiple=8, device='cpu')\n"
+        "def inputs(itc):\n"
+        "    return scenario.uniform_inputs(cfg, n_groups=pop.table.n_groups,\n"
+        "        n_regions=pop.n_regions, device='cpu',\n"
+        "        overrides={'itc_fraction': np.full((2, 3), itc, np.float32)})\n"
+        "rc = RunConfig(sizing_iters=4)\n"
+        "kw = dict(econ_years=5, device='cpu')\n"
+        "sweep = SweepSimulation(pop.table, pop.profiles, pop.tariffs,\n"
+        "                        [inputs(0.3), inputs(0.0)], cfg, rc, **kw)\n"
+        f"res = sweep.run(checkpoint_dir={run_dir!r} + '/ck', run_dir={run_dir!r})\n"
+        f"again = sweep.run(checkpoint_dir={run_dir!r} + '/ck', resume=True)\n"
+        f"res.export({run_dir!r} + '-post')\n"
+        "entry = np.zeros(pop.table.n_agents, np.float32)\n"
+        "entry[-2:] = 2016.0\n"
+        "ens = EnsembleSimulation(pop.table, pop.profiles, pop.tariffs, inputs(0.3), cfg,\n"
+        "                         rc, n_members=2, draws=DEFAULT_DRAWS, entry_year=entry,\n"
+        "                         **kw)\n"
+        "stats = ens.run().quantiles\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+        "print(res.plan.groups[0].mode, [r.years for r in res.runs],\n"
+        "      [r.years for r in again.runs], ens.mode, stats.national['adopters'].shape)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ("vmap [[2014, 2016], [2014, 2016]] [[], []] vmap (2, 3)")
+    assert sorted(os.listdir(run_dir)) == ["ck", "scenario=scn0", "scenario=scn1"]

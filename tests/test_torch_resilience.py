@@ -1,7 +1,7 @@
 """The single-card run supervisor of the PyTorch port
 (``dgen_tpu_torch.resilience``: faults, manifest, supervisor, drill),
 held against the JAX package's (``tests/test_resilience.py``, case by
-case, without the sweep, serve, gang and L11-lint cases).
+case, without the serve, gang and L11-lint cases).
 
 The fault grammar gives equal clauses and the registries fire on the
 same hits; ``classify_error``, the degradations and the backoff
@@ -556,3 +556,57 @@ def test_latest_valid_year_walks_past_corrupt(tmp_path):
     with open(os.path.join(cd, str(years[-1]), "carry.npz"), "rb+") as fh:
         fh.truncate(1)
     assert ckpt.latest_valid_year(cd, n, device="cpu") == years[-2]
+
+
+# ---------------------------------------------------------------------------
+# the sweep's fault site
+# ---------------------------------------------------------------------------
+
+def test_sweep_scenario_fault_resumes_at_scenario_year(tmp_path):
+    """Loop-mode sweep (tests/test_resilience.py's case): a death between
+    scenarios is retried by the supervisor with resume; the re-entered
+    sweep skips the completed scenario's years and runs the unstarted one
+    bit for bit, and the surfaces it exported as it ran are the clean
+    sweep's byte for byte."""
+    from dgen_tpu_torch.config import ScenarioConfig
+    from dgen_tpu_torch.io import synth
+    from dgen_tpu_torch.models import scenario
+    from dgen_tpu_torch.sweep import SweepSimulation
+
+    cfg = ScenarioConfig(name="t", start_year=2014, end_year=END_YEAR, anchor_years=(),
+                         storage_enabled=False)
+    pop = synth.generate_population(N_AGENTS, states=["DE", "CA"], seed=11,
+                                    pad_multiple=N_AGENTS, device="cpu")
+    inputs = scenario.uniform_inputs(cfg, n_groups=pop.table.n_groups,
+                                     n_regions=pop.n_regions, device="cpu")
+
+    def make_sweep():
+        return SweepSimulation(pop.table, pop.profiles, pop.tariffs, [inputs, inputs], cfg,
+                               RunConfig(sizing_iters=4), labels=["a", "b"],
+                               max_vmap_scenarios=0, econ_years=5, device="cpu")
+
+    assert all(g.mode == "loop" for g in make_sweep().plan.groups)
+    clean_dir = str(tmp_path / "clean")
+    clean = make_sweep().run(collect=True, run_dir=clean_dir)
+    cd, run_dir = str(tmp_path / "ckpt"), str(tmp_path / "run")
+    sweep = make_sweep()
+
+    def attempt(ctx):
+        return sweep.run(collect=True, checkpoint_dir=cd, resume=ctx.resume, run_dir=run_dir)
+
+    with faults.injected("sweep_scenario@2") as reg:
+        results, report = Supervisor(FAST_POLICY, sleep=_no_sleep).run(attempt, RunConfig())
+    assert reg.fired("sweep_scenario") == 1 and report.retries == 1
+    assert results.runs[0].years == []
+    assert results.runs[1].years == clean.runs[1].years
+    for k, v in results.runs[1].agent.items():
+        np.testing.assert_array_equal(v, clean.runs[1].agent[k], err_msg=k)
+    for label in ("a", "b"):
+        for surface in ("agent_outputs", "finance_series"):
+            sub = os.path.join(f"scenario={label}", surface)
+            names = sorted(os.listdir(os.path.join(clean_dir, sub)))
+            assert names == sorted(os.listdir(os.path.join(run_dir, sub)))
+            for name in names:
+                with open(os.path.join(clean_dir, sub, name), "rb") as f_a, \
+                        open(os.path.join(run_dir, sub, name), "rb") as f_b:
+                    assert f_a.read() == f_b.read(), (sub, name)
