@@ -136,6 +136,25 @@ its first launch in the path):
      of numpy's on the members' curves, E = 1 with zero draws equal to
      Simulation.run, and a vmap run killed in its last year and resumed
      with the same statistics;
+  3j. the per-agent sizing oracle, the analysis side and the
+     differentiable twin on the main path's world and its first model
+     year's economics: (a) size_agents(fast=False) (14 golden-section
+     iterations, agent chunks, the dispatch kernel) against the fast path
+     at tests/test_sizing.py:117-128's bounds (both first-year bills at the
+     same size; at each path's own size counted and logged), 64 rows alone
+     equal to their rows bit for bit; (b) newton_size (soft, tau 0.1)
+     against the oracle at 20 iterations: every agent within xatol and its
+     bracket, fewer fallbacks than agents, no bucket-sums launch in soft
+     mode, and the hard objective through the month kernel against the
+     plain sums; (c) the gradcheck on the CLI's 8-agent world; (d)
+     recover_pq(64, steps=5, gn) within 5%, solve_incentive at the CLI's
+     defaults, and one rollout-loss gradient through the dispatch kernel
+     and through the plain loop, equal within rtol 1e-5; (e)
+     demand_charge_audit over (a)'s sized outputs with a flat demand charge,
+     dispatch_diagnostics and summarize_dispatch, the first 256 rows equal
+     to the port's CPU result; (f) RunConfig(soft_boundaries=True) for 2
+     model years (no bucket-sums launch), and the same years run hard after
+     it equal to the main path's bit for bit with its launch counts;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -405,6 +424,11 @@ def kernel_specs(bk, mk) -> dict:
                               f"{bp}:343"),
         "bucket_sums_month_signed": (("main", "month_signed"), *month, 9, RTOL,
                                      "month", f"{bp}:343"),
+        # [3j] (a): the fast path the per-agent oracle holds
+        "bucket_sums_month_3j": (("oracle", "month"), *month, 6, RTOL, "month",
+                                 f"{bp}:343"),
+        "bucket_sums_month_signed_3j": (("oracle", "month_signed"), *month, 9, RTOL,
+                                        "month", f"{bp}:343"),
         "bucket_sums_month_pair": (("switch", "month_pair"), *pair, 9, RTOL,
                                    "month", f"{bp}:427"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
@@ -1477,6 +1501,7 @@ def profile_year(sim, title: str) -> None:
     year (YEAR_PIECES, each wrapped in a record_function range for the
     trace) its calls, host time and device time."""
     import dataclasses
+    import gc
     import importlib
 
     import torch
@@ -1501,6 +1526,10 @@ def profile_year(sim, title: str) -> None:
     try:
         carry, _ = step(sim, sim.init_carry(), 0, True)
         torch.cuda.synchronize()
+        # a full collection now, so that the collector's generation-2 pass
+        # (~0.1-0.25 s over the script's ~270,000 live objects) does not
+        # land in the traced year's host time
+        gc.collect()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             carry, outs = step(sim, carry, 1, False)
@@ -4085,6 +4114,535 @@ def sweeps(presets, whole_per_year: dict, single_rate: float, *, workdir=None) -
     return {"a": a, "b": b, "c": c, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# [3j]: the per-agent oracle, the analysis side and the differentiable twin
+# ---------------------------------------------------------------------------
+
+#: [3j] (a): the oracle's golden-section iterations and the fast path's
+#: candidates (tests/test_sizing.py::test_fast_path_matches_slow_path runs
+#: both at 14), and that test's tolerances
+ORACLE_ITERS = 14
+ORACLE_KW_RTOL = 6e-3
+ORACLE_NPV_RTOL, ORACLE_NPV_ATOL = 2e-3, 10.0
+ORACLE_PAYBACK_ATOL = 0.21
+ORACLE_BILL_RTOL, ORACLE_BILL_ATOL = 1e-3, 1.0
+#: [3j] (a): rows sized alone, held bit for bit to the same rows of the
+#: whole table's oracle
+ORACLE_ALONE_ROWS = 64
+#: [3j] (b): Newton's temperature and the oracle's iterations beside it
+#: (tests/test_grad.py:114); the hard objective's grid columns
+NEWTON_TAU = 0.1
+NEWTON_ORACLE_ITERS = 20
+OBJECTIVE_GRID_K = 6
+#: [3j] (b): the hard objective on the kernels against the plain sums:
+#: rtol 1e-4 of the NPV plus 1e-4 x the flow scale (25 years of the
+#: no-system bill), tests/test_torch_sizing.py's bound
+OBJECTIVE_RTOL = 1e-4
+#: [3j] (d): the rollout-loss gradient through the dispatch kernel against
+#: the same gradient through the plain loop
+GRAD_DISPATCH_RTOL = 1e-5
+#: [3j] (e): rows of the card's analysis held to the port's CPU result at
+#: rtol 1e-5 (the same float32 maxima and recursion; sums in another
+#: order), atol 1e-3
+ANALYSIS_CPU_ROWS = 256
+ANALYSIS_RTOL = 1e-5
+#: [3j] (f): the soft run's model years (2014, 2016)
+SOFT_END_YEAR = 2016
+#: [3j] (c)-(d): the twin's world (calibrate.CHECK_N_AGENTS, the CLI's
+#: default)
+TWIN_AGENTS = 64
+
+
+def _launch_counts() -> dict:
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    return {**bk.LAUNCHES, **dispatch.LAUNCHES}
+
+
+def _reset_counts() -> None:
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    bk.reset_launches()
+    dispatch.reset_launches()
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+def _timed(fn):
+    """(fn(), seconds ending in a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _reset_peak() -> int:
+    """Resets the card's peak memory statistic; the bytes held now."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_from(base: int) -> int:
+    """Bytes allocated above ``base`` at the peak since the last reset."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _oracle_at(envs, kw, n_periods: int, years: int):
+    """The oracle's outputs (``sizing.oracle_outputs``) at the sizes
+    ``kw``, chunk by chunk of ``oracle_chunk_rows``: another path's sizes
+    priced by the oracle's hourly engine."""
+    import torch
+
+    from dgen_tpu_torch.ops import sizing
+    from dgen_tpu_torch.tree import tree_map
+
+    chunk = sizing.oracle_chunk_rows(years)
+    parts = [sizing.oracle_outputs(tree_map(lambda t: t[r0:r0 + chunk], envs),
+                                   kw[r0:r0 + chunk], n_periods, years, keep_hourly=False)
+             for r0 in range(0, kw.shape[0], chunk)]
+    return tree_map(lambda *ts: torch.cat(ts), *parts)
+
+
+def oracle_fast_vs_slow(sim, envs, card: str) -> dict:
+    """[3j] (a): ``size_agents(fast=False)`` (ORACLE_ITERS golden-section
+    iterations, agent chunks) against the fast path on the first model
+    year of ``sim``'s world, at tests/test_sizing.py:117-128's bounds:
+    sizes, NPV and payback of every agent; both first-year bills at the
+    same size (the oracle's hourly engine repricing the fast path's
+    sizes), the bills at each path's own size counted and logged. The
+    launch counts are set to 0 before the two runs and read after; the
+    first launches' operands (the fast path's bucket sums, the oracle's
+    first dispatch) are kept for [9]. ORACLE_ALONE_ROWS rows sized alone
+    equal their rows of the whole run bit for bit."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import sizing
+    from dgen_tpu_torch.tree import tree_map
+
+    p, years = sim.tariffs.max_periods, sim.econ_years
+    m = sim.host_mask > 0
+    capture, slow_cap = {}, {}
+    bk.CAPTURE = capture
+    _reset_counts()
+    try:
+        with first_dispatch(capture):
+            fast, fast_s = _timed(lambda: sizing.size_agents(
+                envs, p, years, n_iters=ORACLE_ITERS, keep_hourly=False,
+                net_billing=sim._net_billing))
+        fast_launches = _launch_counts()
+        base = _reset_peak()
+        with first_dispatch(slow_cap):
+            slow, slow_s = _timed(lambda: sizing.size_agents(
+                envs, p, years, n_iters=ORACLE_ITERS, keep_hourly=False, fast=False))
+        peak = _peak_from(base)
+    finally:
+        launches = _launch_counts()
+        bk.CAPTURE = None
+    capture["dispatch"] = slow_cap["dispatch"]
+    chunk = sizing.oracle_chunk_rows(years)
+    n = envs.load.shape[0]
+    oracle_dispatch = launches["dispatch"] - fast_launches["dispatch"]
+    if oracle_dispatch != -(-n // chunk):
+        raise AssertionError(f"[3j] (a) the oracle launched {oracle_dispatch} "
+                             f"dispatch kernels for {-(-n // chunk)} chunks")
+    need_launches("[3j] (a)", launches, ("month", "month_signed", "dispatch"))
+
+    def held(name, got, ref, rtol, atol) -> tuple:
+        g, r = _host(got)[m], _host(ref)[m]
+        bad = np.abs(g - r) > atol + rtol * np.abs(r)
+        return int(bad.sum()), float(np.abs(g - r).max())
+
+    gaps = {}
+    for name, rtol, atol in (("system_kw", ORACLE_KW_RTOL, 0.0),
+                             ("npv", ORACLE_NPV_RTOL, ORACLE_NPV_ATOL),
+                             ("payback_period", 0.0, ORACLE_PAYBACK_ATOL)):
+        bad, gap = held(name, getattr(fast, name), getattr(slow, name), rtol, atol)
+        if bad:
+            raise AssertionError(f"[3j] (a) {name}: {bad} agents outside rtol {rtol}, "
+                                 f"atol {atol} (largest gap {gap:.4g})")
+        gaps[name] = gap
+    same_size = _oracle_at(envs, fast.system_kw, p, years)
+    own = {}
+    for name in ("first_year_bill_with_system", "first_year_bill_with_batt"):
+        bad, gap = held(name, getattr(fast, name), getattr(same_size, name),
+                        ORACLE_BILL_RTOL, ORACLE_BILL_ATOL)
+        if bad:
+            raise AssertionError(f"[3j] (a) {name} at the same size: {bad} agents "
+                                 f"outside rtol {ORACLE_BILL_RTOL}, atol "
+                                 f"{ORACLE_BILL_ATOL} (largest gap {gap:.4g})")
+        gaps[name + "_same_size"] = gap
+        own[name] = held(name, getattr(fast, name), getattr(slow, name),
+                         ORACLE_BILL_RTOL, ORACLE_BILL_ATOL)
+    alone = sizing.size_agents(tree_map(lambda t: t[:ORACLE_ALONE_ROWS], envs), p, years,
+                               n_iters=ORACLE_ITERS, keep_hourly=False, fast=False)
+    for name in ("system_kw", "npv", "first_year_bill_with_batt"):
+        if not torch.equal(getattr(alone, name), getattr(slow, name)[:ORACLE_ALONE_ROWS]):
+            raise AssertionError(f"[3j] (a) {ORACLE_ALONE_ROWS} rows sized alone differ "
+                                 f"from their rows of the whole oracle run in {name}")
+    log(f"[3j] (a) the per-agent oracle (size_agents(fast=False), {ORACLE_ITERS} "
+        f"golden-section iterations) against the fast path ({ORACLE_ITERS} candidates), "
+        f"first model year of ercot-all-sector at {int(m.sum())} agents, {years} "
+        f"analysis years ({card}): fast {fast_s:.3f} s, oracle {slow_s:.3f} s in "
+        f"chunks of {chunk} rows ({oracle_dispatch} dispatch launches), "
+        f"max_memory_allocated {(peak + base) / 2**30:.2f} GiB ({peak / 2**30:.2f} over "
+        f"the {base / 2**30:.2f} GiB held before); launches {launches}")
+    log(f"    within tests/test_sizing.py's bounds on every agent: system_kw "
+        f"(rtol {ORACLE_KW_RTOL}) gap {gaps['system_kw']:.4g} kW, npv (rtol "
+        f"{ORACLE_NPV_RTOL}, atol {ORACLE_NPV_ATOL}) {gaps['npv']:.4g}, payback (atol "
+        f"{ORACLE_PAYBACK_ATOL}) {gaps['payback_period']:.4g}; both first-year bills at "
+        f"the same size (rtol {ORACLE_BILL_RTOL}, atol {ORACLE_BILL_ATOL}) "
+        f"{gaps['first_year_bill_with_system_same_size']:.4g} and "
+        f"{gaps['first_year_bill_with_batt_same_size']:.4g}; at each path's own size "
+        f"{own['first_year_bill_with_system'][0]} and "
+        f"{own['first_year_bill_with_batt'][0]} agents outside that bound (largest "
+        f"gaps {own['first_year_bill_with_system'][1]:.4g} and "
+        f"{own['first_year_bill_with_batt'][1]:.4g}: the sizes' grid gap times the "
+        f"bill's slope); {ORACLE_ALONE_ROWS} rows alone equal their rows bit for bit")
+    return dict(fast=fast, slow=slow, launches=launches, capture=capture,
+                fast_s=fast_s, slow_s=slow_s, chunk=chunk, peak=peak, own=own, gaps=gaps)
+
+
+def newton_vs_oracle(sim, envs, flow, card: str) -> dict:
+    """[3j] (b): ``newton_size`` (soft, NEWTON_TAU) against
+    ``size_agents(fast=False, n_iters=NEWTON_ORACLE_ITERS)``: every agent
+    within ``reference_xatol`` and inside its bracket, fewer fallbacks
+    than agents; no bucket-sums kernel launches in soft mode (the plain
+    differentiable sums), none of the dispatch kernel (Newton runs no
+    battery). Then the hard objective (``make_npv_objective``) on an
+    OBJECTIVE_GRID_K-column grid through the month kernel, forward only,
+    against the plain sums."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.grad import newton
+    from dgen_tpu_torch.ops import sizing
+
+    p, years = sim.tariffs.max_periods, sim.econ_years
+    _reset_counts()
+    base = _reset_peak()
+    res, newton_s = _timed(lambda: newton.newton_size(
+        envs, p, years, soft_tau=NEWTON_TAU, net_billing=sim._net_billing))
+    peak = _peak_from(base)
+    newton_launches = _launch_counts()
+    need_launches("[3j] (b) Newton", newton_launches, (),
+                  zero=("month", "month_signed", "month_pair", "stream", "stream_signed",
+                        "dot", "dot_signed", "dispatch"))
+    _reset_counts()
+    oracle, oracle_s = _timed(lambda: sizing.size_agents(
+        envs, p, years, n_iters=NEWTON_ORACLE_ITERS, keep_hourly=False, fast=False))
+    oracle_dispatch = _launch_counts()["dispatch"]
+    kw, lo, hi = _host(res.system_kw), _host(res.lo), _host(res.hi)
+    xatol = _host(newton.reference_xatol(res.lo, res.hi))
+    diff = np.abs(kw - _host(oracle.system_kw))
+    n = kw.shape[0]
+    fallback = int(_host(res.fallback).sum())
+    if not np.all(diff <= xatol):
+        raise AssertionError(f"[3j] (b) {int((diff > xatol).sum())} agents outside "
+                             f"xatol (largest gap {diff.max():.4g} kW)")
+    if not (np.all(kw >= lo - 1e-5) and np.all(kw <= hi + 1e-5)):
+        raise AssertionError("[3j] (b) a Newton size left its bracket")
+    if fallback >= n:
+        raise AssertionError(f"[3j] (b) {fallback} fallbacks of {n} agents")
+
+    f_k, o_lo, o_hi = sizing.make_npv_objective(envs, p, years,
+                                                net_billing=sim._net_billing, impl="auto")
+    f_p = sizing.make_npv_objective(envs, p, years, net_billing=sim._net_billing)[0]
+    grid = o_lo[:, None] + (o_hi - o_lo)[:, None] * sizing._unit_grid(
+        OBJECTIVE_GRID_K, o_lo.device)[None, :]
+    _reset_counts()
+    with torch.no_grad():
+        v_k, kernel_s = _timed(lambda: f_k(grid))
+        grid_launches = _launch_counts()
+        v_p, plain_s = _timed(lambda: f_p(grid))
+    need_launches("[3j] (b) the hard objective on the kernels", grid_launches,
+                  ("month",))
+    gap = np.abs(_host(v_k) - _host(v_p))
+    bound = OBJECTIVE_RTOL * np.abs(_host(v_p)) + OBJECTIVE_RTOL * flow[:, None]
+    if not np.all(gap <= bound):
+        raise AssertionError(f"[3j] (b) the hard objective on the kernels differs from "
+                             f"the plain sums' for {int((gap > bound).sum())} values")
+    log(f"[3j] (b) newton_size (soft, tau {NEWTON_TAU}) against the oracle "
+        f"({NEWTON_ORACLE_ITERS} iterations) at {n} rows ({card}): Newton "
+        f"{newton_s:.3f} s in chunks of {newton.newton_chunk_rows(years)} rows, peak "
+        f"{peak / 2**30:.2f} GiB, bucket-sums kernel launches 0 (soft mode prices on the "
+        f"plain differentiable sums; launches {newton_launches}); oracle {oracle_s:.3f} "
+        f"s, {oracle_dispatch} dispatch launches; every agent within xatol (largest gap "
+        f"{diff.max():.4g} kW, smallest xatol {xatol.min():.4g}), inside its bracket, "
+        f"{fallback} fallbacks of {n}")
+    log(f"    the hard objective on a {OBJECTIVE_GRID_K}-column grid: month kernel "
+        f"{kernel_s:.3f} s ({grid_launches['month']} launches), plain sums "
+        f"{plain_s:.3f} s, within rtol {OBJECTIVE_RTOL} + {OBJECTIVE_RTOL} x the flow "
+        f"(largest gap {gap.max():.4g})")
+    return dict(newton_s=newton_s, oracle_s=oracle_s, peak=peak,
+                max_gap_kw=float(diff.max()), fallback=fallback)
+
+
+def twin_workloads(card: str) -> dict:
+    """[3j] (c) the gradcheck of the smooth objective on the CLI's 8-agent
+    world; (d) the calibration's recovery (``recover_pq(64, steps=5,
+    method="gn")``), ``solve_incentive`` at the CLI's defaults, and one
+    rollout-loss gradient (the CHECK_* world against its seeded-truth
+    targets, at the identity start, fit_mms on) through the dispatch kernel
+    and again through ``dispatch_battery_plain``, equal within
+    GRAD_DISPATCH_RTOL: no gradient is dropped at the kernel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.grad import calibrate, policy
+    from dgen_tpu_torch.grad.__main__ import CHECK_GRAD_RTOL, CHECK_PQ_RTOL, gradcheck
+    from dgen_tpu_torch.ops import dispatch
+
+    gc, gc_s = _timed(lambda: gradcheck(n_agents=8, seed=7, tau=NEWTON_TAU,
+                                        device="cuda"))
+    if not gc["ok"] or not gc["max_rel_err"] < CHECK_GRAD_RTOL:
+        raise AssertionError(f"[3j] (c) gradcheck failed: {gc}")
+    log(f"[3j] (c) gradcheck(8 agents, seed 7, tau {NEWTON_TAU}) on the card: max "
+        f"relative error {gc['max_rel_err']:.3e} < {CHECK_GRAD_RTOL} "
+        f"({gc_s:.3f} s, {card})")
+
+    cal, cal_s = _timed(lambda: calibrate.recover_pq(TWIN_AGENTS, steps=5, method="gn",
+                                                     device="cuda"))
+    curve = cal["loss_curve"]
+    if not (cal["rel_err_p"] <= CHECK_PQ_RTOL and cal["rel_err_q"] <= CHECK_PQ_RTOL
+            and curve[-1] < curve[0]):
+        raise AssertionError(f"[3j] (d) recover_pq: {cal}")
+    pol, pol_s = _timed(lambda: policy.solve_incentive(
+        TWIN_AGENTS, target_uplift=1.25, steps=6, soft_tau=NEWTON_TAU, seed=7,
+        device="cuda"))
+    if not (0.0 < pol["incentive_frac"] <= policy.MAX_INCENTIVE_FRAC
+            and np.isfinite(pol["final_adopters"])
+            and pol["final_adopters"] > pol["baseline_adopters"]):
+        raise AssertionError(f"[3j] (d) solve_incentive: {pol}")
+    log(f"[3j] (d) recover_pq({TWIN_AGENTS}, steps=5, gn): rel_err_p {cal['rel_err_p']:.3e}, "
+        f"rel_err_q {cal['rel_err_q']:.3e} (bound {CHECK_PQ_RTOL}), loss "
+        f"{curve[0]:.4g} -> {curve[-1]:.4g} in {cal_s:.3f} s; solve_incentive (CLI "
+        f"defaults: {TWIN_AGENTS} agents, uplift 1.25, 6 steps): incentive "
+        f"{pol['incentive_frac']:.4f}, adopters {pol['baseline_adopters']:.4g} -> "
+        f"{pol['final_adopters']:.4g} (target {pol['target_adopters']:.4g}, rel miss "
+        f"{pol['rel_miss']:.3e}, converged {pol['converged']}) in {pol_s:.3f} s ({card})")
+
+    pop, inputs, step_kw, n_years = calibrate.build_world(TWIN_AGENTS, device="cuda")
+    roll = calibrate.make_rollout(pop.table, pop.profiles, pop.tariffs, n_years=n_years,
+                                  step_kw=step_kw)
+    dev = pop.table.mask.device
+    truth = {"log_p": torch.tensor(math.log(1.6), device=dev),
+             "log_q": torch.tensor(math.log(0.7), device=dev)}
+    with torch.no_grad():
+        targets = roll(calibrate.apply_params(inputs, truth))
+    loss = calibrate.make_loss(roll, inputs, targets)
+
+    def grad_once():
+        leaves = {k: v.requires_grad_(True)
+                  for k, v in calibrate.init_params(fit_mms=True, device=dev).items()}
+        val = loss(leaves)
+        grads = torch.autograd.grad(val, list(leaves.values()))
+        return float(val.detach()), torch.stack(grads)
+
+    _reset_counts()
+    (v_k, g_k), k_s = _timed(grad_once)
+    k_launches = _launch_counts()["dispatch"]
+    kernel = dispatch.dispatch_battery
+    dispatch.dispatch_battery = (lambda load, gen, bkw, bkwh, rt, impl="scan":
+                                 dispatch.dispatch_battery_plain(load, gen, bkw, bkwh, rt))
+    try:
+        _reset_counts()
+        (v_p, g_p), p_s = _timed(grad_once)
+        p_launches = _launch_counts()["dispatch"]
+    finally:
+        dispatch.dispatch_battery = kernel
+    if k_launches == 0 or p_launches != 0:
+        raise AssertionError(f"[3j] (d) dispatch launches {k_launches} with the kernel, "
+                             f"{p_launches} with the plain loop")
+    if not (torch.isfinite(g_k).all() and g_k.abs().sum() > 0
+            and torch.allclose(g_k, g_p, rtol=GRAD_DISPATCH_RTOL, atol=0.0)
+            and abs(v_k - v_p) <= GRAD_DISPATCH_RTOL * abs(v_p)):
+        raise AssertionError(f"[3j] (d) the rollout-loss gradient through the dispatch "
+                             f"kernel {g_k.tolist()} differs from the plain loop's "
+                             f"{g_p.tolist()}")
+    log(f"    one rollout-loss gradient (CHECK_* world, {n_years} years, d/d(log_p, "
+        f"log_q, mms_elast) = {[round(x, 6) for x in g_k.tolist()]}) through the dispatch "
+        f"kernel ({k_launches} launches, {k_s:.3f} s) and the plain loop ({p_s:.3f} s): "
+        f"equal within rtol {GRAD_DISPATCH_RTOL} (largest gap "
+        f"{float((g_k - g_p).abs().max()):.3e})")
+    return dict(gradcheck=gc["max_rel_err"], rel_err_p=cal["rel_err_p"],
+                rel_err_q=cal["rel_err_q"], cal_s=cal_s, policy_s=pol_s)
+
+
+def analysis_checks(sim, envs, sized, card: str) -> dict:
+    """[3j] (e): ``demand_charge_audit`` over (a)'s sized outputs (the
+    oracle's), with tests/test_demand.py:183-187's flat demand charge on
+    every tariff spec; ``dispatch_diagnostics`` and ``summarize_dispatch``
+    of the battery run at those sizes. Finite, padding priced 0, every
+    real agent priced, baseline >= pv_only; the first ANALYSIS_CPU_ROWS
+    rows equal the port's CPU result (plain dispatch loop) within
+    ANALYSIS_RTOL."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch import analysis
+    from dgen_tpu_torch.io import synth
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch, sizing
+    from dgen_tpu_torch.tree import tree_map
+
+    specs = [dict(s) for s in synth.make_tariff_specs()]
+    for s in specs:
+        s["demand"] = {"d_flat_prices": [[5.0] * 12], "d_flat_levels": [[1e9] * 12]}
+    table, profiles = sim.table, sim.profiles
+    if profiles.load_scale is not None or sim.tariffs.n_tariffs != len(specs):
+        raise AssertionError("[3j] (e) the world's banks are not the synthetic corpus")
+    sizes = dict(system_kw=sized.system_kw, batt_kw=sized.batt_kw,
+                 batt_kwh=sized.batt_kwh, batt_rt_eff=envs.batt_rt_eff)
+
+    def audit_of(tbl, prof, lkpc, sz):
+        return analysis.demand_charge_audit(tbl, prof, specs, lkpc, **sz)
+
+    def diags_of(load, gen, sell, sz):
+        dr = dispatch.dispatch_battery(load, gen, sz["batt_kw"], sz["batt_kwh"],
+                                       sz["batt_rt_eff"])
+        return analysis.dispatch_diagnostics(load, gen, dr, sell, batt_kw=sz["batt_kw"])
+
+    audit, audit_s = _timed(lambda: audit_of(table, profiles, envs.load_kwh_per_customer,
+                                             sizes))
+    load = envs.load.float()
+    gen = envs.gen_per_kw * (sized.system_kw * sizing.INV_EFF)[:, None]
+    sell = bk.sell_rate_hourly(envs.tariff, envs.ts_sell)
+    diags, diag_s = _timed(lambda: diags_of(load, gen, sell, sizes))
+    summary = analysis.summarize_dispatch(diags, table.mask)
+    m = _host(table.mask)
+    for k, v in audit.items():
+        v = _host(v)
+        if not (np.all(np.isfinite(v)) and np.all(v[m == 0] == 0.0)
+                and v[m > 0].min() > 0.0):
+            raise AssertionError(f"[3j] (e) audit {k}: non-finite, padding priced or an "
+                                 "agent unpriced")
+    if not np.all(_host(audit["pv_only"]) <= _host(audit["baseline"]) + 1e-4):
+        raise AssertionError("[3j] (e) a PV-only demand charge above the baseline's")
+    d = {k: _host(v) for k, v in diags.items()}
+    if not (all(np.all(np.isfinite(v)) for v in d.values())
+            and np.all((d["capture_mid_frac"] >= 0) & (d["capture_mid_frac"] <= 1 + 1e-6))
+            and np.all(d["pv_to_batt_total_kwh"] <= d["surplus_total_kwh"] + 1e-3)):
+        raise AssertionError("[3j] (e) dispatch diagnostics out of their bounds")
+
+    rows = slice(0, ANALYSIS_CPU_ROWS)
+    cpu = lambda tree: tree_map(lambda t: t[rows].cpu(), tree)  # noqa: E731
+    sizes_c = {k: v[rows].cpu() for k, v in sizes.items()}
+    audit_c = audit_of(cpu(table), tree_map(lambda t: t.cpu(), profiles),
+                       envs.load_kwh_per_customer[rows].cpu(), sizes_c)
+    diags_c = diags_of(load[rows].cpu(), gen[rows].cpu(), sell[rows].cpu(), sizes_c)
+    for name, card_out, cpu_out in (("audit", audit, audit_c), ("diagnostics", diags,
+                                                                 diags_c)):
+        for k in cpu_out:
+            got, ref = _host(card_out[k])[rows], _host(cpu_out[k])
+            if not np.allclose(got, ref, rtol=ANALYSIS_RTOL, atol=1e-3):
+                raise AssertionError(f"[3j] (e) {name} {k}: the card's first "
+                                     f"{ANALYSIS_CPU_ROWS} rows differ from the CPU's")
+    log(f"[3j] (e) demand_charge_audit over (a)'s sized outputs ({int(m.sum())} agents, "
+        f"a flat $5/kW demand charge on every tariff): {audit_s:.3f} s; mean "
+        f"$/customer-year baseline {float(_host(audit['baseline'])[m > 0].mean()):.2f}, "
+        f"pv_only {float(_host(audit['pv_only'])[m > 0].mean()):.2f}, with_batt "
+        f"{float(_host(audit['with_batt'])[m > 0].mean()):.2f}; dispatch_diagnostics "
+        f"{diag_s:.3f} s, capture_mid_frac {summary['capture_mid_frac']:.4f}, "
+        f"pv_to_batt {summary['pv_to_batt_total_kwh']:.4g} kWh; finite, padding 0, "
+        f"baseline >= pv_only; the first {ANALYSIS_CPU_ROWS} rows equal the CPU's "
+        f"within rtol {ANALYSIS_RTOL} ({card})")
+    return dict(audit_s=audit_s, diag_s=diag_s)
+
+
+def soft_year(presets, RunConfig, main_run: dict, card: str) -> dict:
+    """[3j] (f): ``RunConfig(soft_boundaries=True)`` runs the main path's
+    world to SOFT_END_YEAR: no bucket-sums kernel launches (the soft sums
+    are the plain differentiable ones), the dispatch kernel once a year,
+    finite outputs. The main path's years run hard again after it equal
+    its outputs bit for bit per agent, with its launch counts; the soft
+    first year's national sums are logged beside the hard one's (the
+    later years' trajectories depend on the run's end year)."""
+    import numpy as np
+
+    from dgen_tpu_torch.presets import year_timer
+
+    def run(rc, end_year):
+        s = presets.build("ercot-all-sector", n_agents=MAIN_AGENTS, end_year=end_year,
+                          device="cuda", run_config=rc)[0]
+        seconds = []
+        _reset_counts()
+        with year_timer(s, seconds):
+            res = s.run()
+        return s, res, _launch_counts(), seconds
+
+    ssim, sres, s_launches, s_seconds = run(RunConfig(soft_boundaries=True),
+                                            SOFT_END_YEAR)
+    check_outputs(sres, ssim)
+    years = len(sres.years)
+    need_launches("[3j] (f) soft years", s_launches, ("dispatch",),
+                  zero=("month", "month_signed", "month_pair", "stream", "stream_signed",
+                        "dot", "dot_signed"))
+    if s_launches["dispatch"] != dispatch_per_year(ssim) * years:
+        raise AssertionError(f"[3j] (f) {s_launches['dispatch']} dispatch launches")
+    hsim, hres, h_launches, h_seconds = run(RunConfig(), MAIN_END_YEAR)
+    main_res = main_run["res"]
+    for k, v in hres.agent.items():
+        if not np.array_equal(v, main_res.agent[k]):
+            raise AssertionError(f"[3j] (f) the hard years after the soft run differ from "
+                                 f"the main path's in {k}")
+    for k in ("month", "month_signed", "dispatch"):
+        if h_launches[k] != main_run["launches"][k]:
+            raise AssertionError(f"[3j] (f) hard {k} launches {h_launches[k]}, the main "
+                                 f"path's {main_run['launches'][k]}")
+    soft_1, hard_1 = (r.summary(s.host_mask) for r, s in ((sres, ssim), (hres, hsim)))
+    gap = curves_gap({k: v[:1] for k, v in soft_1.items()},
+                     {k: v[:1] for k, v in hard_1.items()})
+    log(f"[3j] (f) RunConfig(soft_boundaries=True) at {MAIN_AGENTS} agents, "
+        f"{years} years: per-year s {[round(x, 3) for x in s_seconds]} (hard "
+        f"{[round(x, 3) for x in h_seconds]}) ({card}); launches {s_launches}; the "
+        f"first year's national sums {gap:.3e} (relative) from the hard run's; the "
+        f"main path's years run hard after it equal [3]'s bit for bit, with its launch "
+        f"counts")
+    return dict(soft_s=s_seconds, hard_s=h_seconds, curves_gap=gap)
+
+
+def oracle_and_twin(presets, RunConfig, sim, main_run: dict, card: str) -> dict:
+    """[3j]: (a) :func:`oracle_fast_vs_slow`, (b) :func:`newton_vs_oracle`,
+    (c)-(d) :func:`twin_workloads`, (e) :func:`analysis_checks` and (f)
+    :func:`soft_year`, on the main path's world (``sim``, ercot-all-sector
+    at MAIN_AGENTS agents) and its first model year's economics; logs
+    the phase's wall. Returns (a)'s launch counts and first-launch
+    operands for the kernels line."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    envs = year0_envs(sim)
+    a = oracle_fast_vs_slow(sim, envs, card)
+    flow = 25.0 * np.abs(_host(a["slow"].first_year_bill_without_system))
+    b = newton_vs_oracle(sim, envs, flow, card)
+    torch.cuda.empty_cache()
+    cd = twin_workloads(card)
+    e = analysis_checks(sim, envs, a["slow"], card)
+    torch.cuda.empty_cache()
+    f = soft_year(presets, RunConfig, main_run, card)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[3j] the oracle, the analysis side and the twin (a)-(f): {wall:.3f} s ({card})")
+    return dict(launches=a["launches"], capture=a["capture"], wall=wall, b=b, cd=cd,
+                e=e, f=f)
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -4201,6 +4759,10 @@ def main(argv=None) -> int:
 
     # --- 3i: sweeps and ensembles ---
     sweeps(presets, whole_per_year, single_rate)
+
+    # --- 3j: the per-agent oracle, the analysis side and the twin ---
+    oracle = oracle_and_twin(presets, RunConfig, sim, runs["main"], card)
+    runs["oracle"] = dict(launches=oracle["launches"], capture=oracle["capture"])
 
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
@@ -4348,6 +4910,7 @@ def main(argv=None) -> int:
     log("  [3h] the month kernel at P = 1 on a single-period cluster's first "
         "launches (a clustered run's), not in the kernels line:")
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
+    oracle_dispatch = captures["oracle"]["dispatch"]
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -4359,6 +4922,11 @@ def main(argv=None) -> int:
         "(rebuilt at a system sized to each agent's load):")
     drow = dispatch_row(dispatch_operands(sim)[1], runs["main"]["launches"]["dispatch"])
     ms["battery_dispatch"] = drow["ms"]
+    log("  the battery dispatch kernel on [3j] (a)'s first oracle dispatch (one "
+        "agent chunk of the per-agent oracle):")
+    orow = dispatch_row(oracle_dispatch, runs["oracle"]["launches"]["dispatch"])
+    orow.update(name="battery_dispatch_3j", path="oracle")
+    del oracle_dispatch
     log("  the first year's sizing call, broken down:")
     for tag, s, knobs, names in (
             ("main", sim, {}, ("bucket_sums_month",) * 2 + ("bucket_sums_month_signed",)),
@@ -4392,7 +4960,7 @@ def main(argv=None) -> int:
             shape_n_r_lanes=list(r["shape"]), hour_lanes=r["work_lanes"],
             path=path_key,
         ))
-    kernels.append(drow)
+    kernels += [drow, orow]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of its path never launched: {kernels}")
     log(f"[10] script wall {time.perf_counter() - t_script:.1f} s")

@@ -8,10 +8,9 @@ search's candidate count, the gated kernel paths (daylight compaction,
 pack-once, the stream engine), the narrow profile banks (bf16, int8),
 the streaming agent chunk with its padding, the invariant harness, the
 health sentinel, the host-I/O pipeline, load-time validation and
-quarantine, and the fault spec of the run supervisor. Other knobs
-arrive with the slices that port them;
-the JAX package's checks that tie the bank knobs to its differentiable
-twin do not apply here (the twin is not ported).
+quarantine, the fault spec of the run supervisor, the differentiable
+twin's smooth boundaries (``soft_boundaries``, ``soft_tau``) and the
+run's ``seed``. Other knobs arrive with the slices that port them.
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
 of the ported fields, and refuses a switch that asks for a feature the
@@ -182,15 +181,51 @@ class RunConfig:
     #: supervisor before its first attempt. None injects nothing; a plain
     #: Simulation.run ignores the field.
     faults: Optional[str] = None
+    #: the differentiable twin (dgen_tpu_torch.grad): the objective's
+    #: kinks (tier and TOU-bucket edges, the hard relu import/export
+    #: splits, the payback rounding, the payback -> max-market-share snap)
+    #: become softplus surrogates and straight-through gates of
+    #: temperature ``soft_tau``, so sizing and the multi-year rollout take
+    #: autograd. Off by default: the hard path is the exact oracle. Smooth
+    #: runs price plain float32 full-hour streams with the plain
+    #: differentiable sums (billkernels.plain_sums; no kernel has a soft
+    #: form): no daylight_compact, bf16_banks, quant_banks, pack_once,
+    #: stream_segments or cluster_tariffs. Env: DGEN_TPU_SOFT.
+    soft_boundaries: bool = False
+    #: smoothing temperature of soft_boundaries in the objective's own
+    #: units (kW at the hourly import/export splits, kWh at the monthly
+    #: tier edges). Env: DGEN_TPU_SOFT_TAU.
+    soft_tau: float = 0.1
+    #: the run's seed, as in the JAX package's RunConfig (nothing reads it
+    #: there either; the synthetic worlds take their own seeds)
+    seed: int = 0
 
     def __post_init__(self) -> None:
         _check(self.agent_pad_multiple >= 1, "bad pad multiple")
         _check(4 <= self.sizing_iters <= 64, "sizing_iters out of range")
         _check(self.agent_chunk is None or self.agent_chunk >= 0,
                "agent_chunk must be None (auto) or >= 0")
+        _check(self.soft_tau > 0.0, "soft_tau must be > 0")
+        if self.soft_boundaries:
+            _check(
+                not (self.daylight_compact or self.bf16_banks or self.quant_banks
+                     or self.pack_once or self.stream_segments),
+                "soft_boundaries requires the plain f32 full-hour path (no "
+                "daylight_compact/bf16_banks/quant_banks/pack_once/"
+                "stream_segments)",
+            )
+            _check(not self.cluster_tariffs,
+                   "soft_boundaries requires the plain f32 full-hour path (no "
+                   "cluster_tariffs)")
         if self.quarantine_ids is not None:
             _check(all(int(a) == a for a in self.quarantine_ids),
                    "quarantine_ids must be integer agent ids")
+
+    @property
+    def soft_tau_static(self) -> Optional[float]:
+        """The temperature the year step runs under: ``soft_tau`` when
+        ``soft_boundaries`` is set, else None (the hard path)."""
+        return float(self.soft_tau) if self.soft_boundaries else None
 
     @property
     def validate_enabled(self) -> bool:
@@ -228,15 +263,15 @@ class RunConfig:
         over the environment: ``DGEN_TPU_AGENT_CHUNK`` (rows),
         ``DGEN_TPU_DEBUG``, ``DGEN_TPU_DAYLIGHT``, ``DGEN_TPU_BF16_BANKS``,
         ``DGEN_TPU_QUANT_BANKS``, ``DGEN_TPU_PACK_ONCE``,
-        ``DGEN_TPU_STREAM`` and ``DGEN_TPU_CLUSTER`` (``cluster_tariffs``)
-        (a flag is on unless empty, "0" or "false").
+        ``DGEN_TPU_STREAM``, ``DGEN_TPU_CLUSTER`` (``cluster_tariffs``),
+        ``DGEN_TPU_SOFT`` (``soft_boundaries``) and ``DGEN_TPU_SOFT_TAU``
+        (``soft_tau``, a float) (a flag is on unless empty, "0" or
+        "false").
 
         A switch that asks for a feature the port lacks raises
         ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
-        ``DGEN_TPU_SOFT`` or ``DGEN_TPU_GUARD`` on.
-        ``DGEN_TPU_SOFT_TAU`` tunes a path the port does not have and is
-        ignored. ``DGEN_TPU_VALIDATE`` is read when a Simulation is built
-        (``validate_enabled``); ``DGEN_TPU_FAULTS`` is not a field here:
+        ``DGEN_TPU_GUARD`` on. ``DGEN_TPU_VALIDATE`` is read when a
+        Simulation is built (``validate_enabled``); ``DGEN_TPU_FAULTS`` is not a field here:
         the run supervisor or ``resilience.faults.install_from_env``
         installs it, as in the JAX package. ``DGEN_TPU_SENTINEL`` and
         ``DGEN_TPU_ASYNC_IO`` are not baked in: their fields stay None, so
@@ -250,20 +285,21 @@ class RunConfig:
         if devices and int(devices) > 1:
             raise NotImplementedError(
                 f"DGEN_TPU_DEVICES={devices}: the port runs on one device")
-        for name, feature in (("DGEN_TPU_SOFT", "soft_boundaries"),
-                              ("DGEN_TPU_GUARD", "guard_retrace")):
-            if flag(name):
-                raise NotImplementedError(
-                    f"{name}={env[name]}: {feature} is not ported")
+        if flag("DGEN_TPU_GUARD"):
+            raise NotImplementedError(
+                f"DGEN_TPU_GUARD={env['DGEN_TPU_GUARD']}: guard_retrace is not ported")
         if "agent_chunk" not in overrides and env.get("DGEN_TPU_AGENT_CHUNK"):
             overrides["agent_chunk"] = int(env["DGEN_TPU_AGENT_CHUNK"])
+        if "soft_tau" not in overrides and env.get("DGEN_TPU_SOFT_TAU"):
+            overrides["soft_tau"] = float(env["DGEN_TPU_SOFT_TAU"])
         for field, name in (("debug_invariants", "DGEN_TPU_DEBUG"),
                             ("daylight_compact", "DGEN_TPU_DAYLIGHT"),
                             ("bf16_banks", "DGEN_TPU_BF16_BANKS"),
                             ("quant_banks", "DGEN_TPU_QUANT_BANKS"),
                             ("pack_once", "DGEN_TPU_PACK_ONCE"),
                             ("stream_segments", "DGEN_TPU_STREAM"),
-                            ("cluster_tariffs", "DGEN_TPU_CLUSTER")):
+                            ("cluster_tariffs", "DGEN_TPU_CLUSTER"),
+                            ("soft_boundaries", "DGEN_TPU_SOFT")):
             if field not in overrides and flag(name):
                 overrides[field] = True
         return cls(**overrides)

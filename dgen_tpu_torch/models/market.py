@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from dgen_tpu_torch.config import PAYBACK_GRID_N, PAYBACK_GRID_STEP
+from dgen_tpu_torch.grad.smooth import lerp_lookup
 
 
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -55,9 +56,18 @@ def _fixed_order_segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torc
 
 
 def max_market_share(payback_period: torch.Tensor, sector_idx: torch.Tensor,
-                     mms_table: torch.Tensor) -> torch.Tensor:
+                     mms_table: torch.Tensor, interp: bool = False) -> torch.Tensor:
     """Max market share from the payback curve tabulated on the 0.1-year
-    grid (``mms_table`` [n_sectors, PAYBACK_GRID_N])."""
+    grid (``mms_table`` [n_sectors, PAYBACK_GRID_N]).
+
+    ``interp=True`` (the differentiable twin) interpolates linearly
+    between the two bracketing grid entries in place of the snap to the
+    nearest: the gradient in payback is the table's local slope, and the
+    gradient in the table spreads over both entries (what the
+    calibration's elasticity rides)."""
+    if interp:
+        return lerp_lookup(mms_table[sector_idx.long()],
+                           payback_period / PAYBACK_GRID_STEP)
     idx = torch.clamp(
         torch.round(payback_period / PAYBACK_GRID_STEP).to(torch.int64),
         0, PAYBACK_GRID_N - 1,
@@ -159,6 +169,61 @@ def diffusion_step(
         system_kw_cum=state.system_kw_cum + new_system_kw,
         market_value=state.market_value + new_market_value,
     )
+
+
+def diffusion_step_tech_choice(
+    market_share_last: torch.Tensor,      # [N, T]
+    adopters_cum_last: torch.Tensor,      # [N, T]
+    capacity_cum_last: torch.Tensor,      # [N, T]
+    market_value_last: torch.Tensor,      # [N, T]
+    selected: torch.Tensor,               # [N, T] 1.0 for the chosen tech
+    mms: torch.Tensor,                    # [N, T]
+    system_kw: torch.Tensor,              # [N, T]
+    system_capex_per_kw: torch.Tensor,    # [N, T]
+    developable_agent_weight: torch.Tensor,  # [N]
+    bass_p: torch.Tensor,                 # [N, T]
+    bass_q: torch.Tensor,                 # [N, T]
+    teq_yr1: torch.Tensor,                # [N, T]
+    is_first_year: bool,
+    year_step: float = 2.0,
+) -> dict:
+    """The reference's multi-technology diffusion solve (the tech-choice
+    path its solar driver no longer calls): one row per candidate
+    technology, ``selected`` marking this year's choice. The Bass share
+    is floored at last year's; unselected techs hold their share; the
+    selected tech is capped at ``1 - sum(unselected shares)``; the step
+    is zeroed where share exceeds the max market share; flows are gated
+    on a nonzero system size and accumulated onto last year's. Returns
+    the ``[N, T]`` outputs, carry fields included."""
+    sel = selected.to(market_share_last.dtype)
+    diffusion_ms = _bass_floored_share(
+        market_share_last, mms, bass_p, bass_q, teq_yr1, is_first_year, year_step)
+    diffusion_ms = diffusion_ms * sel
+    market_share = torch.maximum(diffusion_ms, market_share_last)
+
+    # cap the selected tech at 1 - (sum of unselected shares) per agent
+    unselected_sum = (market_share * (1.0 - sel)).sum(dim=1, keepdim=True)
+    cap = 1.0 - unselected_sum
+    market_share = torch.where(sel > 0, torch.minimum(market_share, cap), market_share)
+
+    new_ms = market_share - market_share_last
+    new_ms = torch.where(market_share > mms, 0.0, new_ms)
+
+    w = developable_agent_weight[:, None]
+    new_adopters = torch.where(system_kw == 0.0, 0.0, new_ms * w)
+    new_capacity = new_adopters * system_kw
+    new_value = new_adopters * system_kw * system_capex_per_kw
+
+    return {
+        "market_share": market_share,
+        "new_market_share": new_ms,
+        "new_adopters": new_adopters,
+        "new_capacity_kw": new_capacity,
+        "new_market_value": new_value,
+        "number_of_adopters": adopters_cum_last + new_adopters,
+        "installed_capacity_kw": capacity_cum_last + new_capacity,
+        "market_value": market_value_last + new_value,
+    }
 
 
 def anchor_to_observed(system_kw_cum, group_idx, observed_group_kw, sector_is_res,

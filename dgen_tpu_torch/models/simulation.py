@@ -276,7 +276,14 @@ def year_step(
     out cluster-major): sizing runs once per tariff cluster, at the
     cluster's period count and net-billing flag, against its compact bank
     in ``cluster_banks``, indexed by ``cluster_tidx`` ([N] local rows)
-    (:func:`_size_clustered`); a rate-switch call is refused."""
+    (:func:`_size_clustered`); a rate-switch call is refused.
+
+    ``soft_tau``: the differentiable twin (``RunConfig.soft_boundaries``,
+    :mod:`dgen_tpu_torch.grad`): soft import/export splits and tier clips
+    in sizing, an unrounded payback, and linear interpolation through the
+    max-market-share table, so the year is differentiable in the scenario
+    inputs; None is the hard path. ``anchor=False`` drops the historical
+    anchoring blend (the calibration rollout fits the unanchored model)."""
     (carry,), (outputs,) = scenario_years(table, profiles, tariffs, [inputs], [carry],
                                           year_idx, **static)
     return carry, outputs
@@ -306,6 +313,8 @@ def scenario_years(
     cluster=None,
     cluster_banks=None,
     cluster_tidx: Optional[torch.Tensor] = None,
+    soft_tau: Optional[float] = None,
+    anchor: bool = True,
 ) -> tuple[List[SimCarry], List[YearOutputs]]:
     """One model year of S scenarios over one table (:func:`year_step`
     is S = 1): each scenario's carry and outputs.
@@ -339,7 +348,7 @@ def scenario_years(
     n_chunks = _n_chunks(table.n_agents, agent_chunk)
     sizing = dict(n_periods=n_periods, n_years=econ_years, n_iters=sizing_iters,
                   net_billing=net_billing, impl=sizing_impl, daylight=daylight,
-                  pack_once=pack_once)
+                  pack_once=pack_once, soft_tau=soft_tau)
     if cluster is not None:
         # hourly profiles are kept only when the whole table is one
         # chunk; otherwise the remat pass below rebuilds the aggregate
@@ -355,7 +364,8 @@ def scenario_years(
 
     markets = [
         _market_year(table, inputs, carry, ya, res, year_idx, first_year=first_year,
-                     storage_enabled=storage_enabled, year_step_len=year_step_len)
+                     storage_enabled=storage_enabled, year_step_len=year_step_len,
+                     interp=soft_tau is not None, anchor=anchor)
         for inputs, carry, ya, res in zip(inputs_list, carries, yas, ress)
     ]
 
@@ -412,15 +422,17 @@ def scenario_years(
 
 
 def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bool,
-                 storage_enabled: bool, year_step_len: float) -> dict:
-    """One scenario's market step on its own rows: max market share ->
-    (initial shares | diffusion) -> anchoring -> battery allocation; the
-    new market state, the year's flows, and the adopter counts the
+                 storage_enabled: bool, year_step_len: float, interp: bool = False,
+                 anchor: bool = True) -> dict:
+    """One scenario's market step on its own rows: max market share
+    (interpolated under ``interp``) -> (initial shares | diffusion) ->
+    anchoring (unless ``anchor`` is False) -> battery allocation; the new
+    market state, the year's flows, and the adopter counts the
     state-hourly mix weighs the profiles by."""
     n_groups = table.n_groups
     g = table.group_idx.long()
     mms = max_market_share(res.payback_period, table.sector_idx,
-                           inputs.mms_table) * table.mask
+                           inputs.mms_table, interp=interp) * table.mask
     if first_year:
         mstate = initial_market_shares(
             inputs.starting_kw, inputs.starting_batt_kw, inputs.starting_batt_kwh,
@@ -441,14 +453,19 @@ def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bo
     )
 
     # --- historical anchoring (blend; anchor_years_mask selects) ---
-    am = inputs.anchor_years_mask[year_idx]
-    kw_anch, adopt_anch, share_anch = anchor_to_observed(
-        out.system_kw_cum, g, inputs.observed_kw[year_idx],
-        table.sector_idx == 0, ya.developable_agent_weight, n_groups,
-    )
-    kw_cum = am * kw_anch + (1.0 - am) * out.system_kw_cum
-    adopters = am * adopt_anch + (1.0 - am) * out.number_of_adopters
-    share = am * share_anch + (1.0 - am) * out.market_share
+    if anchor:
+        am = inputs.anchor_years_mask[year_idx]
+        kw_anch, adopt_anch, share_anch = anchor_to_observed(
+            out.system_kw_cum, g, inputs.observed_kw[year_idx],
+            table.sector_idx == 0, ya.developable_agent_weight, n_groups,
+        )
+        kw_cum = am * kw_anch + (1.0 - am) * out.system_kw_cum
+        adopters = am * adopt_anch + (1.0 - am) * out.number_of_adopters
+        share = am * share_anch + (1.0 - am) * out.market_share
+    else:
+        kw_cum = out.system_kw_cum
+        adopters = out.number_of_adopters
+        share = out.market_share
     new_adopters = torch.clamp_min(adopters - mstate.adopters_cum, 0.0)
     new_kw = torch.clamp_min(kw_cum - mstate.system_kw_cum, 0.0)
 
@@ -1151,6 +1168,7 @@ class Simulation:
             pack_once=self.run_config.pack_once,
             agent_chunk=self._agent_chunk,
             cluster=self._cluster_layout,
+            soft_tau=self.run_config.soft_tau_static,
         )
 
     def step_operands(self) -> dict:

@@ -21,7 +21,18 @@ Engines (``impl``):
     (``csrc/bucket_sums_stream.cu``); the pair stays on the pair kernel;
   * ``"dot"``: the one-hot tensor-core kernel (``csrc/bucket_sums_dot.cu``),
     full-hour only: it ignores a layout and refuses packed streams; the
-    pair runs as two single-tariff passes.
+    pair runs as two single-tariff passes;
+  * ``"plain"``: :func:`plain_sums`, the differentiable sums in plain
+    PyTorch on whatever device the tensors lie (the counterpart of the
+    JAX package's XLA engine, ``impl="xla"``, not a kernel's plain
+    version), full-hour float streams only; the pair runs as two passes.
+
+The differentiable twin (``soft_tau``, :mod:`dgen_tpu_torch.grad`) sums
+``relu_t(net)`` for ``relu(net)``. No kernel has a soft form, as in the
+JAX package: with ``soft_tau`` set the entries run :func:`plain_sums`
+under ``"auto"`` or ``"plain"``, and refuse the other engines, a daylight
+layout, packed streams and int8 codes (their night sums and folds assume
+the hard relu's exact zeros).
 
 The month, pair and stream kernels read ``[N, L]`` lanes with 13 month
 offsets (:mod:`dgen_tpu_torch.ops.layout`): the plain 8760-hour order,
@@ -62,6 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dgen_tpu_torch.grad.smooth import clip0_t, min0_t, relu_t
 from dgen_tpu_torch.ops.bill import AgentTariff, hour_month, monthly_period_sums
 from dgen_tpu_torch.ops.layout import FULL_OFFSETS, DaylightLayout
 from dgen_tpu_torch.ops.tariff import HOURS, MONTHS, NET_BILLING
@@ -69,8 +81,11 @@ from dgen_tpu_torch.ops.tariff import HOURS, MONTHS, NET_BILLING
 #: most TOU periods a tariff bank may carry (12 * 10 buckets)
 MAX_PERIODS = 10
 
-#: engine choices of the entries below
+#: kernel engines of the entries below
 IMPLS = ("auto", "stream", "dot")
+#: the plain differentiable engine (:func:`plain_sums`), the entries' other
+#: choice
+PLAIN = "plain"
 
 #: scales a thread the month kernel is built for (csrc/bucket_sums.cu;
 #: 4 on float32 streams only); by default it takes 1 while R <= 32, else 2
@@ -127,8 +142,32 @@ def _check_buckets(n_buckets: int) -> int:
 
 
 def _check_impl(impl: str) -> None:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl not in IMPLS + (PLAIN,):
+        raise ValueError(f"impl must be one of {IMPLS + (PLAIN,)}, got {impl!r}")
+
+
+def _plain_engine(impl: str, soft_tau, layout=None, packed=None,
+                  load=None, load_scale=None) -> bool:
+    """Whether an entry runs :func:`plain_sums`: under ``"plain"``, and
+    under ``"auto"`` with ``soft_tau`` set (no kernel has a soft form).
+    Refuses what the plain engine does not take: another engine with
+    ``soft_tau``, a daylight layout or packed streams, int8 codes."""
+    if impl != PLAIN and soft_tau is None:
+        return False
+    if impl not in ("auto", PLAIN):
+        raise ValueError(
+            f"soft_tau requires impl='auto' or '{PLAIN}' (got '{impl}'); the "
+            "smooth twin has no kernel")
+    if layout is not None or packed is not None:
+        raise ValueError(
+            "the plain differentiable engine (soft_tau, or impl='plain') is "
+            "incompatible with daylight layouts / packed streams (their "
+            "night-sum split assumes hard-relu zeros)")
+    if load_scale is not None or (load is not None and load.dtype == I8):
+        raise ValueError(
+            "the plain differentiable engine (soft_tau, or impl='plain') "
+            "prices float streams; dequantize int8 banks first")
+    return True
 
 
 def _sums_out_dtype(load_dtype, gen_dtype, sell_dtype) -> torch.dtype:
@@ -333,17 +372,68 @@ def dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods: int,
     return _store(out, out_dtype)
 
 
+def plain_sums(load, gen, sell, bucket_id, scales, n_periods: int,
+               with_signed: bool, soft_tau: Optional[float] = None):
+    """The differentiable bucket sums over full-hour streams, on whatever
+    device they lie: (imports [N, R, 12P], imp_sell [N, R]) and, when
+    ``with_signed``, also (signed, sgn_sell), as :func:`month_sums_plain`
+    returns them. ``relu(net)`` is ``relu_t(net, soft_tau)`` when
+    ``soft_tau`` is set (:mod:`dgen_tpu_torch.grad.smooth`). Each scale
+    chunk's month sums are row-wise sums (:func:`monthly_period_sums`), so
+    autograd follows every term and a row's sums do not depend on the
+    rows beside it. Streams are upcast to float32 and the sums stored at
+    :func:`_sums_out_dtype`."""
+    out_dtype, (load, gen, sell) = _upcast(load, gen, sell)
+    n, r = scales.shape
+    hour_period = _periods(bucket_id, n_periods)[:, None, :]
+    rc = _scale_chunk(n, load.shape[1])
+    parts = []
+    for r0 in range(0, max(r, 1), rc):       # one empty chunk when R = 0
+        s = scales[:, r0:r0 + rc]
+        net = load[:, None, :] - s[:, :, None] * gen[:, None, :]
+        pos = torch.clamp_min(net, 0.0) if soft_tau is None else relu_t(net, soft_tau)
+        part = [monthly_period_sums(pos, hour_period, n_periods).flatten(2),
+                (pos * sell[:, None, :]).sum(dim=2)]
+        if with_signed:
+            part += [monthly_period_sums(net, hour_period, n_periods).flatten(2),
+                     (net * sell[:, None, :]).sum(dim=2)]
+        parts.append(part)
+    return _store(tuple(torch.cat(col, dim=1) for col in zip(*parts)), out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(streams, ints, scales, lanes: int,
-                         narrow: bool = False) -> tuple[int, int]:
-    """(N, R) after checking device, dtype, shape and contiguity; the
-    streams are float32, or with ``narrow`` of the dtypes the caller
-    checked with :func:`_check_stream_dtypes`."""
+def check_no_grad(kernel: str, tensors) -> None:
+    """Raises where a kernel would drop a gradient: under grad mode, a
+    float input that requires grad, or (in forward mode) one that carries
+    a tangent. The kernels write their outputs through raw pointers, so
+    the outputs have no ``grad_fn`` and no tangent; a caller that needs a
+    derivative runs the plain differentiable version (:func:`plain_sums`,
+    ``impl="plain"``)."""
+    from torch.autograd import forward_ad
+
+    for t in tensors:
+        if t is None or not t.is_floating_point():
+            continue
+        if (torch.is_grad_enabled() and t.requires_grad) or \
+                forward_ad.unpack_dual(t).tangent is not None:
+            raise RuntimeError(
+                f"{kernel}: an input requires a derivative, and the kernel has "
+                "no backward (its output would be silently detached); run the "
+                "plain differentiable version, or call under torch.no_grad()")
+
+
+def _check_kernel_inputs(streams, ints, scales, lanes: int, narrow: bool = False,
+                         kernel: str = "bucket-sums kernel") -> tuple[int, int]:
+    """(N, R) after checking device, dtype, shape and contiguity and that
+    no input requires a derivative (:func:`check_no_grad`, naming
+    ``kernel``); the streams are float32, or with ``narrow`` of the dtypes
+    the caller checked with :func:`_check_stream_dtypes`."""
     n, r = scales.shape
     dev = scales.device
+    check_no_grad(kernel, (*streams, scales))
     for name, t, dtype, shape in (
         [("stream", t, t.dtype if narrow else F32, (n, lanes)) for t in streams]
         + [("period or bucket ids", t, torch.int32, (n, lanes)) for t in ints]
@@ -401,7 +491,7 @@ def _lane_sums(fn_name: str, key: str, load, gen, sell, period, scales,
                offsets, n_periods: int, with_signed: bool, codes: tuple,
                extra: tuple = ()):
     n, r = _check_kernel_inputs((load, gen, sell), (period,), scales,
-                                load.shape[1], narrow=True)
+                                load.shape[1], narrow=True, kernel=fn_name)
     out = _sums_buffers(n, r, n_periods, with_signed, scales.device,
                         _sums_out_dtype(load.dtype, gen.dtype, sell.dtype))
     if n and r:
@@ -470,7 +560,8 @@ def month_pair_sums(load, gen, sell_a, period_a, sell_b, period_b, scales,
         return month_pair_sums_plain(load, gen, sell_a, period_a, sell_b,
                                      period_b, scales, offsets, n_periods)
     n, r = _check_kernel_inputs((load, gen, sell_a, sell_b), (period_a, period_b),
-                                scales, load.shape[1], narrow=True)
+                                scales, load.shape[1], narrow=True,
+                                kernel="bucket_sums_month_pair")
     out = tuple(_sums_buffers(n, r, n_periods, True, scales.device,
                               _sums_out_dtype(load.dtype, gen.dtype, sell_a.dtype)))
     if n and r:
@@ -498,7 +589,7 @@ def dot_sums(load, gen, sell, bucket_id, scales, n_periods: int,
         return dot_sums_plain(load, gen, sell, bucket_id, scales, n_periods,
                               with_signed)
     n, r = _check_kernel_inputs((load, gen, sell), (bucket_id,), scales, HOURS,
-                                narrow=True)
+                                narrow=True, kernel="bucket_sums_dot")
     out = _sums_buffers(n, r, n_periods, with_signed, scales.device,
                         _sums_out_dtype(load.dtype, gen.dtype, sell.dtype))
     if n and r:
@@ -669,7 +760,7 @@ def _reject_packed_for_dot(packed) -> None:
 def import_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
                 impl: str = "auto", layout: Optional[DaylightLayout] = None,
                 packed: Optional[PackedStreams] = None, load_scale=None,
-                gen_scale=None):
+                gen_scale=None, soft_tau: Optional[float] = None):
     """(imports [N, R, B], imp_sell [N, R]): positive-part bucket sums
     and the sell-weighted positive-part sum for R net-load scales.
 
@@ -680,10 +771,14 @@ def import_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
     raw streams may then be None). ``load_scale``/``gen_scale``: [N]
     float32 dequantization factors of int8 load/gen codes
     (:func:`_quant_fold`); the kernels run in quantized units and the
-    outputs rescale once."""
+    outputs rescale once. ``soft_tau``: the differentiable twin's soft
+    relu, on :func:`plain_sums` (see :func:`_plain_engine`)."""
     n_periods = _check_buckets(n_buckets)
     _check_impl(impl)
     _check_ids(bucket_id)
+    if _plain_engine(impl, soft_tau, layout, packed, load, load_scale):
+        return plain_sums(load, gen, sell, bucket_id, scales, n_periods, False,
+                          soft_tau)
     scales, post = _quant_fold(scales, load_scale, gen_scale)
     if impl == "dot":
         _reject_packed_for_dot(packed)
@@ -700,16 +795,22 @@ def import_sums_pair(load, gen, sell_a, bucket_a, sell_b, bucket_b, scales,
                      n_buckets: int, impl: str = "auto",
                      layout: Optional[DaylightLayout] = None,
                      packed: Optional[PackedStreams] = None, load_scale=None,
-                     gen_scale=None):
+                     gen_scale=None, soft_tau: Optional[float] = None):
     """(imports_a, imp_sell_a, imports_b, imp_sell_b): the rate-switch
     search's two tariff structures (switched, original) priced over ONE
     shared ``relu(load - s * gen)``, on the pair kernel under ``"auto"``
     and ``"stream"``; ``layout``/``packed``/``load_scale``/``gen_scale``
     as in :func:`import_sums` (a pack built with ``sell_b``/``bucket_b``
-    carries both)."""
+    carries both); with ``soft_tau`` or under ``"plain"``, two
+    :func:`plain_sums` passes, as the JAX package's XLA engine runs it."""
     n_periods = _check_buckets(n_buckets)
     _check_impl(impl)
     _check_ids(bucket_a, bucket_b)
+    if _plain_engine(impl, soft_tau, layout, packed, load, load_scale):
+        return (plain_sums(load, gen, sell_a, bucket_a, scales, n_periods, False,
+                           soft_tau)
+                + plain_sums(load, gen, sell_b, bucket_b, scales, n_periods, False,
+                             soft_tau))
     scales, post = _quant_fold(scales, load_scale, gen_scale)
     if impl == "dot":
         _reject_packed_for_dot(packed)
@@ -731,7 +832,8 @@ def import_sums_pair(load, gen, sell_a, bucket_a, sell_b, bucket_b, scales,
 
 
 def bucket_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
-                impl: str = "auto", packed: Optional[PackedStreams] = None):
+                impl: str = "auto", packed: Optional[PackedStreams] = None,
+                soft_tau: Optional[float] = None):
     """(signed [N, R, B], imports [N, R, B], export_credit [N, R]) — the
     full reduction set of the battery forward run, over full-hour lanes
     (stream dtypes: :data:`SIGNED_DTYPES`; the credit is their difference
@@ -739,11 +841,15 @@ def bucket_sums(load, gen, sell, bucket_id, scales, n_buckets: int,
 
     ``packed``: a full-hour :class:`PackedStreams` whose load/sell/period
     lanes are reused beside a fresh ``gen`` (the battery-modified
-    output); a compacted pack is refused."""
+    output); a compacted pack is refused. ``soft_tau``: as in
+    :func:`import_sums`."""
     n_periods = _check_buckets(n_buckets)
     _check_impl(impl)
     _check_ids(bucket_id)
-    if impl == "dot":
+    if _plain_engine(impl, soft_tau, None, packed, load):
+        imp, imp_sell, sgn, sgn_sell = plain_sums(load, gen, sell, bucket_id, scales,
+                                                  n_periods, True, soft_tau)
+    elif impl == "dot":
         _reject_packed_for_dot(packed)
         imp, imp_sell, sgn, sgn_sell = dot_sums(load, gen, sell, bucket_id,
                                                 scales, n_periods, True)
@@ -799,7 +905,8 @@ def _period_charge(sums_mp: torch.Tensor, price_p: torch.Tensor) -> torch.Tensor
     return (sums_mp.sum(dim=2) * price_p[:, None, :]).sum(dim=-1)
 
 
-def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Tensor:
+def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff,
+                         soft_tau: Optional[float] = None) -> torch.Tensor:
     """[N, R, 12, P] monthly sums -> [N, R] annual tiered charges, as a
     loop over the (small) tier axis so the largest temporary stays
     [N, R, 12, P]. Sums stored at bank precision are upcast first.
@@ -811,7 +918,22 @@ def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Te
     reduction over a contiguous month axis groups its terms otherwise, so
     a tariff-clustered run (each cluster at its own P) would price a
     single-period tariff a last bit apart from an unclustered run and
-    move an agent's size."""
+    move an agent's size.
+
+    ``soft_tau`` (kWh): the differentiable twin's smooth tier clips
+    (:func:`~dgen_tpu_torch.grad.smooth.clip0_t`, ``min0_t``)."""
+    if soft_tau is None:
+        def seg_fn(x, w):
+            return torch.minimum(torch.clamp_min(x, 0.0), w)
+
+        def neg_fn(x):
+            return torch.clamp_max(x, 0.0)
+    else:
+        def seg_fn(x, w):
+            return clip0_t(x, w, soft_tau)
+
+        def neg_fn(x):
+            return min0_t(x, soft_tau)
     sums_mp = sums_mp.float()
     price = tariff.price          # [N, P, T]
     if sums_mp.shape[-1] == 1:
@@ -823,52 +945,56 @@ def _tier_charge_batched(sums_mp: torch.Tensor, tariff: AgentTariff) -> torch.Te
     total = torch.zeros(sums_mp.shape[:2], dtype=sums_mp.dtype, device=sums_mp.device)
     for t in range(price.shape[-1]):
         lo = lower[:, t][:, None, None, None]
-        seg = torch.minimum(torch.clamp_min(sums_mp - lo, 0.0),
-                            width[:, t][:, None, None, None])
+        seg = seg_fn(sums_mp - lo, width[:, t][:, None, None, None])
         total = total + _period_charge(seg, price[:, :, t])
     # negative (net-metered export) months credit at the tier-1 price
-    return total + _period_charge(torch.clamp_max(sums_mp, 0.0), price[:, :, 0])
+    return total + _period_charge(neg_fn(sums_mp), price[:, :, 0])
 
 
 def bills_from_sums(signed, imports, credit, tariff: AgentTariff,
-                    n_periods: int) -> torch.Tensor:
+                    n_periods: int, soft_tau: Optional[float] = None) -> torch.Tensor:
     """Annual bills [N, R] from full bucket sums: tier structure,
-    metering selection and fixed charges."""
+    metering selection and fixed charges (``soft_tau``: smooth tier
+    clips)."""
     n, r, _ = signed.shape
-    bill_nem = _tier_charge_batched(signed.reshape(n, r, MONTHS, n_periods), tariff)
+    bill_nem = _tier_charge_batched(signed.reshape(n, r, MONTHS, n_periods), tariff,
+                                    soft_tau)
     bill_nb = _tier_charge_batched(
-        imports.reshape(n, r, MONTHS, n_periods), tariff) - credit
+        imports.reshape(n, r, MONTHS, n_periods), tariff, soft_tau) - credit
     is_nb = (tariff.metering == NET_BILLING)[:, None]
     energy_bill = torch.where(is_nb, bill_nb, bill_nem)
     return energy_bill + MONTHS * tariff.fixed_monthly[:, None]
 
 
-def _nem_energy_bill(lin, scales, tariff: AgentTariff, n_periods: int):
+def _nem_energy_bill(lin, scales, tariff: AgentTariff, n_periods: int,
+                     soft_tau: Optional[float] = None):
     """[N, R] annual NEM energy bills via ``signed(s) = S_load - s * S_gen``."""
     s_load, s_gen = lin[0], lin[1]
     n, r = scales.shape
     signed = s_load[:, None, :] - scales[:, :, None] * s_gen[:, None, :]
-    return _tier_charge_batched(signed.reshape(n, r, MONTHS, n_periods), tariff)
+    return _tier_charge_batched(signed.reshape(n, r, MONTHS, n_periods), tariff,
+                                soft_tau)
 
 
-def bills_linear_nem(lin, scales, tariff: AgentTariff, n_periods: int):
+def bills_linear_nem(lin, scales, tariff: AgentTariff, n_periods: int,
+                     soft_tau: Optional[float] = None):
     """Annual bills [N, R] of an all-net-metering population: the
     linear identity, no hourly work."""
-    bill = _nem_energy_bill(lin, scales, tariff, n_periods)
+    bill = _nem_energy_bill(lin, scales, tariff, n_periods, soft_tau)
     return bill + MONTHS * tariff.fixed_monthly[:, None]
 
 
 def bills_linear_nb(lin, imports, imp_sell, scales, tariff: AgentTariff,
-                    n_periods: int):
+                    n_periods: int, soft_tau: Optional[float] = None):
     """Annual bills [N, R] from the search path's reduced outputs: NEM
     by the linear identity, net billing from import sums and the linear
     export-credit identity."""
     s_l_sell, s_g_sell = lin[2], lin[3]
     n, r, _ = imports.shape
-    bill_nem = _nem_energy_bill(lin, scales, tariff, n_periods)
+    bill_nem = _nem_energy_bill(lin, scales, tariff, n_periods, soft_tau)
     credit = imp_sell - (s_l_sell[:, None] - scales * s_g_sell[:, None])
     bill_nb = _tier_charge_batched(
-        imports.reshape(n, r, MONTHS, n_periods), tariff) - credit
+        imports.reshape(n, r, MONTHS, n_periods), tariff, soft_tau) - credit
     is_nb = (tariff.metering == NET_BILLING)[:, None]
     energy_bill = torch.where(is_nb, bill_nb, bill_nem)
     return energy_bill + MONTHS * tariff.fixed_monthly[:, None]

@@ -220,11 +220,16 @@ def cashflow(
     }
 
 
-def payback_period(cf: torch.Tensor) -> torch.Tensor:
+def payback_period(cf: torch.Tensor, soft: bool = False) -> torch.Tensor:
     """[B] fractional payback year from [B, Y+1] cashflows: the LAST
     negative-to-positive crossing of the cumulative cashflow, linearly
     interpolated within that year; ``PAYBACK_NEVER`` if it never turns
-    positive, 0 if positive from year 0; rounded to 0.1."""
+    positive, 0 if positive from year 0; rounded to 0.1.
+
+    ``soft=True`` (the differentiable twin) skips the rounding: the
+    crossing year is a piecewise-constant selection (no gradient, on
+    purpose) and the within-year interpolation is smooth in the
+    cashflow, which is all a gradient needs."""
     cum = torch.cumsum(cf, dim=1)
     n = cf.shape[1] - 1
 
@@ -245,4 +250,6 @@ def payback_period(cf: torch.Tensor) -> torch.Tensor:
         no_payback, torch.full_like(pp, PAYBACK_NEVER),
         torch.where(instant, torch.zeros_like(pp), pp),
     )
+    if soft:
+        return pp
     return torch.round(pp * 10.0) / 10.0

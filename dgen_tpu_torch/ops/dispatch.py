@@ -141,10 +141,14 @@ def _dispatch_pscan(load, gen, batt_kw, batt_kwh, rt_eff) -> DispatchResult:
 
 def _dispatch_kernel(load, gen, batt_kw, batt_kwh, rt_eff) -> DispatchResult:
     """Launches ``csrc/battery_dispatch.cu`` on the current stream of the
-    tensors' device; raises on what the kernel does not take and if the
-    launch was refused."""
+    tensors' device; raises on what the kernel does not take (an input
+    that requires a derivative among it: the kernel has no backward) and
+    if the launch was refused."""
     from dgen_tpu_torch.ops import _build
 
+    from dgen_tpu_torch.ops.billkernels import check_no_grad
+
+    check_no_grad("battery_dispatch", (load, gen, batt_kw, batt_kwh, rt_eff))
     n, hours = load.shape
     params = (batt_kw, batt_kwh, *_battery_params(batt_kwh, rt_eff))
     for name, x, shape in ([("load", load, (n, hours)), ("gen", gen, (n, hours))]

@@ -328,7 +328,8 @@ def _kernel_call(fn_name: str, key: str, load, gen, sell, bucket_id, scales,
     """Checks the operands, launches ``fn_name`` (streams, bucket ids,
     scales, month offsets, the two outputs, n, r, n_periods, then
     ``c_tail``) and counts the launch under ``key``."""
-    n, r = bk._check_kernel_inputs((load, gen, sell), (bucket_id,), scales, HOURS)
+    n, r = bk._check_kernel_inputs((load, gen, sell), (bucket_id,), scales, HOURS,
+                                   kernel=fn_name)
     imp, imp_sell = bk._sums_buffers(n, r, n_periods, False, scales.device)[:2]
     if n and r:
         bk._launch(fn_name, scales, bk._ptr(load), bk._ptr(gen), bk._ptr(sell),
@@ -412,7 +413,8 @@ def _mask_product(fn_name: str, key: str, load, gen, m, scales, n_periods: int,
     """Checks the operands, launches ``fn_name`` (load, gen, M, scales,
     month offsets, the two outputs, n, r, n_periods, c_pad, then
     ``c_tail``) and counts the launch under ``key``."""
-    n, r = bk._check_kernel_inputs((load, gen), (), scales, HOURS)
+    n, r = bk._check_kernel_inputs((load, gen), (), scales, HOURS, kernel=fn_name)
+    bk.check_no_grad(fn_name, (m,))
     imp, imp_sell = bk._sums_buffers(n, r, n_periods, False, scales.device)[:2]
     if n and r:
         bk._launch(fn_name, scales, bk._ptr(load), bk._ptr(gen), bk._ptr(m),

@@ -56,6 +56,10 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.models.health, dgen_tpu_torch.utils.invariants\n"
         "import dgen_tpu_torch.tools.kernel_microbench\n"
         "import dgen_tpu_torch.tools.plain_parent_ab\n"
+        "import dgen_tpu_torch.grad, dgen_tpu_torch.grad.smooth\n"
+        "import dgen_tpu_torch.grad.newton, dgen_tpu_torch.grad.calibrate\n"
+        "import dgen_tpu_torch.grad.policy, dgen_tpu_torch.grad.__main__\n"
+        "import dgen_tpu_torch.analysis, dgen_tpu_torch.ops.demand\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
     )
@@ -116,6 +120,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         Simulation(pop.table, pop.profiles, pop.tariffs, inputs, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.agent_table(convert.to_numpy_dict(pop.table))
+    from dgen_tpu_torch.grad import calibrate
+    from dgen_tpu_torch.ops import demand
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demand.compile_demand_tariff(d_flat_prices=[[5.0] * 12])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calibrate.build_world(16)
 
 
 def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
@@ -208,6 +218,7 @@ PORTED_FLAGS = {
     "DGEN_TPU_PACK_ONCE": "pack_once",
     "DGEN_TPU_STREAM": "stream_segments",
     "DGEN_TPU_CLUSTER": "cluster_tariffs",
+    "DGEN_TPU_SOFT": "soft_boundaries",
 }
 ALL_SWITCHES = (*PORTED_FLAGS, "DGEN_TPU_AGENT_CHUNK", "DGEN_TPU_DEVICES",
                 "DGEN_TPU_SOFT", "DGEN_TPU_SOFT_TAU", "DGEN_TPU_CLUSTER",
@@ -249,11 +260,12 @@ def test_from_env_chunk_devices_and_ignored_switches(clean_env):
                         ("DGEN_TPU_SOFT", "0"), ("DGEN_TPU_GUARD", "false"),
                         ("DGEN_TPU_FAULTS", "  ")):
         clean_env.setenv(name, value)
-    assert RunConfig.from_env() == RunConfig(agent_chunk=4096)
+    assert RunConfig.from_env() == RunConfig(agent_chunk=4096, soft_tau=0.5)
+    assert RunConfig.from_env(soft_tau=0.2).soft_tau == 0.2
 
 
 @pytest.mark.parametrize("name, value", [
-    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_SOFT", "1"), ("DGEN_TPU_GUARD", "true")])
+    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_GUARD", "true")])
 def test_from_env_refuses_unported_switches(clean_env, name, value):
     from dgen_tpu_torch.config import RunConfig
 
