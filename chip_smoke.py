@@ -155,6 +155,26 @@ its first launch in the path):
      to the port's CPU result; (f) RunConfig(soft_boundaries=True) for 2
      model years (no bucket-sums launch), and the same years run hard after
      it equal to the main path's bit for bit with its launch counts;
+  3k. the serving stack (dgen_tpu_torch.serve): (a) a ServeEngine over
+     national-all-sector at 1,048,576 agents, every bucket of 1 to 64
+     warmed (its first launch's wall), then 20 queries a bucket (p50,
+     p99, launches a query, bytes allocated beyond the placed
+     Simulation), the whole-table starting_state_kw's share of a bucket,
+     512 agents spread over the states equal bit for bit at every bucket
+     and at bucket=None, 8 producer threads x 64 single-agent requests
+     through a Microbatcher (none lost or duplicated, each equal to the
+     engine's answer, queries a second), an ITC override that lowers NPV,
+     and no kernel-library build or load after warmup; (b) the HTTP
+     server on the main path's world with ingest_corrupt_row injected
+     (/readyz before and after warmup, /query rows equal to the engine's,
+     400/404/413/422/503/504, keep-alive through refusals, /metricz, the
+     drain); (c) the answer surface at bucket 64 over 2 years against the
+     engine bit for bit, a stale copy refused, the result cache's second
+     answer equal to the engine's first; logged, the year-0 answers
+     beside the world's first year_step; (d) the pair kernel inside a
+     bucket of the rate-switch world, and the mixed twin of [3h] (c)
+     clustered: mono-cluster buckets at P = 1 and 2 equal to the
+     unclustered engine bit for bit, a mixed bucket on the full bank;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -431,6 +451,18 @@ def kernel_specs(bk, mk) -> dict:
                                         "month", f"{bp}:343"),
         "bucket_sums_month_pair": (("switch", "month_pair"), *pair, 9, RTOL,
                                    "month", f"{bp}:427"),
+        # [3k]: the serving path's first launches at buckets 1 and 64 (a
+        # bucket launches at least 16 rows) and in the rate-switch world
+        "bucket_sums_month_serve1": (("serve1", "month"), *month, 6, RTOL, "month",
+                                     f"{bp}:343"),
+        "bucket_sums_month_signed_serve1": (("serve1", "month_signed"), *month, 9,
+                                            RTOL, "month", f"{bp}:343"),
+        "bucket_sums_month_serve64": (("serve64", "month"), *month, 6, RTOL, "month",
+                                      f"{bp}:343"),
+        "bucket_sums_month_signed_serve64": (("serve64", "month_signed"), *month, 9,
+                                             RTOL, "month", f"{bp}:343"),
+        "bucket_sums_month_pair_serve": (("serve_switch", "month_pair"), *pair, 9, RTOL,
+                                         "month", f"{bp}:427"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
         "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
@@ -4643,6 +4675,636 @@ def oracle_and_twin(presets, RunConfig, sim, main_run: dict, card: str) -> dict:
                 e=e, f=f)
 
 
+#: [3k]: the serving stack. (a) national-all-sector's full width, every
+#: bucket of ServeConfig(); SERVE_HELD agents spread over the states held
+#: bit for bit across the buckets; SERVE_PRODUCERS threads x
+#: SERVE_PER_PRODUCER single-agent requests through a Microbatcher
+SERVE_STEADY = 20
+SERVE_HELD = 512
+SERVE_PRODUCERS = 8
+SERVE_PER_PRODUCER = 64
+SERVE_OVERRIDE = {"scale": {"itc_fraction": 0.5}}
+#: (b)-(c): the main path's world with ingest_corrupt_row injected (as
+#: [3g] (a) corrupts one), the surface built at this bucket over these
+#: model years
+SERVE_SURFACE_BUCKET = 64
+SERVE_SURFACE_YEARS = (0, 1)
+#: (d): the rate-switch world of [5] and the mixed twin of [3h] (c)
+SERVE_CLUSTER_AGENTS = MIXED_CHUNK_AGENTS
+
+
+def _library_events() -> dict:
+    from dgen_tpu_torch.ops import _build
+
+    return dict(_build.EVENTS)
+
+
+def _answers_equal(a: dict, b: dict) -> int:
+    """Rows of two answer dicts that differ in any field's bits."""
+    import numpy as np
+
+    bad = np.zeros(a["agent_id"].shape[0], dtype=bool)
+    for f, v in a.items():
+        w = b[f]
+        if v.dtype != w.dtype or v.shape != w.shape:
+            return int(bad.size)
+        bad |= (np.ascontiguousarray(v).reshape(len(v), -1).view(np.uint8)
+                != np.ascontiguousarray(w).reshape(len(w), -1).view(np.uint8)).any(axis=1)
+    return int(bad.sum())
+
+
+def _spread_rows(sim, n: int):
+    """``n`` real rows of ``sim`` spread evenly over its rows sorted by
+    state (every state the table holds, each about evenly)."""
+    import numpy as np
+
+    real = np.flatnonzero(sim.host_mask > 0)
+    state = sim.table.state_idx.cpu().numpy()[real]
+    by_state = real[np.argsort(state, kind="stable")]
+    pick = np.linspace(0, len(by_state) - 1, n).round().astype(np.int64)
+    return by_state[pick].astype(np.int32)
+
+
+def _timed_query(engine, rows, year_idx=0, **kw):
+    """(answers, seconds) of one query; the answers' host copy ends it."""
+    t0 = time.perf_counter()
+    out = engine.query_rows(rows, year_idx, **kw)
+    return out, time.perf_counter() - t0
+
+
+def serve_buckets(engine, rows_pool, *, device="cuda", steady=SERVE_STEADY,
+                  capture_at=(1, 64)) -> dict:
+    """[3k] (a): each bucket of ``ServeConfig().buckets`` warmed (its first
+    launch's wall), then ``steady`` queries of other rows of ``rows_pool``
+    (p50, p99), the launches of one query and of the steady queries, and
+    the bytes allocated beyond the placed Simulation at the peak. The
+    first steady query at each bucket of ``capture_at`` keeps its kernels'
+    first-launch operands. Returns per-bucket records and the captures."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.config import ServeConfig
+    from dgen_tpu_torch.ops import billkernels as bk
+
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    rng = np.random.default_rng(0)
+    out, captures = {}, {}
+    for b in ServeConfig().buckets:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.warmup([b])
+        first_s = time.perf_counter() - t0
+        walls = []
+        _reset_counts()
+        for i in range(steady):
+            rows = rng.choice(rows_pool, size=b, replace=b > len(rows_pool)).astype(np.int32)
+            keep = i == 0 and b in capture_at
+            if keep:
+                bk.CAPTURE = captures.setdefault(b, {})
+            try:
+                with (first_dispatch(bk.CAPTURE) if keep else contextlib.nullcontext()):
+                    _, s = _timed_query(engine, rows, bucket=b)
+            finally:
+                bk.CAPTURE = None
+            walls.append(s)
+        launches = _launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - base) if device == "cuda" else 0
+        out[b] = dict(first_s=first_s, p50_s=float(np.percentile(walls, 50)),
+                      p99_s=float(np.percentile(walls, 99)), launches=launches,
+                      per_query={k: v / steady for k, v in launches.items() if v},
+                      peak_bytes=int(peak))
+    return dict(buckets=out, captures=captures)
+
+
+def serve_bit_for_bit(engine, rows) -> tuple:
+    """[3k] (a): ``rows`` at bucket=None (one launch of all of them) and
+    at every bucket (chunks of that many rows); the rows that differ in
+    any bit of any field, per bucket. Returns (the bucket=None answers,
+    {bucket: differing rows})."""
+    import numpy as np
+
+    from dgen_tpu_torch.config import ServeConfig
+
+    ref = engine.query_rows(rows, 0)
+    differ = {}
+    for b in ServeConfig().buckets:
+        parts = [engine.query_rows(rows[i:i + b], 0, bucket=b)
+                 for i in range(0, len(rows), b)]
+        got = {f: np.concatenate([p[f] for p in parts]) for f in ref}
+        differ[b] = _answers_equal(got, ref)
+    return ref, differ
+
+
+def serve_producers(engine, rows, ref: dict, *, producers=SERVE_PRODUCERS,
+                    per_producer=SERVE_PER_PRODUCER) -> dict:
+    """[3k] (a): ``producers`` threads each submit ``per_producer``
+    single-agent requests (agents of ``rows``, in turn) through one
+    Microbatcher; every request resolves once, to its agent's row of
+    ``ref`` bit for bit, and the counts balance. Returns the figures
+    (sustained queries a second among them)."""
+    import threading
+
+    import numpy as np
+
+    from dgen_tpu_torch.config import ServeConfig
+    from dgen_tpu_torch.serve.batcher import Microbatcher, QueueFullError
+
+    ids = engine.sim.host_agent_id[rows]
+    n = producers * per_producer
+    bat = Microbatcher(engine, ServeConfig(max_wait_ms=2.0, max_queue=n, port=0))
+    futures, lock, rejected = {}, threading.Lock(), []
+    gate = threading.Barrier(producers)
+
+    def produce(t):
+        gate.wait()
+        for k in range(per_producer):
+            req = t * per_producer + k
+            while True:
+                try:
+                    f = bat.submit([int(ids[req % len(ids)])])
+                except QueueFullError:
+                    rejected.append(req)
+                    time.sleep(0.001)
+                    continue
+                with lock:
+                    if req in futures:
+                        raise AssertionError(f"[3k] (a) request {req} accepted twice")
+                    futures[req] = f
+                break
+
+    threads = [threading.Thread(target=produce, args=(t,)) for t in range(producers)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600.0)
+    try:
+        bad = 0
+        for req, f in futures.items():
+            got = f.result(600.0)
+            j = req % len(ids)
+            if int(got["agent_id"][0]) != int(ids[j]) or _answers_equal(
+                    got, {k: v[j:j + 1] for k, v in ref.items()}):
+                bad += 1
+        wall = time.perf_counter() - t0
+    finally:
+        bat.close()
+    stats = bat.stats()
+    if len(futures) != n or stats["requests"] != n or stats["rows"] != n \
+            or stats["queue_depth"] != 0 or stats["rejected"] != len(rejected):
+        raise AssertionError(f"[3k] (a) the batcher lost or duplicated requests: "
+                             f"{len(futures)} accepted of {n}, {stats}")
+    if bad:
+        raise AssertionError(f"[3k] (a) {bad} of {n} batched answers differ from "
+                             "the engine's")
+    return dict(requests=n, wall_s=wall, qps=n / wall, batches=stats["batches"],
+                occupancy=stats["batch_occupancy"], rejected=len(rejected),
+                latency_ms=stats.get("latency_ms"))
+
+
+def serve_national(presets, card: str, *, name=NATIONAL, n_agents=None, device="cuda",
+                   held=SERVE_HELD, steady=SERVE_STEADY, producers=SERVE_PRODUCERS,
+                   per_producer=SERVE_PER_PRODUCER) -> dict:
+    """[3k] (a): a ServeEngine over ``name`` at full width (2 model years);
+    :func:`serve_buckets`, the share of the whole-table
+    ``starting_state_kw`` in a bucket, :func:`serve_bit_for_bit` on
+    ``held`` agents spread over the states, :func:`serve_producers`, an
+    override that moves NPV, and no kernel-library build or load after
+    warmup. Raises on any miss; returns the figures and the captures."""
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.models.simulation import starting_state_kw
+    from dgen_tpu_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    sim, _, _ = presets.build(name, n_agents=n_agents, end_year=NATIONAL_END_YEAR,
+                              device=device)
+    engine = ServeEngine(sim)
+    build_s = time.perf_counter() - t0
+    rows = _spread_rows(sim, held)
+    log(f"[3k] (a) ServeEngine over {name}: {engine.n_agents} agents "
+        f"({sim.table.n_agents} rows), years {engine.years}, built in {build_s:.3f} s; "
+        f"{held} agents spread over {len(np.unique(sim.table.state_idx.cpu().numpy()[rows]))} "
+        f"states held")
+    a = serve_buckets(engine, rows, device=device, steady=steady)
+    warm = _library_events()
+    for b, r in a["buckets"].items():
+        log(f"    bucket {b}: first launch {r['first_s'] * 1e3:.3f} ms, steady p50 "
+            f"{r['p50_s'] * 1e3:.3f} ms p99 {r['p99_s'] * 1e3:.3f} ms over {steady} "
+            f"queries ({b / r['p50_s']:.1f} agents/s at p50); launches a query "
+            f"{r['per_query']}; {r['peak_bytes'] / 2**20:.1f} MiB allocated beyond the "
+            f"placed Simulation at the peak ({card})")
+        if device == "cuda":
+            need_launches(f"[3k] (a) bucket {b}", r["launches"],
+                          ("month", "month_signed", "dispatch"))
+    # the whole-table term of every bucket
+    if device == "cuda":
+        ms = time_ms(lambda: starting_state_kw(sim.table, sim.inputs), reps=21)
+        p50 = a["buckets"][64]["p50_s"] * 1e3
+        log(f"    starting_state_kw over the whole table ({sim.inputs.starting_kw.shape[0]} "
+            f"groups): {ms:.4f} ms a bucket, {ms / p50:.5f} of bucket 64's p50 "
+            f"{p50:.3f} ms")
+        a["starting_state_kw_ms"] = ms
+    ref, differ = serve_bit_for_bit(engine, rows)
+    log(f"    {held} agents at bucket=None and at every bucket: rows differing in any "
+        f"bit of any field {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"[3k] (a) answers depend on the bucket: {differ}")
+    p = serve_producers(engine, rows, ref, producers=producers, per_producer=per_producer)
+    log(f"    Microbatcher: {producers} producers x {per_producer} single-agent "
+        f"requests, none lost or duplicated, each equal to the engine's answer bit "
+        f"for bit; {p['batches']} batches, occupancy {p['occupancy']}, "
+        f"{p['rejected']} refused and retried; {p['qps']:.1f} queries/s sustained "
+        f"over {p['wall_s']:.3f} s; latency {p['latency_ms']} ({card})")
+    ovr = engine.query_rows(rows[:64], 0, inputs=engine.inputs_for(SERVE_OVERRIDE),
+                            bucket=64)
+    base = {k: v[:64] for k, v in ref.items()}
+    if not (np.all(ovr["npv"] <= base["npv"] + 1e-6) and np.any(ovr["npv"] < base["npv"] - 1.0)):
+        raise AssertionError("[3k] (a) the ITC override did not lower NPV")
+    end = _library_events()
+    log(f"    override {SERVE_OVERRIDE}: NPV lower for "
+        f"{int((ovr['npv'] < base['npv']).sum())} of 64 agents; kernel library "
+        f"builds and loads since warmup {({k: end[k] - warm[k] for k in end})}")
+    if end != warm:
+        raise AssertionError(f"[3k] (a) the kernel library was built or loaded after "
+                             f"warmup: {warm} -> {end}")
+    a.update(bit_for_bit=differ, producers=p, build_s=build_s)
+    del engine, sim
+    return a
+
+
+def _http(port, method, path, body=None, conn=None, headers=None):
+    """(status, will_close, Retry-After, payload) of one request."""
+    import http.client
+
+    c = conn or http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    blob = body if isinstance(body, (bytes, type(None))) else json.dumps(body).encode()
+    c.request(method, path, body=blob, headers=headers or {})
+    r = c.getresponse()
+    raw = r.read()
+    if conn is None:
+        c.close()
+    return r.status, r.will_close, r.getheader("Retry-After"), (json.loads(raw) if raw else None)
+
+
+def serve_http(engine, card: str) -> dict:
+    """[3k] (b): the HTTP server on ``engine`` (a world with quarantined
+    agents): /readyz 503 before warmup and 200 after; /query rows equal
+    the engine's at the batch's bucket; 400, 404, 413, 422, 503 (full
+    queue, draining) and 504 where the JAX package answers them; a
+    keep-alive connection survives the refusals; /metricz shows latency,
+    occupancy and no kernel-library build since warmup; the drain.
+    Raises on any miss; returns the figures."""
+    import numpy as np
+
+    from dgen_tpu_torch.config import ServeConfig
+    from dgen_tpu_torch.serve.server import ServeApp, drain, rows_to_json, start_in_thread
+
+    qid = engine.sim.quarantine_report.ids[0]
+    ids = [int(a) for a in engine.sim.host_agent_id[_spread_rows(engine.sim, 5)]]
+    app = ServeApp(engine, ServeConfig(port=0), defer_warmup=True)
+    srv = start_in_thread(app)
+    port = srv.server_address[1]
+    seen = {}
+    try:
+        seen["readyz_cold"] = _http(port, "GET", "/readyz")[0]
+        t0 = time.perf_counter()
+        app.warmup_now()
+        warm_s = time.perf_counter() - t0
+        seen["readyz_warm"] = _http(port, "GET", "/readyz")[0]
+        if (seen["readyz_cold"], seen["readyz_warm"]) != (503, 200):
+            raise AssertionError(f"[3k] (b) /readyz {seen}")
+        body = {"agent_ids": ids, "year": engine.years[1], "overrides": SERVE_OVERRIDE,
+                "cash_flow": True}
+        code, _, _, got = _http(port, "POST", "/query", body)
+        want = rows_to_json(engine.query(ids, year=engine.years[1],
+                                         overrides=SERVE_OVERRIDE, bucket=8), True)
+        if code != 200 or got["results"] != want:
+            raise AssertionError(f"[3k] (b) /query answered {code}, rows equal: "
+                                 f"{got and got['results'] == want}")
+        probes = {
+            "unknown id": ({"agent_ids": [10 ** 9]}, 400),
+            "non-integral id": ({"agent_ids": [ids[0] + 0.5]}, 400),
+            "off-grid year": ({"agent_ids": ids[:1], "year": 1999}, 400),
+            "bad override": ({"agent_ids": ids[:1], "overrides": {"set": {"nope": 1}}}, 400),
+            "quarantined": ({"agent_ids": [qid]}, 422),
+        }
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        for what, (b, want_code) in probes.items():
+            code, closes, _, payload = _http(port, "POST", "/query", b, conn=conn)
+            seen[what] = code
+            if code != want_code or closes:
+                raise AssertionError(f"[3k] (b) {what}: {code} {payload}")
+        code, closes, _, _ = _http(port, "POST", "/queryy", b'{"agent_ids": [1]}', conn=conn)
+        code2, _, _, after = _http(port, "POST", "/query", {"agent_ids": ids[:1]}, conn=conn)
+        conn.close()
+        if code != 404 or closes or code2 != 200 or after["results"][0]["agent_id"] != ids[0]:
+            raise AssertionError(f"[3k] (b) keep-alive after refusals: {code} {code2}")
+        code, closes, _, _ = _http(port, "POST", "/query", b"",
+                                   headers={"Content-Length": str(2 << 20)})
+        if code != 413 or not closes:
+            raise AssertionError(f"[3k] (b) oversize body: {code}, closes {closes}")
+        _, _, _, m = _http(port, "GET", "/metricz")
+        if m["steady_state_compiles"] != 0 or not m["batches"] or \
+                not 0 < m["batch_occupancy"] <= 1 or m["latency_ms"]["p50"] > m["latency_ms"]["p99"]:
+            raise AssertionError(f"[3k] (b) /metricz {m}")
+        _, _, _, h = _http(port, "GET", "/healthz")
+        log(f"[3k] (b) HTTP on {engine.n_agents} agents (quarantined {list(engine.sim.quarantine_report.ids)}): "
+            f"/readyz {seen['readyz_cold']} before warmup, {seen['readyz_warm']} after "
+            f"({warm_s:.3f} s, boot {h['boot']}); /query rows equal the engine's at "
+            f"bucket 8; refusals {{{', '.join(f'{k}: {v}' for k, v in seen.items() if 'readyz' not in k)}}}, "
+            f"404 and 413 too, keep-alive survives them; /metricz latency "
+            f"{m['latency_ms']}, occupancy {m['batch_occupancy']}, steady_state_compiles "
+            f"{m['steady_state_compiles']} ({card})")
+    finally:
+        idle = drain(app, srv, timeout=30.0)
+        srv.server_close()
+    if not idle:
+        raise AssertionError("[3k] (b) the drain timed out")
+    # a full queue, the request deadline and the drain's refusal, on a
+    # batcher whose lone request waits for company past its deadline
+    cfg = ServeConfig(port=0, max_queue=1, max_wait_ms=60_000.0, request_timeout_s=1.0,
+                      warmup=False)
+    app = ServeApp(engine, cfg)
+    srv = start_in_thread(app)
+    port = srv.server_address[1]
+    try:
+        late = _http(port, "POST", "/query", {"agent_ids": ids[:1]})
+        full = _http(port, "POST", "/query", {"agent_ids": ids[:1]})
+        app.begin_drain()
+        draining = _http(port, "POST", "/query", {"agent_ids": ids[:1]})
+        ready = _http(port, "GET", "/readyz")
+    finally:
+        idle = drain(app, srv, timeout=30.0)
+        srv.server_close()
+    if (late[0], full[0], full[2], draining[0], ready[0]) != (504, 503, "1", 503, 503) \
+            or not draining[3].get("draining") or not idle:
+        raise AssertionError(f"[3k] (b) deadline/full/draining: {late} {full} {draining} "
+                             f"{ready} idle {idle}")
+    log(f"    a lone request past its deadline 504; the queue it holds full 503 "
+        f"(Retry-After {full[2]}); draining 503 and /readyz {ready[0]}; both servers "
+        f"drained")
+    return dict(codes=seen, warm_s=warm_s, metricz=m)
+
+
+def serve_layers(engine, workdir: str, card: str) -> dict:
+    """[3k] (c): the answer surface built at SERVE_SURFACE_BUCKET over
+    SERVE_SURFACE_YEARS (its wall logged), its lookups equal the engine's
+    at that bucket bit for bit, a stale copy refused with its reason and
+    the engine answering in its place, and the same override asked twice:
+    from the engine, then from the result cache, bit for bit. Raises on
+    any miss; returns the figures."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dgen_tpu_torch.config import ServeConfig
+    from dgen_tpu_torch.serve.batcher import Microbatcher
+    from dgen_tpu_torch.serve.engine import ServeEngine, override_key
+    from dgen_tpu_torch.serve.resultcache import ResultCache
+    from dgen_tpu_torch.serve.surface import (
+        AnswerSurface,
+        build_surface,
+        load_and_attach,
+        provenance_key,
+    )
+
+    bucket = SERVE_SURFACE_BUCKET
+    d = os.path.join(workdir, "surface")
+    t0 = time.perf_counter()
+    header = build_surface(engine, d, bucket, year_indices=SERVE_SURFACE_YEARS)
+    build_s = time.perf_counter() - t0
+    surf = AnswerSurface.load(d, engine)
+    rows = _spread_rows(engine.sim, bucket)
+    differ = {yi: _answers_equal(surf.lookup(rows, yi),
+                                 engine.query_rows(rows, yi, bucket=bucket))
+              for yi in SERVE_SURFACE_YEARS}
+    if any(differ.values()):
+        raise AssertionError(f"[3k] (c) surface lookups differ from the engine: {differ}")
+    stale = os.path.join(workdir, "stale")
+    shutil.copytree(d, stale)
+    hpath = os.path.join(stale, "table.json")
+    with open(hpath) as f:
+        meta = json.load(f)
+    meta["meta"]["provenance"]["config_hash"] = "0" * 12
+    with open(hpath, "w") as f:
+        json.dump(meta, f)
+    eng = ServeEngine(engine.sim)
+    reason = load_and_attach(eng, stale)
+    bat = Microbatcher(eng, ServeConfig(max_wait_ms=2.0, port=0))
+    try:
+        ids = [int(a) for a in engine.sim.host_agent_id[rows[:2]]]
+        got = bat.query(ids, year=engine.years[0], timeout=600.0)
+        stats = bat.stats()
+    finally:
+        bat.close()
+    if reason is None or "config_hash" not in reason or stats["batches"] != 1 \
+            or _answers_equal(got, surf.lookup(rows[:2], 0)):
+        raise AssertionError(f"[3k] (c) the stale surface: {reason} {stats}")
+    eng = ServeEngine(engine.sim)
+    cache = ResultCache(os.path.join(workdir, "cache"), provenance_key(eng))
+    eng.attach_result_cache(cache)
+    key, inputs = override_key(SERVE_OVERRIDE), eng.inputs_for(SERVE_OVERRIDE)
+    first = eng.query_rows(rows, 1, inputs=inputs, bucket=bucket, key=key)
+    second = eng.query_rows(rows, 1, inputs=inputs, bucket=bucket, key=key)
+    cs = cache.stats()
+    if cs["stores"] != 1 or cs["hits"] != 1 or _answers_equal(first, second):
+        raise AssertionError(f"[3k] (c) the result cache: {cs}")
+    log(f"[3k] (c) answer surface at bucket {bucket} over year indices "
+        f"{list(SERVE_SURFACE_YEARS)} of {header['columns']['agent_id']['shape'][1]} rows "
+        f"built in {build_s:.3f} s ({card}); lookups equal the engine's at bucket "
+        f"{bucket} bit for bit; a stale copy refused ({reason}) and the engine answered "
+        f"in its place; the same override twice: engine then cache, bit for bit "
+        f"({ {k: cs[k] for k in ('stores', 'hits', 'misses')} })")
+    return dict(build_s=build_s, refused=reason, cache=cs)
+
+
+def year0_against_year_step(engine, card: str) -> dict:
+    """[3k], logged: the engine's year-0 answers (bucket 64) beside the
+    first ``year_step`` outputs of the same world for the same rows."""
+    import numpy as np
+    import torch
+
+    sim = engine.sim
+    rows = _spread_rows(sim, SERVE_HELD)
+    ans = {k: [] for k in ("system_kw", "npv")}
+    for i in range(0, len(rows), 64):
+        out = engine.query_rows(rows[i:i + 64], 0, bucket=64)
+        for k in ans:
+            ans[k].append(out[k])
+    with torch.no_grad():
+        _, outs = sim.step(sim.init_carry(), 0, first_year=True)
+    rec = {}
+    for k, parts in ans.items():
+        a = np.concatenate(parts)
+        b = getattr(outs, k).cpu().numpy()[rows]
+        rec[k] = dict(identical=int((a.view(np.uint32) == b.view(np.uint32)).sum()),
+                      of=len(rows), max_abs_gap=float(np.abs(a - b).max()))
+    log(f"[3k] logged: year-0 answers against the world's first year_step for the same "
+        f"{len(rows)} agents: {rec} ({card})")
+    return rec
+
+
+@contextlib.contextmanager
+def _query_banks(banks: list):
+    """Inside the block, each serving query bucket appends to ``banks``
+    whether it ran against the full tariff bank (no cluster's compact
+    bank and row indices); the buckets run as they would."""
+    from dgen_tpu_torch.serve import engine as engine_mod
+
+    program = engine_mod.query_program
+
+    def noted(table, profiles, tariffs, inputs, idx, year_idx, **kw):
+        banks.append(kw.get("cluster_tidx") is None)
+        return program(table, profiles, tariffs, inputs, idx, year_idx, **kw)
+
+    engine_mod.query_program = noted
+    try:
+        yield banks
+    finally:
+        engine_mod.query_program = program
+
+
+def serve_switch_and_clusters(presets, card: str, *, device="cuda",
+                              switch_agents=SWITCH_AGENTS,
+                              cluster_agents=SERVE_CLUSTER_AGENTS) -> dict:
+    """[3k] (d): the rate-switch world (the pair kernel launches inside a
+    bucket; its first launches kept), and the mixed twin of [3h] (c)
+    clustered and unclustered: mono-cluster buckets launch the month
+    kernel at the cluster's P (1 and 2 among them) and equal the
+    unclustered engine's answers bit for bit by agent id; a mixed bucket
+    takes the full bank. Raises on any miss; returns the figures and the
+    rate-switch bucket's captures."""
+    import numpy as np
+
+    from dgen_tpu_torch.models import synth
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.serve.engine import ServeEngine
+
+    sw, _, _ = presets.build("ercot-all-sector", n_agents=switch_agents,
+                             end_year=SWITCH_END_YEAR, rate_switch_frac=0.4, device=device)
+    if not sw._rate_switch:
+        raise AssertionError("[3k] (d) the rate-switch world has no switch")
+    eng = ServeEngine(sw)
+    eng.warmup([64])
+    capture = {}
+    _reset_counts()
+    bk.CAPTURE = capture
+    try:
+        with first_dispatch(capture):
+            eng.query_rows(_spread_rows(sw, 64), 0, bucket=64)
+    finally:
+        bk.CAPTURE = None
+    switch_launches = _launch_counts()
+    if device == "cuda":
+        need_launches("[3k] (d) rate-switch bucket", switch_launches,
+                      ("month_pair", "dispatch"))
+    del eng, sw
+
+    pop = synth.generate_world(synth.NationalSpec(
+        n_agents=cluster_agents, tariff_mix="mixed", seed=MIXED_SEED), device=device)
+    sims = {c: mixed_sim(pop, dict(cluster_tariffs=c), end_year=CHUNK_END_YEAR,
+                         device=device, agent_chunk=0) for c in (True, False)}
+    engines = {c: ServeEngine(s) for c, s in sims.items()}
+    layout = sims[True]._cluster_layout
+    ids_of = sims[True].host_agent_id
+    real = sims[True].host_mask > 0
+    cid = layout.cluster_of_rows()
+    by_p, mono = {}, {}
+    for ci, spec in enumerate(layout.clusters):
+        rows = np.flatnonzero((cid == ci) & real)
+        if len(rows) >= 16 and spec.n_periods not in mono:
+            mono[spec.n_periods] = rows[:16].astype(np.int32)
+    if not {1, 2} <= set(mono):
+        raise AssertionError(f"[3k] (d) no single- and two-period clusters: {sorted(mono)}")
+    differ, banks = {}, []
+
+    def routed(rows):
+        """The clustered engine's answers for ``rows`` (bucket 16), noting
+        whether the bucket ran against the full bank."""
+        with _query_banks(banks):
+            return engines[True].query_rows(rows, 0, bucket=16)
+
+    for p, rows in sorted(mono.items()):
+        counts = {}
+        with count_by_p(counts):
+            got = routed(rows)
+        want = engines[False].query(ids_of[rows].tolist(), bucket=16)
+        differ[p] = _answers_equal(got, want)
+        by_p[p] = counts
+        if banks[-1] or (device == "cuda" and counts.get(f"month@P{p}", 0) == 0) or any(
+                k.startswith("month") and not k.endswith(f"@P{p}") for k in counts):
+            raise AssertionError(f"[3k] (d) a P = {p} cluster's bucket launched {counts}, "
+                                 f"full bank {banks[-1]}")
+    ps = sorted(mono)
+    mixed_rows = np.concatenate([mono[1][:8], mono[2][:8]])
+    counts = {}
+    with count_by_p(counts):
+        got = routed(mixed_rows)
+    want = engines[False].query(ids_of[mixed_rows].tolist(), bucket=16)
+    full_p = sims[True].tariffs.max_periods
+    if not banks[-1] or (device == "cuda" and not counts.get(f"month@P{full_p}")) \
+            or _answers_equal(got, want):
+        raise AssertionError(f"[3k] (d) the mixed bucket launched {counts}, full bank "
+                             f"{banks[-1]}")
+    if any(differ.values()):
+        raise AssertionError(f"[3k] (d) clustered answers differ from unclustered: {differ}")
+    log(f"[3k] (d) rate-switch world ({switch_agents} agents): one bucket of 64 launched "
+        f"{ {k: v for k, v in switch_launches.items() if v} }; mixed twin "
+        f"({cluster_agents} agents, {layout.n_clusters} clusters): mono-cluster buckets "
+        f"at P {ps} launched {by_p} on their clusters' banks and equal the unclustered "
+        f"engine's answers bit for bit (rows differing {differ}); a mixed bucket "
+        f"launched {counts} on the full bank (P = {full_p}) and equals too ({card})")
+    return dict(switch_launches=switch_launches, switch_capture=capture, by_p=by_p,
+                mixed=counts)
+
+
+def serving(presets, card: str, *, device="cuda", national=None, main_agents=MAIN_AGENTS,
+            switch_agents=SWITCH_AGENTS, cluster_agents=SERVE_CLUSTER_AGENTS) -> dict:
+    """[3k]: (a) :func:`serve_national`, (b) :func:`serve_http` and (c)
+    :func:`serve_layers` on the main path's world with ingest_corrupt_row
+    injected, the logged year-0 comparison, and (d)
+    :func:`serve_switch_and_clusters`; logs the phase's wall. ``national``:
+    keywords of (a) (the CPU rehearsal's sizes). Returns the serve paths'
+    launches and first-launch operands for the kernels line."""
+    import tempfile
+
+    from dgen_tpu_torch.resilience import faults
+    from dgen_tpu_torch.serve.engine import ServeEngine
+
+    import torch
+
+    t0 = time.perf_counter()
+    a = serve_national(presets, card, device=device, **(national or {}))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with faults.injected("ingest_corrupt_row@1:corrupt"):
+        sim, _, _ = presets.build("ercot-all-sector", n_agents=main_agents,
+                                  end_year=MAIN_END_YEAR, device=device)
+    engine = ServeEngine(sim)
+    b = serve_http(engine, card)
+    with tempfile.TemporaryDirectory() as work:
+        c = serve_layers(engine, work, card)
+    y0 = year0_against_year_step(engine, card)
+    del engine, sim
+    d = serve_switch_and_clusters(presets, card, device=device,
+                                  switch_agents=switch_agents,
+                                  cluster_agents=cluster_agents)
+    wall = time.perf_counter() - t0
+    log(f"[3k] the serving stack (a)-(d): {wall:.3f} s ({card})")
+    runs = {}
+    for bucket in (1, 64):
+        runs[f"serve{bucket}"] = dict(launches=a["buckets"][bucket]["launches"],
+                                      capture=a["captures"][bucket])
+    runs["serve_switch"] = dict(launches=d["switch_launches"], capture=d["switch_capture"])
+    return dict(runs=runs, a=a, b=b, c=c, d=d, year0=y0, wall=wall)
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -4763,6 +5425,11 @@ def main(argv=None) -> int:
     # --- 3j: the per-agent oracle, the analysis side and the twin ---
     oracle = oracle_and_twin(presets, RunConfig, sim, runs["main"], card)
     runs["oracle"] = dict(launches=oracle["launches"], capture=oracle["capture"])
+
+    # --- 3k: the serving stack ---
+    serve = serving(presets, card)
+    runs.update(serve["runs"])
+    torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
@@ -4911,6 +5578,7 @@ def main(argv=None) -> int:
         "launches (a clustered run's), not in the kernels line:")
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     oracle_dispatch = captures["oracle"]["dispatch"]
+    serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64")}
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -4927,6 +5595,14 @@ def main(argv=None) -> int:
     orow = dispatch_row(oracle_dispatch, runs["oracle"]["launches"]["dispatch"])
     orow.update(name="battery_dispatch_3j", path="oracle")
     del oracle_dispatch
+    srows = []
+    for key, ops in serve_dispatch.items():
+        log(f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
+            f"{key[5:]} (the serving path):")
+        r = dispatch_row(ops, runs[key]["launches"]["dispatch"])
+        r.update(name=f"battery_dispatch_{key}", path=key)
+        srows.append(r)
+    del serve_dispatch
     log("  the first year's sizing call, broken down:")
     for tag, s, knobs, names in (
             ("main", sim, {}, ("bucket_sums_month",) * 2 + ("bucket_sums_month_signed",)),
@@ -4960,7 +5636,7 @@ def main(argv=None) -> int:
             shape_n_r_lanes=list(r["shape"]), hour_lanes=r["work_lanes"],
             path=path_key,
         ))
-    kernels += [drow, orow]
+    kernels += [drow, orow, *srows]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of its path never launched: {kernels}")
     log(f"[10] script wall {time.perf_counter() - t_script:.1f} s")

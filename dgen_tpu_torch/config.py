@@ -10,7 +10,10 @@ the streaming agent chunk with its padding, the invariant harness, the
 health sentinel, the host-I/O pipeline, load-time validation and
 quarantine, the fault spec of the run supervisor, the differentiable
 twin's smooth boundaries (``soft_boundaries``, ``soft_tau``) and the
-run's ``seed``. Other knobs arrive with the slices that port them.
+run's ``seed``. ``ServeConfig`` is the serving stack's (buckets, queue,
+HTTP, answer surface, result cache), with the JAX package's
+``DGEN_TPU_SERVE_*`` switches and validation. Other knobs arrive with
+the slices that port them.
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
 of the ported fields, and refuses a switch that asks for a feature the
@@ -325,3 +328,95 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Settings of the serving stack (:mod:`dgen_tpu_torch.serve`): the
+    microbatcher's buckets and queue, the HTTP front-end, the answer
+    surface and the result cache. Bucket sizes are powers of two, so the
+    set of row counts a serving process launches its kernels at is
+    fixed up front (``log2(max_batch / min_bucket) + 1`` buckets, all
+    run once at warmup)."""
+
+    #: largest microbatch (rows a query bucket sizes at once)
+    max_batch: int = 64
+    #: smallest padded bucket (1: a single agent runs alone)
+    min_bucket: int = 1
+    #: deadline flush: a queued request waits at most this long for
+    #: co-batching before its (possibly underfull) bucket dispatches
+    max_wait_ms: float = 5.0
+    #: admission control: submissions beyond this many queued requests
+    #: are refused with ``serve.QueueFullError`` (HTTP 503)
+    max_queue: int = 256
+    #: HTTP bind address; port 0 binds an ephemeral port (tests)
+    host: str = "127.0.0.1"
+    port: int = 8178
+    #: run every bucket once before accepting traffic, so the kernel
+    #: library is built and loaded before the first request
+    warmup: bool = True
+    #: per-request deadline of a handler on the batcher's future (504)
+    request_timeout_s: float = 60.0
+    #: per-connection socket timeout of a handler thread
+    socket_timeout_s: float = 30.0
+    #: precomputed answer-surface directory (``serve.surface``), mapped
+    #: at boot and provenance-gated; None: engine path only
+    surface_dir: Optional[str] = None
+    #: exact result-cache directory (``serve.resultcache``); None: off
+    result_cache_dir: Optional[str] = None
+    #: result-cache entry bound (files), least recently used evicted
+    result_cache_entries: int = 512
+
+    def __post_init__(self) -> None:
+        _check(_is_pow2(self.max_batch), "max_batch must be a power of two")
+        _check(_is_pow2(self.min_bucket) and self.min_bucket <= self.max_batch,
+               "min_bucket must be a power of two <= max_batch")
+        _check(self.max_wait_ms >= 0.0, "max_wait_ms must be >= 0")
+        _check(self.max_queue >= 1, "max_queue must be >= 1")
+        _check(0 <= self.port <= 65535, "port out of range")
+        _check(self.request_timeout_s > 0.0, "request_timeout_s must be > 0")
+        _check(self.socket_timeout_s > 0.0, "socket_timeout_s must be > 0")
+        _check(self.result_cache_entries >= 1,
+               "result_cache_entries must be >= 1")
+
+    @property
+    def buckets(self) -> Tuple[int, ...]:
+        """The bucket sizes, ascending (powers of two from min_bucket to
+        max_batch)."""
+        out = []
+        b = self.min_bucket
+        while b <= self.max_batch:
+            out.append(b)
+            b *= 2
+        return tuple(out)
+
+    @classmethod
+    def from_env(cls, **overrides) -> "ServeConfig":
+        """The JAX package's switches: DGEN_TPU_SERVE_MAX_BATCH, _WAIT_MS,
+        _QUEUE, _HOST, _PORT, _WARMUP (0/false/off = off),
+        _REQ_TIMEOUT_S, _SOCK_TIMEOUT_S, _SURFACE (answer-surface dir),
+        _CACHE_DIR and _CACHE_ENTRIES (result cache); an explicit
+        keyword wins over its switch."""
+        env = os.environ.get
+        for field, name, conv in (
+                ("surface_dir", "SURFACE", str),
+                ("result_cache_dir", "CACHE_DIR", str),
+                ("result_cache_entries", "CACHE_ENTRIES", int),
+                ("max_batch", "MAX_BATCH", int),
+                ("max_wait_ms", "WAIT_MS", float),
+                ("max_queue", "QUEUE", int),
+                ("host", "HOST", str),
+                ("port", "PORT", int),
+                ("request_timeout_s", "REQ_TIMEOUT_S", float),
+                ("socket_timeout_s", "SOCK_TIMEOUT_S", float)):
+            raw = env(f"DGEN_TPU_SERVE_{name}")
+            if field not in overrides and raw:
+                overrides[field] = conv(raw)
+        raw = env("DGEN_TPU_SERVE_WARMUP")
+        if "warmup" not in overrides and raw:
+            overrides["warmup"] = raw not in ("0", "false", "off")
+        return cls(**overrides)

@@ -9,12 +9,18 @@ rebuilt), written to a temporary name and renamed, so a concurrent or
 interrupted build never leaves a half-written library behind. Each
 function takes another ``csrc`` directory too (another checkout's
 kernels, built with this checkout's flags); it defaults to this one.
+
+The first use is locked: two threads that reach a kernel at once (the
+serving batcher's worker and a caller's thread) build and load the
+library once. :data:`EVENTS` counts the libraries this process compiled
+and loaded; a serving process reports both since its warmup, where they
+stay 0 (the port's counterpart of the JAX package's steady-state
+compile count).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import logging
@@ -23,6 +29,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 logger = logging.getLogger(__name__)
@@ -37,6 +44,13 @@ COMPILE_FLAGS = [
     "-Xptxas", "-v",
 ]
 LINK_FLAGS = ["-shared"]
+
+#: ``builds``: libraries compiled with nvcc in this process; ``loads``:
+#: libraries opened with ctypes
+EVENTS = {"builds": 0, "loads": 0}
+_LOCK = threading.RLock()
+_BUILT: dict = {}
+_LIBS: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -175,17 +189,12 @@ def kernel_resources(log: str) -> list[dict]:
     return rows
 
 
-@functools.lru_cache(maxsize=None)
-def build(csrc: str | None = None) -> tuple[str, float, str]:
-    """(library path, build seconds, compiler log). Compiles only when the
-    library for these sources is missing; seconds is 0.0 then."""
-    srcs = sources(csrc)
-    path = library_path(csrc)
-    if os.path.exists(path):
-        return path, 0.0, ""
+def _compile(srcs: list[str], path: str) -> str:
+    """Compiles ``srcs`` (one nvcc each, all started together), links the
+    objects into the library at ``path`` (a temporary name, then a
+    rename) and returns the compiler log."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(dir=BUILD_DIR)
-    t0 = time.perf_counter()
     try:
         nvcc = _nvcc()
         objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
@@ -207,18 +216,36 @@ def build(csrc: str | None = None) -> tuple[str, float, str]:
         os.replace(tmp, path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for row in kernel_resources(log):
-        logger.info("%s: %s registers, %d bytes spilled, %d bytes static shared "
-                    "memory", row["kernel"], row["registers"], row["spill_bytes"],
-                    row["smem_bytes"])
-    return path, time.perf_counter() - t0, log
+    return log
 
 
-@functools.lru_cache(maxsize=None)
-def library(csrc: str | None = None) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed, its C entries
-    typed (those of :data:`_SIGNATURES` that it has)."""
-    path, _, _ = build(csrc)
+def build(csrc: str | None = None) -> tuple[str, float, str]:
+    """(library path, build seconds, compiler log). Compiles only when the
+    library for these sources is missing; seconds is 0.0 then. Once per
+    process and ``csrc``, under the module lock."""
+    with _LOCK:
+        done = _BUILT.get(csrc)
+        if done is not None:
+            return done
+        path = library_path(csrc)
+        if os.path.exists(path):
+            done = (path, 0.0, "")
+        else:
+            t0 = time.perf_counter()
+            log = _compile(sources(csrc), path)
+            EVENTS["builds"] += 1
+            for row in kernel_resources(log):
+                logger.info("%s: %s registers, %d bytes spilled, %d bytes static "
+                            "shared memory", row["kernel"], row["registers"],
+                            row["spill_bytes"], row["smem_bytes"])
+            done = (path, time.perf_counter() - t0, log)
+        _BUILT[csrc] = done
+        return done
+
+
+def _open(path: str) -> ctypes.CDLL:
+    """The library at ``path``, its C entries typed (those of
+    :data:`_SIGNATURES` that it has)."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         if not hasattr(lib, name):
@@ -227,3 +254,17 @@ def library(csrc: str | None = None) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def library(csrc: str | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed (once per process
+    and ``csrc``: the first use is locked, later calls read a dict)."""
+    lib = _LIBS.get(csrc)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if csrc not in _LIBS:
+            path, _, _ = build(csrc)
+            _LIBS[csrc] = _open(path)
+            EVENTS["loads"] += 1
+        return _LIBS[csrc]

@@ -80,9 +80,9 @@ def _cmd_verify(args) -> int:
 
 #: the JAX package's drills that the port does not have -> ROADMAP.md item
 _UNPORTED_DRILLS = {
-    "serve_fleet": "item 11 (serving)",
-    "serve_scale": "item 11 (serving)",
-    "layers": "item 11 (serving)",
+    "serve_fleet": "item 11 (serving: the fleet part)",
+    "serve_scale": "item 11 (serving: the fleet part)",
+    "layers": "item 11 (serving: the fleet part)",
     "gang": "item 7 (multi-GPU)",
 }
 

@@ -39,9 +39,10 @@ halves the landed file, then raises; ``hang`` sleeps
 ``DGEN_TPU_FAULT_HANG_S`` seconds and carries on; ``corrupt`` returns to
 the caller, which damages its data deterministically and carries on.
 
-The sites are those of the single-process run path and the sweep that
-the port has. A spec naming one of the JAX package's other sites (input
-reads, serving, the answer surface, the multi-process gang) raises
+The sites are those of the single-process run path, the sweep and the
+single-process serving stack that the port has. A spec naming one of
+the JAX package's other sites (input reads, the serving fleet's front,
+the multi-process gang) raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it; a
 name neither package knows is refused with ``ValueError``, as in the
 JAX package.
@@ -102,6 +103,28 @@ SITES: Dict[str, str] = {
         "scenarios of a group; a retry with resume re-enters at "
         "(scenario, year)"
     ),
+    "serve_query": (
+        "serve.engine.ServeEngine.query_rows: a device failure on the "
+        "serving path (the batcher must fail that batch's futures, never "
+        "its worker thread)"
+    ),
+    "serve_replica_kill": (
+        "serve.engine.ServeEngine.query_rows: a serving process dying "
+        "mid-query (``kill``: os._exit with requests in flight)"
+    ),
+    "serve_replica_hang": (
+        "serve.engine.ServeEngine.query_rows: a serving process stalling "
+        "mid-query (``hang``: the batcher's worker sleeps "
+        "DGEN_TPU_FAULT_HANG_S seconds, stalling every queued batch; the "
+        "handlers' request deadline answers 504)"
+    ),
+    "surface_load": (
+        "serve.surface.AnswerSurface.load: the precomputed answer surface "
+        "failing to load or verify at boot (``error``: an unreadable map; "
+        "``truncate``: table.bin halved before the open). The engine must "
+        "refuse the surface with a named reason and answer from the "
+        "kernels, never from damaged bytes"
+    ),
     "bank_corrupt_row": (
         "models.simulation: a profile-bank row going bad (``corrupt``: a "
         "NaN load row, or a NaN scale under int8 banks). Hit #1 is "
@@ -114,11 +137,7 @@ SITES: Dict[str, str] = {
 #: the JAX package's other sites -> the ROADMAP.md item that ports them
 UNPORTED_SITES: Dict[str, str] = {
     "ingest": "item 3 (the remaining host inputs)",
-    "serve_query": "item 11 (serving)",
-    "serve_replica_kill": "item 11 (serving)",
-    "serve_replica_hang": "item 11 (serving)",
-    "front_route": "item 11 (serving)",
-    "surface_load": "item 11 (serving)",
+    "front_route": "item 11 (serving: the fleet part)",
     "gang_worker_kill": "item 7 (multi-GPU)",
     "gang_heartbeat_stall": "item 7 (multi-GPU)",
     "gang_barrier": "item 7 (multi-GPU)",

@@ -1,0 +1,41 @@
+"""dgen_tpu_torch.serve: the online what-if query engine on one card (port
+of the single-process part of ``dgen_tpu/serve``).
+
+A long-lived process holds a placed Simulation (agent table, profile and
+tariff banks) and answers per-agent queries (optimal PV+storage size,
+bill savings, NPV and payback, scenario-override deltas) through the
+year step's sizing path at fixed power-of-two row counts::
+
+    from dgen_tpu_torch.config import ServeConfig
+    from dgen_tpu_torch.serve import ServeEngine, Microbatcher
+    engine = ServeEngine(sim)                # a built Simulation
+    engine.warmup(ServeConfig().buckets)
+    bat = Microbatcher(engine)               # pow2 buckets, deadline flush
+    bat.query([17, 203], year=2026, overrides={"scale": {"itc_fraction": 0.0}})
+
+HTTP: ``python -m dgen_tpu_torch.serve`` (:mod:`.server`). The
+zero-override question can be answered from a precomputed, provenance
+gated, memory-mapped :class:`~.surface.AnswerSurface`
+(``--build-surface`` / ``--surface``), and repeated what-ifs from the
+exact :class:`~.resultcache.ResultCache` (``--cache-dir``). The fleet
+(replica supervisor, routing front, autoscaler) is ``ROADMAP.md`` item
+11's next part.
+"""
+
+from dgen_tpu_torch.serve.batcher import Microbatcher, QueueFullError  # noqa: F401
+from dgen_tpu_torch.serve.engine import (  # noqa: F401
+    QUERY_FIELDS,
+    OverrideError,
+    QueryOutputs,
+    ServeEngine,
+    apply_overrides,
+    override_key,
+    query_program,
+)
+from dgen_tpu_torch.serve.resultcache import ResultCache  # noqa: F401
+from dgen_tpu_torch.serve.surface import (  # noqa: F401
+    AnswerSurface,
+    StaleSurfaceError,
+    SurfaceError,
+    build_surface,
+)

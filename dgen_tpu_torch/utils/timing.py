@@ -7,11 +7,17 @@ context label); :func:`timing_report` sums them. The buckets recorded:
 pipeline's fetch stage), and ``health_check``, ``collect_host``,
 ``export_write``, ``ckpt_save`` and ``callback_host`` (its consumers).
 The pipeline's threads record concurrently, so the store is locked.
+
+:func:`observe` records a duration into a fixed log-spaced
+:class:`LogHistogram` instead (O(1) memory: the serving stack's per
+request latencies, read back as p50/p90/p99 by ``/metricz`` and by
+:func:`timing_report`).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -40,16 +46,112 @@ def timer(name: str, ctx: Optional[str] = None):
         logging.getLogger(__name__).debug("%s took: %.3fs", key, dt)
 
 
+_HIST_MIN = 1e-4          # seconds: the first bucket's upper bound
+_HIST_GROWTH = 2.0 ** 0.5
+_HIST_N = 48
+
+#: bucket upper bounds (seconds), shared by every histogram
+HIST_BOUNDS: tuple = tuple(_HIST_MIN * _HIST_GROWTH ** i for i in range(_HIST_N))
+
+
+class LogHistogram:
+    """Histogram of nonnegative durations over fixed log-spaced buckets.
+
+    ``counts[i]`` holds the observations in ``(HIST_BOUNDS[i - 1],
+    HIST_BOUNDS[i]]``; the last slot is the overflow bucket. Locked: the
+    batcher records from its worker thread while ``/metricz`` reads from
+    handler threads."""
+
+    __slots__ = ("counts", "n", "total", "vmax", "_lock")
+
+    def __init__(self) -> None:
+        self.counts = [0] * (_HIST_N + 1)
+        self.n = 0
+        self.total = 0.0
+        self.vmax = 0.0
+        self._lock = threading.Lock()
+
+    def record(self, seconds: float) -> None:
+        v = max(float(seconds), 0.0)
+        if v <= _HIST_MIN:
+            i = 0
+        else:
+            i = min(int(math.ceil(math.log(v / _HIST_MIN) / math.log(_HIST_GROWTH))),
+                    _HIST_N)
+        with self._lock:
+            self.counts[i] += 1
+            self.n += 1
+            self.total += v
+            self.vmax = max(self.vmax, v)
+
+    def percentile(self, q: float) -> float:
+        """The upper bound of the bucket holding the ``q``-th observation
+        (``q`` in [0, 1]), capped at the largest observed value."""
+        with self._lock:
+            if not self.n:
+                return 0.0
+            target = q * self.n
+            cum = 0
+            for i, c in enumerate(self.counts):
+                cum += c
+                if cum >= target:
+                    bound = HIST_BOUNDS[i] if i < _HIST_N else self.vmax
+                    return min(bound, self.vmax)
+            return self.vmax
+
+    def snapshot(self) -> Dict[str, float]:
+        """``{count, total, mean, p50, p90, p99, max}``."""
+        with self._lock:
+            n, total, vmax = self.n, self.total, self.vmax
+        if not n:
+            return {"count": 0, "total": 0.0, "mean": 0.0,
+                    "p50": 0.0, "p90": 0.0, "p99": 0.0, "max": 0.0}
+        return {"count": n, "total": total, "mean": total / n,
+                "p50": self.percentile(0.50), "p90": self.percentile(0.90),
+                "p99": self.percentile(0.99), "max": vmax}
+
+
+_HISTS: Dict[str, LogHistogram] = {}
+
+
+def observe(name: str, seconds: float, ctx: Optional[str] = None) -> None:
+    """Record one duration into the histogram ``name`` (under ``ctx``)."""
+    key = _key(name, ctx)
+    h = _HISTS.get(key)
+    if h is None:
+        with _LOCK:
+            h = _HISTS.setdefault(key, LogHistogram())
+    h.record(seconds)
+
+
+def histogram(name: str, ctx: Optional[str] = None) -> Optional[LogHistogram]:
+    """The histogram ``name`` (under ``ctx``), or None before its first
+    observation."""
+    return _HISTS.get(_key(name, ctx))
+
+
 def timing_report(ctx: Optional[str] = None) -> Dict[str, Dict[str, float]]:
-    """Per bucket ``{count, total, mean}``; ``ctx`` keeps one context's
-    buckets, named without the ``ctx:`` prefix."""
+    """Per bucket ``{count, total, mean}``, and per histogram its
+    :meth:`LogHistogram.snapshot` (a name recorded both ways reports the
+    histogram); ``ctx`` keeps one context's entries, named without the
+    ``ctx:`` prefix."""
     with _LOCK:
         items = [(k, list(v)) for k, v in _TIMINGS.items()]
-    if ctx is not None:
+        hists = list(_HISTS.items())
+
+    def select(pairs):
+        if ctx is None:
+            return pairs
         prefix = f"{ctx}:"
-        items = [(k[len(prefix):], v) for k, v in items if k.startswith(prefix)]
-    return {k: {"count": len(v), "total": sum(v), "mean": sum(v) / len(v)}
-            for k, v in items if v}
+        return [(k[len(prefix):], v) for k, v in pairs if k.startswith(prefix)]
+
+    out = {k: {"count": len(v), "total": sum(v), "mean": sum(v) / len(v)}
+           for k, v in select(items) if v}
+    for k, h in select(hists):
+        snap = h.snapshot()
+        if snap["count"]:
+            out[k] = snap
+    return out
 
 
 def timing_samples(name: str, ctx: Optional[str] = None) -> List[float]:
@@ -61,3 +163,4 @@ def timing_samples(name: str, ctx: Optional[str] = None) -> List[float]:
 def reset_timings() -> None:
     with _LOCK:
         _TIMINGS.clear()
+        _HISTS.clear()

@@ -6,9 +6,9 @@ counted for the sell sum alone, for one tariff and two, at 12 P + 1
 columns and wider. ``held_year`` holds the first month, signed-month and
 sizing and remat-pass dispatch launches of a streaming year against the
 plain versions, block by block, and fails on one agent off. The run
-outputs phase [3f] passes its four runs on the CPU at a small size and
-fails on a pipeline write off the serialized one and on a resume that
-drops the restored carry. The sweep and ensemble phase [3i] passes on the
+outputs phase [3f]'s small-scale A/B runs both paths (its four runs are
+held in tests/test_torch_chip_smoke_outputs.py). The sweep and ensemble
+phase [3i] passes on the
 CPU at 16 agents, and its checkers fail on one agent's npv one ulp off
 between modes, on a quantile moved 1e-5, and on a sibling that copies a
 bank."""
@@ -245,68 +245,6 @@ def test_golden_checker_refuses_missing_and_unknown_metrics():
         cs.check_golden(curves, golden, "golden")
     with pytest.raises(AssertionError, match="outside the contract"):
         cs.check_golden({**golden, "extra": [1.0]}, {**golden, "extra": [1.0]}, "golden")
-
-
-#: [3f] on the CPU: the four runs at a small size (the whole table: the
-#: chunked year is held to the whole table by tests/test_torch_chunk.py)
-OUTPUTS_KW = dict(name="ercot-all-sector", n_agents=64, end_year=2016, device="cpu",
-                  knobs=dict(agent_chunk=0, sizing_iters=4))
-
-
-def test_run_outputs_phase_passes_on_the_cpu(tmp_path, capsys):
-    """[3f]'s four runs hold together: pipeline and serialized files byte
-    for byte, the resumed run bit for bit, the quantization within its
-    bound and the CPU's codes; its work directory is removed."""
-    from dgen_tpu_torch import presets
-    from dgen_tpu_torch.config import RunConfig
-
-    out = cs.run_outputs(presets, RunConfig, None, workdir=str(tmp_path), **OUTPUTS_KW)
-    assert all(out["same"].values())
-    assert set(out["walls"]) == {"a", "b", "c", "d", "e"} and out["ratios"]["a"] == 1.0
-    assert set(out["trace"]) == {"no consumer", "pipeline, export + checkpoint"}
-    assert set(out["fetch"]) == {"cold", "warm"}
-    assert len(out["fetched"]) == 2 and all(b > 0 for b in out["fetched"])
-    assert set(out["written"]) == {2014, 2016} and out["ckpt_bytes"] > 0
-    assert out["stats"]["d2h_bytes"] > sum(out["fetched"])
-    assert os.listdir(tmp_path) == []
-    log = capsys.readouterr().out
-    for part in ("[3f]", "(d) resumed after 2014", "compact quantization", "walls s",
-                 "hostio_stats", "bytes a year", "checkpoint save s", "fetch stage alone",
-                 "traced year 2 (no consumer)", "traced year 2 (pipeline"):
-        assert part in log, part
-
-
-@pytest.mark.parametrize("mutant", ["pipeline_write", "resume_carry"])
-def test_run_outputs_phase_catches_a_fault(tmp_path, monkeypatch, mutant):
-    """A pipeline write that differs from the serialized one in one value,
-    and a resume that drops the restored carry, each fail [3f]."""
-    import dataclasses as dc
-
-    from dgen_tpu_torch import presets
-    from dgen_tpu_torch.config import RunConfig
-    from dgen_tpu_torch.io import export
-    from dgen_tpu_torch.models.simulation import Simulation
-
-    if mutant == "pipeline_write":
-        write_host = export.RunExporter.write_host
-
-        def mutated(self, year, year_idx, host):
-            rest = host["ao"][2]
-            rest[0] = rest[0].copy()
-            rest[0][0] += 1.0
-            return write_host(self, year, year_idx, host)
-
-        monkeypatch.setattr(export.RunExporter, "write_host", mutated)
-        match = "differ"
-    else:
-        monkeypatch.setattr(Simulation, "_sanitize_restored_carry",
-                            lambda self, carry: dc.replace(
-                                carry, batt_adopters_cum=carry.batt_adopters_cum * 0.0,
-                                market=self.init_carry().market))
-        match = "resumed differs"
-    with pytest.raises(AssertionError, match=match):
-        cs.run_outputs(presets, RunConfig, None, workdir=str(tmp_path), **OUTPUTS_KW)
-    assert os.listdir(tmp_path) == []
 
 
 def test_pipeline_ab_runs_both_paths_on_the_cpu(capsys):

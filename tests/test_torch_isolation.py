@@ -5,6 +5,7 @@ import ast
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -531,3 +532,109 @@ def test_sweep_and_ensemble_need_no_pandas_pyarrow_or_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == ("vmap [[2014, 2016], [2014, 2016]] [[], []] vmap (2, 3)")
     assert sorted(os.listdir(run_dir)) == ["ck", "scenario=scn0", "scenario=scn1"]
+
+
+def test_serving_stack_needs_no_pandas_pyarrow_or_jax(tmp_path):
+    """The serving stack (engine, batcher, HTTP server, answer surface on
+    the mmap table, result cache, CLI) imports and answers one query over
+    HTTP, from the surface and from the cache, with pandas, pyarrow,
+    orbax, jax and the JAX package unavailable."""
+    surf, cache = str(tmp_path / "surf"), str(tmp_path / "rc")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import http.client, json, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import dgen_tpu_torch.serve.__main__, dgen_tpu_torch.tools.row_count_probe\n"
+        "from dgen_tpu_torch.config import ServeConfig\n"
+        "from dgen_tpu_torch.io import synth\n"
+        "from dgen_tpu_torch.serve import ResultCache, ServeEngine, build_surface\n"
+        "from dgen_tpu_torch.serve.__main__ import build_sim\n"
+        "from dgen_tpu_torch.serve.server import ServeApp, drain, start_in_thread\n"
+        "from dgen_tpu_torch.serve.surface import load_and_attach, provenance_key\n"
+        "gen = synth.generate_population\n"
+        "synth.generate_population = lambda *a, **k: gen(*a, **{**k, 'pad_multiple': 8})\n"
+        "sim = build_sim(16, end_year=2014, econ_years=3, sizing_iters=4, device='cpu')\n"
+        "eng = ServeEngine(sim)\n"
+        f"build_surface(eng, {surf!r}, 16)\n"
+        f"assert load_and_attach(eng, {surf!r}) is None\n"
+        f"eng.attach_result_cache(ResultCache({cache!r}, provenance_key(eng)))\n"
+        "app = ServeApp(eng, ServeConfig(max_batch=16, min_bucket=16, port=0))\n"
+        "srv = start_in_thread(app)\n"
+        "c = http.client.HTTPConnection('127.0.0.1', srv.server_address[1], timeout=60)\n"
+        "codes = []\n"
+        "for body in ({'agent_ids': [3]}, {'agent_ids': [3], 'overrides': {'set': {'itc_fraction': 0.1}}},\n"
+        "             {'agent_ids': [3], 'overrides': {'set': {'itc_fraction': 0.1}}}):\n"
+        "    c.request('POST', '/query', body=json.dumps(body).encode())\n"
+        "    r = c.getresponse(); r.read(); codes.append(r.status)\n"
+        "m = app.metricz()\n"
+        "drain(app, srv); srv.server_close()\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+        "print(codes, m['surface_hits'], m['result_cache']['hits'], m['batches'],\n"
+        "      m['steady_state_compiles'])\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[200, 200, 200] 1 1 2 0"
+
+
+def test_serve_cli_refuses_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from dgen_tpu_torch.serve.__main__ import build_sim, main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_sim(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--agents", "16", "--end-year", "2014", "--build-surface", "/nonexistent"])
+
+
+def test_first_kernel_use_builds_and_loads_the_library_once(monkeypatch, tmp_path):
+    """Two threads that reach the kernel library at once (the serving
+    batcher's worker and a caller's thread) build it once and load it once;
+    later calls build and load nothing (a stub compiler and loader: no
+    nvcc here)."""
+    import threading
+
+    from dgen_tpu_torch.ops import _build
+
+    compiled, opened = [], []
+    gate = threading.Barrier(2)
+
+    def fake_compile(srcs, path):
+        compiled.append(path)
+        time.sleep(0.2)                    # a slow compile widens the race
+        with open(path, "wb") as f:
+            f.write(b"stub")
+        return ""
+
+    def fake_open(path):
+        opened.append(path)
+        return object()
+
+    monkeypatch.setattr(_build, "_BUILT", {})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "EVENTS", {"builds": 0, "loads": 0})
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build, "_open", fake_open)
+    monkeypatch.setattr(_build, "library_path", lambda csrc=None: str(tmp_path / "lib.so"))
+    libs = []
+
+    def reach():
+        gate.wait()
+        libs.append(_build.library())
+
+    threads = [threading.Thread(target=reach) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10.0)
+    assert len(libs) == 2 and libs[0] is libs[1]
+    assert len(compiled) == 1 and len(opened) == 1
+    assert _build.EVENTS == {"builds": 1, "loads": 1}
+    assert _build.library() is libs[0] and _build.build()[0] == str(tmp_path / "lib.so")
+    assert _build.EVENTS == {"builds": 1, "loads": 1}

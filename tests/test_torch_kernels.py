@@ -1024,3 +1024,25 @@ def test_staged_kernels_carry_nan_and_inf_as_the_plain_versions(cuda, kernel, la
         tol = 1e-4 * r.abs() + 1e-3 * row_max.view(-1, *[1] * (r.ndim - 1))
         assert bool(((g - r).abs() <= tol)[fin].all())
     assert not bool(torch.isfinite(got[0][1]).all())      # the NaN reached imports
+
+
+@pytest.mark.parametrize("rate_switch_frac", [0.0, 0.4], ids=["month", "pair"])
+def test_serving_answers_do_not_depend_on_the_bucket(cuda, rate_switch_frac):
+    """A serving engine's answers for the same agents are the same bits at
+    every bucket of 1 to 64 rows and at bucket=None: every bucket launches
+    at least ``LAUNCH_ROW_FLOOR`` rows (below 16 rows PyTorch's CUDA row
+    sums add a row's lanes in another order)."""
+    from dgen_tpu_torch import presets
+    from dgen_tpu_torch.serve.engine import ServeEngine
+
+    sim, _, _ = presets.build("ercot-all-sector", n_agents=1024, end_year=2014,
+                              rate_switch_frac=rate_switch_frac, device="cuda")
+    engine = ServeEngine(sim)
+    rows = np.flatnonzero(sim.host_mask > 0)[::97][:3].astype(np.int32)
+    ref = engine.query_rows(rows, 0)
+    for bucket in (1, 2, 4, 8, 16, 32, 64):
+        parts = [engine.query_rows(rows[i:i + bucket], 0, bucket=bucket)
+                 for i in range(0, len(rows), bucket)]
+        for f, want in ref.items():
+            got = np.concatenate([p[f] for p in parts])
+            assert got.tobytes() == want.tobytes(), (bucket, f)

@@ -161,7 +161,7 @@ def test_install_from_env_and_from_env_leave_the_spec_to_the_supervisor(monkeypa
         assert faults.active() is reg and reg.clauses[0].site == "ckpt_save"
     finally:
         faults.install(None)
-    monkeypatch.setenv("DGEN_TPU_FAULTS", "serve_query@1")
+    monkeypatch.setenv("DGEN_TPU_FAULTS", "front_route@1")
     with pytest.raises(NotImplementedError, match="item 11"):
         faults.install_from_env()
     assert faults.active() is None
