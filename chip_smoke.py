@@ -175,6 +175,24 @@ its first launch in the path):
      bucket of the rate-switch world, and the mixed twin of [3h] (c)
      clustered: mono-cluster buckets at P = 1 and 2 equal to the
      unclustered engine bit for bit, a mixed bucket on the full bank;
+  3l. the serving fleet (dgen_tpu_torch.serve.fleet, .front, .autoscale,
+     through resilience.fleetdrill): (a) 2 replica processes of the serve
+     CLI's synthetic population at 1,048,576 agents behind the routing
+     front, buckets of 8, 4 closed-loop clients and 80 requests, one
+     replica killed (serve_replica_kill) and one hung (serve_replica_hang)
+     mid-load: every answer equal bit for bit to an in-process ServeEngine
+     on the card (its launches counted under the fleet path), only bounded
+     503 retries, the fleet back to 2 READY replicas, the hung replica's
+     breaker closed again, nothing built or loaded after warmup on any
+     replica, the restarted one's boot loading the library and building
+     nothing, p99 under the drill's bound; then 400 requests through the
+     healed fleet (queries a second, p50, p99); the boot and restart walls
+     and the card's free memory before the spawn, with every replica up
+     and after the kill; (b) the same drill at 8,192 agents with the
+     answer surface and the shared result cache on every replica, all
+     three paths answering; (c) the scale drill at 8,192 agents, 1 -> 2 ->
+     1 on a synthetic signal, a result-cache hit byte-identical to the
+     engine's answer;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -463,6 +481,11 @@ def kernel_specs(bk, mk) -> dict:
                                              RTOL, "month", f"{bp}:343"),
         "bucket_sums_month_pair_serve": (("serve_switch", "month_pair"), *pair, 9, RTOL,
                                          "month", f"{bp}:427"),
+        # [3l]: the fleet's in-process oracle (a bucket of 8, 16 rows launched)
+        "bucket_sums_month_fleet": (("fleet", "month"), *month, 6, RTOL, "month",
+                                    f"{bp}:343"),
+        "bucket_sums_month_signed_fleet": (("fleet", "month_signed"), *month, 9, RTOL,
+                                           "month", f"{bp}:343"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
         "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
@@ -5305,6 +5328,155 @@ def serving(presets, card: str, *, device="cuda", national=None, main_agents=MAI
     return dict(runs=runs, a=a, b=b, c=c, d=d, year0=y0, wall=wall)
 
 
+#: [3l]: the serving fleet. (a) FLEET_REPLICAS replicas of the serve CLI's
+#: synthetic population at national width (each its own CUDA context,
+#: table and banks on the one card), one killed and one hung under
+#: closed-loop load; (b) the layers round and (c) the scale drill on
+#: FLEET_SMALL_AGENTS (the surface's build wall scales with the rows)
+FLEET_AGENTS = 1_048_576
+FLEET_SMALL_AGENTS = 8192
+FLEET_REPLICAS = 2
+FLEET_BUCKET = 8
+FLEET_REQUESTS = 80
+FLEET_CLIENTS = 4
+FLEET_STEADY = 400
+#: the surface of (b) and (c): year 0 (every zero-override plan of the
+#: drill's load asks year 0) at [3k] (c)'s bucket
+FLEET_SURFACE = dict(surface_bucket=64, surface_years=[0])
+#: the single-process batcher's queries/s in [3k] (a) on the same card
+#: (PERF.md §5), logged beside the fleet's
+FLEET_SINGLE_QPS = 1428.1
+
+
+def _gib(n) -> str:
+    return "not measured" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+def _fleet_gate(tag: str, rec: dict, device: str) -> None:
+    """Raise unless the drill record ``rec`` passed, naming what missed; on
+    the card every replica must have launched the kernels."""
+    if not rec["ok"]:
+        keys = ("answered", "mismatches", "client_failures", "recovered_full_strength",
+                "steady_state_compiles", "kill", "hang", "breakers", "latency_s",
+                "layers", "steady", "replica_logs_tail")
+        raise AssertionError(f"{tag} the fleet drill failed: "
+                             f"{ {k: rec.get(k) for k in keys} }")
+    if device == "cuda":
+        for i, launches in rec["replica_kernel_launches"].items():
+            if not all((launches or {}).get(k) for k in ("month", "month_signed",
+                                                           "dispatch")):
+                raise AssertionError(f"{tag} replica {i} launched no kernel: {launches}")
+
+
+def _fleet_lines(tag: str, rec: dict, card: str) -> None:
+    free = rec["card_free_bytes"]
+    per = (None if free["before_spawn"] is None or free["all_up"] is None
+           else (free["before_spawn"] - free["all_up"]) / rec["replicas"])
+    log(f"    {rec['replicas']} replicas x {rec['agents']} agents, bucket "
+        f"{rec['bucket']} ({max(rec['bucket'], 16)} rows launched); boot walls "
+        f"(spawn to READY) {rec['boot_wall_s']} s; kill {rec['kill']['spec']}: exit 77 "
+        f"{rec['kill']['exit_77_seen']}, recovered in {rec['kill']['recovery_s']} s, the "
+        f"restart's boot wall {rec['kill']['restart_boot_wall_s']} s, its boot report "
+        f"{rec['kill']['restart_boot']}; hang {rec['hang']}; breakers {rec['breakers']}")
+    log(f"    card free: before the spawn {_gib(free['before_spawn'])}, every replica up "
+        f"{_gib(free['all_up'])} ({_gib(per)} a replica), once the killed replica's exit "
+        f"was seen {_gib(free['after_kill'])}, recovered {_gib(free['recovered'])}")
+    lat = rec["latency_s"]
+    log(f"    {rec['answered']} of {rec['requests']} answered, each equal to the oracle "
+        f"bit for bit (mismatches {rec['mismatches']}), 503 retries "
+        f"{rec['retries_503']}; client p50 {lat['p50']} s, p99 {lat['p99']} s (bound "
+        f"{lat['p99_bound_s']}), {rec['qps_through_faults']} queries/s through the "
+        f"kill and the hang; front {rec['front']}; builds and loads since warmup "
+        f"{rec['steady_state_compiles']}; the replicas' kernel launches "
+        f"{rec['replica_kernel_launches']} ({card})")
+    if rec.get("steady"):
+        st = rec["steady"]
+        log(f"    healed fleet: {st['answered']} of {st['requests']} requests, "
+            f"{FLEET_CLIENTS} closed-loop clients through the front, {st['qps']} "
+            f"queries/s over {st['wall_s']} s ([3k] (a)'s single-process batcher: "
+            f"{FLEET_SINGLE_QPS}), latency {st['latency_s']} s, mismatches "
+            f"{st['unchecked']} ({card})")
+    if rec.get("layers"):
+        log(f"    layers: surface built in {rec['surface_build_s']} s; {rec['layers']}")
+
+
+def serving_fleet(card: str, *, device="cuda", agents=FLEET_AGENTS,
+                  small_agents=FLEET_SMALL_AGENTS, requests=FLEET_REQUESTS,
+                  steady=FLEET_STEADY, drill_kw=None) -> dict:
+    """[3l]: (a) ``run_fleet_drill`` at ``agents`` with the kill and the hang,
+    then ``steady`` requests through the healed fleet, the in-process
+    oracle's launches counted under the ``fleet`` path (its first launches
+    kept); (b) the layers round and (c) ``run_scale_drill`` at
+    ``small_agents``. The card's memory is released and logged before the
+    spawn. ``drill_kw``: settings laid over the fleet drills' (the CPU
+    rehearsal's timeouts). Raises on any miss; returns the fleet path's
+    launches and captures and the records."""
+    import gc
+
+    import torch
+
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.resilience.fleetdrill import run_fleet_drill, run_scale_drill
+
+    drill_kw = dict(drill_kw or {})
+    t0 = time.perf_counter()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[3l] the serving fleet: card free {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB before the spawn, this process's allocator "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved ({card})")
+    capture = {}
+    _reset_counts()
+    bk.CAPTURE = capture
+    try:
+        with first_dispatch(capture):
+            a = run_fleet_drill(replicas=FLEET_REPLICAS, agents=agents,
+                                requests=requests, clients=FLEET_CLIENTS,
+                                bucket=FLEET_BUCKET, steady_requests=steady,
+                                device=device, **drill_kw)
+    finally:
+        bk.CAPTURE = None
+        launches = _launch_counts()
+    log(f"[3l] (a) run_fleet_drill: the oracle (an in-process ServeEngine) warmed in "
+        f"{a['oracle_warmup_s']} s; drill wall {a['drill_wall_s']} s; the oracle's "
+        f"launches (the fleet path) {({k: v for k, v in launches.items() if v})}")
+    _fleet_lines("[3l] (a)", a, card)
+    _fleet_gate("[3l] (a)", a, device)
+    if device == "cuda":
+        need_launches("[3l] (a) the fleet oracle", launches,
+                      ("month", "month_signed", "dispatch"))
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    b = run_fleet_drill(replicas=FLEET_REPLICAS, agents=small_agents, requests=requests,
+                        clients=FLEET_CLIENTS, bucket=FLEET_BUCKET, layers=True,
+                        device=device, **FLEET_SURFACE, **drill_kw)
+    log(f"[3l] (b) run_fleet_drill(layers=True) at {small_agents} agents: drill wall "
+        f"{b['drill_wall_s']} s")
+    _fleet_lines("[3l] (b)", b, card)
+    _fleet_gate("[3l] (b)", b, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    c = run_scale_drill(agents=small_agents, bucket=FLEET_BUCKET, device=device,
+                        **FLEET_SURFACE)
+    log(f"[3l] (c) run_scale_drill at {small_agents} agents: ok {c['ok']}; 1 -> 2 -> 1 "
+        f"(ups {c['scale_ups']}, downs {c['scale_downs']}; the added replica's boot "
+        f"wall {c['scale_up_boot_wall_s']} s; the retired one's exit codes "
+        f"{c['retired_exit_codes']}); the cached answer byte-identical "
+        f"{c['cache_answer_byte_identical']}, result cache {c['result_cache']}; "
+        f"ledger {[e['event'] for e in c['supervisor_events']]}; drill wall "
+        f"{c['drill_wall_s']} s ({card})")
+    if not c["ok"]:
+        raise AssertionError(f"[3l] (c) the scale drill failed: {c}")
+    wall = time.perf_counter() - t0
+    log(f"[3l] the serving fleet (a)-(c): {wall:.3f} s ({card})")
+    return dict(launches=launches, capture=capture, a=a, b=b, c=c, wall=wall)
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -5429,6 +5601,11 @@ def main(argv=None) -> int:
     # --- 3k: the serving stack ---
     serve = serving(presets, card)
     runs.update(serve["runs"])
+    torch.cuda.empty_cache()
+
+    # --- 3l: the serving fleet ---
+    fleet = serving_fleet(card)
+    runs["fleet"] = dict(launches=fleet["launches"], capture=fleet["capture"])
     torch.cuda.empty_cache()
 
     # --- 4: the gated main path ---
@@ -5578,7 +5755,7 @@ def main(argv=None) -> int:
         "launches (a clustered run's), not in the kernels line:")
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     oracle_dispatch = captures["oracle"]["dispatch"]
-    serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64")}
+    serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64", "fleet")}
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -5597,7 +5774,9 @@ def main(argv=None) -> int:
     del oracle_dispatch
     srows = []
     for key, ops in serve_dispatch.items():
-        log(f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
+        log("  the battery dispatch kernel on [3l] (a)'s first oracle dispatch (the "
+            "fleet path, a bucket of 8 launching 16 rows):" if key == "fleet" else
+            f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
             f"{key[5:]} (the serving path):")
         r = dispatch_row(ops, runs[key]["launches"]["dispatch"])
         r.update(name=f"battery_dispatch_{key}", path=key)

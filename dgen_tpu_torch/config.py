@@ -12,8 +12,10 @@ quarantine, the fault spec of the run supervisor, the differentiable
 twin's smooth boundaries (``soft_boundaries``, ``soft_tau``) and the
 run's ``seed``. ``ServeConfig`` is the serving stack's (buckets, queue,
 HTTP, answer surface, result cache), with the JAX package's
-``DGEN_TPU_SERVE_*`` switches and validation. Other knobs arrive with
-the slices that port them.
+``DGEN_TPU_SERVE_*`` switches and validation, and ``FleetConfig`` the
+serving fleet's (replicas, breakers, shedding, drain, autoscaling), with
+its ``DGEN_TPU_FLEET_*`` switches. Other knobs arrive with the slices that
+port them.
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
 of the ported fields, and refuses a switch that asks for a feature the
@@ -419,4 +421,136 @@ class ServeConfig:
         raw = env("DGEN_TPU_SERVE_WARMUP")
         if "warmup" not in overrides and raw:
             overrides["warmup"] = raw not in ("0", "false", "off")
+        return cls(**overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Settings of the serving fleet (:mod:`dgen_tpu_torch.serve.fleet`,
+    :mod:`~dgen_tpu_torch.serve.front`, :mod:`~dgen_tpu_torch.serve.autoscale`):
+    how many replicas, when a replica counts as routable, how the front's
+    per-replica circuit breakers trip and recover, when the fleet sheds
+    load, how a drain is bounded, and the autoscaler's bands. The JAX
+    package's fields, defaults, validation and ``DGEN_TPU_FLEET_*``
+    switches (:meth:`from_env`)."""
+
+    #: replica processes the supervisor keeps alive
+    n_replicas: int = 2
+    #: front bind address (port 0: an ephemeral port)
+    host: str = "127.0.0.1"
+    port: int = 8177
+    #: a spawned replica must reach READY (portfile written and /readyz
+    #: green) within this wall, or it is killed and counted as a death
+    boot_timeout_s: float = 180.0
+    #: supervisor monitor cadence (liveness polls, restart scheduling)
+    poll_interval_s: float = 0.2
+    #: crash-loop breaker: more than this many deaths inside
+    #: ``restart_window_s`` marks the replica FAILED (no more restarts)
+    max_restarts: int = 5
+    restart_window_s: float = 120.0
+    #: front breaker: consecutive forward failures that OPEN it, and how
+    #: long it stays open before one HALF_OPEN probe request
+    breaker_failures: int = 3
+    breaker_cooldown_s: float = 1.0
+    #: front -> replica forward deadline (connect and response)
+    request_timeout_s: float = 30.0
+    #: shed when the READY replicas' summed queue depth reaches this
+    #: fraction of their summed queue capacity
+    shed_queue_frac: float = 0.8
+    #: Retry-After seconds of every 503 the front generates
+    retry_after_s: float = 1.0
+    #: the front's /metricz scrape cadence (the shed signal's freshness)
+    metricz_interval_s: float = 0.5
+    #: graceful drain bound
+    drain_timeout_s: float = 30.0
+    #: size the fleet between min_replicas and max_replicas from the
+    #: aggregated /metricz pressure (``serve.autoscale.Autoscaler``)
+    autoscale: bool = False
+    #: autoscale bounds (n_replicas, the boot size, lies within them when
+    #: autoscaling is on)
+    min_replicas: int = 1
+    max_replicas: int = 4
+    #: scale up when the queue fraction or the batch occupancy reaches its
+    #: threshold for scale_up_sustain_s
+    scale_up_queue_frac: float = 0.25
+    scale_up_occupancy: float = 0.75
+    scale_up_sustain_s: float = 2.0
+    #: scale down when both sit at or below their bound for
+    #: scale_down_sustain_s (hysteresis: strictly below the up thresholds)
+    scale_down_queue_frac: float = 0.02
+    scale_down_occupancy: float = 0.25
+    scale_down_sustain_s: float = 10.0
+    #: least wall between any two scale actions
+    scale_cooldown_s: float = 5.0
+    #: autoscaler decision cadence
+    scale_interval_s: float = 0.5
+
+    def __post_init__(self) -> None:
+        _check(self.n_replicas >= 1, "n_replicas must be >= 1")
+        _check(self.min_replicas >= 1, "min_replicas must be >= 1")
+        _check(self.max_replicas >= self.min_replicas,
+               "max_replicas must be >= min_replicas")
+        if self.autoscale:
+            _check(self.min_replicas <= self.n_replicas <= self.max_replicas,
+                   "with autoscale on, n_replicas (the boot size) must lie "
+                   "within [min_replicas, max_replicas]")
+        _check(0.0 < self.scale_up_queue_frac <= 1.0,
+               "scale_up_queue_frac must be in (0, 1]")
+        _check(0.0 <= self.scale_down_queue_frac < self.scale_up_queue_frac,
+               "scale_down_queue_frac must be < scale_up_queue_frac (hysteresis)")
+        _check(0.0 < self.scale_up_occupancy <= 1.0,
+               "scale_up_occupancy must be in (0, 1]")
+        _check(0.0 <= self.scale_down_occupancy < self.scale_up_occupancy,
+               "scale_down_occupancy must be < scale_up_occupancy (hysteresis)")
+        _check(self.scale_up_sustain_s >= 0, "scale_up_sustain_s must be >= 0")
+        _check(self.scale_down_sustain_s >= 0, "scale_down_sustain_s must be >= 0")
+        _check(self.scale_cooldown_s >= 0, "scale_cooldown_s must be >= 0")
+        _check(self.scale_interval_s > 0, "scale_interval_s must be > 0")
+        _check(0 <= self.port <= 65535, "port out of range")
+        _check(self.boot_timeout_s > 0, "boot_timeout_s must be > 0")
+        _check(self.poll_interval_s > 0, "poll_interval_s must be > 0")
+        _check(self.max_restarts >= 0, "max_restarts must be >= 0")
+        _check(self.restart_window_s > 0, "restart_window_s must be > 0")
+        _check(self.breaker_failures >= 1, "breaker_failures must be >= 1")
+        _check(self.breaker_cooldown_s >= 0, "breaker_cooldown_s must be >= 0")
+        _check(self.request_timeout_s > 0, "request_timeout_s must be > 0")
+        _check(0.0 < self.shed_queue_frac <= 1.0, "shed_queue_frac must be in (0, 1]")
+        _check(self.retry_after_s >= 0, "retry_after_s must be >= 0")
+        _check(self.metricz_interval_s > 0, "metricz_interval_s must be > 0")
+        _check(self.drain_timeout_s > 0, "drain_timeout_s must be > 0")
+
+    @classmethod
+    def from_env(cls, **overrides) -> "FleetConfig":
+        """The JAX package's switches: DGEN_TPU_FLEET_REPLICAS, _HOST, _PORT,
+        _BOOT_TIMEOUT_S, _MAX_RESTARTS, _BREAKER_FAILURES,
+        _BREAKER_COOLDOWN_S, _REQ_TIMEOUT_S, _SHED_FRAC, _RETRY_AFTER_S,
+        _DRAIN_TIMEOUT_S, _AUTOSCALE (0/false/off = off), _MIN_REPLICAS,
+        _MAX_REPLICAS, _SCALE_UP_QUEUE_FRAC, _SCALE_UP_SUSTAIN_S,
+        _SCALE_DOWN_SUSTAIN_S, _SCALE_COOLDOWN_S; an explicit keyword wins
+        over its switch."""
+        env = os.environ.get
+        raw = env("DGEN_TPU_FLEET_AUTOSCALE")
+        if "autoscale" not in overrides and raw:
+            overrides["autoscale"] = raw not in ("0", "false", "off")
+        for field, name, conv in (
+                ("n_replicas", "REPLICAS", int),
+                ("host", "HOST", str),
+                ("port", "PORT", int),
+                ("boot_timeout_s", "BOOT_TIMEOUT_S", float),
+                ("max_restarts", "MAX_RESTARTS", int),
+                ("breaker_failures", "BREAKER_FAILURES", int),
+                ("breaker_cooldown_s", "BREAKER_COOLDOWN_S", float),
+                ("request_timeout_s", "REQ_TIMEOUT_S", float),
+                ("shed_queue_frac", "SHED_FRAC", float),
+                ("retry_after_s", "RETRY_AFTER_S", float),
+                ("drain_timeout_s", "DRAIN_TIMEOUT_S", float),
+                ("min_replicas", "MIN_REPLICAS", int),
+                ("max_replicas", "MAX_REPLICAS", int),
+                ("scale_up_queue_frac", "SCALE_UP_QUEUE_FRAC", float),
+                ("scale_up_sustain_s", "SCALE_UP_SUSTAIN_S", float),
+                ("scale_down_sustain_s", "SCALE_DOWN_SUSTAIN_S", float),
+                ("scale_cooldown_s", "SCALE_COOLDOWN_S", float)):
+            raw = env(f"DGEN_TPU_FLEET_{name}")
+            if field not in overrides and raw:
+                overrides[field] = conv(raw)
         return cls(**overrides)

@@ -12,15 +12,21 @@ kernels, built with this checkout's flags); it defaults to this one.
 
 The first use is locked: two threads that reach a kernel at once (the
 serving batcher's worker and a caller's thread) build and load the
-library once. :data:`EVENTS` counts the libraries this process compiled
-and loaded; a serving process reports both since its warmup, where they
-stay 0 (the port's counterpart of the JAX package's steady-state
-compile count).
+library once, and two processes that reach the build at once (the
+replicas of a serving fleet, booting together) compile it once: the
+check-then-compile holds an exclusive file lock beside the library
+(``<library>.lock``), and the second process finds the first one's
+library when it gets the lock. :data:`EVENTS` counts the libraries this
+process compiled and loaded; a serving process reports both since its
+warmup, where they stay 0 (the port's counterpart of the JAX package's
+steady-state compile count).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import logging
@@ -219,10 +225,23 @@ def _compile(srcs: list[str], path: str) -> str:
     return log
 
 
+@contextlib.contextmanager
+def _process_lock(path: str):
+    """An exclusive lock on the file ``path`` (made if missing), held across
+    processes; the system releases it when its holder dies."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(csrc: str | None = None) -> tuple[str, float, str]:
     """(library path, build seconds, compiler log). Compiles only when the
     library for these sources is missing; seconds is 0.0 then. Once per
-    process and ``csrc``, under the module lock."""
+    process and ``csrc``, under the module lock, and once across processes,
+    under the library's file lock."""
     with _LOCK:
         done = _BUILT.get(csrc)
         if done is not None:
@@ -231,14 +250,20 @@ def build(csrc: str | None = None) -> tuple[str, float, str]:
         if os.path.exists(path):
             done = (path, 0.0, "")
         else:
-            t0 = time.perf_counter()
-            log = _compile(sources(csrc), path)
-            EVENTS["builds"] += 1
-            for row in kernel_resources(log):
-                logger.info("%s: %s registers, %d bytes spilled, %d bytes static "
-                            "shared memory", row["kernel"], row["registers"],
-                            row["spill_bytes"], row["smem_bytes"])
-            done = (path, time.perf_counter() - t0, log)
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with _process_lock(path + ".lock"):
+                if os.path.exists(path):   # another process built it meanwhile
+                    done = (path, 0.0, "")
+                else:
+                    t0 = time.perf_counter()
+                    log = _compile(sources(csrc), path)
+                    EVENTS["builds"] += 1
+                    for row in kernel_resources(log):
+                        logger.info("%s: %s registers, %d bytes spilled, %d bytes "
+                                    "static shared memory", row["kernel"],
+                                    row["registers"], row["spill_bytes"],
+                                    row["smem_bytes"])
+                    done = (path, time.perf_counter() - t0, log)
         _BUILT[csrc] = done
         return done
 

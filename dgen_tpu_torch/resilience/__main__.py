@@ -22,9 +22,16 @@ cpu``).
     The fault matrix on a small population: every run-path fault site
     fired mid-run, recovered, and compared byte for byte against an
     uninterrupted run. ``--quarantine`` runs the quarantine drill instead
-    (``--fast``: its load-time rounds only). The JAX package's
-    ``--serve-fleet``, ``--serve-scale``, ``--layers`` and ``--gang``
-    drills are not ported and raise ``NotImplementedError``.
+    (``--fast``: its load-time rounds only). ``--serve-fleet`` runs the
+    serving-fleet drill (``--replicas``, ``--requests``; ``--layers`` arms
+    the answer surface and the shared result cache), ``--serve-scale`` the
+    autoscale drill (:mod:`.fleetdrill`)::
+
+        python -m dgen_tpu_torch.resilience drill --serve-fleet --layers --agents 64
+        python -m dgen_tpu_torch.resilience drill --serve-scale --agents 64
+
+    The JAX package's ``--gang`` drill is not ported and raises
+    ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,11 +87,14 @@ def _cmd_verify(args) -> int:
 
 #: the JAX package's drills that the port does not have -> ROADMAP.md item
 _UNPORTED_DRILLS = {
-    "serve_fleet": "item 11 (serving: the fleet part)",
-    "serve_scale": "item 11 (serving: the fleet part)",
-    "layers": "item 11 (serving: the fleet part)",
     "gang": "item 7 (multi-GPU)",
 }
+
+
+def _print_record(rec: dict) -> int:
+    rec.pop("supervisor_events", None)   # the event detail is for logs
+    print(json.dumps(rec, indent=1))
+    return 0 if rec["ok"] else 1
 
 
 def _cmd_drill(args) -> int:
@@ -96,6 +106,17 @@ def _cmd_drill(args) -> int:
                 f"--{flag.replace('_', '-')}: that drill is not ported; it comes "
                 f"with ROADMAP.md {item}")
     end_year = args.end_year or 2016
+    if args.serve_scale:
+        from dgen_tpu_torch.resilience.fleetdrill import run_scale_drill
+
+        return _print_record(run_scale_drill(agents=args.agents, end_year=end_year,
+                                             device=args.device))
+    if args.serve_fleet:
+        from dgen_tpu_torch.resilience.fleetdrill import run_fleet_drill
+
+        return _print_record(run_fleet_drill(
+            replicas=args.replicas, agents=args.agents, end_year=end_year,
+            requests=args.requests, layers=args.layers, device=args.device))
     if args.quarantine:
         from dgen_tpu_torch.resilience.quarantinedrill import run_quarantine_drill
 
@@ -166,13 +187,25 @@ def main(argv=None) -> int:
                           "at bank load and mid-run, each contained")
     drl.add_argument("--fast", action="store_true",
                      help="quarantine drill: the load-time rounds only")
-    for flag in ("--serve-fleet", "--serve-scale", "--layers", "--gang"):
-        drl.add_argument(flag, action="store_true",
-                         help="the JAX package's drill; not ported (raises)")
-    # the JAX package's settings of those drills, accepted so that its
-    # command lines reach the NotImplementedError above
-    for flag in ("--gang-processes", "--gang-shrink", "--gang-devices", "--replicas",
-                 "--requests"):
+    drl.add_argument("--serve-fleet", action="store_true",
+                     help="the serving-fleet drill instead: a replica fleet, one "
+                          "replica killed and one hung under closed-loop load; every "
+                          "answer bit for bit equal to an in-process engine's")
+    drl.add_argument("--serve-scale", action="store_true",
+                     help="the autoscale drill instead: a one-replica fleet scaled "
+                          "1 -> 2 -> 1 on a synthetic signal, with a result-cache hit "
+                          "byte-identical to the engine's answer")
+    drl.add_argument("--layers", action="store_true",
+                     help="fleet drill: arm the answer surface and the shared result "
+                          "cache on every replica; all three paths must answer")
+    drl.add_argument("--replicas", type=int, default=2, help="fleet drill: replicas")
+    drl.add_argument("--requests", type=int, default=80,
+                     help="fleet drill: client requests")
+    drl.add_argument("--gang", action="store_true",
+                     help="the JAX package's gang drill; not ported (raises)")
+    # the JAX package's settings of that drill, accepted so that its command
+    # lines reach the NotImplementedError above
+    for flag in ("--gang-processes", "--gang-shrink", "--gang-devices"):
         drl.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     drl.add_argument("--no-gang-stall", action="store_true", help=argparse.SUPPRESS)
     device_arg(drl)

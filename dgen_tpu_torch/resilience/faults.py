@@ -39,10 +39,10 @@ halves the landed file, then raises; ``hang`` sleeps
 ``DGEN_TPU_FAULT_HANG_S`` seconds and carries on; ``corrupt`` returns to
 the caller, which damages its data deterministically and carries on.
 
-The sites are those of the single-process run path, the sweep and the
-single-process serving stack that the port has. A spec naming one of
-the JAX package's other sites (input reads, the serving fleet's front,
-the multi-process gang) raises
+The sites are those of the single-process run path, the sweep, the
+serving stack and the serving fleet's front that the port has. A spec
+naming one of the JAX package's other sites (input reads, the
+multi-process gang) raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it; a
 name neither package knows is refused with ``ValueError``, as in the
 JAX package.
@@ -118,6 +118,12 @@ SITES: Dict[str, str] = {
         "DGEN_TPU_FAULT_HANG_S seconds, stalling every queued batch; the "
         "handlers' request deadline answers 504)"
     ),
+    "front_route": (
+        "serve.front.FleetFront.route_query: a forward attempt to the chosen "
+        "replica failing at the routing layer (connection refused or reset); "
+        "the front must count it against that replica's breaker and retry on "
+        "another replica"
+    ),
     "surface_load": (
         "serve.surface.AnswerSurface.load: the precomputed answer surface "
         "failing to load or verify at boot (``error``: an unreadable map; "
@@ -137,7 +143,6 @@ SITES: Dict[str, str] = {
 #: the JAX package's other sites -> the ROADMAP.md item that ports them
 UNPORTED_SITES: Dict[str, str] = {
     "ingest": "item 3 (the remaining host inputs)",
-    "front_route": "item 11 (serving: the fleet part)",
     "gang_worker_kill": "item 7 (multi-GPU)",
     "gang_heartbeat_stall": "item 7 (multi-GPU)",
     "gang_barrier": "item 7 (multi-GPU)",

@@ -1,5 +1,5 @@
 """dgen_tpu_torch.serve: the online what-if query engine on one card (port
-of the single-process part of ``dgen_tpu/serve``).
+of ``dgen_tpu/serve``).
 
 A long-lived process holds a placed Simulation (agent table, profile and
 tariff banks) and answers per-agent queries (optimal PV+storage size,
@@ -18,10 +18,13 @@ zero-override question can be answered from a precomputed, provenance
 gated, memory-mapped :class:`~.surface.AnswerSurface`
 (``--build-surface`` / ``--surface``), and repeated what-ifs from the
 exact :class:`~.resultcache.ResultCache` (``--cache-dir``). The fleet
-(replica supervisor, routing front, autoscaler) is ``ROADMAP.md`` item
-11's next part.
+(``--fleet N``): a :class:`~.fleet.ReplicaSupervisor` keeps N replica
+processes alive on the card, a :class:`~.front.FleetFront` routes over
+them with per-replica :class:`~.front.CircuitBreaker` s, shedding and a
+bounded drain, and an :class:`~.autoscale.Autoscaler` sizes the fleet.
 """
 
+from dgen_tpu_torch.serve.autoscale import Autoscaler  # noqa: F401
 from dgen_tpu_torch.serve.batcher import Microbatcher, QueueFullError  # noqa: F401
 from dgen_tpu_torch.serve.engine import (  # noqa: F401
     QUERY_FIELDS,
@@ -32,6 +35,12 @@ from dgen_tpu_torch.serve.engine import (  # noqa: F401
     override_key,
     query_program,
 )
+from dgen_tpu_torch.serve.fleet import (  # noqa: F401
+    HTTPPool,
+    ReplicaSupervisor,
+    default_replica_cmd,
+)
+from dgen_tpu_torch.serve.front import CircuitBreaker, FleetFront  # noqa: F401
 from dgen_tpu_torch.serve.resultcache import ResultCache  # noqa: F401
 from dgen_tpu_torch.serve.surface import (  # noqa: F401
     AnswerSurface,

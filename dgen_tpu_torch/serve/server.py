@@ -1,7 +1,8 @@
 """Threaded JSON-over-HTTP front-end of the serving engine (port of
-``dgen_tpu/serve/server.py``, the single-process part).
+``dgen_tpu/serve/server.py``).
 
-Standard library only (``http.server``). One process serves:
+Standard library only (``http.server``). One process (a single server,
+or one replica of the fleet, :mod:`dgen_tpu_torch.serve.fleet`) serves:
 
   * ``POST /query``   {"agent_ids": [...], "year": 2026,
                        "overrides": {"scale": {"itc_fraction": 0.5}},
@@ -11,14 +12,16 @@ Standard library only (``http.server``). One process serves:
                       (``io.export.provenance_stamp``: git sha, config
                       hash, backend, device count), warm buckets and the
                       boot report (warmup wall, the kernel-library builds
-                      and loads during warmup)
+                      and loads during warmup), and who answers (pid,
+                      ``replica_index``)
   * ``GET  /readyz``  readiness: 200 only once warmup completed and some
                       bucket is warm, and while not draining
   * ``GET  /metricz`` p50/p99 request latency, queue depth, batch
                       occupancy, surface and cache counters, and
                       ``steady_state_compiles``: the kernel-library builds
                       and loads (``ops._build.EVENTS``) since warmup, which
-                      stay 0 (the JAX package counts XLA compiles there)
+                      stay 0 (the JAX package counts XLA compiles there),
+                      and this process's kernel launches
 
 Status codes: 400 for an unknown or non-integral id, an off-grid year or
 a bad override; 422 with the reasons for a quarantined agent; 503 (with
@@ -51,7 +54,7 @@ import numpy as np
 
 from dgen_tpu_torch.config import ServeConfig
 from dgen_tpu_torch.io.export import provenance_stamp
-from dgen_tpu_torch.ops import _build
+from dgen_tpu_torch.ops import _build, billkernels, dispatch
 from dgen_tpu_torch.resilience import faults as faults_mod
 from dgen_tpu_torch.resilience.quarantine import QuarantinedAgentError
 from dgen_tpu_torch.serve.batcher import BATCH_WALL, Microbatcher, QueueFullError
@@ -63,8 +66,13 @@ logger = logging.getLogger(__name__)
 #: request-body cap: a /query of max_batch agents with overrides is a few KB
 _MAX_BODY_BYTES = 1 << 20
 
-#: Retry-After of the 503s (queue full, draining)
+#: Retry-After of the 503s (queue full, draining); the fleet front has its
+#: own (FleetConfig.retry_after_s)
 _RETRY_AFTER_S = 1
+
+#: the replica index of a fleet-spawned process (set by serve.fleet;
+#: stamped into /healthz and /metricz)
+REPLICA_ENV = "DGEN_TPU_SERVE_REPLICA"
 
 
 class DrainingError(RuntimeError):
@@ -72,8 +80,9 @@ class DrainingError(RuntimeError):
 
 
 class InflightTracker:
-    """Drain bookkeeping: count requests in flight, flip a draining flag,
-    and wait (bounded) for the count to reach zero."""
+    """Drain bookkeeping shared by a serving process and the fleet front:
+    count requests in flight, flip a draining flag, and wait (bounded) for
+    the count to reach zero."""
 
     def __init__(self) -> None:
         self.draining = False
@@ -91,6 +100,11 @@ class InflightTracker:
         with self._cv:
             self._inflight -= 1
             self._cv.notify_all()
+
+    @property
+    def inflight(self) -> int:
+        with self._cv:
+            return self._inflight
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
         """True once nothing is in flight; False when the timeout lapses."""
@@ -131,20 +145,33 @@ def _library_events() -> dict:
     return dict(_build.EVENTS)
 
 
+def _env_replica_index() -> Optional[int]:
+    raw = os.environ.get(REPLICA_ENV, "").strip()
+    try:
+        return int(raw) if raw else None
+    except ValueError:
+        return None
+
+
 class ServeApp:
     """The server's state: engine, batcher and provenance, shared by every
     handler thread.
 
     ``defer_warmup=True`` skips warmup at construction, so the socket can
     bind (and /healthz answer) first; the caller then runs
-    :meth:`warmup_now`, and /readyz stays 503 until it has."""
+    :meth:`warmup_now`, and /readyz stays 503 until it has.
+    ``replica_index``: the fleet replica this process is (default: the
+    ``DGEN_TPU_SERVE_REPLICA`` variable; None for a single process)."""
 
     def __init__(self, engine: ServeEngine, config: Optional[ServeConfig] = None,
+                 replica_index: Optional[int] = None,
                  defer_warmup: bool = False) -> None:
         self.engine = engine
         self.config = config or ServeConfig()
         self.batcher = Microbatcher(engine, self.config)
         self.t_start = time.time()
+        self.replica_index = (replica_index if replica_index is not None
+                              else _env_replica_index())
         self._drain = InflightTracker()
         self.boot_report: dict = {}
         self._warmup_done = not self.config.warmup
@@ -196,11 +223,11 @@ class ServeApp:
     # -- endpoint bodies (transport-independent) -----------------------
 
     def identity(self) -> dict:
-        """Who answers (the JAX package's keys; a single process has no
-        fleet replica index)."""
+        """Who answers: stamped into /healthz and /metricz, so a fleet
+        operator can tell replicas apart."""
         return {
             "pid": os.getpid(),
-            "replica_index": None,
+            "replica_index": self.replica_index,
             "boot_time_unix": round(self.t_start, 3),
             "uptime_s": round(time.time() - self.t_start, 1),
         }
@@ -242,6 +269,8 @@ class ServeApp:
         rec["draining"] = self.draining
         if self._warmup_done:
             rec["steady_state_compiles"] = self.steady_state_compiles
+        rec["kernel_launches"] = {k: v for k, v in {**billkernels.LAUNCHES,
+                                                    **dispatch.LAUNCHES}.items() if v}
         reg = faults_mod.active()
         if reg is not None:
             rec["faults_fired"] = {s: reg.fired(s) for s in faults_mod.SITES
@@ -292,20 +321,23 @@ class ServeApp:
         self.batcher.close()
 
 
-class _Handler(BaseHTTPRequestHandler):
-    """Routes to the :class:`ServeApp` attached to the server."""
+class JsonHandler(BaseHTTPRequestHandler):
+    """The JSON plumbing of a serving process's handler and the fleet
+    front's: the per-connection socket timeout, JSON answers with extra
+    headers, body reads that never desync a keep-alive stream, quiet
+    logging."""
 
     protocol_version = "HTTP/1.1"
-    #: Nagle and delayed ACKs cost ~40 ms a keep-alive POST on loopback
+    #: Nagle and delayed ACKs cost ~40 ms a keep-alive POST on loopback (the
+    #: fleet's client side sets TCP_NODELAY too)
     disable_nagle_algorithm = True
 
-    @property
-    def app(self) -> ServeApp:
-        return self.server.app  # type: ignore[attr-defined]
+    def _socket_timeout_s(self) -> float:
+        raise NotImplementedError
 
     def setup(self) -> None:
         # a client that stops sending (or never reads) releases the thread
-        self.timeout = self.app.config.socket_timeout_s
+        self.timeout = self._socket_timeout_s()
         super().setup()
 
     def _send(self, code: int, payload: dict, close: bool = False,
@@ -340,6 +372,17 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt: str, *args) -> None:
         logger.debug("serve http: " + fmt, *args)
+
+
+class _Handler(JsonHandler):
+    """Routes to the :class:`ServeApp` attached to the server."""
+
+    @property
+    def app(self) -> ServeApp:
+        return self.server.app  # type: ignore[attr-defined]
+
+    def _socket_timeout_s(self) -> float:
+        return self.app.config.socket_timeout_s
 
     def do_GET(self) -> None:  # noqa: N802 - http.server contract
         if self.path == "/healthz":

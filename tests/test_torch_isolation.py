@@ -61,6 +61,8 @@ def test_port_imports_with_jax_unavailable():
         "import dgen_tpu_torch.grad.newton, dgen_tpu_torch.grad.calibrate\n"
         "import dgen_tpu_torch.grad.policy, dgen_tpu_torch.grad.__main__\n"
         "import dgen_tpu_torch.analysis, dgen_tpu_torch.ops.demand\n"
+        "import dgen_tpu_torch.serve.fleet, dgen_tpu_torch.serve.front\n"
+        "import dgen_tpu_torch.serve.autoscale, dgen_tpu_torch.resilience.fleetdrill\n"
         "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v]\n"
         "print('ok')\n"
     )
@@ -408,7 +410,7 @@ def test_chip_smoke_imports_no_pandas_side_of_the_port():
 RESILIENCE_MODULES = tuple(
     f"dgen_tpu_torch.resilience.{m}" for m in (
         "faults", "quarantine", "manifest", "supervisor", "drill", "quarantinedrill",
-        "__main__"))
+        "fleetdrill", "__main__"))
 
 
 def test_resilience_needs_no_pandas_pyarrow_orbax_or_jax(tmp_path):
@@ -547,6 +549,8 @@ def test_serving_stack_needs_no_pandas_pyarrow_or_jax(tmp_path):
         "import http.client, json, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import dgen_tpu_torch.serve.__main__, dgen_tpu_torch.tools.row_count_probe\n"
+        "import dgen_tpu_torch.serve.fleet, dgen_tpu_torch.serve.front\n"
+        "import dgen_tpu_torch.serve.autoscale\n"
         "from dgen_tpu_torch.config import ServeConfig\n"
         "from dgen_tpu_torch.io import synth\n"
         "from dgen_tpu_torch.serve import ResultCache, ServeEngine, build_surface\n"

@@ -161,8 +161,8 @@ def test_install_from_env_and_from_env_leave_the_spec_to_the_supervisor(monkeypa
         assert faults.active() is reg and reg.clauses[0].site == "ckpt_save"
     finally:
         faults.install(None)
-    monkeypatch.setenv("DGEN_TPU_FAULTS", "front_route@1")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    monkeypatch.setenv("DGEN_TPU_FAULTS", "gang_barrier@1")
+    with pytest.raises(NotImplementedError, match="item 7"):
         faults.install_from_env()
     assert faults.active() is None
 
@@ -398,11 +398,13 @@ def test_verify_cli_exit_codes(tmp_path):
 
 
 def test_cli_refuses_the_unported_drills():
-    from dgen_tpu_torch.resilience.__main__ import main
+    from dgen_tpu_torch.resilience.__main__ import _UNPORTED_DRILLS, main
 
+    # the serving-fleet drills are ported (tests/test_torch_fleet.py); the
+    # gang drill is the one left
+    assert _UNPORTED_DRILLS == {"gang": "item 7 (multi-GPU)"}
     for args, item in ((["--gang", "--gang-processes", "4"], "item 7"),
-                       (["--serve-fleet", "--replicas", "2"], "item 11"),
-                       (["--serve-scale"], "item 11"), (["--layers"], "item 11")):
+                       (["--gang", "--serve-fleet"], "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             main(["drill", *args, "--device", "cpu"])
 

@@ -509,12 +509,12 @@ def test_serve_config_refuses_what_jax_refuses(bad):
 
 
 def test_serving_fault_sites_are_ported_and_the_fleet_site_is_not():
+    # the fleet's front_route site is ported too since the fleet is
     for site in ("serve_query", "serve_replica_kill", "serve_replica_hang",
-                 "surface_load"):
+                 "surface_load", "front_route"):
         assert site in faults.SITES and site not in faults.UNPORTED_SITES
         assert faults.parse_spec(f"{site}@2")[0].nth == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        faults.parse_spec("front_route@1")
+    assert not any("item 11" in item for item in faults.UNPORTED_SITES.values())
 
 
 # ---------------------------------------------------------------------------

@@ -321,8 +321,18 @@ def test_cli_builds_a_surface_and_prints_its_header(tmp_path, capsys, monkeypatc
     assert set(t.columns) == set(QUERY_FIELDS)
 
 
-@pytest.mark.parametrize("flags", [["--fleet", "2"], ["--autoscale"],
-                                   ["--replica-index", "0"]])
-def test_cli_refuses_the_fleet_modes(flags):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(["--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,runner", [(["--fleet", "2"], "_run_fleet"),
+                                          (["--fleet", "2", "--autoscale"], "_run_fleet"),
+                                          (["--replica-index", "0"], "_run_replica")])
+def test_cli_refuses_the_fleet_modes(flags, runner, monkeypatch):
+    """The fleet modes are ported: each reaches its runner, and the CLI
+    refuses only what JAX's refuses (--fleet with --replica-index, a
+    --build-surface with fleet flags)."""
+    seen = []
+    monkeypatch.setattr(cli, runner, seen.append)
+    assert cli.main(["--device", "cpu", *flags]) == 0
+    assert len(seen) == 1
+    for bad in (["--fleet", "2", "--replica-index", "0"],
+                ["--build-surface", "/nonexistent", *flags]):
+        with pytest.raises(SystemExit):
+            cli.main(["--device", "cpu", *bad])
