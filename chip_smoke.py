@@ -64,8 +64,7 @@ its first launch in the path):
      the month and dispatch kernels as [3d] counts them. Logs the four
      walls and their ratios to (a), the pipeline's stats, the bytes
      fetched and written a year, and the checkpoint's save and restore
-     seconds; (e), the pipeline with the exporter and the checkpoints but
-     no collect, beside (c); the fetch stage alone; year 2 traced with and
+     seconds; the fetch stage alone; year 2 traced with and
      without the exporter (device idle share, where the main thread's
      host time goes); and, below national scale, sim.run() on the
      pipeline against the serialized path (96 and 8,192 agents, collect on,
@@ -193,6 +192,23 @@ its first launch in the path):
      three paths answering; (c) the scale drill at 8,192 agents, 1 -> 2 ->
      1 on a synthetic signal, a result-cache hit byte-identical to the
      engine's answer;
+  3m. reference-format inputs on the card, from the committed input root
+     (tests/torch_fixtures/reference_inputs): (a) scenario_inputs_from_
+     reference and wholesale_profile_bank onto the card with pandas,
+     pyarrow, jax and the JAX package unimportable (the wall, the files
+     picked, the provenance; ITC, NEM caps, max market curves and Bass
+     parameters must read ingested); (b) national-all-sector on the root
+     (presets.build(..., input_root=...)) at 1,048,576 agents under the
+     automatic chunk for 2 model years: every national sum finite,
+     battery adopters allocated in both years, agents NEM-capped in year
+     2, the launch counts (the ingest path), per-year walls and
+     agent-years/s beside [3d]'s, one more first year's first launches
+     held against the plain versions; (c) the same preset at 512 agents x
+     3 years on the card and on the CPU: curves within rtol 1e-3, battery
+     adopters equal per agent, system_kw, npv and the first-year bills per
+     agent at tests/test_torch_slice.py's bounds; (d) a mixed world of
+     32,768 agents clustered and unclustered for 2 years at a battery
+     attachment rate of 0.4: battery units per agent by agent_id equal;
   4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -486,6 +502,12 @@ def kernel_specs(bk, mk) -> dict:
                                     f"{bp}:343"),
         "bucket_sums_month_signed_fleet": (("fleet", "month_signed"), *month, 9, RTOL,
                                            "month", f"{bp}:343"),
+        # [3m] (b): the national run on the committed input root (a chunk's
+        # first INGEST_CAPTURE_ROWS rows of its first launches)
+        "bucket_sums_month_ingest": (("ingest", "month"), *month, 6, RTOL, "month",
+                                     f"{bp}:343"),
+        "bucket_sums_month_signed_ingest": (("ingest", "month_signed"), *month, 9, RTOL,
+                                            "month", f"{bp}:343"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
         "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
@@ -724,6 +746,11 @@ def dropped_period_caught(ref, rtol=RTOL) -> tuple[int, int, int]:
     flagged_whole = ((mutant - ref).abs() > whole).flatten(1).any(1)
     return (int(must.sum()), int((flagged & must).sum()),
             int((flagged_whole & must).sum()))
+
+
+#: timed calls of a plain version (after its warm-up) in [9]'s rows: its
+#: time is the yardstick the kernel is read against, 65-1,400 ms a call
+PLAIN_REPS = 2
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -1141,7 +1168,7 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict,
         p = got[0].shape[-1] // 12
         del got, ref
         ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain(*args))
+        plain_ms = time_ms(lambda: plain(*args), reps=PLAIN_REPS)
         library_ms, note = None, ""
         if src == "dot":
             b_ms, b_by, note = dot_bound_ms(args, out_bytes)
@@ -1354,7 +1381,7 @@ def dispatch_row(ops: tuple, launches: int) -> dict:
     del got, ref
     n, hours = ops[0].shape
     ms = time_ms(lambda: dispatch.dispatch_battery(*ops))
-    plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops))
+    plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops), reps=PLAIN_REPS)
     mhz = sm_clock_mhz_under(lambda: dispatch.dispatch_battery(*ops))
     t_bytes = 4.0 * (6 * n * hours + 3 * n) / PEAK_BYTES_PER_S * 1e3
     t_ops = float(n) * hours * DISPATCH_OPS / PEAK_F32_FLOPS * 1e3
@@ -2281,9 +2308,8 @@ def run_outputs(presets, RunConfig, whole_per_year, *, name=NATIONAL, n_agents=N
     them equal the CPU's, and the exact fields are the collected values;
     and, where ``whole_per_year`` is given (the main path's month and
     signed-month launches a year), every run launched the month and
-    dispatch kernels as [3d] counts them. A fifth run, (e), is (b)
-    without collect: the pipeline's counterpart of (c). Logs the five
-    walls and their ratios to (a), the pipeline's stats, the bytes fetched
+    dispatch kernels as [3d] counts them. Logs the four walls and their
+    ratios to (a), the pipeline's stats, the bytes fetched
     and written a year, the checkpoint's save and restore seconds and the
     fetch stage alone (:func:`fetch_seconds`), then traces the second year
     with and without the exporter (:func:`trace_outputs_year`); returns
@@ -2311,9 +2337,6 @@ def run_outputs(presets, RunConfig, whole_per_year, *, name=NATIONAL, n_agents=N
         run["c"] = outputs_run(presets, RunConfig, async_io=False,
                                export_dir=os.path.join(work, "c"),
                                checkpoint_dir=os.path.join(work, "c-ckpt"), **kw)
-        run["e"] = outputs_run(presets, RunConfig, async_io=True,
-                               export_dir=os.path.join(work, "e"),
-                               checkpoint_dir=os.path.join(work, "e-ckpt"), **kw)
         shutil.copytree(os.path.join(work, "b-ckpt"), os.path.join(work, "d-ckpt"))
         run["d"] = outputs_run(presets, RunConfig, collect=True,
                                checkpoint_dir=os.path.join(work, "d-ckpt"),
@@ -2453,13 +2476,11 @@ def run_outputs(presets, RunConfig, whole_per_year, *, name=NATIONAL, n_agents=N
         log(f"    walls s: (a) no consumer {walls['a']:.4f}, (b) pipeline + export + "
             f"checkpoint + collect {walls['b']:.4f}, (c) serialized + export + "
             f"checkpoint {walls['c']:.4f}, (d) resumed ({len(res_d.years)} year) "
-            f"{walls['d']:.4f}, (e) pipeline + export + checkpoint {walls['e']:.4f}; "
-            f"ratios to (a) {ratios}")
+            f"{walls['d']:.4f}; ratios to (a) {ratios}")
         log("    year_step timer (main thread; the serialized path's ends in a "
             "synchronize) s: " + "; ".join(
                 f"({t}) {r['timings'].get('year_step', {}).get('total', 0.0):.4f} over "
                 f"{len(r['res'].years)}" for t, r in run.items()))
-        log(f"    (e) hostio_stats {run['e']['stats']}")
         log(f"    (b) hostio_stats {stats}")
         log(f"    bytes a year: the export's device payload (fetched) {fetched}, all "
             f"of (b)'s fetches {stats['d2h_bytes'] / len(years):.0f} (collect, export, "
@@ -3344,19 +3365,24 @@ def count_by_p(counts: dict):
 
 
 def mixed_sim(pop, knobs: dict, *, end_year: int, device="cuda", agent_chunk=None,
-              econ_years: int = 25):
+              econ_years: int = 25, attachment_rate=None):
     """A Simulation of ``pop`` (a loaded package or a generated world) as
     the national preset runs: storage and the state-hourly aggregate on,
-    uniform scenario inputs, ``knobs`` on the RunConfig."""
+    uniform scenario inputs (every group's battery attachment rate at
+    ``attachment_rate`` where given), ``knobs`` on the RunConfig."""
+    import numpy as np
+
     from dgen_tpu_torch.config import RunConfig, ScenarioConfig
     from dgen_tpu_torch.models.scenario import uniform_inputs
     from dgen_tpu_torch.models.simulation import Simulation
 
     cfg = ScenarioConfig(name="mixed-national", start_year=2014, end_year=end_year,
                          storage_enabled=True, anchor_years=())
+    overrides = None if attachment_rate is None else {
+        "attachment_rate": np.full(pop.table.n_groups, attachment_rate, np.float32)}
     inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups,
                             n_regions=int(pop.profiles.wholesale.shape[0]),
-                            device=device)
+                            overrides=overrides, device=device)
     return Simulation(pop.table, pop.profiles, pop.tariffs, inputs, cfg,
                       RunConfig(agent_chunk=agent_chunk, **knobs), with_hourly=True,
                       econ_years=econ_years, device=device)
@@ -5477,6 +5503,328 @@ def serving_fleet(card: str, *, device="cuda", agents=FLEET_AGENTS,
     return dict(launches=launches, capture=capture, a=a, b=b, c=c, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# [3m]: reference-format inputs on the card
+# ---------------------------------------------------------------------------
+
+#: the committed reference-format input root (written by its generator,
+#: tests/torch_fixtures/reference_inputs/make_reference_inputs.py)
+INPUT_ROOT = ("tests", "torch_fixtures", "reference_inputs", "dgen_os", "input_data")
+#: (a): what the ingest must read from the root, not default
+INGESTED = {"data_sources": ("itc", "nem_caps"), "market_curves": ("mms", "bass")}
+#: (b): the rows of the national run's first launches kept for [9]'s rows
+#: (a chunk's first rows: a whole chunk's streams would stay pinned)
+INGEST_CAPTURE_ROWS = MAIN_AGENTS
+#: (c): the ingested preset on the card against the CPU
+INGEST_SMALL_AGENTS = 512
+INGEST_SMALL_END_YEAR = 2018      # 3 model years
+#: (c): per-agent fields held at tests/test_torch_slice.py's bounds (rtol
+#: 1e-3, atol 1e-4 x the field's largest magnitude)
+INGEST_AGENT_FIELDS = ("system_kw", "npv", "first_year_bill_with_system",
+                       "first_year_bill_without_system")
+INGEST_AGENT_RTOL = 1e-3
+INGEST_AGENT_ATOL_FRAC = 1e-4
+#: (d): battery allocation in a tariff-clustered world, per agent
+BATT_FIELDS = ("new_batt_adopters", "batt_adopters_cum", "batt_kwh_cum",
+               "number_of_adopters")
+
+
+def input_root() -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *INPUT_ROOT)
+
+
+class RowSliceCapture(dict):
+    """A ``billkernels.CAPTURE`` (and :func:`first_dispatch`) store that
+    keeps each first launch's operands cut to their first ``rows`` rows,
+    copied: every tensor whose leading dimension is the launch's agent
+    count is sliced, the rest kept as they are."""
+
+    def __init__(self, rows: int):
+        super().__init__()
+        self.rows = rows
+
+    def setdefault(self, key, args):
+        import torch
+
+        if key not in self:
+            n = args[0].shape[0]
+            self[key] = tuple(
+                a[:self.rows].clone() if isinstance(a, torch.Tensor) and a.dim()
+                and a.shape[0] == n else a for a in args)
+        return self[key]
+
+
+@contextlib.contextmanager
+def blocked_modules(names=("pandas", "pyarrow", "jax", "jaxlib", "dgen_tpu")):
+    """Inside the block, importing any of ``names`` raises ImportError;
+    raises at once if one of them is already loaded."""
+    loaded = [n for n in names if sys.modules.get(n) is not None]
+    if loaded:
+        raise AssertionError(f"[3m] already loaded: {loaded}")
+    saved = {n: sys.modules[n] for n in names if n in sys.modules}
+    for n in names:
+        sys.modules[n] = None
+    try:
+        yield
+    finally:
+        for n in names:
+            sys.modules.pop(n, None)
+        sys.modules.update(saved)
+
+
+def ingest_on_card(root: str, card: str, device="cuda") -> dict:
+    """[3m] (a): ``scenario_inputs_from_reference`` (national-all-sector's
+    configuration and preference) and ``wholesale_profile_bank`` on the
+    committed root, onto the card, with pandas, pyarrow, jax and the JAX
+    package unimportable; logs the wall, the files and the provenance and
+    raises unless every source in INGESTED reads ``ingested``."""
+    import os
+
+    from dgen_tpu_torch.config import ScenarioConfig
+    from dgen_tpu_torch.io import synth
+    from dgen_tpu_torch.presets import PRESETS
+
+    p = PRESETS[NATIONAL]
+    cfg = ScenarioConfig(name=p.name, start_year=p.start_year, end_year=p.end_year,
+                         storage_enabled=p.storage_enabled, anchor_years=())
+    with blocked_modules():
+        from dgen_tpu_torch.io import reference_inputs
+
+        t0 = time.perf_counter()
+        inputs, meta = reference_inputs.scenario_inputs_from_reference(
+            root, cfg, list(synth.STATES), prefer={"load_growth": p.load_growth_scenario},
+            device=device)
+        _sync(device)
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bank = reference_inputs.wholesale_profile_bank(meta, root)
+        bank_s = time.perf_counter() - t0
+    files = {k: os.path.basename(v) for k, v in meta["files"].items()}
+    log(f"[3m] (a) ingest of the committed input root on the card, pandas, pyarrow, "
+        f"jax and the JAX package unimportable: scenario_inputs_from_reference "
+        f"{ingest_s:.4f} s ({len(cfg.model_years)} model years, {len(meta['regions'])} "
+        f"regions), wholesale_profile_bank {bank_s:.4f} s {list(bank.shape)}; files "
+        f"{files}; data_sources {meta['data_sources']}; market_curves "
+        f"{meta['market_curves']} ({card})")
+    off = {f"{k}.{s}": meta[k][s] for k, srcs in INGESTED.items() for s in srcs
+           if meta[k][s] != "ingested"}
+    if off:
+        raise AssertionError(f"[3m] (a) not ingested: {off}")
+    if inputs.nem_cap_kw.device.type != device:
+        raise AssertionError(f"[3m] (a) the ingested inputs are not on {device}")
+    return dict(ingest_s=ingest_s, bank_s=bank_s, files=files)
+
+
+def ingested_national(presets, root: str, card: str, single_rate=None, *,
+                      n_agents=None, device="cuda") -> dict:
+    """[3m] (b): national-all-sector on the committed root at its full width
+    for NATIONAL_END_YEAR's model years under the automatic chunk,
+    collect=False; the national sums, the battery adopters allocated and
+    the real agents whose state's NEM cap closed in year 2 (the year
+    step's gate on year 1's installed kW) reduced on the card each year.
+    Raises unless the world is the ingested one, every sum is finite,
+    batteries are allocated in every year, an agent is capped in year 2
+    and the kernels launched as [3d] counts them; one more first year
+    holds the first launches against the plain versions (:func:`held_year`).
+    Returns the run's launch counts, its first launches (cut to
+    INGEST_CAPTURE_ROWS rows) and its figures."""
+    import torch
+
+    from dgen_tpu_torch.models.market import segment_sum
+    from dgen_tpu_torch.ops import billkernels as bk
+    from dgen_tpu_torch.ops import dispatch
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    sim, _, meta = presets.build(NATIONAL, n_agents=n_agents, end_year=NATIONAL_END_YEAR,
+                                 device=device, input_root=root)
+    _sync(device)
+    build_s = time.perf_counter() - t_start
+    k = n_chunks(sim)
+    n_real = int(sim.host_mask.sum())
+    srcs = {**meta["data_sources"], **meta["market_curves"]}
+    log(f"[3m] (b) {NATIONAL} on the input root at {n_real} agents, {len(sim.years)} "
+        f"model years {sim.years}: {sim.table.n_agents} rows, auto chunk "
+        f"{sim._agent_chunk} ({k} chunks), {sim.profiles.wholesale.shape[0]} regions, "
+        f"net billing {sim._net_billing}; built in {build_s:.3f} s; sources {srcs}")
+    if set(srcs.values()) != {"ingested"} or sim.profiles.wholesale.shape[0] != 9:
+        raise AssertionError(f"[3m] (b) the run is not on the ingested world: {srcs}")
+    mask, table, inputs = sim.table.mask, sim.table, sim.inputs
+    sums = []
+
+    def national(year, yi, outs):
+        sh = outs.state_hourly_net_mw
+        row = [(outs.number_of_adopters * mask).sum(), (outs.system_kw_cum * mask).sum(),
+               (outs.batt_kwh_cum * mask).sum(), (outs.new_batt_adopters * mask).sum(),
+               sh.sum(), torch.isfinite(sh).all().float()]
+        if yi + 1 < len(sim.years):
+            state_kw = segment_sum(outs.system_kw_cum, table.state_idx.long(),
+                                   table.n_states)
+            closed = (state_kw >= inputs.nem_cap_kw[yi + 1])[table.state_idx.long()]
+            row.append((closed.float() * mask).sum())
+        sums.append((year, torch.stack(row).cpu().tolist()))
+
+    capture = RowSliceCapture(INGEST_CAPTURE_ROWS)
+    bk.CAPTURE = capture
+    bk.reset_launches()
+    dispatch.reset_launches()
+    try:
+        with first_dispatch(capture):
+            rec = presets.timed_run(sim, meta, t_start, build_s, callback=national)
+    finally:
+        bk.CAPTURE = None
+        launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
+    ys = rec["year_s"]
+    rate = n_real * len(ys) / sum(ys)
+    log(f"    per-year s {ys}, {rate:.1f} agent-years/s over the run's years"
+        + (f" (the synthetic world's [3d] run: {single_rate:.1f})" if single_rate else "")
+        + f"; launches {launches} ({per_year(launches, len(ys))} a year); peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30 if cuda else 0:.2f} GiB; "
+        f"health {sim.health_report} ({card})")
+    log(f"    national sums a year (adopters, system kW, battery kWh, battery adopters "
+        f"allocated, state-hourly MW sum, state-hourly all finite, real agents whose "
+        f"state's NEM cap is closed the next year): {sums}")
+    for year, row in sums:
+        if not all(math.isfinite(v) for v in row) or row[5] != 1.0:
+            raise AssertionError(f"[3m] (b) non-finite national sums in {year}: {row}")
+        if not row[3] > 0:
+            raise AssertionError(f"[3m] (b) no battery adopters allocated in {year}")
+    if not sums[0][1][6] > 0:
+        raise AssertionError("[3m] (b) no agent's NEM cap closes in the second year")
+    if not sim.health_report["clean"]:
+        raise AssertionError(f"[3m] (b) health breaches: {sim.health_report}")
+    if cuda:
+        if launches["dispatch"] != dispatch_per_year(sim) * len(ys):
+            raise AssertionError(f"[3m] (b) {launches['dispatch']} dispatch launches")
+        need_launches("[3m] (b)", launches, ("month", "month_signed", "dispatch"))
+        held_year(sim, "3m", launches)
+        del sim
+        torch.cuda.empty_cache()
+    return dict(launches=launches, capture=dict(capture), year_s=ys, rate=rate,
+                sums=sums, build_s=build_s)
+
+
+def ingested_card_vs_cpu(presets, RunConfig, root: str, card: str, *,
+                         n_agents=INGEST_SMALL_AGENTS, device="cuda") -> dict:
+    """[3m] (c): national-all-sector on the committed root at
+    INGEST_SMALL_AGENTS for 3 model years on the card and on the CPU (the
+    plain versions), ``sizing_iters=4``: the national curves within
+    CURVE_RTOL, the integer battery adopters equal per agent (the golden
+    contract of [3e]), INGEST_AGENT_FIELDS per agent at
+    tests/test_torch_slice.py's bounds. Raises on a miss."""
+    import numpy as np
+
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        sim, _, _ = presets.build(NATIONAL, n_agents=n_agents, device=dev,
+                                  end_year=INGEST_SMALL_END_YEAR, input_root=root,
+                                  run_config=RunConfig(sizing_iters=4))
+        res = sim.run()
+        out[dev] = (sim, res, time.perf_counter() - t0)
+    (g_sim, g_res, g_s), (c_sim, c_res, c_s) = out[device], out["cpu"]
+    mask = c_sim.host_mask
+    gc_, cc = g_res.summary(mask), c_res.summary(mask)
+    for key in ("adopters", "system_kw_cum", "batt_kwh_cum", "new_adopters"):
+        np.testing.assert_allclose(gc_[key], cc[key], rtol=CURVE_RTOL,
+                                   err_msg=f"[3m] (c) card vs CPU {key}")
+    units = g_res.agent["new_batt_adopters"]
+    if not np.array_equal(units, c_res.agent["new_batt_adopters"]):
+        raise AssertionError("[3m] (c) battery adopters differ between the card and "
+                             "the CPU")
+    gaps = {}
+    for f in INGEST_AGENT_FIELDS:
+        ref = c_res.agent[f]
+        scale = float(np.abs(ref).max()) or 1.0
+        np.testing.assert_allclose(g_res.agent[f], ref, rtol=INGEST_AGENT_RTOL,
+                                   atol=INGEST_AGENT_ATOL_FRAC * scale,
+                                   err_msg=f"[3m] (c) card vs CPU {f}")
+        gaps[f] = float(np.max(np.abs(g_res.agent[f] - ref)))
+    log(f"[3m] (c) {NATIONAL} on the input root at {n_agents} agents x "
+        f"{len(c_res.years)} years, card {g_s:.3f} s vs CPU {c_s:.3f} s: curves within "
+        f"rtol {CURVE_RTOL} (adopters {gc_['adopters'].tolist()} vs "
+        f"{cc['adopters'].tolist()}), battery adopters equal per agent "
+        f"({units.sum(axis=1).tolist()} a year), {INGEST_AGENT_FIELDS} per agent within "
+        f"rtol {INGEST_AGENT_RTOL} / atol {INGEST_AGENT_ATOL_FRAC} x max|CPU| "
+        f"(largest absolute gaps {gaps}) ({card})")
+    return dict(card_s=g_s, cpu_s=c_s, gaps=gaps)
+
+
+def clustered_batteries(card: str, *, n_agents=MIXED_CHUNK_AGENTS, device="cuda",
+                        attachment_rate=CHUNK_ATTACHMENT, econ_years: int = 25) -> dict:
+    """[3m] (d): a mixed world of ``n_agents`` (``NationalSpec(tariff_mix=
+    "mixed", seed=MIXED_SEED)``) run clustered and unclustered for
+    CHUNK_END_YEAR's model years with every group's battery attachment
+    rate at ``attachment_rate``: BATT_FIELDS per agent by agent_id. Raises
+    if a battery unit moves between the layouts or no battery is
+    allocated; returns the count of differing values a field."""
+    import numpy as np
+
+    from dgen_tpu_torch.models import synth
+
+    pop = synth.generate_world(synth.NationalSpec(
+        n_agents=n_agents, tariff_mix="mixed", seed=MIXED_SEED), device=device)
+    runs = {}
+    for tag, cluster in (("clustered", True), ("unclustered", False)):
+        sim = mixed_sim(pop, dict(cluster_tariffs=cluster), end_year=CHUNK_END_YEAR,
+                        device=device, econ_years=econ_years,
+                        attachment_rate=attachment_rate)
+        res, _, secs = counted_run(sim)
+        check_outputs(res, sim)
+        runs[tag] = keyed_years(sim, res, BATT_FIELDS)
+        log(f"[3m] (d) mixed world of {int(sim.host_mask.sum())} agents, {tag}, "
+            f"attachment rate {attachment_rate}: {sim.table.n_agents} rows, per-year s "
+            f"{[round(t, 3) for t in secs]}, battery adopters a year "
+            f"{runs[tag]['new_batt_adopters'].sum(axis=1).tolist()}")
+    kc, ku = runs["clustered"], runs["unclustered"]
+    if not np.array_equal(kc["ids"], ku["ids"]):
+        raise AssertionError("[3m] (d) the two layouts hold other agents")
+    differ = {f: int((kc[f] != ku[f]).sum()) for f in BATT_FIELDS}
+    gaps = {f: float(np.max(np.abs(kc[f].astype(np.float64) - ku[f]))) for f in BATT_FIELDS}
+    log(f"    [3m] (d) clustered vs unclustered per agent by agent_id over "
+        f"{len(kc['ids'])} agents: values that differ {differ}, largest absolute gaps "
+        f"{gaps} ({card})")
+    if not kc["new_batt_adopters"].sum() > 0:
+        raise AssertionError("[3m] (d) no battery adopters allocated")
+    if differ["new_batt_adopters"] or differ["batt_adopters_cum"]:
+        raise AssertionError(f"[3m] (d) battery units move with the cluster layout: "
+                             f"{differ}")
+    return dict(differ=differ, gaps=gaps)
+
+
+def reference_inputs_phase(presets, RunConfig, card: str, single_rate=None, *,
+                           device="cuda", national_agents=None,
+                           small_agents=INGEST_SMALL_AGENTS,
+                           mixed_agents=MIXED_CHUNK_AGENTS) -> dict:
+    """[3m]: reference-format inputs on the card, (a)-(d) on the committed
+    input root; logs the phase's wall. Returns (b)'s launches and first
+    launches (the ``ingest`` path) and the records. The sizes are the
+    phase's own unless given (a CPU rehearsal's)."""
+    import torch
+
+    t0 = time.perf_counter()
+    root = input_root()
+    a = ingest_on_card(root, card, device=device)
+    b = ingested_national(presets, root, card, single_rate, n_agents=national_agents,
+                          device=device)
+    c = ingested_card_vs_cpu(presets, RunConfig, root, card, n_agents=small_agents,
+                             device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    d = clustered_batteries(card, n_agents=mixed_agents, device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[3m] reference-format inputs (a)-(d): {wall:.3f} s ({card})")
+    return dict(launches=b.pop("launches"), capture=b.pop("capture"), a=a, b=b, c=c,
+                d=d, wall=wall)
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -5531,6 +5879,14 @@ def main(argv=None) -> int:
                              end_year=end_year, device="cuda",
                              run_config=RunConfig(**(knobs or {})), **kw)[0]
 
+    phase_s = {}
+    t_lap = [time.perf_counter()]
+
+    def lap() -> float:
+        t = time.perf_counter()
+        t_lap.append(t)
+        return round(t - t_lap[-2], 1)
+
     runs = {}
     # --- 3: the main path ---
     sim = build(MAIN_AGENTS, MAIN_END_YEAR)
@@ -5565,9 +5921,11 @@ def main(argv=None) -> int:
             f"curves agree within rtol {CURVE_RTOL} (adopters "
             f"{g_curve['adopters'].tolist()} vs {c_curve['adopters'].tolist()})")
 
+    phase_s["3"] = lap()
     # --- 3c: the streaming year step against the whole table ---
     chunked_vs_whole(presets, RunConfig)
 
+    phase_s["3c"] = lap()
     # --- 3d: national-all-sector at its full width ---
     main_years = len(runs["main"]["res"].years)
     whole_per_year = {k: runs["main"]["launches"][k] / main_years
@@ -5575,39 +5933,54 @@ def main(argv=None) -> int:
     single_rate = national_path(presets, whole_per_year)
     torch.cuda.empty_cache()
 
+    phase_s["3d"] = lap()
     # --- 3e: both golden fixtures on the card ---
     golden_fixtures(RunConfig)
     torch.cuda.empty_cache()
 
+    phase_s["3e"] = lap()
     # --- 3f: the run outputs at national-all-sector's full width ---
     run_outputs(presets, RunConfig, whole_per_year)
     pipeline_ab(presets, RunConfig)
     torch.cuda.empty_cache()
 
+    phase_s["3f"] = lap()
     # --- 3g: resilience on the card ((d) runs in [9]) ---
     resilience(presets, RunConfig)
     torch.cuda.empty_cache()
 
+    phase_s["3g"] = lap()
     # --- 3h: the tariff-clustered mixed national world ---
     mixed = mixed_clusters()
 
+    phase_s["3h"] = lap()
     # --- 3i: sweeps and ensembles ---
     sweeps(presets, whole_per_year, single_rate)
 
+    phase_s["3i"] = lap()
     # --- 3j: the per-agent oracle, the analysis side and the twin ---
     oracle = oracle_and_twin(presets, RunConfig, sim, runs["main"], card)
     runs["oracle"] = dict(launches=oracle["launches"], capture=oracle["capture"])
 
+    phase_s["3j"] = lap()
     # --- 3k: the serving stack ---
     serve = serving(presets, card)
     runs.update(serve["runs"])
     torch.cuda.empty_cache()
 
+    phase_s["3k"] = lap()
     # --- 3l: the serving fleet ---
     fleet = serving_fleet(card)
     runs["fleet"] = dict(launches=fleet["launches"], capture=fleet["capture"])
     torch.cuda.empty_cache()
 
+    phase_s["3l"] = lap()
+    # --- 3m: reference-format inputs ---
+    ingest = reference_inputs_phase(presets, RunConfig, card, single_rate)
+    runs["ingest"] = dict(launches=ingest["launches"], capture=ingest["capture"])
+    torch.cuda.empty_cache()
+
+    phase_s["3m"] = lap()
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
     lay = gsim._daylight
@@ -5629,6 +6002,7 @@ def main(argv=None) -> int:
     if run["capture"]["stream"][0].shape[1] != lay.uniform().n_lanes:
         raise AssertionError("the stream kernel did not run the uniform lanes")
 
+    phase_s["4"] = lap()
     # --- 5: the rate-switch paths ---
     for key, knobs, title in (("switch", None, "rate-switch path"),
                               ("switch_gated", GATED, "gated rate-switch path")):
@@ -5642,6 +6016,7 @@ def main(argv=None) -> int:
     if runs["switch_gated"]["capture"]["month_pair"][0].shape[1] == HOURS:
         raise AssertionError("the gated pair kernel ran full-hour lanes")
 
+    phase_s["5"] = lap()
     # --- 6: daylight_compact alone, and the same world without it ---
     dsim = build(DAYLIGHT_AGENTS, 2014, dict(daylight_compact=True))
     runs["daylight"] = run = run_path(dsim)
@@ -5660,6 +6035,7 @@ def main(argv=None) -> int:
     log(f"    national curves within {gap:.3e} (relative) of the same world "
         f"without daylight_compact")
 
+    phase_s["6"] = lap()
     # --- 7: the dot engine ---
     dot_launches, dot_capture, dot_gap, dot_c, ref_c = dot_path(presets)
     runs["dot"] = dict(launches=dot_launches, capture=dot_capture)
@@ -5675,6 +6051,7 @@ def main(argv=None) -> int:
     if dot_gap > DOT_CURVE_RTOL:
         raise AssertionError(f"dot curves differ by {dot_gap:.3e} > {DOT_CURVE_RTOL}")
 
+    phase_s["7"] = lap()
     # --- 8: the micro-benchmark path ---
     log(f"[8] micro-benchmark path: kernel_microbench.run({MICRO_AGENTS}), every "
         f"default variant (the tool's own lines follow)")
@@ -5693,6 +6070,7 @@ def main(argv=None) -> int:
     if not run["narrow"].get("month/int8"):
         raise AssertionError("the quant variant launched no month kernel on int8")
 
+    phase_s["8"] = lap()
     # --- 8b: the bf16 and int8 bank paths ---
     for key, knobs, title, kernel, dtype in (
             ("bf16", BF16, "bf16-banks path (bf16_banks)", "month", "bfloat16"),
@@ -5720,11 +6098,13 @@ def main(argv=None) -> int:
                                  f"path's by {gap:.3e} > {BANK_CURVE_RTOL}")
         del bsim
 
+    phase_s["8b"] = lap()
     # --- 9: the kernels on the paths' operands ---
     log(f"[9] kernels vs plain versions on the first launch's operands (rtol "
         f"{RTOL}, {DOT_RTOL} for the TF32 tensor-core kernels, {BF16_RTOL:.4e} "
         f"for bf16 sums, atol {ATOL_FRAC} x the agent's max|plain|) "
-        f"and times (median of 5 CUDA-event launches after a warm-up):")
+        f"and times (median of 5 CUDA-event launches after a warm-up, {PLAIN_REPS} "
+        f"for a plain version):")
     captures = {k: v["capture"] for k, v in runs.items()}
     hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
     micro_library = micro_library_ms(captures["micro"]["variant"], mk)
@@ -5755,7 +6135,8 @@ def main(argv=None) -> int:
         "launches (a clustered run's), not in the kernels line:")
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     oracle_dispatch = captures["oracle"]["dispatch"]
-    serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64", "fleet")}
+    serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64", "fleet",
+                                                            "ingest")}
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -5774,10 +6155,12 @@ def main(argv=None) -> int:
     del oracle_dispatch
     srows = []
     for key, ops in serve_dispatch.items():
-        log("  the battery dispatch kernel on [3l] (a)'s first oracle dispatch (the "
-            "fleet path, a bucket of 8 launching 16 rows):" if key == "fleet" else
-            f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
-            f"{key[5:]} (the serving path):")
+        log({"fleet": "  the battery dispatch kernel on [3l] (a)'s first oracle dispatch "
+                      "(the fleet path, a bucket of 8 launching 16 rows):",
+             "ingest": f"  the battery dispatch kernel on [3m] (b)'s first dispatch (the "
+                       f"ingest path; a chunk's first {INGEST_CAPTURE_ROWS} rows):"}.get(
+            key, f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
+                 f"{key[5:]} (the serving path):"))
         r = dispatch_row(ops, runs[key]["launches"]["dispatch"])
         r.update(name=f"battery_dispatch_{key}", path=key)
         srows.append(r)
@@ -5795,10 +6178,12 @@ def main(argv=None) -> int:
             f"kernel launches (three bucket sums, one dispatch), as the sum of their "
             f"isolated medians, {parts['kernel_medians_s']:.4f} s")
 
+    phase_s["9"] = lap()
     # --- 9c: one carry year of the default and the gated path, traced ---
     profile_year(sim, f"default path, {MAIN_AGENTS} agents")
     profile_year(gsim, f"gated path, {MAIN_AGENTS} agents")
 
+    phase_s["9c"] = lap()
     # --- 10: the kernel line, the card, the result ---
     path_launches = {k: {**v["launches"], **v.get("narrow", {})}
                      for k, v in runs.items()}
@@ -5818,7 +6203,8 @@ def main(argv=None) -> int:
     kernels += [drow, orow, *srows]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of its path never launched: {kernels}")
-    log(f"[10] script wall {time.perf_counter() - t_script:.1f} s")
+    log(f"[10] script wall {time.perf_counter() - t_script:.1f} s; each phase's wall "
+        f"(s, phase: its code in main, its A/Bs and rows in [9]) {phase_s}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ import torch
 
 from dgen_tpu_torch.config import SECTORS, resolve_device
 from dgen_tpu_torch.io import package
+from dgen_tpu_torch.io.reference_inputs import CENSUS_DIVISIONS
 from dgen_tpu_torch.models.agents import ProfileBank, build_agent_table
 from dgen_tpu_torch.ops.cashflow import IncentiveParams
 from dgen_tpu_torch.ops.tariff import (
@@ -56,10 +57,6 @@ from dgen_tpu_torch.ops.tariff import (
 BAD_TARIFF_IDS = (4145, 7111, 8498, 10953, 10954, 12003)
 
 HOURS = 8760
-
-#: census divisions, the reference's load-growth region key (the JAX
-#: package's ``io/reference_inputs.CENSUS_DIVISIONS``)
-CENSUS_DIVISIONS = ("NE", "MA", "ENC", "WNC", "SA", "ESC", "WSC", "MTN", "PAC")
 
 
 # ---------------------------------------------------------------------------

@@ -518,6 +518,21 @@ def load_surface(run_dir: str, name: str) -> Dict[str, np.ndarray]:
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
+def frame_columns(cols: Dict[str, np.ndarray]) -> Dict[str, object]:
+    """A surface's columns as the JAX package's frame holds them (to build
+    a ``pandas.DataFrame`` from): 2-D columns as list columns (one array a
+    row), unicode columns as ``str`` objects, the rest as they are."""
+    data = {}
+    for k, v in cols.items():
+        if v.ndim > 1:
+            data[k] = list(v)
+        elif v.dtype.kind == "U":
+            data[k] = v.astype(object)
+        else:
+            data[k] = v
+    return data
+
+
 def to_parquet(run_dir: str, out_dir: str) -> str:
     """Rewrite a port run directory into the JAX package's layout under
     ``out_dir``: ``<surface>/year=<Y>.parquet`` (zstd, list columns for
@@ -532,19 +547,8 @@ def to_parquet(run_dir: str, out_dir: str) -> str:
     import pandas as pd
 
     def frame(npz_path: str) -> "pd.DataFrame":
-        # one partition as the JAX package's frame: 2-D columns as list
-        # columns (one array a row), unicode columns as str
         with np.load(npz_path, allow_pickle=False) as z:
-            data = {}
-            for k in z.files:
-                v = z[k]
-                if v.ndim > 1:
-                    data[k] = list(v)
-                elif v.dtype.kind == "U":
-                    data[k] = v.astype(object)
-                else:
-                    data[k] = v
-        return pd.DataFrame(data)
+            return pd.DataFrame(frame_columns({k: z[k] for k in z.files}))
 
     os.makedirs(out_dir, exist_ok=True)
     for sub in sorted(os.listdir(run_dir)):

@@ -1,7 +1,10 @@
 """NEM policy machine (port of ``dgen_tpu/io/nem.py``): compile
 reference-format net-metering policy data into the dense gates the year
-step consumes. Host-side, with pandas, so it runs on the CPU side only;
-nothing on the card path imports it.
+step consumes. Host-side numpy. The state capacity caps compile from
+parsed CSV rows (:func:`compile_state_nem_caps_rows`, what the ingest of
+an input root calls on the card path, where there is no pandas);
+:func:`compile_state_nem_caps` and :func:`resolve_agent_nem_policy` take
+DataFrames and import pandas inside, on the CPU side.
 
 The reference re-derives NEM availability every model year from four
 tables (reference agent_mutation/elec.py:459 ``get_nem_settings``):
@@ -36,30 +39,58 @@ Divergences from the reference, on purpose:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
-import pandas as pd
 
 #: "no limit" sentinel, well inside float32
 NO_CAP = 1e30
 
+#: the cells pandas' ``read_csv`` reads as missing (its default
+#: ``na_values``, and the empty cell)
+_NA_CELLS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
 
-def _num(df: pd.DataFrame, col: str) -> pd.Series:
+
+def _num(df, col: str):
+    import pandas as pd
+
     if col not in df.columns:
         return pd.Series(np.nan, index=df.index)
     return pd.to_numeric(df[col], errors="coerce")
 
 
-def compile_state_nem_caps(
-    state_limits: pd.DataFrame,
-    peak_demand_mw: pd.DataFrame,
-    cf_during_peak: pd.DataFrame,
+def _num_cell(v) -> float:
+    """A cell as a float, NaN where it is missing or not a number: what
+    ``pd.to_numeric(..., errors="coerce")`` makes of a ``read_csv`` cell.
+    Text goes through Python's ``float`` (correctly rounded), with the
+    spellings Python alone accepts (digit separators) refused."""
+    if v is None:
+        return float("nan")
+    if isinstance(v, (int, float, np.integer, np.floating)):
+        return float(v)
+    text = str(v).strip()
+    if text in _NA_CELLS or "_" in text:
+        return float("nan")
+    try:
+        return float(text)
+    except ValueError:
+        return float("nan")
+
+
+def compile_state_nem_caps_rows(
+    state_limits: Sequence[Mapping[str, object]],
+    peak_demand_mw: Optional[Sequence[Mapping[str, object]]],
+    cf_during_peak: Optional[Sequence[Mapping[str, object]]],
     years: Sequence[int],
     states: Sequence[str],
     res_load_multiplier: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """[Y, n_states] float32 NEM capacity cap in kW.
+    """[Y, n_states] float32 NEM capacity cap in kW, from rows (``csv.
+    DictReader`` rows as ``io.ingest._read_csv`` returns them, or
+    records of parsed values).
 
     Per (year, state), within the state-limits row's availability
     window, the cap is the tighter of (reference elec.py:474-478):
@@ -76,25 +107,29 @@ def compile_state_nem_caps(
     """
     ny, ns = len(years), len(states)
     caps = np.full((ny, ns), NO_CAP, dtype=np.float32)
-    if state_limits is None or len(state_limits) == 0:
+    if not state_limits:
         return caps
 
     st_idx = {s: i for i, s in enumerate(states)}
     peak = {
-        str(r["state_abbr"]): float(r["peak_demand_mw_2014"])
-        for _, r in peak_demand_mw.iterrows()
+        str(r["state_abbr"]): _num_cell(r["peak_demand_mw_2014"])
+        for r in peak_demand_mw
     } if peak_demand_mw is not None else {}
     cf = {
-        str(r["state_abbr"]): float(r["solar_cf_during_peak_demand_period"])
-        for _, r in cf_during_peak.iterrows()
+        str(r["state_abbr"]): _num_cell(r["solar_cf_during_peak_demand_period"])
+        for r in cf_during_peak
     } if cf_during_peak is not None else {}
 
-    first = _num(state_limits, "first_year").fillna(-np.inf)
-    sunset = _num(state_limits, "sunset_year").fillna(np.inf)
-    max_mw = _num(state_limits, "max_cum_capacity_mw")
-    max_pct = _num(state_limits, "max_pct_cum_capacity")
+    def col(name: str, missing: float) -> List[float]:
+        out = [_num_cell(r.get(name)) for r in state_limits]
+        return [missing if np.isnan(v) else v for v in out]
 
-    for row_i, row in state_limits.iterrows():
+    first = col("first_year", -np.inf)
+    sunset = col("sunset_year", np.inf)
+    max_mw = col("max_cum_capacity_mw", np.nan)
+    max_pct = col("max_pct_cum_capacity", np.nan)
+
+    for row_i, row in enumerate(state_limits):
         s = str(row["state_abbr"])
         if s not in st_idx:
             continue
@@ -116,9 +151,30 @@ def compile_state_nem_caps(
     return caps
 
 
+def _records(df) -> Optional[List[Dict[str, object]]]:
+    return None if df is None else df.to_dict("records")
+
+
+def compile_state_nem_caps(
+    state_limits,
+    peak_demand_mw,
+    cf_during_peak,
+    years: Sequence[int],
+    states: Sequence[str],
+    res_load_multiplier: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """:func:`compile_state_nem_caps_rows` on DataFrames (the JAX
+    package's signature): each frame's records are its rows."""
+    if state_limits is None or len(state_limits) == 0:
+        return np.full((len(years), len(states)), NO_CAP, dtype=np.float32)
+    return compile_state_nem_caps_rows(
+        _records(state_limits), _records(peak_demand_mw), _records(cf_during_peak),
+        years, states, res_load_multiplier)
+
+
 def resolve_agent_nem_policy(
-    state_by_sector: pd.DataFrame,
-    utility_by_sector: Optional[pd.DataFrame],
+    state_by_sector,
+    utility_by_sector,
     agent_state: Sequence[str],
     agent_sector: Sequence[str],
     agent_eia_id: Optional[Sequence] = None,

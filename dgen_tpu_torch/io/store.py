@@ -12,7 +12,9 @@ needed (bfloat16 payloads are read as 16-bit integers and viewed as
 ``torch.bfloat16``; written bfloat16 is float32 rounded to nearest even,
 as ``ml_dtypes`` rounds), and its native C++ reader is neither built nor
 loaded. The files are byte for byte those the JAX package writes.
-CSV ingest (``csv_to_bank``) is not ported.
+:func:`csv_to_bank` parses a numeric CSV into a float32 matrix with
+numpy (the JAX package's fallback route; its native parser gives the
+same values) and can persist it as a bank.
 """
 
 from __future__ import annotations
@@ -155,3 +157,47 @@ def read_bank(path: str) -> torch.Tensor:
     if scales is not None:
         return bank.float() * scales[:, None]
     return bank
+
+
+def csv_to_bank(
+    csv_path: str,
+    bank_path: Optional[str] = None,
+    skip_header: bool = True,
+    skip_cols: int = 0,
+    n_threads: int = 0,
+) -> np.ndarray:
+    """Parse a numeric CSV into a float32 [rows, cols] matrix and, with
+    ``bank_path``, persist it as a float32 bank (:func:`write_bank`).
+
+    ``skip_header`` drops the first line; ``skip_cols`` drops leading id
+    columns before parsing (they may be non-numeric). A row of another
+    width than the first, a non-numeric cell or an empty body raises
+    ``IOError``, as the JAX package's native parser refuses them.
+    ``n_threads`` is accepted for the JAX package's signature and unused:
+    the parse is numpy's, on one thread."""
+    del n_threads
+    usecols = None
+    if skip_cols:
+        # skip id columns BEFORE parsing (they may be non-numeric); numpy
+        # then reads only the selected columns, so the row widths are
+        # checked here
+        with open(csv_path, "rb") as f:
+            lines = f.read().splitlines()[1 if skip_header else 0:]
+        widths = {line.count(b",") + 1 for line in lines if line.strip()}
+        if len(widths) > 1:
+            raise IOError(f"csv parse failed: {csv_path}: rows of {sorted(widths)} "
+                          "columns")
+        n_cols = widths.pop() if widths else 1
+        if n_cols - skip_cols <= 0:
+            raise ValueError("skip_cols leaves no data columns")
+        usecols = range(skip_cols, n_cols)
+    try:
+        out = np.loadtxt(csv_path, delimiter=",", skiprows=1 if skip_header else 0,
+                         dtype=np.float32, ndmin=2, usecols=usecols)
+    except ValueError as e:
+        raise IOError(f"csv parse failed: {csv_path}: {e}") from e
+    if out.size == 0:
+        raise IOError(f"csv parse failed: {csv_path}: empty csv body")
+    if bank_path:
+        write_bank(bank_path, out)
+    return out

@@ -1,12 +1,16 @@
 """The five BASELINE.json benchmark configurations as presets, and the
-preset runner (port of ``dgen_tpu/presets.py``, synthetic-input branch).
+preset runner (port of ``dgen_tpu/presets.py``).
 
-Populations are synthetic at the config's scale and sector mix and the
-scenario trajectories are the uniform synthetic defaults; the reference
-CSV trajectories are not read by the port yet.
+Populations are synthetic at the config's scale and sector mix. The
+scenario trajectories come from a reference-format ``input_data/``
+directory when ``input_root`` names one (``io.reference_inputs``: 9
+census-division regions, the wholesale sell-rate bank from
+``wholesale_profile_bank``), else they are the uniform synthetic
+defaults; ``meta["data_sources"]`` and ``meta["market_curves"]`` say
+which, and every run's ``meta.json`` carries them.
 
     python -m dgen_tpu_torch.presets NAME [--agents N] [--run-dir DIR]
-        [--no-export] [--checkpoint] [--device cpu]
+        [--no-export] [--checkpoint] [--device cpu] [--input-root DIR]
 
 builds the preset, runs every model year on the card (``--device cpu``:
 the plain versions on the CPU), writes the three result surfaces of every
@@ -89,17 +93,22 @@ PRESETS: Dict[str, Preset] = {p.name: p for p in (
 )}
 
 
+#: regions of a synthetic world (an ingested one has the input root's:
+#: the 9 census divisions)
+SYNTH_REGIONS = 10
+
+
 def population(name: str, n_agents: int, rate_switch_frac: float = 0.0,
-               device="cuda"):
+               device="cuda", n_regions: int = SYNTH_REGIONS):
     """The synthetic population of a named preset (``io.synth``, seed 7,
-    10 regions) on ``device``: what :func:`build` runs, without the
-    Simulation."""
+    ``n_regions`` regions) on ``device``: what :func:`build` runs, without
+    the Simulation."""
     from dgen_tpu_torch.io import synth
 
     p = PRESETS[name]
     return synth.generate_population(
         int(n_agents), states=p.states, seed=7, sector_weights=p.sector_weights,
-        n_regions=10, rate_switch_frac=rate_switch_frac, device=device,
+        n_regions=n_regions, rate_switch_frac=rate_switch_frac, device=device,
     )
 
 
@@ -110,11 +119,13 @@ def world(
     rate_switch_frac: float = 0.0,
     device="cuda",
     attachment_rate: Optional[float] = None,
+    input_root: Optional[str] = None,
 ):
     """(population, ScenarioConfig, ScenarioInputs, with_hourly, meta) of a
     named preset on ``device``, without a Simulation: what :func:`build`
     runs, and what a sweep or an ensemble places once for many scenarios.
     The keywords are :func:`build`'s."""
+    from dgen_tpu_torch.io import synth
     from dgen_tpu_torch.models.scenario import uniform_inputs
 
     dev = resolve_device(device)
@@ -128,16 +139,36 @@ def world(
     meta: Dict[str, object] = {
         "preset": p.name, "baseline_config": p.baseline_config,
         "n_agents": n,
-        "data_sources": {"all": "synthetic_default"},
-        "market_curves": {"mms": "synthetic_default", "bass": "synthetic_default"},
     }
-    pop = population(name, n, rate_switch_frac=rate_switch_frac, device=dev)
+    # the inputs cover the full state list: populations index global
+    # state ids even when only the preset's states are populated
+    n_groups = len(synth.STATES) * len(cfg.sectors)
     overrides = None
     if attachment_rate is not None:
-        overrides = {"attachment_rate": np.full(pop.table.n_groups, attachment_rate,
-                                                np.float32)}
-    inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups, n_regions=pop.n_regions,
-                            overrides=overrides, device=dev)
+        overrides = {"attachment_rate": np.full(n_groups, attachment_rate, np.float32)}
+    if input_root is not None and os.path.isdir(input_root):
+        from dgen_tpu_torch.io.reference_inputs import (
+            scenario_inputs_from_reference, wholesale_profile_bank)
+
+        prefer = ({"load_growth": p.load_growth_scenario}
+                  if p.load_growth_scenario else None)
+        inputs, ref_meta = scenario_inputs_from_reference(
+            input_root, cfg, list(synth.STATES), prefer=prefer, overrides=overrides,
+            device=dev)
+        meta["data_sources"] = ref_meta["data_sources"]
+        meta["market_curves"] = ref_meta["market_curves"]
+        pop = population(name, n, rate_switch_frac=rate_switch_frac, device=dev,
+                         n_regions=len(ref_meta["regions"]))
+        wholesale = torch.from_numpy(wholesale_profile_bank(ref_meta, input_root))
+        pop = dataclasses.replace(pop, profiles=dataclasses.replace(
+            pop.profiles, wholesale=wholesale.to(dev)))
+    else:
+        meta["data_sources"] = {"all": "synthetic_default"}
+        meta["market_curves"] = {"mms": "synthetic_default", "bass": "synthetic_default"}
+        pop = population(name, n, rate_switch_frac=rate_switch_frac, device=dev)
+        inputs = uniform_inputs(cfg, n_groups=pop.table.n_groups,
+                                n_regions=pop.n_regions, overrides=overrides,
+                                device=dev)
     return pop, cfg, inputs, p.with_hourly, meta
 
 
@@ -149,6 +180,7 @@ def build(
     rate_switch_frac: float = 0.0,
     device="cuda",
     attachment_rate: Optional[float] = None,
+    input_root: Optional[str] = None,
 ):
     """(Simulation, population, meta) for a named preset on ``device``.
 
@@ -156,12 +188,17 @@ def build(
     ``rate_switch_frac`` gives that share of residential agents a DG
     rate switch on adoption; ``attachment_rate`` sets every group's
     battery attachment rate (the synthetic default's is 0, so no
-    battery adopters are allocated)."""
+    battery adopters are allocated; it wins over an ingested rate).
+    ``input_root``: a reference-format ``input_data/`` directory whose
+    trajectories, market data, NEM caps and drop-ins the scenario
+    ingests (the preset's ``load_growth_scenario`` preferred); a path
+    that is no directory, or None, keeps the synthetic defaults, as the
+    JAX package falls back when its reference mount is absent."""
     from dgen_tpu_torch.models.simulation import Simulation
 
     pop, cfg, inputs, with_hourly, meta = world(
         name, n_agents, end_year=end_year, rate_switch_frac=rate_switch_frac,
-        device=device, attachment_rate=attachment_rate)
+        device=device, attachment_rate=attachment_rate, input_root=input_root)
     sim = Simulation(
         pop.table, pop.profiles, pop.tariffs, inputs, cfg,
         run_config or RunConfig(), with_hourly=with_hourly, device=resolve_device(device),
@@ -301,18 +338,20 @@ def run_preset(
     export: bool = True,
     checkpoint: bool = False,
     device="cuda",
+    input_root: Optional[str] = None,
 ) -> Dict[str, object]:
     """Build and run a preset end to end on ``device`` (the card by
     default) at its full depth; returns the run's record
     (:func:`timed_run`): cold start, every model year, and with
     ``export`` the three surfaces of every year written to ``run_dir``
     (``runs/preset-<name>-<unix time>`` by default); ``checkpoint`` saves
-    the carry every year under ``<run_dir>/ckpt``."""
+    the carry every year under ``<run_dir>/ckpt``; ``input_root`` as
+    :func:`build` takes it."""
     from dgen_tpu_torch.io import synth
     from dgen_tpu_torch.io.export import RunExporter, static_frame_from_table
 
     t_start = time.perf_counter()
-    sim, pop, meta = build(name, n_agents=n_agents, device=device)
+    sim, pop, meta = build(name, n_agents=n_agents, device=device, input_root=input_root)
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
     build_s = time.perf_counter() - t_start
@@ -346,13 +385,16 @@ def main(argv=None) -> int:
                     help="checkpoint the carry every year under <run dir>/ckpt")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--input-root", default=None,
+                    help="a reference-format input_data directory to ingest "
+                         "(default: the synthetic trajectories)")
     args = ap.parse_args(argv)
 
     p = PRESETS[args.name]
     print(f"preset {p.name}: {p.baseline_config}")
     rec = run_preset(args.name, n_agents=args.agents, run_dir=args.run_dir,
                      export=not args.no_export, checkpoint=args.checkpoint,
-                     device=args.device)
+                     device=args.device, input_root=args.input_root)
     print(f"build {rec['build_s']}s | compile ~{rec['compile_s']}s | "
           f"steady year {rec['steady_year_s']}s | total {rec['total_s']}s "
           f"({rec['agent_years_per_sec']} agent-years/sec) | chunk "

@@ -91,6 +91,10 @@ SITES: Dict[str, str] = {
         "utils.atomic.atomic_write, after the rename: torn storage "
         "damaging a landed artifact (``truncate``)"
     ),
+    "ingest": (
+        "io.ingest._read_csv: a transient input-read failure (a network "
+        "filesystem flake), retryable by the supervisor"
+    ),
     "ingest_corrupt_row": (
         "models.agents.build_agent_table: malformed rows entering the "
         "agent table (``corrupt``: a NaN customer count and an "
@@ -142,7 +146,6 @@ SITES: Dict[str, str] = {
 
 #: the JAX package's other sites -> the ROADMAP.md item that ports them
 UNPORTED_SITES: Dict[str, str] = {
-    "ingest": "item 3 (the remaining host inputs)",
     "gang_worker_kill": "item 7 (multi-GPU)",
     "gang_heartbeat_stall": "item 7 (multi-GPU)",
     "gang_barrier": "item 7 (multi-GPU)",

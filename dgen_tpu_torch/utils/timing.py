@@ -1,7 +1,10 @@
 """Phase timers of the run loop and the host-I/O pipeline (port of the
 part of ``dgen_tpu/utils/timing.py`` they use).
 
-:func:`timer` accumulates wall seconds under a name (``ctx:name`` with a
+:func:`fn_timer` is the decorator form (the host-input layer's
+``io.reference_inputs.scenario_inputs_from_reference`` wears it): each
+call's wall seconds go into the bucket named by the function's
+qualified name. :func:`timer` accumulates wall seconds under a name (``ctx:name`` with a
 context label); :func:`timing_report` sums them. The buckets recorded:
 ``year_step`` and ``device_drain`` (the run loop), ``d2h_fetch`` (the
 pipeline's fetch stage), and ``health_check``, ``collect_host``,
@@ -16,12 +19,13 @@ request latencies, read back as p50/p90/p99 by ``/metricz`` and by
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 _TIMINGS: Dict[str, List[float]] = {}
 _LOCK = threading.Lock()
@@ -29,6 +33,28 @@ _LOCK = threading.Lock()
 
 def _key(name: str, ctx: Optional[str]) -> str:
     return f"{ctx}:{name}" if ctx else name
+
+
+def fn_timer(tab_level: int = 0) -> Callable:
+    """Decorator: add each call's wall seconds to the bucket named by the
+    function's ``__qualname__`` and log them at debug level, indented by
+    ``tab_level`` tabs."""
+
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            dt = time.perf_counter() - t0
+            with _LOCK:
+                _TIMINGS.setdefault(fn.__qualname__, []).append(dt)
+            logging.getLogger(__name__).debug("%s%s took: %.3fs", "\t" * tab_level,
+                                              fn.__qualname__, dt)
+            return out
+
+        return wrapper
+
+    return deco
 
 
 @contextmanager

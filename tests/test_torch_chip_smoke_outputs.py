@@ -38,7 +38,7 @@ def test_run_outputs_phase_passes_on_the_cpu(tmp_path, capsys):
 
     out = cs.run_outputs(presets, RunConfig, None, workdir=str(tmp_path), **OUTPUTS_KW)
     assert all(out["same"].values())
-    assert set(out["walls"]) == {"a", "b", "c", "d", "e"} and out["ratios"]["a"] == 1.0
+    assert set(out["walls"]) == {"a", "b", "c", "d"} and out["ratios"]["a"] == 1.0
     assert set(out["trace"]) == {"no consumer", "pipeline, export + checkpoint"}
     assert set(out["fetch"]) == {"cold", "warm"}
     assert len(out["fetched"]) == 2 and all(b > 0 for b in out["fetched"])

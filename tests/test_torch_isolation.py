@@ -211,6 +211,64 @@ def test_card_path_loads_a_package_without_pandas_or_jax():
     assert proc.stdout.split() == ["96", "96", "5", "8"]
 
 
+INPUT_ROOT = os.path.join(ROOT, "tests", "torch_fixtures", "reference_inputs", "dgen_os")
+#: the card path's host-input modules
+INPUT_MODULES = ("dgen_tpu_torch.io", "dgen_tpu_torch.io.ingest",
+                 "dgen_tpu_torch.io.reference_inputs", "dgen_tpu_torch.io.workbook",
+                 "dgen_tpu_torch.io.nem", "dgen_tpu_torch.presets")
+
+
+def test_input_root_ingest_needs_no_pandas_pyarrow_or_jax():
+    """The host-input modules import, the committed input root ingests
+    (its NEM-cap drop-ins included) and a preset world builds on it, with
+    pandas, pyarrow, jax and the JAX package unavailable."""
+    code = (
+        "import sys\n"
+        "for name in ('pandas', 'pyarrow', 'jax', 'jaxlib', 'dgen_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {INPUT_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "from dgen_tpu_torch import presets\n"
+        "from dgen_tpu_torch.config import ScenarioConfig\n"
+        "from dgen_tpu_torch.io import reference_inputs, synth, workbook\n"
+        f"cfg, info = workbook.scenario_from_workbook({INPUT_ROOT!r} + '/excel/scenario.xlsm')\n"
+        f"root = {INPUT_ROOT!r} + '/input_data'\n"
+        "inputs, meta = reference_inputs.scenario_inputs_from_reference(\n"
+        "    root, cfg, list(synth.STATES), prefer=info['prefer'], device='cpu')\n"
+        "bank = reference_inputs.wholesale_profile_bank(meta, root)\n"
+        "pop, _, _, _, wmeta = presets.world('national-all-sector', 32, end_year=2016,\n"
+        "                                    device='cpu', input_root=root)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        "assert not loaded & {'pandas', 'pyarrow', 'jax', 'jaxlib', 'dgen_tpu'}, loaded\n"
+        "print(meta['data_sources']['nem_caps'], meta['data_sources']['itc'],\n"
+        "      meta['market_curves']['mms'], meta['market_curves']['bass'],\n"
+        "      bool((inputs.nem_cap_kw < 1e30).any()), bank.shape[0], pop.n_regions,\n"
+        "      wmeta['data_sources']['nem_caps'])\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["ingested"] * 4 + ["True", "9", "9", "ingested"]
+
+
+def test_refschema_is_scanned_and_imports_pandas_only_in_functions():
+    """io/refschema.py is among the sources the jax-free scan reads, and
+    it imports pandas (and sqlalchemy) only inside its functions: CPU
+    side, never at import."""
+    path = os.path.join(PKG, "io", "refschema.py")
+    assert path in _port_sources()
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if m.split(".")[0] in ("pandas", "pyarrow", "sqlalchemy")
+                or _forbidden(m)], names
+    inner = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    assert "pandas" in inner
+
+
 #: each ported switch of dgen_tpu/config.py's RunConfig.from_env and the
 #: field it sets
 PORTED_FLAGS = {
