@@ -113,7 +113,8 @@ its first launch in the path):
      kernel's rows at P = 1, logged beside the kernels line;
   3i. sweeps and ensembles, through SweepSimulation and
      EnsembleSimulation, in a temporary directory the phase removes: (a)
-     national-all-sector at its full width, 2 model years, S = 2 (the
+     national-all-sector at its full width, 1 model year (2 until
+     [3n] took the room of the second), S = 2 (the
      preset's inputs, and no ITC), planned on the card's memory (one vmap
      group, chunked: S x chunk rows a kernel launch) and again with
      max_vmap_scenarios=1 (loop mode), both collected and equal bit for
@@ -209,7 +210,24 @@ its first launch in the path):
      agent at tests/test_torch_slice.py's bounds; (d) a mixed world of
      32,768 agents clustered and unclustered for 2 years at a battery
      attachment rate of 0.4: battery units per agent by agent_id equal;
-  4. the gated main path: the same world with daylight_compact, pack_once
+   3n. the multi-rank run (dgen_tpu_torch.parallel), each rank a process of
+     the port's entry point (python -m dgen_tpu_torch.parallel.launch) on
+     a localhost rendezvous: (a) a world of one rank over NCCL,
+     national-all-sector at 32,768 agents x 2 years with batteries
+     allocated, per agent bit for bit against the plain Simulation; (b)
+     two ranks sharing the card over gloo, national-all-sector at its
+     full 1,048,576 agents (524,288 a rank, 32,768-row chunks set by hand)
+     x 2 years: each rank's per-year wall, peak allocated bytes and
+     launches, agent-years/s over both ranks beside [3d]'s, and the
+     per-agent outputs against [3d]'s run by agent_id at the JAX
+     package's sharded bound (rtol 5e-4, atol 1e-3), battery units
+     equal, the count of values not bit-equal logged; (c) two ranks at
+     131,072 agents with exports and checkpoints: the union of the
+     ranks' year=<Y>-p<rank> parts against the single-process export
+     row for row, and the ranks' 2014 checkpoint resumed by one process
+     (the restored carry bit for bit against the ranks' outputs, the
+     resumed year within the bound); a rank that fails fails the phase;
+ 4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
   5. the rate-switch path (1,024 agents, 2 model years) through the pair
@@ -508,6 +526,12 @@ def kernel_specs(bk, mk) -> dict:
                                      f"{bp}:343"),
         "bucket_sums_month_signed_ingest": (("ingest", "month_signed"), *month, 9, RTOL,
                                             "month", f"{bp}:343"),
+        # [3n] (b): rank 0 of two ranks sharing the card (a chunk's first
+        # RANKS_CAPTURE_ROWS rows of its first launches; launches: both ranks')
+        "bucket_sums_month_ranks": (("ranks", "month"), *month, 6, RTOL, "month",
+                                    f"{bp}:343"),
+        "bucket_sums_month_signed_ranks": (("ranks", "month_signed"), *month, 9, RTOL,
+                                           "month", f"{bp}:343"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
         "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
@@ -749,8 +773,9 @@ def dropped_period_caught(ref, rtol=RTOL) -> tuple[int, int, int]:
 
 
 #: timed calls of a plain version (after its warm-up) in [9]'s rows: its
-#: time is the yardstick the kernel is read against, 65-1,400 ms a call
-PLAIN_REPS = 2
+#: time is the yardstick the kernel is read against, 65-1,500 ms a call
+#: (one call since [3n] took the room of the others)
+PLAIN_REPS = 1
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -1956,7 +1981,7 @@ def chunked_vs_whole(presets, RunConfig) -> None:
         del out, c_sim, w_sim
 
 
-def national_path(presets, whole_per_year: dict) -> float:
+def national_path(presets, whole_per_year: dict, keep: dict | None = None) -> float:
     """[3d]: national-all-sector at its full width under the automatic
     chunk for NATIONAL_END_YEAR's model years, collect=False, the
     national sums reduced on the card each year; prints the run's record,
@@ -1967,9 +1992,13 @@ def national_path(presets, whole_per_year: dict) -> float:
     The run keeps no operands (``billkernels.CAPTURE = None``: one
     chunk's [~88k, 8760] streams would stay pinned through it); a
     further first year holds the first launches, past row 65,535, against
-    the plain versions (:func:`held_year`). Returns the run's agent-years
-    a second over its years."""
+    the plain versions (:func:`held_year`). ``keep``: a dict the run's
+    per-agent outputs (``parallel.launch.COLLECT_FIELDS``, each year's
+    ``[N]`` rows fetched by the callback) and row ids go into, for [3n]
+    (b). Returns the run's agent-years a second over its years."""
     import torch
+
+    from dgen_tpu_torch.parallel.launch import COLLECT_FIELDS
 
     from dgen_tpu_torch.ops import billkernels as bk
     from dgen_tpu_torch.ops import dispatch
@@ -2002,12 +2031,21 @@ def national_path(presets, whole_per_year: dict) -> float:
                            sh.sum(), torch.isfinite(sh).all().float(),
                            torch.tensor(float(sh.numel()), device=sh.device)])
         sums.append((year, row.cpu().tolist()))
+        if keep is not None:
+            # the year's [N] fields stay on the card (no copy in the timed
+            # years) and are fetched after the run
+            for f in COLLECT_FIELDS:
+                keep.setdefault(f, []).append(getattr(outs, f))
 
     bk.CAPTURE = None
     bk.reset_launches()
     dispatch.reset_launches()
     rec = presets.timed_run(sim, meta, t_start, build_s, callback=national)
     launches = {**bk.LAUNCHES, **dispatch.LAUNCHES}
+    if keep is not None:
+        for f in COLLECT_FIELDS:
+            keep[f] = [t.cpu().numpy() for t in keep[f]]
+        keep.update(agent_id=sim.host_agent_id, mask=sim.host_mask, years=sim.years)
     ys = rec["year_s"]
     carry = ys[1:]
     log(f"    per-year s {ys}: first year {ys[0]:.3f} s, carry years "
@@ -3649,9 +3687,10 @@ def mixed_clusters(*, workdir=None) -> dict:
 # [3i]: sweeps and ensembles on the card
 # ---------------------------------------------------------------------------
 
-#: (a): national-all-sector's 2014 and 2016, S = 2: the preset's inputs,
-#: and the same with no ITC in any year
-SWEEP_END_YEAR = 2016
+#: (a): national-all-sector's 2014, S = 2: the preset's inputs, and the
+#: same with no ITC in any year (one model year since [3n] took the room
+#: of the second; (b) and (c) run carry years)
+SWEEP_END_YEAR = 2014
 #: the per-agent fields the two modes of a sweep or an ensemble, and a
 #: sweep and its single runs, must give bit for bit (by agent_id)
 SWEEP_FIELDS = ("system_kw", "npv", "payback_period", "number_of_adopters", "batt_kwh")
@@ -5535,27 +5574,6 @@ def input_root() -> str:
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), *INPUT_ROOT)
 
 
-class RowSliceCapture(dict):
-    """A ``billkernels.CAPTURE`` (and :func:`first_dispatch`) store that
-    keeps each first launch's operands cut to their first ``rows`` rows,
-    copied: every tensor whose leading dimension is the launch's agent
-    count is sliced, the rest kept as they are."""
-
-    def __init__(self, rows: int):
-        super().__init__()
-        self.rows = rows
-
-    def setdefault(self, key, args):
-        import torch
-
-        if key not in self:
-            n = args[0].shape[0]
-            self[key] = tuple(
-                a[:self.rows].clone() if isinstance(a, torch.Tensor) and a.dim()
-                and a.shape[0] == n else a for a in args)
-        return self[key]
-
-
 @contextlib.contextmanager
 def blocked_modules(names=("pandas", "pyarrow", "jax", "jaxlib", "dgen_tpu")):
     """Inside the block, importing any of ``names`` raises ImportError;
@@ -5669,7 +5687,7 @@ def ingested_national(presets, root: str, card: str, single_rate=None, *,
             row.append((closed.float() * mask).sum())
         sums.append((year, torch.stack(row).cpu().tolist()))
 
-    capture = RowSliceCapture(INGEST_CAPTURE_ROWS)
+    capture = bk.RowSliceCapture(INGEST_CAPTURE_ROWS)
     bk.CAPTURE = capture
     bk.reset_launches()
     dispatch.reset_launches()
@@ -5825,6 +5843,415 @@ def reference_inputs_phase(presets, RunConfig, card: str, single_rate=None, *,
                 d=d, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# [3n]: the multi-rank run
+# ---------------------------------------------------------------------------
+
+#: (a): a world of one rank over NCCL against the plain Simulation
+RANKS_SMALL_AGENTS = 32_768
+#: (b): each of the two ranks' hand-set chunk, two ranks sharing one card
+#: (the footprint model, which over-counts ~1.6x, sizes a 1,048,576-agent
+#: run's chunk at 87,424 rows for a whole 80 GB card; a rank has half)
+RANKS_CHUNK = 32_768
+#: (c): the run outputs and the 2 -> 1 resume
+RANKS_OUTPUT_AGENTS = 131_072
+RANKS_OUTPUT_CHUNK = 16_384
+RANKS_RESUME_YEAR = 2014
+#: (a), (c): batteries allocated
+RANKS_ATTACH = 0.4
+#: the rows of rank 0's first launches kept for [9]'s rows
+RANKS_CAPTURE_ROWS = MAIN_AGENTS
+#: seconds a rank process may take
+RANKS_TIMEOUT_S = 300
+#: the JAX package's per-agent bound for a sharded run
+#: (tests/test_simulation.py:90), and for the state-hourly aggregate
+RANKS_RTOL, RANKS_ATOL = 5e-4, 1e-3
+RANKS_HOURLY_RTOL, RANKS_HOURLY_ATOL = 5e-4, 1e-4
+#: carry leaves and the YearOutputs field each equals after a year
+CARRY_FIELDS = {"market.adopters_cum": "number_of_adopters",
+                "market.system_kw_cum": "system_kw_cum",
+                "market.batt_kw_cum": "batt_kw_cum",
+                "market.batt_kwh_cum": "batt_kwh_cum",
+                "market.market_share": "market_share",
+                "market.max_market_share": "max_market_share",
+                "market.market_value": "market_value",
+                "batt_adopters_cum": "batt_adopters_cum"}
+
+
+def free_card(device) -> None:
+    """Release the card's cached blocks (for the rank processes that share
+    it); no-op off a card."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def spawn_ranks(tag: str, work: str, world: int, args: list, env_extra=None,
+                rank_args=None) -> list:
+    """``world`` processes of the port's rank entry point
+    (``python -m dgen_tpu_torch.parallel.launch``) on a localhost
+    rendezvous, ``args`` their arguments and ``rank_args[r]`` rank r's
+    own; returns each rank's JSON record. A rank that fails, or outlives
+    RANKS_TIMEOUT_S, fails the phase: every rank is then stopped and the
+    failed one's log tail raised."""
+    import os
+    import socket
+
+    os.makedirs(work, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {**os.environ, "DGEN_COORDINATOR": f"127.0.0.1:{port}",
+           "DGEN_NUM_PROCESSES": str(world),
+           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
+                                         if p),
+           **(env_extra or {})}
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(world)]
+    cmd = [sys.executable, "-m", "dgen_tpu_torch.parallel.launch", *args]
+    procs = [subprocess.Popen(cmd + list((rank_args or {}).get(r, ())), cwd=root,
+                              env={**env, "DGEN_PROCESS_ID": str(r)}, stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > RANKS_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    recs, failed = [], []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}: {text[-2500:]}")
+            continue
+        recs.append(json.loads(text.strip().splitlines()[-1]))
+    if failed:
+        raise AssertionError(f"[3n] {tag}: " + " | ".join(failed))
+    for rec in recs:
+        if rec["imports_jax"] or rec["imports_dgen_tpu"]:
+            raise AssertionError(f"[3n] {tag}: rank {rec['rank']} imported jax")
+    return recs
+
+
+def ranks_by_id(paths) -> dict:
+    """The ranks' collected outputs (``--collect``) sorted by agent id."""
+    import numpy as np
+
+    from dgen_tpu_torch.parallel.launch import COLLECT_FIELDS
+
+    parts = [np.load(p) for p in paths]
+    ids = np.concatenate([p["agent_id"] for p in parts])
+    o = np.argsort(ids, kind="stable")
+    out = {"agent_id": ids[o], "years": parts[0]["years"]}
+    for f in COLLECT_FIELDS:
+        out[f] = np.concatenate([p[f] for p in parts], axis=1)[:, o]
+    if "state_hourly_net_mw" in parts[0].files:
+        out["state_hourly_net_mw"] = parts[0]["state_hourly_net_mw"]
+    return out
+
+
+def sim_by_id(res_agent: dict, host_agent_id, host_mask) -> dict:
+    """A run's per-agent outputs ([years, N] host arrays) over its real
+    agents, sorted by agent id."""
+    import numpy as np
+
+    from dgen_tpu_torch.parallel.launch import COLLECT_FIELDS
+
+    keep = np.asarray(host_mask) > 0
+    ids = np.asarray(host_agent_id)[keep].astype(np.int64)
+    o = np.argsort(ids, kind="stable")
+    return {"agent_id": ids[o], **{f: np.asarray(res_agent[f])[:, keep][:, o]
+                                   for f in COLLECT_FIELDS if f in res_agent}}
+
+
+def ranks_parity(tag: str, got: dict, want: dict, bit_for_bit: bool = False) -> int:
+    """Per-agent parity by agent id at the JAX package's sharded bound
+    (or bit for bit), battery units equal; returns the count of values
+    that are not bit-equal. Raises on a miss."""
+    import numpy as np
+
+    from dgen_tpu_torch.parallel.launch import COLLECT_FIELDS
+
+    if not np.array_equal(got["agent_id"], want["agent_id"]):
+        raise AssertionError(f"[3n] {tag}: the ranks' agents are not the run's")
+    for f in ("new_batt_adopters", "batt_adopters_cum"):
+        if not np.array_equal(got[f], want[f]):
+            raise AssertionError(f"[3n] {tag}: a battery unit moved ({f})")
+    differ = 0
+    for f in COLLECT_FIELDS:
+        a, b = np.asarray(got[f]), np.asarray(want[f])
+        if a.shape != b.shape:
+            raise AssertionError(f"[3n] {tag}: {f} {a.shape} against {b.shape}")
+        n = int((a.view(np.uint32) != b.view(np.uint32)).sum())
+        differ += n
+        if bit_for_bit and n:
+            raise AssertionError(f"[3n] {tag}: {n} values of {f} not bit-equal")
+        if not np.allclose(a, b, rtol=RANKS_RTOL, atol=RANKS_ATOL):
+            worst = float(np.max(np.abs(a - b)))
+            raise AssertionError(f"[3n] {tag}: {f} outside rtol {RANKS_RTOL} atol "
+                                 f"{RANKS_ATOL} (largest gap {worst})")
+    return differ
+
+
+def ranks_one_nccl(presets, work: str, card: str, *, n_agents=RANKS_SMALL_AGENTS,
+                   device="cuda") -> dict:
+    """[3n] (a): a world of one rank over NCCL (national-all-sector at
+    RANKS_SMALL_AGENTS, 2 years, batteries allocated) against the plain
+    Simulation in this process, per agent bit for bit: with one rank the
+    year step runs no collective."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "a.npz")
+    (rec,) = spawn_ranks("(a)", os.path.join(work, "a"), 1, [
+        "--preset", NATIONAL, "--agents", str(n_agents), "--device", device,
+        "--end-year", str(NATIONAL_END_YEAR), "--attachment-rate", str(RANKS_ATTACH),
+        "--no-export", "--no-checkpoint", "--collect", out])
+    backend = "nccl" if device == "cuda" else "gloo"
+    if rec["backend"] != backend:
+        raise AssertionError(f"[3n] (a) a world of one rank on a device of its own "
+                             f"took {rec['backend']}, not {backend}")
+    sim, _, _ = presets.build(NATIONAL, n_agents=n_agents,
+                              end_year=NATIONAL_END_YEAR, attachment_rate=RANKS_ATTACH,
+                              device=device)
+    res = sim.run()
+    differ = ranks_parity("(a)", ranks_by_id([out]),
+                          sim_by_id(res.agent, sim.host_agent_id, sim.host_mask),
+                          bit_for_bit=True)
+    for key in ("month", "month_signed", "dispatch"):
+        if device == "cuda" and not rec["launches"][key]:
+            raise AssertionError(f"[3n] (a) the rank launched no {key} kernel")
+    del sim, res
+    free_card(device)
+    wall = time.perf_counter() - t0
+    log(f"[3n] (a) one rank over {rec['backend']} on {rec['device']}: {rec['agents']} "
+        f"agents, years {rec['years']} in {rec['year_s']} s, launches "
+        f"{rec['launches']}; per agent against the plain Simulation: {differ} values "
+        f"not bit-equal; {wall:.1f} s ({card})")
+    return dict(rec=rec, wall=wall)
+
+
+def ranks_shared_card(work: str, national: dict, single_rate: float, card: str, *,
+                      chunk=RANKS_CHUNK, device="cuda") -> dict:
+    """[3n] (b): two ranks sharing the card over gloo, national-all-sector
+    at its full width (524,288 agents a rank), 2 years, RANKS_CHUNK rows a
+    chunk set by hand; each rank's per-year wall, peak allocated bytes and
+    launches, agent-years/s over both ranks beside [3d]'s (a record: two
+    ranks on one card share its SMs), and the per-agent outputs against
+    [3d]'s single-process run of the same world (``national``), by agent
+    id at the JAX package's bound, battery units equal. Rank 0 keeps its
+    first launches (RANKS_CAPTURE_ROWS rows) for [9]."""
+    import os
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() if cuda else 0
+    paths = [os.path.join(work, f"b{r}.npz") for r in range(2)]
+    cap_path = os.path.join(work, "b_capture.pt")
+    recs = spawn_ranks("(b)", os.path.join(work, "b"), 2, [
+        "--preset", NATIONAL, "--end-year", str(NATIONAL_END_YEAR),
+        "--agents", str(int(np.sum(national["mask"] > 0))), "--device", device,
+        "--no-export", "--no-checkpoint"],
+        {"DGEN_TPU_AGENT_CHUNK": str(chunk)},
+        rank_args={0: ["--collect", paths[0], "--capture", cap_path,
+                       "--capture-rows", str(RANKS_CAPTURE_ROWS)],
+                   1: ["--collect", paths[1]]})
+    for rec in recs:
+        if rec["backend"] != "gloo" or rec["device"] != ("cuda:0" if cuda else "cpu"):
+            raise AssertionError(f"[3n] (b) rank {rec['rank']} on {rec['device']} "
+                                 f"over {rec['backend']}: two ranks share cuda:0 over gloo")
+        for key in ("month", "month_signed", "dispatch"):
+            if cuda and not rec["launches"][key]:
+                raise AssertionError(f"[3n] (b) rank {rec['rank']} launched no {key}")
+    ref = sim_by_id({f: np.stack(national[f]) for f in national
+                     if f not in ("agent_id", "mask", "years")},
+                    national["agent_id"], national["mask"])
+    got = ranks_by_id(paths)
+    differ = ranks_parity("(b)", got, ref)
+    n_real = sum(r["agents"] for r in recs)
+    run_s = max(r["run_s"] for r in recs)
+    rate = n_real * len(recs[0]["years"]) / run_s
+    total = sum(int(np.asarray(ref[f]).size) for f in ref if f != "agent_id")
+    for rec in recs:
+        log(f"[3n] (b) rank {rec['rank']} of 2 over {rec['backend']} on "
+            f"{rec['device']}: {rec['agents']} agents in {rec['rows']} rows, chunk "
+            f"{rec['agent_chunk']}, years {rec['years']} in {rec['year_s']} s (run "
+            f"{rec['run_s']} s, built in {rec['build_s']} s), peak allocated "
+            f"{(rec['max_memory_allocated'] or 0) / 2**30:.2f} GiB (modeled step "
+            f"{rec['modeled_step_bytes'] / 2**30:.2f} GiB), launches {rec['launches']}")
+    log(f"    both ranks: {n_real} agents, {rate:.1f} agent-years/s over the slower "
+        f"rank's run (a record, not a claim: the ranks share the card's SMs) beside "
+        f"[3d]'s {single_rate:.1f} in this run; {held / 2**30:.2f} GiB of this "
+        f"process's earlier phases held on the card; per agent against [3d]: "
+        f"{differ} of {total} values not bit-equal, every "
+        f"battery unit equal ({card})")
+    capture = {k: tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in v)
+               for k, v in torch.load(cap_path).items()}
+    launches = {}
+    for rec in recs:
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(recs=recs, rate=rate, differ=differ, launches=launches,
+                capture=capture, wall=time.perf_counter() - t0)
+
+
+def ranks_outputs(presets, RunConfig, work: str, card: str, *,
+                  n_agents=RANKS_OUTPUT_AGENTS, chunk=RANKS_OUTPUT_CHUNK,
+                  device="cuda") -> dict:
+    """[3n] (c): two ranks at RANKS_OUTPUT_AGENTS (batteries allocated,
+    RANKS_OUTPUT_CHUNK-row chunks) with exports and checkpoints: the union
+    of their ``year=<Y>-p<rank>`` parts against the single-process export
+    row for row (JAX's bound, full-precision float32 on both sides), and a
+    year the two ranks checkpointed resumed by one process: the restored
+    carry equal to the ranks' outputs of that year bit for bit by agent
+    id, the resumed year within the bound of the ranks'."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.io import export
+    from dgen_tpu_torch.io.synth import STATES
+    from dgen_tpu_torch.parallel import elastic
+    from dgen_tpu_torch.tree import leaf_paths
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        # this process's own peak (its Simulations' memory checks read it)
+        torch.cuda.reset_peak_memory_stats()
+    run_dir = os.path.join(work, "c", "run")
+    paths = [os.path.join(work, f"c{r}.npz") for r in range(2)]
+    recs = spawn_ranks("(c)", os.path.join(work, "c"), 2, [
+        "--preset", NATIONAL, "--agents", str(n_agents), "--device", device,
+        "--end-year", str(NATIONAL_END_YEAR), "--attachment-rate", str(RANKS_ATTACH),
+        "--run-dir", run_dir], {"DGEN_TPU_AGENT_CHUNK": str(chunk)},
+        rank_args={r: ["--collect", paths[r]] for r in range(2)})
+    got = ranks_by_id(paths)
+    rc = RunConfig(agent_chunk=chunk)
+
+    def build():
+        return presets.build(NATIONAL, n_agents=n_agents,
+                             end_year=NATIONAL_END_YEAR, attachment_rate=RANKS_ATTACH,
+                             run_config=rc, device=device)[0]
+
+    sim = build()
+    one_dir = os.path.join(work, "c", "single")
+    exporter = export.RunExporter(one_dir, agent_id=sim.host_agent_id, mask=sim.host_mask,
+                                  state_names=list(STATES), compact=False, device=sim.device)
+    res = sim.run(callback=exporter)
+    single = sim_by_id(res.agent, sim.host_agent_id, sim.host_mask)
+    differ = ranks_parity("(c) outputs", got, single)
+    # the export parts' union against the single-process export, row for row
+    part_differ, rows = 0, 0
+    for surface in ("agent_outputs", "finance_series"):
+        names = sorted(os.listdir(os.path.join(run_dir, surface)))
+        want_names = [f"year={y}-p{r}.npz" for y in sim.years for r in range(2)]
+        if names != want_names:
+            raise AssertionError(f"[3n] (c) {surface} parts {names}")
+        a = export.load_surface(run_dir, surface)
+        b = export.load_surface(one_dir, surface)
+        ka = np.lexsort((a["agent_id"], a["year"]))
+        kb = np.lexsort((b["agent_id"], b["year"]))
+        for c in a:
+            if c == "energy_value":
+                continue
+            x, y = a[c][ka], b[c][kb]
+            if x.shape != y.shape:
+                raise AssertionError(f"[3n] (c) {surface}.{c}: {x.shape} rows "
+                                     f"against {y.shape}")
+            if x.dtype.kind == "f":
+                part_differ += int((x.view(np.uint32) != y.view(np.uint32)).sum())
+                if not np.allclose(x, y, rtol=RANKS_RTOL, atol=RANKS_ATOL):
+                    raise AssertionError(f"[3n] (c) {surface}.{c} outside the bound")
+            elif not np.array_equal(x, y):
+                raise AssertionError(f"[3n] (c) {surface}.{c} differs")
+        rows += len(ka)
+    ha = export.load_surface(run_dir, "state_hourly")["net_load_mw"]
+    hb = export.load_surface(one_dir, "state_hourly")["net_load_mw"]
+    if not np.allclose(ha, hb, rtol=RANKS_HOURLY_RTOL, atol=RANKS_HOURLY_ATOL):
+        raise AssertionError("[3n] (c) the state-hourly surface outside its bound")
+    # the ranks' checkpoint resumed by one process
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    if not elastic.is_sharded(ckpt_dir, RANKS_RESUME_YEAR):
+        raise AssertionError("[3n] (c) the ranks wrote no per-rank checkpoint parts")
+    del sim, res, exporter
+    free_card(device)
+    sim = build()
+    n_global = sim.table.n_agents
+    _, carry = elastic.restore_resharded(ckpt_dir, n_global, RANKS_RESUME_YEAR,
+                                         device=device, rows=sim.agent_rows)
+    leaves = {k.lstrip("."): v.cpu().numpy() for k, v in leaf_paths(carry).items()}
+    yi = list(got["years"]).index(RANKS_RESUME_YEAR)
+    restored = sim_by_id({f: leaves[k][None] for k, f in CARRY_FIELDS.items()},
+                         sim.host_agent_id, sim.host_mask)
+    for k, f in CARRY_FIELDS.items():
+        if not np.array_equal(restored[f][0], got[f][yi]):
+            raise AssertionError(f"[3n] (c) the restored {k} is not the ranks' {f} of "
+                                 f"{RANKS_RESUME_YEAR} bit for bit")
+    res2 = sim.run(checkpoint_dir=ckpt_dir, resume=True, resume_year=RANKS_RESUME_YEAR)
+    resumed_years = res2.years
+    if resumed_years != [y for y in sim.years if y > RANKS_RESUME_YEAR]:
+        raise AssertionError(f"[3n] (c) the resume ran {resumed_years}")
+    resumed = sim_by_id(res2.agent, sim.host_agent_id, sim.host_mask)
+    tail = {"agent_id": got["agent_id"], **{f: got[f][yi + 1:] for f in got
+                                            if f not in ("agent_id", "years",
+                                                         "state_hourly_net_mw")}}
+    resume_differ = ranks_parity("(c) resume", resumed, tail)
+    del sim, res2, carry
+    free_card(device)
+    wall = time.perf_counter() - t0
+    log(f"[3n] (c) two ranks at {sum(r['agents'] for r in recs)} agents, chunk "
+        f"{recs[0]['agent_chunk']}, years {recs[0]['years']} ({[r['year_s'] for r in recs]}"
+        f" s): per agent against one process {differ} values not bit-equal; the "
+        f"export parts' union against the single-process export: {rows} rows, "
+        f"{part_differ} float values not bit-equal, state-hourly within rtol "
+        f"{RANKS_HOURLY_RTOL}; the {RANKS_RESUME_YEAR} checkpoint of 2 ranks restored "
+        f"by one process bit for bit ({len(CARRY_FIELDS)} carry leaves against the "
+        f"ranks' outputs), its resumed {resumed_years} within the bound of the ranks' "
+        f"({resume_differ} values not bit-equal); {wall:.1f} s ({card})")
+    return dict(recs=recs, differ=differ, part_differ=part_differ,
+                resume_differ=resume_differ, wall=wall)
+
+
+def multi_rank(presets, RunConfig, national: dict, single_rate: float, card: str) -> dict:
+    """[3n]: the multi-rank run on one card, (a)-(c), in a temporary
+    directory it removes. Returns (b)'s launches and first launches for
+    [9], and the figures."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dgen-ranks-")
+    try:
+        a = ranks_one_nccl(presets, work, card)
+        b = ranks_shared_card(work, national, single_rate, card)
+        c = ranks_outputs(presets, RunConfig, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"[3n] the multi-rank run (a)-(c): {wall:.3f} s ({card})")
+    return dict(launches=b.pop("launches"), capture=b.pop("capture"), a=a, b=b, c=c,
+                wall=wall)
+
+
 def main(argv=None) -> int:
     import argparse
     import os
@@ -5930,7 +6357,8 @@ def main(argv=None) -> int:
     main_years = len(runs["main"]["res"].years)
     whole_per_year = {k: runs["main"]["launches"][k] / main_years
                       for k in ("month", "month_signed")}
-    single_rate = national_path(presets, whole_per_year)
+    national = {}
+    single_rate = national_path(presets, whole_per_year, keep=national)
     torch.cuda.empty_cache()
 
     phase_s["3d"] = lap()
@@ -5981,6 +6409,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase_s["3m"] = lap()
+    # --- 3n: the multi-rank run ---
+    ranks = multi_rank(presets, RunConfig, national, single_rate, card)
+    runs["ranks"] = dict(launches=ranks["launches"], capture=ranks["capture"])
+    del national
+    torch.cuda.empty_cache()
+
+    phase_s["3n"] = lap()
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
     lay = gsim._daylight
@@ -6136,7 +6571,7 @@ def main(argv=None) -> int:
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     oracle_dispatch = captures["oracle"]["dispatch"]
     serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64", "fleet",
-                                                            "ingest")}
+                                                            "ingest", "ranks")}
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -6158,7 +6593,10 @@ def main(argv=None) -> int:
         log({"fleet": "  the battery dispatch kernel on [3l] (a)'s first oracle dispatch "
                       "(the fleet path, a bucket of 8 launching 16 rows):",
              "ingest": f"  the battery dispatch kernel on [3m] (b)'s first dispatch (the "
-                       f"ingest path; a chunk's first {INGEST_CAPTURE_ROWS} rows):"}.get(
+                       f"ingest path; a chunk's first {INGEST_CAPTURE_ROWS} rows):",
+             "ranks": f"  the battery dispatch kernel on [3n] (b)'s rank 0's first "
+                      f"dispatch (two ranks sharing the card; a chunk's first "
+                      f"{RANKS_CAPTURE_ROWS} rows):"}.get(
             key, f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
                  f"{key[5:]} (the serving path):"))
         r = dispatch_row(ops, runs[key]["launches"]["dispatch"])

@@ -4,7 +4,8 @@ A copy of the settings of ``dgen_tpu/config.py`` that the model-year
 path reads (the JAX package is never imported here: importing any of
 its modules imports jax). ``ScenarioConfig`` is mirrored whole;
 ``RunConfig`` carries the run settings of the ported paths: the sizing
-search's candidate count, the gated kernel paths (daylight compaction,
+search's candidate count, the devices of a run and its state partition,
+the gated kernel paths (daylight compaction,
 pack-once, the stream engine), the narrow profile banks (bf16, int8),
 the streaming agent chunk with its padding, the invariant harness, the
 health sentinel, the host-I/O pipeline, load-time validation and
@@ -93,6 +94,14 @@ class RunConfig:
     #: (models.simulation.auto_agent_chunk; 0 on the CPU); ``0`` runs the
     #: whole table at once; ``> 0`` fixes the rows of a chunk.
     agent_chunk: Optional[int] = None
+    #: devices of the run (None: all it is given); a multi-rank run's
+    #: ranks come from ``parallel.launch`` (one device a rank)
+    n_devices: Optional[int] = None
+    #: reorder agents so that states are shard-local on a multi-rank run
+    #: (``parallel.partition``, the reference's per-state task binning);
+    #: False splits the table into contiguous row blocks, and the market
+    #: step gathers its group operands across ranks
+    partition_by_state: bool = True
     #: check the carry and the outputs after every year
     #: (utils.invariants: schema, shapes, dtypes, finiteness; host sync)
     debug_invariants: bool = False
@@ -273,9 +282,10 @@ class RunConfig:
         (``soft_tau``, a float) (a flag is on unless empty, "0" or
         "false").
 
-        A switch that asks for a feature the port lacks raises
-        ``NotImplementedError``: ``DGEN_TPU_DEVICES`` above 1, or
-        ``DGEN_TPU_GUARD`` on. ``DGEN_TPU_VALIDATE`` is read when a
+        ``DGEN_TPU_DEVICES`` sets ``n_devices`` (the devices of a run, as
+        the JAX package reads it; a multi-rank run takes its ranks from
+        ``parallel.launch``). A switch that asks for a feature the port
+        lacks raises ``NotImplementedError``: ``DGEN_TPU_GUARD`` on. ``DGEN_TPU_VALIDATE`` is read when a
         Simulation is built (``validate_enabled``); ``DGEN_TPU_FAULTS`` is not a field here:
         the run supervisor or ``resilience.faults.install_from_env``
         installs it, as in the JAX package. ``DGEN_TPU_SENTINEL`` and
@@ -286,10 +296,8 @@ class RunConfig:
         def flag(name: str) -> bool:
             return env.get(name, "") not in ("", "0", "false")
 
-        devices = env.get("DGEN_TPU_DEVICES")
-        if devices and int(devices) > 1:
-            raise NotImplementedError(
-                f"DGEN_TPU_DEVICES={devices}: the port runs on one device")
+        if "n_devices" not in overrides and env.get("DGEN_TPU_DEVICES"):
+            overrides["n_devices"] = int(env["DGEN_TPU_DEVICES"])
         if flag("DGEN_TPU_GUARD"):
             raise NotImplementedError(
                 f"DGEN_TPU_GUARD={env['DGEN_TPU_GUARD']}: guard_retrace is not ported")

@@ -29,8 +29,19 @@ vmap-mode group in ``scn=<group>/`` as one stacked carry a year, every
 leaf ``[S, N]`` (``restore_year(n_scenarios=S)``), committed by the same
 rename. ``scenario=`` selects the subdirectory in the functions below.
 
-Not ported yet: a restore onto a sharding (multi-GPU, ``ROADMAP.md``
-item 7).
+A multi-rank run (``parallel``) writes one part a rank a year, each the
+rank's carry and the agent ids of its rows::
+
+    <directory>/<year>.p<rank>-of-<world>/carry.npz
+    <directory>/<year>.p<rank>-of-<world>/rows.npy
+
+each committed by its own rename. A year counts as committed when every
+part of one world size is (:func:`valid_years`); where a year was
+committed more than once (a resume at another world size wrote it again),
+the newest commit is the year's. A restore of such a year gathers the
+parts and moves their rows onto the restoring run's by agent id, so a
+world of P ranks (or one process) resumes a year written by P' ranks
+(``parallel.elastic``).
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import re
 import shutil
 import tempfile
 from typing import Dict, List, Optional, Tuple
@@ -58,6 +70,14 @@ CARRY_FILE = "carry.npz"
 #: a clustered run's row order in a committed year: [rows] int64 agent
 #: ids, -1 on a masked row
 ROWS_FILE = "rows.npy"
+#: one rank's part of a year a multi-rank run wrote
+_PART_RE = re.compile(r"^(\d+)\.p(\d+)-of-(\d+)$")
+
+
+def part_dir_name(year: int, rank: int, world: int) -> str:
+    """The directory name of rank ``rank``'s part of ``year`` in a world of
+    ``world`` ranks."""
+    return f"{int(year)}.p{int(rank)}-of-{int(world)}"
 
 
 def scenario_dir(directory: str, scenario: Optional[str]) -> str:
@@ -95,12 +115,17 @@ class Writer:
     end of the run. ``rows``: a clustered run's row order (agent ids, -1
     on masked rows), saved with every year. ``scenario``: the sweep
     subdirectory (:func:`scenario_dir`). A stacked carry (``[S, N]``
-    leaves) saves as it is."""
+    leaves) saves as it is. ``shard=(rank, world)``: one rank's part of a
+    multi-rank run (``rows`` required)."""
 
     def __init__(self, directory: str, rows: Optional[np.ndarray] = None,
-                 scenario: Optional[str] = None) -> None:
+                 scenario: Optional[str] = None,
+                 shard: Optional[Tuple[int, int]] = None) -> None:
         self.directory = os.path.abspath(scenario_dir(directory, scenario))
         self.rows = None if rows is None else np.asarray(rows, np.int64)
+        if shard is not None and self.rows is None:
+            raise ValueError("a rank's checkpoint part needs its rows' agent ids")
+        self.shard = None if shard is None else (int(shard[0]), int(shard[1]))
         os.makedirs(self.directory, exist_ok=True)
 
     def save(self, year: int, carry) -> None:
@@ -111,7 +136,8 @@ class Writer:
         # the torn one invisible
         fault_point("ckpt_save")
         arrays = {k: _host(v) for k, v in _leaves(carry).items()}
-        final = os.path.join(self.directory, str(int(year)))
+        name = str(int(year)) if self.shard is None else part_dir_name(year, *self.shard)
+        final = os.path.join(self.directory, name)
         tmp = tempfile.mkdtemp(prefix=f".tmp-{int(year)}-", dir=self.directory)
         try:
             write_npz(os.path.join(tmp, CARRY_FILE), arrays)
@@ -146,17 +172,49 @@ def save_year(directory: str, year: int, carry, scenario: Optional[str] = None) 
         w.save(year, carry)
 
 
+def _committed(directory: str) -> Dict[int, List[Tuple[float, List[str]]]]:
+    """{year: [(commit time, [part directories in rank order]), ...]}: a
+    one-process year is one part; a multi-rank year is listed once for
+    each world size of which every rank's part is committed."""
+    out: Dict[int, List[Tuple[float, List[str]]]] = {}
+    if not os.path.isdir(directory):
+        return out
+    parts: Dict[Tuple[int, int], Dict[int, str]] = {}
+    for name in os.listdir(directory):
+        path = os.path.join(directory, name)
+        carry = os.path.join(path, CARRY_FILE)
+        if not os.path.isfile(carry):
+            continue
+        if name.isdigit():
+            out.setdefault(int(name), []).append((os.path.getmtime(carry), [path]))
+            continue
+        m = _PART_RE.match(name)
+        if m:
+            year, rank, world = (int(g) for g in m.groups())
+            parts.setdefault((year, world), {})[rank] = path
+    for (year, world), by_rank in parts.items():
+        if sorted(by_rank) == list(range(world)):
+            paths = [by_rank[r] for r in range(world)]
+            t = max(os.path.getmtime(os.path.join(p, CARRY_FILE)) for p in paths)
+            out.setdefault(year, []).append((t, paths))
+    return out
+
+
+def year_parts(directory: str, year: int, scenario: Optional[str] = None
+               ) -> Optional[List[str]]:
+    """The part directories of ``year``'s newest commit in rank order (one
+    for a one-process year), or None when the year is not committed."""
+    commits = _committed(scenario_dir(directory, scenario)).get(int(year))
+    if not commits:
+        return None
+    return max(commits, key=lambda c: c[0])[1]
+
+
 def valid_years(directory: str, scenario: Optional[str] = None) -> List[int]:
     """Ascending committed years of a checkpoint directory (a save that
-    died before its rename never appears)."""
-    directory = scenario_dir(directory, scenario)
-    if not os.path.isdir(directory):
-        return []
-    years = []
-    for name in os.listdir(directory):
-        if name.isdigit() and os.path.isfile(os.path.join(directory, name, CARRY_FILE)):
-            years.append(int(name))
-    return sorted(years)
+    died before its rename never appears, nor a multi-rank year one of
+    whose ranks' parts is missing)."""
+    return sorted(_committed(scenario_dir(directory, scenario)))
 
 
 def latest_year(directory: str, scenario: Optional[str] = None) -> Optional[int]:
@@ -224,31 +282,45 @@ def restore_year(directory: str, n_agents: int, year: Optional[int] = None,
         year = latest_year(directory)
         if year is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
-    path = os.path.join(directory, str(int(year)), CARRY_FILE)
-    if not os.path.isfile(path):
+    parts = year_parts(directory, year)
+    if parts is None:
         raise FileNotFoundError(f"no checkpoint of year {year} under {directory}")
     rows = None if rows is None else np.asarray(rows, np.int64)
-    rows_path = os.path.join(os.path.dirname(path), ROWS_FILE)
+    sharded = not os.path.basename(parts[0]).isdigit()
+    path = os.path.join(parts[0], CARRY_FILE)
+    rows_path = os.path.join(parts[0], ROWS_FILE)
     saved = np.load(rows_path) if os.path.isfile(rows_path) else None
-    if (saved is None) != (rows is None):
+    if sharded and rows is None:
+        raise ValueError(f"checkpoint year {year} under {directory} was saved by "
+                         f"{len(parts)} ranks; it restores by agent id only (pass rows)")
+    if not sharded and (saved is None) != (rows is None):
         kind = ("a clustered", "an unclustered")
         raise ValueError(f"checkpoint {path} was saved by {kind[saved is None]} run; "
                          f"refusing to restore it into {kind[rows is None]} one")
     if rows is not None and len(rows) != n_agents:
         raise ValueError(f"{len(rows)} row ids for {n_agents} agents")
-    n_saved = n_agents if saved is None else len(saved)
     lead = () if n_scenarios is None else (int(n_scenarios),)
-    want = {k: lead + tuple(v.shape)
-            for k, v in _leaves(SimCarry.zeros(n_saved, "cpu")).items()}
-    with np.load(path, allow_pickle=False) as z:
-        got = {k: z[k] for k in z.files}
-    if set(got) != set(want):
-        raise ValueError(f"checkpoint {path} holds leaves {sorted(got)}, a SimCarry "
-                         f"has {sorted(want)}")
-    for k, z0 in want.items():
-        if tuple(got[k].shape) != z0:
-            raise ValueError(f"checkpoint {path}: leaf {k} has shape {got[k].shape}, "
-                             f"{z0} expected for {n_saved} agents")
+    got_parts, saved_parts = [], []
+    for part in parts:
+        path = os.path.join(part, CARRY_FILE)
+        part_rows = (np.load(os.path.join(part, ROWS_FILE)) if sharded or saved is not None
+                     else None)
+        n_saved = n_agents if part_rows is None else len(part_rows)
+        want = {k: lead + tuple(v.shape)
+                for k, v in _leaves(SimCarry.zeros(n_saved, "cpu")).items()}
+        with np.load(path, allow_pickle=False) as z:
+            got = {k: z[k] for k in z.files}
+        if set(got) != set(want):
+            raise ValueError(f"checkpoint {path} holds leaves {sorted(got)}, a SimCarry "
+                             f"has {sorted(want)}")
+        for k, z0 in want.items():
+            if tuple(got[k].shape) != z0:
+                raise ValueError(f"checkpoint {path}: leaf {k} has shape "
+                                 f"{got[k].shape}, {z0} expected for {n_saved} agents")
+        got_parts.append(got)
+        saved_parts.append(part_rows)
+    got = {k: np.concatenate([g[k] for g in got_parts], axis=-1) for k in got_parts[0]}
+    saved = None if saved_parts[0] is None else np.concatenate(saved_parts)
     if saved is not None and not np.array_equal(saved, rows):
         src = _rows_source(saved, rows)
         take, keep = np.maximum(src, 0), src >= 0

@@ -1,5 +1,5 @@
-"""Per-year run outputs (port of ``dgen_tpu/io/export.py``, single
-process): the reference's three result surfaces, written as numpy
+"""Per-year run outputs (port of ``dgen_tpu/io/export.py``): the
+reference's three result surfaces, written as numpy
 ``.npz`` partitions under the run directory, plus ``meta.json``
 provenance.
 
@@ -31,8 +31,15 @@ and a year is marked complete once its surfaces are all on disk: the
 run supervisor's resume frontier. The atomic writes carry the
 ``export_write`` and ``export_torn`` fault sites (``utils.atomic``).
 
-Not ported yet: the multi-process part files (``-p<proc>``) and the
-sharding realignment (``ROADMAP.md`` item 7).
+A rank of a multi-rank run (``ranks=``, ``parallel``) writes its own
+rows as ``year=<Y>-p<rank>.npz`` parts into the shared surfaces, in full
+float32 as the JAX package's multi-process parts are (compact mode then
+only drops the ``energy_value`` column); rank 0 writes ``meta.json`` and
+the state-hourly aggregate (the same on every rank). A multi-rank run's
+manifest must be a per-rank shard ledger
+(``RunManifest(shard=rank)``); a one-run ledger is dropped, since it
+would claim completeness it cannot see. :func:`load_surface` reads the
+union of the parts.
 """
 
 from __future__ import annotations
@@ -133,8 +140,30 @@ def _dir(run_dir: str, name: str) -> str:
     return d
 
 
-def _part_name(year: int) -> str:
-    return f"year={int(year)}.npz"
+def _part_name(year: int, rank: Optional[int] = None) -> str:
+    """A year's partition name; a multi-rank run's rank writes its own part."""
+    if rank is None:
+        return f"year={int(year)}.npz"
+    return f"year={int(year)}-p{int(rank)}.npz"
+
+
+def _host_rows(arr, ranks=None, n_local: Optional[int] = None):
+    """(rows, global_row_idx) of this rank's part of a per-agent field on
+    the host: a rank's outputs are its own rows, global rows
+    ``rank * n_local + arange(n_local)``; a field that arrives with every
+    rank's rows (``world * n_local`` of them, in rank order) is cut to this
+    rank's. ``global_row_idx`` is None for one process."""
+    h = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    if ranks is None or not ranks.distributed:
+        return h, None
+    n = h.shape[0] if n_local is None else int(n_local)
+    start = ranks.rank * n
+    if h.shape[0] == n * ranks.world_size:
+        h = h[start:start + n]
+    elif h.shape[0] != n:
+        raise ValueError(f"a field of {h.shape[0]} rows is neither this rank's "
+                         f"{n} rows nor the {ranks.world_size} ranks' {n * ranks.world_size}")
+    return h, np.arange(start, start + n)
 
 
 # ---------------------------------------------------------------------------
@@ -210,11 +239,23 @@ class RunExporter:
         static_frame: Optional[Dict[str, np.ndarray]] = None,
         device=None,
         manifest=None,
+        ranks=None,
     ) -> None:
         self.run_dir = run_dir
+        #: a multi-rank run's topology (``parallel.mesh.RankTopology``):
+        #: this exporter writes its rank's part; None for one process
+        self.ranks = ranks if ranks is not None and ranks.distributed else None
+        self._rank = None if self.ranks is None else self.ranks.rank
         # the crash-consistent artifact ledger (resilience.manifest): each
         # landed partition is recorded, each year marked complete once its
-        # surfaces are all written
+        # surfaces are all written. A multi-rank run records per rank (a
+        # shard ledger); a one-run ledger there would claim completeness
+        # it cannot see, so it is dropped
+        if self.ranks is not None and manifest is not None \
+                and getattr(manifest, "shard", None) is None:
+            logger.warning("a multi-rank run needs a per-rank shard ledger "
+                           "(RunManifest(shard=rank)); the run manifest is dropped")
+            manifest = None
         self._manifest = manifest
         self.keep = np.asarray(mask) > 0
         self.agent_id = np.asarray(agent_id)[self.keep]
@@ -237,15 +278,19 @@ class RunExporter:
         self.meta = {**provenance_stamp(device=device),
                      "n_agents": int(self.keep.sum()),
                      "export_compact": self.compact,
-                     "export_quantized": self.compact,
+                     # a multi-rank run's parts stay float32 even under
+                     # compact, as the JAX package's do
+                     "export_quantized": self.compact and self.ranks is None,
                      "nonfinite_zeroed": 0,
                      # set (with per-year host_io_wall stamps) by
                      # stamp_hostio when the pipeline drives this exporter
                      "async_io": False,
                      **(meta or {})}
         self._meta_dirty = False
+        if self.ranks is not None:
+            self.meta["n_processes"] = self.ranks.world_size
         self._write_meta()
-        if static_frame is not None:
+        if static_frame is not None and not self._rank:
             atomic_write_npz(os.path.join(run_dir, "agents.npz"), static_frame)
             if self._manifest is not None:
                 self._manifest.record_run_artifact("agents.npz")
@@ -289,11 +334,18 @@ class RunExporter:
                 out.append(next(ri))
         return out
 
+    @property
+    def _quantized(self) -> bool:
+        return self.compact and self.ranks is None
+
     def _ao_quant(self) -> tuple:
-        return _AGENT_OUTPUT_QUANT if self.compact else (False,) * len(AGENT_OUTPUT_FIELDS)
+        return (_AGENT_OUTPUT_QUANT if self._quantized
+                else (False,) * len(AGENT_OUTPUT_FIELDS))
 
     def _fin_quant(self) -> tuple:
-        return (True,) if self.compact else (False, False)
+        if not self.compact:
+            return (False, False)
+        return (True,) if self._quantized else (False,)
 
     def _fin_fields(self, outs) -> list:
         if not self.finance_series:
@@ -308,7 +360,14 @@ class RunExporter:
             prepared = self._quant_dispatch(arrs, quant)
         host = self._host_reconstruct(to_host(list(prepared)), quant,
                                       names=names, year=year)
-        return [h[self.keep] for h in host]
+        return [self._rows(h) for h in host]
+
+    def _rows(self, h: np.ndarray) -> np.ndarray:
+        """The real-agent rows of a fetched field (a multi-rank field cut
+        to this rank's rows first, :func:`_host_rows`)."""
+        if self.ranks is not None:
+            h = _host_rows(h, self.ranks, len(self.keep))[0]
+        return h[self.keep]
 
     def _check_state_names(self, n_states: int) -> None:
         if self.state_names is not None and len(self.state_names) != n_states:
@@ -321,7 +380,7 @@ class RunExporter:
         deferred, right after the step that produced ``outs``, so the
         later callback only fetches ready tensors. No-op in full
         precision."""
-        if not self.compact:
+        if not self._quantized:
             return
         pre = {"agent_outputs": self._quant_dispatch(
             [getattr(outs, f) for f in AGENT_OUTPUT_FIELDS], _AGENT_OUTPUT_QUANT)}
@@ -334,7 +393,7 @@ class RunExporter:
         self.write_agent_outputs(year, outs, prepared=pre.get("agent_outputs"))
         if self.finance_series:
             self.write_finance_series(year, outs, prepared=pre.get("finance"))
-        if outs.state_hourly_net_mw.numel():
+        if outs.state_hourly_net_mw.numel() and not self._rank:
             self.write_state_hourly(year, to_host(outs.state_hourly_net_mw))
         self._flush_meta()
         self._mark_year_complete(year)
@@ -354,7 +413,7 @@ class RunExporter:
         if self.finance_series:
             payload["fin"] = pre.get("finance") or self._quant_dispatch(
                 self._fin_fields(outs), self._fin_quant())
-        if outs.state_hourly_net_mw.numel():
+        if outs.state_hourly_net_mw.numel() and not self._rank:
             payload["hourly"] = outs.state_hourly_net_mw
         return payload
 
@@ -362,11 +421,11 @@ class RunExporter:
         """Write stage of the pipeline over a fetched :meth:`device_payload`
         bundle: the same reconstruction, masking and columns as the
         serialized path, so the same bytes."""
-        rows = [h[self.keep] for h in self._host_reconstruct(
+        rows = [self._rows(h) for h in self._host_reconstruct(
             host["ao"], self._ao_quant(), names=AGENT_OUTPUT_FIELDS, year=year)]
         self._write_ao_frame(year, rows)
         if self.finance_series:
-            f_rows = [h[self.keep] for h in self._host_reconstruct(
+            f_rows = [self._rows(h) for h in self._host_reconstruct(
                 host["fin"], self._fin_quant(),
                 names=("cash_flow", "energy_value_pv_only"), year=year)]
             self._write_fin_frame(year, f_rows[0], None if self.compact else f_rows[1])
@@ -388,6 +447,8 @@ class RunExporter:
         self._flush_meta()
 
     def _write_meta(self) -> None:
+        if self._rank:
+            return  # rank 0 writes the run's provenance
         atomic_write_json(os.path.join(self.run_dir, "meta.json"), self.meta,
                           indent=2, default=str)
 
@@ -433,11 +494,12 @@ class RunExporter:
     # --- agent_outputs (reference dgen_model.py:460-462) ---
     def _write_ao_frame(self, year: int, rows) -> None:
         n = len(self.agent_id)
+        name = _part_name(year, self._rank)
         atomic_write_npz(
-            os.path.join(_dir(self.run_dir, "agent_outputs"), _part_name(year)),
+            os.path.join(_dir(self.run_dir, "agent_outputs"), name),
             {"agent_id": self.agent_id, "year": np.full(n, int(year), np.int64),
              **dict(zip(AGENT_OUTPUT_FIELDS, rows))})
-        self._record(year, os.path.join("agent_outputs", _part_name(year)))
+        self._record(year, os.path.join("agent_outputs", name))
 
     def write_agent_outputs(self, year: int, outs, prepared=None) -> None:
         self._write_ao_frame(year, self._local_fields(
@@ -451,9 +513,9 @@ class RunExporter:
                 "cash_flow": cf}
         if ev is not None:
             cols["energy_value"] = ev
-        atomic_write_npz(
-            os.path.join(_dir(self.run_dir, "finance_series"), _part_name(year)), cols)
-        self._record(year, os.path.join("finance_series", _part_name(year)))
+        name = _part_name(year, self._rank)
+        atomic_write_npz(os.path.join(_dir(self.run_dir, "finance_series"), name), cols)
+        self._record(year, os.path.join("finance_series", name))
 
     def write_finance_series(self, year: int, outs, prepared=None) -> None:
         # compact runs drop energy_value, the detail column and half the

@@ -37,8 +37,13 @@ collection overlapped with device compute (port of
 
 The serialized per-year path stays in ``Simulation.run`` as the bit-exact
 oracle (``RunConfig.async_host_io=False``, ``DGEN_TPU_ASYNC_IO=0``), and
-``debug_invariants`` runs always take it. Not ported yet: the
-multi-process ``DeviceCheckpointConsumer``.
+``debug_invariants`` runs always take it. A rank of a multi-rank run
+runs its own pipeline over its own rows (the health counts are combined
+across ranks at submit time, on the run loop's thread); its checkpoint
+stage is :class:`CheckpointConsumer` too, since each rank writes its own
+host part of the year (``io.checkpoint``). The JAX package's
+``DeviceCheckpointConsumer`` exists because its collective save must see
+device arrays; the port's save is not collective, so it has none.
 """
 
 from __future__ import annotations
@@ -197,8 +202,12 @@ class HealthConsumer:
     needs_device = False
 
     def __init__(self, mask, agent_ids_host, mask_host, escalate: bool,
-                 breaches_out: Optional[Dict[int, list]] = None) -> None:
+                 breaches_out: Optional[Dict[int, list]] = None, reduce=None) -> None:
         self._mask = mask
+        # a multi-rank run's counts are combined at submit time, on the
+        # run loop's thread, where every rank makes its collectives in
+        # one order
+        self._reduce = reduce
         self._agent_ids = agent_ids_host
         self._mask_host = mask_host
         self.escalate = bool(escalate)
@@ -211,7 +220,7 @@ class HealthConsumer:
 
         self._leaves[int(year_idx)] = types.SimpleNamespace(**{
             name: getattr(outs, name) for name in sorted(health_mod.ATTRIBUTION_LEAVES)})
-        return health_mod.health_summary(outs, self._mask)
+        return health_mod.health_summary(outs, self._mask, self._reduce)
 
     def consume(self, year, year_idx, host, outs) -> None:
         from dgen_tpu_torch.models import health as health_mod

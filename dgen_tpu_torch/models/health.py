@@ -96,10 +96,13 @@ class HealthBreachError(RuntimeError):
         self.truncated = bool(truncated)
 
 
-def health_summary(outs, mask: torch.Tensor) -> torch.Tensor:
+def health_summary(outs, mask: torch.Tensor, reduce=None) -> torch.Tensor:
     """[C, 2] int32 on the outputs' device: per :data:`HEALTH_CHECKS`
     row, (nonfinite count, finite-but-out-of-bounds count) over the
-    agents with ``mask > 0``; padding rows never count."""
+    agents with ``mask > 0``; padding rows never count. ``reduce`` (a
+    multi-rank run's ``parallel.mesh.CrossRank``): the counts over every
+    rank's rows, so every rank reaches the same verdict (the attribution
+    names each rank's own offending agents)."""
     keep = mask > 0
     rows = []
     for name, lo, hi in HEALTH_CHECKS:
@@ -109,7 +112,8 @@ def health_summary(outs, mask: torch.Tensor) -> torch.Tensor:
         nonf = (~finite & k).sum(dtype=torch.int32)
         oob = (finite & ((x < lo) | (x > hi)) & k).sum(dtype=torch.int32)
         rows.append(torch.stack([nonf, oob]))
-    return torch.stack(rows)
+    out = torch.stack(rows)
+    return out if reduce is None else reduce.combine(out)
 
 
 def check_host(summary) -> List[dict]:

@@ -4,6 +4,16 @@ over the agent axis (port of ``dgen_tpu/models/market.py``).
 ``jax.ops.segment_sum`` becomes :func:`segment_sum`: ``index_add_`` on
 the CPU (a sum in row order), and on a card a fixed-order sum, since the
 card's ``index_add_`` adds with atomics in no fixed order.
+
+On a multi-rank run each rank holds a shard of the agent rows, and the
+group reductions take the run's ``reduce`` (a
+``parallel.mesh.CrossRank``). Where the partition puts every state, and
+so every state x sector group, whole on one rank, each group's sum runs
+where the group lives and an ``all_reduce`` adds the other ranks' exact
+zeros; the within-group battery rank is local too. Where groups straddle
+ranks, the ``[N]`` operands are gathered in rank order and the
+single-process code runs on them. Either way every rank computes the
+group values a single process computes.
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ from dgen_tpu_torch.config import PAYBACK_GRID_N, PAYBACK_GRID_STEP
 from dgen_tpu_torch.grad.smooth import lerp_lookup
 
 
-def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int, reduce=None) -> torch.Tensor:
     """Sums of ``x`` rows by segment id ``idx`` into ``n`` segments.
 
     On the CPU ``index_add_`` adds each segment's rows in row order. On a
@@ -27,24 +37,41 @@ def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     order instead (:func:`_fixed_order_segment_sum`), which the zero rows
     (padding, filler, masked agents) do not enter, so it is the same
     whatever rows pad the table. A ``[N, ...]`` ``x`` (the state-hourly
-    aggregate) keeps ``index_add_``."""
+    aggregate) keeps ``index_add_``.
+
+    ``reduce`` (a multi-rank run's ``parallel.mesh.CrossRank``): the sums
+    over every rank's rows. With whole groups on each rank the local sums
+    are combined by an ``all_reduce`` that adds exact zeros, the card's
+    fixed-order sum laid out at the widest rank's width (a row's sum
+    depends on the matrix's width, so every rank and a single process sum
+    a group at one width); with straddling groups ``x`` and ``idx`` are
+    gathered and summed whole."""
+    if reduce is not None and not reduce.whole_groups:
+        return segment_sum(reduce.gather(x), reduce.gather(idx), n)
     if x.device.type == "cuda" and x.dim() == 1 and x.is_floating_point():
-        return _fixed_order_segment_sum(x, idx, n)
-    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx.long(), x)
+        out = _fixed_order_segment_sum(x, idx, n, reduce)
+    else:
+        out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        out.index_add_(0, idx.long(), x)
+    return out if reduce is None else reduce.combine(out)
 
 
-def _fixed_order_segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def _fixed_order_segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int,
+                             reduce=None) -> torch.Tensor:
     """[n] sums of a ``[N]`` ``x`` by segment, in a fixed order on the
     card: each segment's nonzero values, in row order, laid out as one
     row of an ``[n, L]`` zero-filled matrix (L: the largest segment's
     count of nonzero values), summed along the rows. The zero values go to
     a spare segment, so the matrix, and the sums, depend only on each
-    segment's nonzero values and their order."""
+    segment's nonzero values and their order. ``reduce``: the width is the
+    widest rank's, so a group sums at the width a single process sums it
+    at."""
     seg = torch.where(x != 0, idx.long(), torch.full_like(idx, n, dtype=torch.long))
     seg_sorted, order = torch.sort(seg, stable=True)
     counts = torch.bincount(seg_sorted, minlength=n + 1)
     width = int(counts[:n].max()) if n else 0
+    if reduce is not None:
+        width = reduce.topo.max_int(width)
     if width == 0:
         return torch.zeros(n, dtype=x.dtype, device=x.device)
     starts = torch.cumsum(counts, 0) - counts
@@ -227,15 +254,16 @@ def diffusion_step_tech_choice(
 
 
 def anchor_to_observed(system_kw_cum, group_idx, observed_group_kw, sector_is_res,
-                       developable_agent_weight, n_groups: int):
+                       developable_agent_weight, n_groups: int, reduce=None):
     """Rescale modeled cumulative PV to observed deployment in anchor
     years: (system_kw_cum, number_of_adopters, market_share), with the
-    5 kW res / 100 kW non-res per-system heuristic for adopter counts."""
+    5 kW res / 100 kW non-res per-system heuristic for adopter counts.
+    ``reduce``: the group sums over every rank (:func:`segment_sum`)."""
     g = group_idx.long()
-    group_kw = segment_sum(system_kw_cum, g, n_groups)
+    group_kw = segment_sum(system_kw_cum, g, n_groups, reduce)
     # only developable agents carry anchored capacity
     countable = (developable_agent_weight > 0.0).to(system_kw_cum.dtype)
-    group_count = segment_sum(countable, g, n_groups)
+    group_count = segment_sum(countable, g, n_groups, reduce)
     per_agent_group_kw = group_kw[g]
     per_agent_count = torch.clamp_min(group_count[g], 1.0)
     scale = torch.where(
@@ -254,10 +282,22 @@ def anchor_to_observed(system_kw_cum, group_idx, observed_group_kw, sector_is_re
 
 
 def allocate_battery_adopters(new_adopters, group_idx, attachment_rate,
-                              agent_order_key, n_groups: int) -> torch.Tensor:
+                              agent_order_key, n_groups: int, reduce=None) -> torch.Tensor:
     """Largest-remainders integer allocation of battery adopters within
     each state x sector group: agents ordered by (group asc, fraction
-    desc, id asc) win the group's remaining units in rank order."""
+    desc, id asc) win the group's remaining units in rank order.
+
+    ``reduce``: a multi-rank run's rows. With whole groups on each rank
+    the group sums are combined across ranks and the order within a
+    group is this rank's own (the ids order the agents totally, so the
+    group's local order is its global order). With straddling groups the
+    operands are gathered, the whole allocation runs on every rank, and
+    each keeps its rows."""
+    if reduce is not None and not reduce.whole_groups:
+        full = allocate_battery_adopters(
+            reduce.gather(new_adopters), reduce.gather(group_idx), attachment_rate,
+            reduce.gather(agent_order_key), n_groups)
+        return reduce.local(full)
     n = new_adopters.shape[0]
     g = group_idx.long()
     r = torch.clamp(attachment_rate, 0.0, 1.0)[g]
@@ -266,8 +306,8 @@ def allocate_battery_adopters(new_adopters, group_idx, attachment_rate,
     base = torch.floor(f)
     frac = f - base
 
-    group_target = torch.round(segment_sum(f, g, n_groups))
-    group_base = segment_sum(base, g, n_groups)
+    group_target = torch.round(segment_sum(f, g, n_groups, reduce))
+    group_base = segment_sum(base, g, n_groups, reduce)
     remainder = torch.clamp_min(group_target - group_base, 0.0)
 
     # lexsort (id, -frac, group): stable sorts, least significant key first
@@ -289,11 +329,11 @@ def allocate_battery_adopters(new_adopters, group_idx, attachment_rate,
 def initial_market_shares(starting_group_kw, starting_group_batt_kw,
                           starting_group_batt_kwh, group_idx,
                           developable_agent_weight, system_kw,
-                          n_groups: int) -> MarketState:
+                          n_groups: int, reduce=None) -> MarketState:
     """Apportion state x sector starting capacity to agents by
-    developable weight."""
+    developable weight (``reduce``: the group weights over every rank)."""
     g = group_idx.long()
-    group_weight = segment_sum(developable_agent_weight, g, n_groups)
+    group_weight = segment_sum(developable_agent_weight, g, n_groups, reduce)
     w_frac = developable_agent_weight / torch.clamp_min(group_weight[g], 1e-30)
 
     kw_cum = w_frac * starting_group_kw[g]

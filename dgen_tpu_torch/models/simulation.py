@@ -1,6 +1,6 @@
 """The simulation runner: one model year as a sequence of tensor ops on
 one device, and the year loop with its host consumers (exports,
-checkpoints and resume, collection; port of the single-device path of
+checkpoints and resume, collection; port of
 ``dgen_tpu/models/simulation.py``).
 
 Per year: trajectories are applied, the NEM gate is evaluated against
@@ -15,6 +15,16 @@ default derived from the card's memory by :func:`auto_agent_chunk`), so
 no whole-table ``[N, 8760]`` tensor is formed; the market step runs once
 over the whole table, and the state-hourly aggregate is rebuilt chunk by
 chunk by the hourly remat pass.
+
+A multi-rank run (``Simulation(ranks=)``, ``parallel``) is one process
+per rank, each given the same whole table: the agents are partitioned
+so that every state lives whole on one rank (``parallel.partition``, or
+contiguous row blocks without ``RunConfig.partition_by_state``), padded
+per rank to ``lcm(agent_pad_multiple, chunk)``, laid out cluster-major
+within each rank's shard when clustered, and each rank keeps only its
+shard's rows; its chunks stream within the shard. The year step's
+reductions across rows take the run's ``reduce`` (``models.market``), so
+every rank computes the group and state values one process computes.
 """
 
 from __future__ import annotations
@@ -315,6 +325,7 @@ def scenario_years(
     cluster_tidx: Optional[torch.Tensor] = None,
     soft_tau: Optional[float] = None,
     anchor: bool = True,
+    reduce=None,
 ) -> tuple[List[SimCarry], List[YearOutputs]]:
     """One model year of S scenarios over one table (:func:`year_step`
     is S = 1): each scenario's carry and outputs.
@@ -326,7 +337,14 @@ def scenario_years(
     sizing, and each chunk's hourly remat pass, sees the S scenarios'
     rows of that chunk side by side (S x chunk rows a kernel launch).
     A row's result does not depend on how many rows share its launch, so
-    each scenario's outputs equal its own S = 1 year step's."""
+    each scenario's outputs equal its own S = 1 year step's.
+
+    ``reduce``: a multi-rank run's ``parallel.mesh.CrossRank``; ``table``
+    is then this rank's shard, and every reduction across rows (the NEM
+    gate's state sums, the market step's group sums, the state-hourly
+    aggregate) covers every rank's rows (``models.market.segment_sum``).
+    The per-row work, chunks included, stays within the shard. None (one
+    rank) runs no collective."""
     if cluster is not None and rate_switch:
         raise ValueError(
             "cluster layouts cannot price rate-switch runs: a "
@@ -342,7 +360,7 @@ def scenario_years(
             state_kw_last = starting_state_kw(table, inputs)
         else:
             state_kw_last = segment_sum(carry.market.system_kw_cum, table.state_idx,
-                                        n_states)
+                                        n_states, reduce)
         nems.append(compute_nem_allowed(table, inputs, year_idx, state_kw_last))
 
     n_chunks = _n_chunks(table.n_agents, agent_chunk)
@@ -365,7 +383,7 @@ def scenario_years(
     markets = [
         _market_year(table, inputs, carry, ya, res, year_idx, first_year=first_year,
                      storage_enabled=storage_enabled, year_step_len=year_step_len,
-                     interp=soft_tau is not None, anchor=anchor)
+                     interp=soft_tau is not None, anchor=anchor, reduce=reduce)
         for inputs, carry, ya, res in zip(inputs_list, carries, yas, ress)
     ]
 
@@ -383,6 +401,10 @@ def scenario_years(
                     table.state_idx, n_states)
                 for res, cnt in zip(ress, counts)
             ]
+        if reduce is not None:
+            # each rank's states' partial sums; the other ranks add zeros
+            # where states are whole on one rank
+            hourly = [reduce.combine(h) for h in hourly]
         hourly = [h / 1000.0 for h in hourly]  # kW -> MW
     else:
         hourly = [torch.zeros((0, 0), dtype=torch.float32, device=table.mask.device)
@@ -423,12 +445,13 @@ def scenario_years(
 
 def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bool,
                  storage_enabled: bool, year_step_len: float, interp: bool = False,
-                 anchor: bool = True) -> dict:
+                 anchor: bool = True, reduce=None) -> dict:
     """One scenario's market step on its own rows: max market share
     (interpolated under ``interp``) -> (initial shares | diffusion) ->
     anchoring (unless ``anchor`` is False) -> battery allocation; the new
     market state, the year's flows, and the adopter counts the
-    state-hourly mix weighs the profiles by."""
+    state-hourly mix weighs the profiles by. ``reduce``: the group sums
+    over every rank's rows."""
     n_groups = table.n_groups
     g = table.group_idx.long()
     mms = max_market_share(res.payback_period, table.sector_idx,
@@ -436,7 +459,7 @@ def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bo
     if first_year:
         mstate = initial_market_shares(
             inputs.starting_kw, inputs.starting_batt_kw, inputs.starting_batt_kwh,
-            g, ya.developable_agent_weight, res.system_kw, n_groups,
+            g, ya.developable_agent_weight, res.system_kw, n_groups, reduce,
         )
         # starting batt capacity -> adopter count at this year's batt_kw
         batt_adopters_prev = torch.where(
@@ -457,7 +480,7 @@ def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bo
         am = inputs.anchor_years_mask[year_idx]
         kw_anch, adopt_anch, share_anch = anchor_to_observed(
             out.system_kw_cum, g, inputs.observed_kw[year_idx],
-            table.sector_idx == 0, ya.developable_agent_weight, n_groups,
+            table.sector_idx == 0, ya.developable_agent_weight, n_groups, reduce,
         )
         kw_cum = am * kw_anch + (1.0 - am) * out.system_kw_cum
         adopters = am * adopt_anch + (1.0 - am) * out.number_of_adopters
@@ -472,7 +495,7 @@ def _market_year(table, inputs, carry, ya, res, year_idx: int, *, first_year: bo
     # --- integer battery-adopter allocation ---
     if storage_enabled:
         new_batt = allocate_battery_adopters(
-            new_adopters, g, inputs.attachment_rate, table.agent_id, n_groups,
+            new_adopters, g, inputs.attachment_rate, table.agent_id, n_groups, reduce,
         ) * table.mask
     else:
         new_batt = torch.zeros_like(new_adopters)
@@ -843,7 +866,12 @@ class SimResults:
 
 
 class Simulation:
-    """Scenario runner on one device.
+    """Scenario runner on one device, or on one rank's shard of a
+    multi-rank run (``ranks``, a ``parallel.mesh.RankTopology`` of more
+    than one rank: the device is the rank's, the table passed in is the
+    whole one, and ``host_agent_id``, ``host_mask``, ``host_row_origin``
+    and the results cover this rank's rows; a checkpoint is one part a
+    rank, restorable onto another world size by agent id).
 
     ``device`` (default ``"cuda"``) is where every container is placed
     and every year runs; with no card the constructor raises unless the
@@ -874,8 +902,12 @@ class Simulation:
         econ_years: int = 25,
         device="cuda",
         quarantine=None,
+        ranks=None,
     ) -> None:
-        self.device = resolve_device(device)
+        #: the run's ``parallel.mesh.RankTopology`` when it has more than
+        #: one rank (each holds one shard of the table), else None
+        self.ranks = ranks if ranks is not None and ranks.distributed else None
+        self.device = resolve_device(self.ranks.device if self.ranks else device)
         self.scenario = scenario
         self.run_config = run_config or RunConfig()
         self.with_hourly = with_hourly
@@ -926,19 +958,39 @@ class Simulation:
         self._per_agent_bytes = per_agent_step_bytes(**self._footprint())
         chunk = self._resolve_chunk()
         #: [n_agents] row -> row of the input table (-1: a padding row this
-        #: constructor added), composed through the chunk padding and the
-        #: cluster layout; side vectors in input-table order (an ensemble's
-        #: cohort entry years) are aligned through it
+        #: constructor added), composed through the state partition, the
+        #: chunk padding and the cluster layout; side vectors in input-table
+        #: order (an ensemble's cohort entry years) are aligned through it.
+        #: On a multi-rank run, the rows of this rank's shard.
         self.host_row_origin = np.arange(self.table.n_agents, dtype=np.int64)
-        if chunk:
-            # lane alignment and chunk divisibility together
+        #: the state partition of a multi-rank run (``parallel.partition``)
+        self.partition = None
+        world = self.ranks.world_size if self.ranks else 1
+        if rc.n_devices is not None and rc.n_devices != world:
+            raise ValueError(f"RunConfig.n_devices={rc.n_devices} (DGEN_TPU_DEVICES), but "
+                             f"the run has {world} rank(s) (parallel.launch)")
+        if self.ranks and rc.partition_by_state:
+            from dgen_tpu_torch.parallel.mesh import mesh_shape_of
+            from dgen_tpu_torch.parallel.partition import partition_table
+
+            # every state whole on one rank; the shard length divides into
+            # chunks
+            self.table, self.partition = partition_table(
+                self.table, world, math.lcm(rc.agent_pad_multiple, chunk or 1),
+                mesh_shape=mesh_shape_of(self.ranks))
+            self.host_row_origin = np.asarray(self.partition.gather_rows)
+            logger.info("partitioned %d agents into %d state-local shards of %d "
+                        "(mesh %dx%d)", int(self.partition.shard_sizes.sum()), world,
+                        self.partition.shard_len, *self.ranks.shape)
+        elif chunk or self.ranks:
+            # lane alignment and chunk divisibility together, in every shard
             self.table = pad_table(
-                self.table, math.lcm(self.run_config.agent_pad_multiple, chunk))
+                self.table, math.lcm(rc.agent_pad_multiple, chunk or 1) * world)
             self.host_row_origin = np.concatenate([
                 self.host_row_origin,
                 np.full(self.table.n_agents - len(self.host_row_origin), -1, np.int64)])
-        # the tariff-clustered layout, after the chunk padding and before
-        # the host copies of the row order are taken
+        # the tariff-clustered layout, after the partition or the chunk
+        # padding and before the host copies of the row order are taken
         self._cluster_layout = None
         self._cluster_banks = None
         self._cluster_tidx = None
@@ -951,11 +1003,19 @@ class Simulation:
                 "(base/switch pairs can straddle clusters); running the "
                 "unclustered program")
         elif rc.cluster_tariffs:
-            self._lay_out_clusters(chunk)
-        # stream only when the table is larger than one chunk
+            self._lay_out_clusters(chunk, world)
+        if self.ranks:
+            self._keep_shard()
+        # stream only when the (shard's) table is larger than one chunk
         self._agent_chunk = chunk if chunk and self.table.n_agents > chunk else 0
         self.host_agent_id = self.table.agent_id.cpu().numpy()
         self.host_mask = self.table.mask.cpu().numpy()
+        #: how the year step's reductions reach the other ranks' rows
+        self._reduce = None
+        if self.ranks:
+            from dgen_tpu_torch.parallel.mesh import CrossRank
+
+            self._reduce = CrossRank(self.ranks, whole_groups=rc.partition_by_state)
         self.modeled_step_bytes = self._check_memory()
         self.memory_check: Optional[dict] = None
         self.health_report: Optional[dict] = None
@@ -966,22 +1026,23 @@ class Simulation:
         #: lends one to every scenario); None: the pipeline owns its own
         self._hostio_pool = None
 
-    def _lay_out_clusters(self, chunk: int) -> None:
+    def _lay_out_clusters(self, chunk: int, n_dev: int = 1) -> None:
         """Reorder the table cluster-major (``ops.tariffcluster``): the
         corpus split into structural clusters, each cluster's real rows
-        in one segment padded to a multiple of ``lcm(agent_pad_multiple,
-        chunk)`` with masked filler rows (one device: ``n_dev`` 1). Every
-        ``[n_agents, ...]`` table leaf is gathered on the device and the
-        mask multiplied by the layout's valid rows; the compact banks,
-        the rows' compact tariff indices and the host columns of the
-        per-cluster NEM proof are kept."""
+        of each of the ``n_dev`` rank shards in one segment padded to a
+        rank-uniform multiple of ``lcm(agent_pad_multiple, chunk)`` with
+        masked filler rows. Every ``[n_agents, ...]`` table leaf is
+        gathered on the device and the mask multiplied by the layout's
+        valid rows; the compact banks, the rows' compact tariff indices
+        and the host columns of the per-cluster NEM proof (every rank's
+        rows, so every rank proves the same flags) are kept."""
         from dgen_tpu_torch.ops import tariffcluster
 
         pad_mult = math.lcm(self.run_config.agent_pad_multiple, chunk or 1)
         plan = tariffcluster.analyze_bank(self.tariffs)
         layout, gather, valid, ctidx = tariffcluster.plan_layout(
             plan, self.table.tariff_idx.cpu().numpy(),
-            self.table.mask.cpu().numpy(), 1, pad_mult)
+            self.table.mask.cpu().numpy(), n_dev, pad_mult)
         n_old = self.table.n_agents
         idx = torch.from_numpy(gather).to(self.device)
 
@@ -1010,8 +1071,30 @@ class Simulation:
             "tariff clusters: %d signatures over %d tariffs, segments %s "
             "rows/device (was %d rows/device global-pad), %d filler rows",
             layout.n_clusters, self.tariffs.n_tariffs,
-            [c.seg_len for c in self._cluster_layout.clusters], n_old,
+            [c.seg_len for c in self._cluster_layout.clusters], n_old // n_dev,
             self.cluster_filler_rows)
+
+    def _keep_shard(self) -> None:
+        """Keep this rank's block of the laid-out table (rank-major: the
+        partition, the padding and the cluster layout all keep each
+        rank's rows contiguous): every ``[n_agents, ...]`` table leaf, the
+        row origins, and a cluster layout's compact tariff indices, the
+        layout itself becoming the shard's (its segments are the same on
+        every rank)."""
+        world, rank = self.ranks.world_size, self.ranks.rank
+        n = self.table.n_agents
+        if n % world:
+            raise ValueError(f"{n} rows do not shard over {world} ranks")
+        rows = slice(rank * (n // world), (rank + 1) * (n // world))
+
+        def local(x):
+            return x[rows].clone() if x.ndim >= 1 and x.shape[0] == n else x
+
+        self.table = tree_map(local, self.table)
+        self.host_row_origin = self.host_row_origin[rows]
+        if self._cluster_layout is not None:
+            self._cluster_tidx = self._cluster_tidx[rows].clone()
+            self._cluster_layout = self._cluster_layout._replace(n_dev=1)
 
     def _cluster_flags(self, inputs: ScenarioInputs) -> tuple:
         """Per-cluster net-billing flags for ``inputs``: a net-metered
@@ -1041,11 +1124,13 @@ class Simulation:
 
     def _resolve_chunk(self) -> int:
         """The run's streaming chunk: the configured one, or with none
-        configured the one the card's memory gives (0 on the CPU)."""
+        configured the one the card's memory gives (0 on the CPU), sized
+        against this rank's share of the table."""
         chunk = self.run_config.agent_chunk
         if chunk is not None:
             return chunk
-        chunk = auto_agent_chunk(self.table.n_agents,
+        world = self.ranks.world_size if self.ranks else 1
+        chunk = auto_agent_chunk(-(-self.table.n_agents // world),
                                  memory_bytes=card_memory_bytes(self.device),
                                  **self._footprint())
         if chunk:
@@ -1169,6 +1254,8 @@ class Simulation:
             agent_chunk=self._agent_chunk,
             cluster=self._cluster_layout,
             soft_tau=self.run_config.soft_tau_static,
+            # only on a multi-rank run: a one-rank step takes no such key
+            **({"reduce": self._reduce} if self._reduce is not None else {}),
         )
 
     def step_operands(self) -> dict:
@@ -1236,10 +1323,13 @@ class Simulation:
 
     def _check_state_kw_bound(self, carry: SimCarry, context: str) -> None:
         """The static all-NEM proof holds only while every state's
-        capacity stays under STATE_KW_BOUND; raise if it does not."""
+        capacity stays under STATE_KW_BOUND (summed over every rank's
+        rows); raise if it does not."""
         state_kw = np.zeros(self.table.n_states, np.float64)
         np.add.at(state_kw, self.table.state_idx.cpu().numpy(),
                   carry.market.system_kw_cum.cpu().numpy())
+        if self.ranks:
+            state_kw = self.ranks.all_reduce(torch.from_numpy(state_kw)).numpy()
         if not np.all(state_kw < STATE_KW_BOUND):
             raise AssertionError(
                 f"{context}: state capacity exceeds STATE_KW_BOUND; the static "
@@ -1287,21 +1377,43 @@ class Simulation:
         return tree_map(zero, carry)
 
     @property
-    def checkpoint_rows(self) -> Optional[np.ndarray]:
-        """A clustered run's row order, saved with each checkpointed year
-        so that a resume under another layout restores by agent id
-        (``io.checkpoint``): [n_agents] int64 agent ids, -1 on a masked
-        row. None for an unclustered run."""
-        if self._cluster_layout is None:
-            return None
+    def agent_rows(self) -> np.ndarray:
+        """[n_agents] int64 agent ids of this run's rows, -1 on a masked
+        row."""
         return np.where(self.host_mask > 0, self.host_agent_id.astype(np.int64), -1)
 
-    def _restore_carry(self, checkpoint_dir: str, year: int) -> SimCarry:
-        """The carry checkpointed for ``year`` in this run's row order."""
+    @property
+    def checkpoint_rows(self) -> Optional[np.ndarray]:
+        """The row order saved with each checkpointed year so that a
+        resume under another layout restores by agent id
+        (``io.checkpoint``): :attr:`agent_rows` for a clustered run and
+        for a rank of a multi-rank run, None for an unclustered run of one
+        rank."""
+        if self._cluster_layout is None and self.ranks is None:
+            return None
+        return self.agent_rows
+
+    def checkpoint_writer(self, checkpoint_dir: str):
+        """The run's ``io.checkpoint.Writer``: one rank's part a year on a
+        multi-rank run."""
         from dgen_tpu_torch.io import checkpoint as ckpt
 
-        return ckpt.restore_year(checkpoint_dir, self.table.n_agents, year,
-                                 device=self.device, rows=self.checkpoint_rows)[1]
+        shard = (self.ranks.rank, self.ranks.world_size) if self.ranks else None
+        return ckpt.Writer(checkpoint_dir, rows=self.checkpoint_rows, shard=shard)
+
+    def _restore_carry(self, checkpoint_dir: str, year: int) -> SimCarry:
+        """The carry checkpointed for ``year`` in this run's row order: a
+        year the ranks of a multi-rank run wrote is moved onto these rows
+        by agent id, whatever the world size that wrote it
+        (``parallel.elastic``)."""
+        from dgen_tpu_torch.parallel import elastic
+
+        rows = self.checkpoint_rows
+        if rows is None and elastic.is_sharded(checkpoint_dir, year):
+            rows = self.agent_rows
+        return elastic.restore_resharded(checkpoint_dir, self.table.n_agents * (
+            self.ranks.world_size if self.ranks else 1), year, topo=self.ranks,
+            device=self.device, rows=rows)[1]
 
     def _sync(self) -> None:
         """Wait for the work queued on the run's card (no-op on the CPU)."""
@@ -1352,6 +1464,12 @@ class Simulation:
 
             last = resume_year if resume_year is not None else ckpt.latest_year(
                 checkpoint_dir)
+            if self.ranks:
+                # every rank resumes at rank 0's year, whatever its own
+                # listing of the shared directory saw
+                last = int(self.ranks.broadcast(torch.tensor(
+                    [-1 if last is None else last], dtype=torch.int64))[0])
+                last = None if last < 0 else last
             if last is not None and last not in self.years:
                 # restarting from scratch would also overwrite the
                 # existing (incompatible) checkpoints
@@ -1368,9 +1486,7 @@ class Simulation:
                         if f.name != "state_hourly_net_mw"]
         ckpt_writer = None
         if checkpoint_dir is not None:
-            from dgen_tpu_torch.io import checkpoint as ckpt
-
-            ckpt_writer = ckpt.Writer(checkpoint_dir, rows=self.checkpoint_rows)
+            ckpt_writer = self.checkpoint_writer(checkpoint_dir)
         debug = rc.debug_invariants
         async_io = (rc.async_io_enabled and not debug
                     and (collect or callback is not None or ckpt_writer is not None))
@@ -1425,7 +1541,7 @@ class Simulation:
             consumers.append(hostio.HealthConsumer(
                 mask=self.table.mask, agent_ids_host=self.host_agent_id,
                 mask_host=self.host_mask, escalate=bool(rc.sentinel_escalate),
-                breaches_out=self._health_breaches))
+                breaches_out=self._health_breaches, reduce=self._reduce))
         collector = None
         if collect:
             collector = hostio.CollectConsumer(agent_fields, self.with_hourly)
@@ -1516,7 +1632,8 @@ class Simulation:
                         self._check_state_kw_bound(carry, f"year {year}")
                 summary = None
                 if sentinel:
-                    summary = health_mod.health_summary(outs, self.table.mask)
+                    summary = health_mod.health_summary(outs, self.table.mask,
+                                                        self._reduce)
                     if sync_per_year:
                         self._health_verdict(year, yi, to_host(summary), outs, escalate)
                     elif not defer_callback:

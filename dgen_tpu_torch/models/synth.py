@@ -31,7 +31,10 @@ where the JAX package's names ``agents.parquet``; the banks,
 
 CLI: ``python -m dgen_tpu_torch.models.synth generate | verify | smoke``
 (the JAX flags; ``smoke`` runs on one device, ``--device cpu`` for the
-plain versions, and refuses a ``--mesh`` other than ``1x1``).
+plain versions; ``--mesh HxD`` spawns H x D ranks on a localhost gloo
+rendezvous, each generating its own block of rows (:func:`shard_rows`),
+and refuses a mesh whose blocks would hold fewer than
+:data:`SMOKE_ROW_PAD` rows).
 """
 
 from __future__ import annotations
@@ -59,9 +62,11 @@ from dgen_tpu_torch.models.agents import (
     AgentTable,
     ProfileBank,
     build_agent_table,
+    pad_table,
     pad_to_multiple,
 )
 from dgen_tpu_torch.ops.tariff import NET_BILLING, NET_METERING, compile_tariffs
+from dgen_tpu_torch.tree import tree_map
 
 #: approximate 2020-census population shares (percent) over the
 #: contiguous-US + DC modeling universe (io.synth.STATES): the strata
@@ -641,30 +646,164 @@ def _spec_from_args(args) -> NationalSpec:
     )
 
 
-def _mesh_shape(label: str) -> Tuple[int, int]:
-    """'HxD' -> (H, D)."""
-    parts = label.lower().split("x")
+#: rows a rank's block of a multi-rank smoke is rounded to
+#: (:func:`shard_rows`' ``pad_multiple``)
+SMOKE_ROW_PAD = 16
+
+
+def gather_shard_tables(table: AgentTable, topo) -> AgentTable:
+    """The whole table from every rank's own rows (``generate_table(rows=
+    shard_rows(...))``): each rank's table padded to the longest rank's
+    rows with masked rows, then every leaf gathered in rank order. The
+    padding rows are masked, so a state partition drops them."""
+    n = topo.max_int(table.n_agents)
+    if table.n_agents < n:
+        table = pad_table(table, n)
+    return tree_map(topo.all_gather, table)
+
+
+def _smoke_rank(args, h: int, d: int) -> dict:
+    """One rank of a multi-rank smoke: the rank generates its own block of
+    rows (:func:`shard_rows`), the blocks are gathered into the whole
+    table, and the run steps two years on the rank's state shard with the
+    rank's export parts, checkpoint parts and shard ledger."""
+    import time
+
+    from dgen_tpu_torch.config import RunConfig, ScenarioConfig
+    from dgen_tpu_torch.io.export import RunExporter
+    from dgen_tpu_torch.models import scenario as scen
+    from dgen_tpu_torch.models.simulation import Simulation
+    from dgen_tpu_torch.parallel.launch import initialize_multihost
+    from dgen_tpu_torch.parallel.mesh import shutdown
+    from dgen_tpu_torch.resilience.manifest import RunManifest
+
+    os.environ["DGEN_TPU_MESH"] = f"{h}x{d}"
+    topo = initialize_multihost(args.coordinator, h * d, args.rank, device=args.device)
     try:
-        h, d = (int(p) for p in parts)
-    except ValueError:
-        raise ValueError(f"bad mesh shape '{label}' (expected HxD, e.g. 1x1)") from None
-    if h < 1 or d < 1:
-        raise ValueError(f"bad mesh shape '{label}' (axes must be >= 1)")
-    return h, d
+        spec = _spec_from_args(args)
+        t0 = time.time()
+        rows = shard_rows(spec, topo.rank, topo.world_size, pad_multiple=SMOKE_ROW_PAD)
+        table = gather_shard_tables(
+            generate_table(spec, rows=rows, pad_multiple=1, device=topo.device), topo)
+        world = SynthPopulation(
+            table=table, profiles=generate_banks(spec, device=topo.device),
+            tariffs=compile_tariffs(make_national_tariffs(spec.tariff_mix),
+                                    device=topo.device),
+            n_regions=spec.n_regions)
+        gen_s = time.time() - t0
+        cfg = ScenarioConfig(name="synth-smoke", start_year=2014,
+                             end_year=2016, anchor_years=())
+        inputs = scen.uniform_inputs(cfg, n_groups=world.table.n_groups,
+                                     n_regions=spec.n_regions, device=topo.device)
+        sim = Simulation(world.table, world.profiles, world.tariffs, inputs, cfg,
+                         RunConfig(sizing_iters=4), device=topo.device, ranks=topo)
+        manifest = RunManifest(args.out, shard=topo.rank, n_processes=topo.world_size)
+        exporter = RunExporter(
+            args.out, agent_id=sim.host_agent_id, mask=sim.host_mask,
+            manifest=manifest, device=topo.device, ranks=topo,
+            meta={"smoke": {"mesh": args.mesh, "agents": spec.n_agents}})
+        t0 = time.time()
+        res = sim.run(callback=exporter, collect=False,
+                      checkpoint_dir=os.path.join(args.out, "ckpt"))
+        run_s = time.time() - t0
+        report = manifest.verify()
+        return {"rank": topo.rank, "rows": list(rows),
+                "agents": int((sim.host_mask > 0).sum()),
+                "years": [int(y) for y in res.years], "generate_s": round(gen_s, 2),
+                "run_s": round(run_s, 2), "manifest_ok": report.ok,
+                "manifest": report.to_json()}
+    finally:
+        shutdown()
+
+
+def _smoke_mesh(args, h: int, d: int) -> int:
+    """A multi-rank smoke: H x D ranks spawned as processes of this CLI
+    over gloo (the CPU) on a localhost rendezvous, each stepping its
+    shard; the run passes when every rank does and every shard ledger
+    verifies."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
+    spec = _spec_from_args(args)
+    world = h * d
+    for r in range(world):
+        # refused before any process starts: a block under one pad unit
+        shard_rows(spec, r, world, pad_multiple=SMOKE_ROW_PAD)
+    run_dir = args.out or tempfile.mkdtemp(prefix="dgen-synth-smoke-")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cmd = [sys.executable, "-m", "dgen_tpu_torch.models.synth", "smoke",
+           "--agents", str(args.agents), "--seed", str(args.seed),
+           "--tariff-mix", args.tariff_mix, "--regions", str(args.regions),
+           "--mesh", args.mesh, "--device", args.device, "--out", run_dir,
+           "--coordinator", f"127.0.0.1:{port}"]
+    if args.states:
+        cmd += ["--states", args.states]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH", "")) if p))
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=logs[r],
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    ranks, ok = [], True
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=args.timeout)
+            except subprocess.TimeoutExpired:
+                ok = False
+            ok = ok and p.returncode == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        out = f.read()
+        f.close()
+        last = out.strip().splitlines()[-1:] or [""]
+        try:
+            ranks.append(json.loads(last[0]))
+        except ValueError:
+            ok = False
+            ranks.append({"rank": r, "failed": out[-2000:]})
+    ok = ok and all(rk.get("manifest_ok") and len(rk.get("years", ())) == 2
+                    for rk in ranks)
+    print(json.dumps({
+        "smoke": "ok" if ok else "FAILED",
+        "agents": spec.n_agents,
+        "mesh": f"{h}x{d}",
+        "device": args.device,
+        "years": ranks[0].get("years", []),
+        "manifest_ok": all(rk.get("manifest_ok") for rk in ranks),
+        "ranks": ranks,
+        "run_dir": run_dir,
+    }))
+    return 0 if ok else 1
 
 
 def _smoke(args) -> int:
-    """Generate a small world, step two model years on one device with
-    the exporter and checkpoints, and verify the run manifest."""
+    """Generate a small world, step two model years with the exporter and
+    checkpoints, and verify the run manifest: on one device, or with
+    ``--mesh HxD`` over H x D spawned ranks (:func:`_smoke_mesh`)."""
     import json
     import tempfile
     import time
 
-    h, d = _mesh_shape(args.mesh)
-    if (h, d) != (1, 1):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port runs on one device; multi-device "
-            "layouts wait for ROADMAP.md queue 1 item 7")
+    from dgen_tpu_torch.parallel.mesh import parse_mesh_shape
+
+    h, d = parse_mesh_shape(args.mesh)
+    if args.rank is not None:
+        print(json.dumps(_smoke_rank(args, h, d)))
+        return 0
+    if h * d > 1:
+        return _smoke_mesh(args, h, d)
 
     from dgen_tpu_torch.config import RunConfig, ScenarioConfig
     from dgen_tpu_torch.io.export import RunExporter
@@ -755,16 +894,20 @@ def main(argv=None) -> int:
     v.add_argument("world_dir")
 
     s = sub.add_parser(
-        "smoke", help="generate a small world, step 2 years on one device, "
-        "verify the run manifest")
+        "smoke", help="generate a small world, step 2 years on one device or "
+        "over HxD spawned ranks, verify the run manifests")
     world_args(s)
     s.set_defaults(tariff_mix="nem")
     s.add_argument("--mesh", default="1x1",
-                   help="HxD; the port runs 1x1 only (default)")
+                   help="HxD ranks (default 1x1: one process)")
     s.add_argument("--device", default="cuda",
                    help="the device the run steps on (default cuda)")
     s.add_argument("--out", default="",
                    help="run dir (default: a fresh temp dir)")
+    s.add_argument("--timeout", type=float, default=900.0,
+                   help="seconds a spawned rank may take (--mesh)")
+    s.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    s.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
 
     args = p.parse_args(argv)
     if args.cmd == "generate":

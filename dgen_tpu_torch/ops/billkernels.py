@@ -122,6 +122,25 @@ NARROW_LAUNCHES: dict = {}
 #: check and time a kernel on the operands a real run gave it)
 CAPTURE: dict | None = None
 
+
+class RowSliceCapture(dict):
+    """A :data:`CAPTURE` store that keeps each first launch's operands cut
+    to their first ``rows`` rows, copied (a whole chunk's hour streams
+    would stay pinned on the card): every tensor whose leading dimension
+    is the launch's agent count is sliced, the rest kept as they are."""
+
+    def __init__(self, rows: int):
+        super().__init__()
+        self.rows = rows
+
+    def setdefault(self, key, args):
+        if key not in self:
+            n = args[0].shape[0]
+            self[key] = tuple(
+                a[:self.rows].clone() if isinstance(a, torch.Tensor) and a.dim()
+                and a.shape[0] == n else a for a in args)
+        return self[key]
+
 #: bytes of one [N, rc, L] float32 temporary the plain versions allow
 _PLAIN_CHUNK_BYTES = 1 << 28
 

@@ -1,6 +1,6 @@
 """Crash-consistent run manifests: the content-hashed, per-year artifact
-ledger of a run directory (port of the single-process part of
-``dgen_tpu/resilience/manifest.py``).
+ledger of a run directory (port of ``dgen_tpu/resilience/manifest.py``
+without the gang's merged ledger).
 
 A run directory's ``.npz`` partitions say which files exist; they cannot
 say whether a file is complete, whether all of a year's surfaces landed,
@@ -25,8 +25,13 @@ Checkpoint entries are recorded after the run
 (:meth:`record_checkpoints`): mid-run the checkpoint directory's
 committed years are themselves the truth.
 
-Not ported: the multi-process shard ledgers (``manifest-p<i>.json``),
-``GangManifest`` and ``discover_shards`` (``ROADMAP.md`` item 7).
+A multi-rank run keeps crash consistency without coordination on the
+write path: every rank owns a **shard ledger** (``manifest-p<i>.json``, a
+:class:`RunManifest` with ``shard=i``) of the artifacts it wrote, each
+completed year stamped with the world size that wrote it;
+:func:`discover_shards` lists them. The merge that decides a multi-rank
+year's completeness (the JAX package's ``GangManifest``) is not ported
+(``ROADMAP.md`` item 7b).
 """
 
 from __future__ import annotations
@@ -35,12 +40,31 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 from typing import Dict, List, Optional, Sequence
 
 from dgen_tpu_torch.utils.atomic import atomic_write_json
 
 MANIFEST_NAME = "manifest.json"
+_SHARD_RE = re.compile(r"^manifest-p(\d+)\.json$")
 _VERSION = 1
+
+
+def shard_manifest_name(shard: int) -> str:
+    """The shard ledger's file name of rank ``shard`` of a multi-rank run."""
+    return f"manifest-p{int(shard)}.json"
+
+
+def discover_shards(run_dir: str) -> List[int]:
+    """The ranks with a shard ledger under ``run_dir``."""
+    if not os.path.isdir(run_dir):
+        return []
+    out = []
+    for name in os.listdir(run_dir):
+        m = _SHARD_RE.match(name)
+        if m:
+            out.append(int(m.group(1)))
+    return sorted(out)
 
 #: surface directories the exporter writes ``year=<Y>.npz`` partitions
 #: into: the scan set of :meth:`RunManifest.verify`'s unrecorded check
@@ -50,8 +74,8 @@ PART_SUFFIX = ".npz"
 
 
 def _part_year(name: str) -> Optional[int]:
-    """Model year of a ``year=<Y>.npz`` (or ``.npz.tmp``) surface file;
-    None for anything else."""
+    """Model year of a ``year=<Y>[-p<i>].npz`` (or ``.npz.tmp``) surface
+    file; None for anything else."""
     if not name.startswith("year="):
         return None
     digits = ""
@@ -125,11 +149,20 @@ class RunManifest:
     """The artifact ledger of one run directory (module docstring).
     Loading an existing ``manifest.json`` resumes its ledger: a re-entered
     run keeps the completed years' entries and overwrites the years it
-    writes again."""
+    writes again.
 
-    def __init__(self, run_dir: str) -> None:
+    ``shard``/``n_processes``: a multi-rank run's per-rank shard ledger
+    (``manifest-p<shard>.json``), the same protocol over this rank's
+    artifacts only, each completed year stamped with the world size that
+    wrote it."""
+
+    def __init__(self, run_dir: str, shard: Optional[int] = None,
+                 n_processes: Optional[int] = None) -> None:
         self.run_dir = run_dir
-        self.path = os.path.join(run_dir, MANIFEST_NAME)
+        self.shard = None if shard is None else int(shard)
+        self.n_processes = None if n_processes is None else int(n_processes)
+        self.path = os.path.join(
+            run_dir, MANIFEST_NAME if shard is None else shard_manifest_name(shard))
         self._years: Dict[int, dict] = {}
         self._checkpoints: Dict[int, dict] = {}
         self._run_artifacts: Dict[str, dict] = {}
@@ -174,6 +207,8 @@ class RunManifest:
         ledger (one atomic write a year)."""
         rec = self._years.setdefault(int(year), {"complete": False, "artifacts": {}})
         rec["complete"] = True
+        if self.n_processes is not None:
+            rec["n_processes"] = self.n_processes
         self.flush()
 
     def record_checkpoints(self, ckpt_dir: str, years: Sequence[int]) -> None:
@@ -181,6 +216,12 @@ class RunManifest:
         into the ledger."""
         for y in years:
             step_dir = os.path.join(ckpt_dir, str(int(y)))
+            if self.shard is not None:
+                # this rank's part of the year (io.checkpoint.part_dir_name)
+                prefix = f"{int(y)}.p{self.shard}-of-"
+                mine = sorted(n for n in (os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir)
+                                          else []) if n.startswith(prefix))
+                step_dir = os.path.join(ckpt_dir, mine[-1]) if mine else step_dir
             if not os.path.isdir(step_dir):
                 continue
             digest, nbytes = _hash_tree(step_dir)
@@ -204,6 +245,7 @@ class RunManifest:
             self.path,
             {
                 "version": _VERSION,
+                **({"shard": self.shard} if self.shard is not None else {}),
                 "years": {str(y): self._years[y] for y in sorted(self._years)},
                 "checkpoints": {str(y): self._checkpoints[y]
                                 for y in sorted(self._checkpoints)},
@@ -289,6 +331,8 @@ class RunManifest:
                 continue
             for name in sorted(os.listdir(root)):
                 rel = os.path.join(d, name)
+                if not self._owns(name):
+                    continue  # another rank's part
                 if name.endswith(".tmp"):
                     rep.stale_tmp.append(rel)
                 elif name.endswith(PART_SUFFIX) and rel not in recorded:
@@ -296,12 +340,24 @@ class RunManifest:
         return rep
 
 
+    def _owns(self, name: str) -> bool:
+        """Whether a surface file is this ledger's to audit: a shard
+        ledger's own rank's parts (``-p<shard>``), else the one-run parts."""
+        stem = name.split(PART_SUFFIX)[0]
+        if self.shard is None:
+            return "-p" not in stem
+        return stem.endswith(f"-p{self.shard}")
+
+
 def verify_run_dir(run_dir: str, deep: bool = True) -> List[VerifyReport]:
     """Audit a run directory, or each manifested subdirectory of it.
     Raises FileNotFoundError when no manifest is found."""
     reports: List[VerifyReport] = []
-    if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)):
-        reports.append(RunManifest(run_dir).verify(deep=deep))
+    shards = discover_shards(run_dir)
+    if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)) or shards:
+        if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)):
+            reports.append(RunManifest(run_dir).verify(deep=deep))
+        reports.extend(RunManifest(run_dir, shard=i).verify(deep=deep) for i in shards)
     else:
         for name in sorted(os.listdir(run_dir)):
             sub = os.path.join(run_dir, name)

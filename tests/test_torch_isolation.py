@@ -321,12 +321,12 @@ def test_from_env_chunk_devices_and_ignored_switches(clean_env):
                         ("DGEN_TPU_SOFT", "0"), ("DGEN_TPU_GUARD", "false"),
                         ("DGEN_TPU_FAULTS", "  ")):
         clean_env.setenv(name, value)
-    assert RunConfig.from_env() == RunConfig(agent_chunk=4096, soft_tau=0.5)
+    # DGEN_TPU_DEVICES sets n_devices, as the JAX package reads it
+    assert RunConfig.from_env() == RunConfig(agent_chunk=4096, soft_tau=0.5, n_devices=1)
     assert RunConfig.from_env(soft_tau=0.2).soft_tau == 0.2
 
 
-@pytest.mark.parametrize("name, value", [
-    ("DGEN_TPU_DEVICES", "4"), ("DGEN_TPU_GUARD", "true")])
+@pytest.mark.parametrize("name, value", [("DGEN_TPU_GUARD", "true")])
 def test_from_env_refuses_unported_switches(clean_env, name, value):
     from dgen_tpu_torch.config import RunConfig
 
@@ -700,3 +700,51 @@ def test_first_kernel_use_builds_and_loads_the_library_once(monkeypatch, tmp_pat
     assert _build.EVENTS == {"builds": 1, "loads": 1}
     assert _build.library() is libs[0] and _build.build()[0] == str(tmp_path / "lib.so")
     assert _build.EVENTS == {"builds": 1, "loads": 1}
+
+
+#: the multi-rank modules
+PARALLEL_MODULES = ("dgen_tpu_torch.parallel", "dgen_tpu_torch.parallel.partition",
+                    "dgen_tpu_torch.parallel.mesh", "dgen_tpu_torch.parallel.launch",
+                    "dgen_tpu_torch.parallel.elastic")
+
+
+def test_parallel_and_the_rank_entry_need_no_pandas_pyarrow_or_jax(tmp_path):
+    """The multi-rank modules import, and the rank entry point runs a
+    world of one rank over a gloo rendezvous (export, checkpoint and
+    collected outputs included), with pandas, pyarrow, orbax, jax and the
+    JAX package unavailable; its record says it imported neither."""
+    import json
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    run_dir = str(tmp_path / "run")
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {PARALLEL_MODULES!r}:\n"
+        "    __import__(m)\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from dgen_tpu_torch.parallel.launch import main\n"
+        "main(['--device', 'cpu', '--agents', '16', '--end-year', '2016',\n"
+        "      '--pad-multiple', '16', '--econ-years', '5', '--sizing-iters', '4',\n"
+        f"      '--run-dir', {run_dir!r}, '--collect', {run_dir + '.npz'!r}])\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v}\n"
+        f"assert not loaded & set({BLOCKED!r}), loaded\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DGEN_TPU_")}
+    env.update(DGEN_COORDINATOR=f"127.0.0.1:{port}", DGEN_NUM_PROCESSES="1",
+               DGEN_PROCESS_ID="0")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["world"] == 1 and rec["years"] == [2014, 2016]
+    assert rec["imports_jax"] is False and rec["imports_dgen_tpu"] is False
+    assert os.path.isfile(os.path.join(run_dir, "agent_outputs", "year=2016.npz"))
+    assert sorted(os.listdir(os.path.join(run_dir, "ckpt"))) == ["2014", "2016"]
+    with np.load(run_dir + ".npz") as z:
+        assert z["system_kw"].shape == (2, 16)

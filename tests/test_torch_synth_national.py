@@ -293,8 +293,12 @@ def test_cli_smoke_steps_two_years_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("mesh", ["2x4", "1x8"])
 def test_cli_smoke_refuses_a_mesh(tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # eight ranks of 48 agents: each rank's block of rows (shard_rows at
+    # the smoke's pad unit) would hold 6 rows; refused before any rank
+    # process starts
+    with pytest.raises(ValueError, match="fewer than one pad unit"):
         tns.main(["smoke", "--agents", "48", "--device", "cpu", "--mesh", mesh,
                   "--out", str(tmp_path / "s")])
+    assert not os.path.exists(tmp_path / "s")
     with pytest.raises(ValueError, match="bad mesh shape"):
         tns.main(["smoke", "--device", "cpu", "--mesh", "2by4"])
