@@ -125,13 +125,14 @@ its first launch in the path):
      wall, agent-years/s beside [3d]'s, the launch counts held as [3d]
      holds them, and one more first year holding the vmap run's first
      launches against the plain versions; (b) [3c]'s world, S = 3 ITC
-     levels over 3 model years, default and gated int8: the vmap sweep
+     levels over 2 model years (3 until [3o] needed the room), default and
+     gated int8: the vmap sweep
      equals each scenario's own Simulation.run bit for bit per agent, and
      a loop-mode sweep exporting as it runs, under the supervisor with
      sweep_scenario@2 injected, resumes at (scenario, year) with the
      clean sweep's files byte for byte (state_hourly within [3c]'s
      tolerance); (c) [3c]'s world, E = 8 members under DEFAULT_DRAWS with
-     2,048 rows entering in 2015, 3 model years: vmap (planned) and loop
+     2,048 rows entering in 2015, 2 model years: vmap (planned) and loop
      mode equal bit for bit by agent_id, the device quantiles within 1e-6
      of numpy's on the members' curves, E = 1 with zero draws equal to
      Simulation.run, and a vmap run killed in its last year and resumed
@@ -217,8 +218,9 @@ its first launch in the path):
      allocated, per agent bit for bit against the plain Simulation; (b)
      two ranks sharing the card over gloo, national-all-sector at its
      full 1,048,576 agents (524,288 a rank, 32,768-row chunks set by hand)
-     x 2 years: each rank's per-year wall, peak allocated bytes and
-     launches, agent-years/s over both ranks beside [3d]'s, and the
+     x 1 year (2 until [3o] (a) took both of [3d]'s years): each rank's
+     per-year wall, peak allocated bytes and launches, agent-years/s over
+     both ranks beside [3d]'s, and the
      per-agent outputs against [3d]'s run by agent_id at the JAX
      package's sharded bound (rtol 5e-4, atol 1e-3), battery units
      equal, the count of values not bit-equal logged; (c) two ranks at
@@ -227,6 +229,23 @@ its first launch in the path):
      row for row, and the ranks' 2014 checkpoint resumed by one process
      (the restored carry bit for bit against the ranks' outputs, the
      resumed year within the bound); a rank that fails fails the phase;
+  3o. the rank gang (dgen_tpu_torch.resilience.gang and .gangworker, the
+     sweep CLI on ranks): (a) national-all-sector at its full width,
+     1,048,576 agents, x 2 years as a gang of 2 ranks sharing the card
+     under the GangSupervisor, each rank's chunk automatic (its half of
+     the card), rank 1 killed at its second year's export
+     (gang_worker_kill@2:kill): the gang torn down and relaunched from the
+     merged manifest frontier (2014), the ranks resuming from the 2014
+     checkpoint parts by agent id; the merged export against [3d]'s run
+     bit for bit, every battery unit equal, the merged manifest verifying
+     clean; the detection, teardown and relaunch walls, each rank's peak
+     allocated bytes against its budget, the card's free memory before the
+     first spawn and before the relaunch; rank 0 of the relaunch keeps
+     its first launches for [9]; (b) the sweep CLI (python -m
+     dgen_tpu_torch.sweep) as 2 ranks sharing the card, national-all-sector
+     at 32,768 agents x 2 years, S = 2 (ITC 0.3 and 0), batteries attached
+     at 0.4, the gathered results against the single-process sweep per
+     agent id, bit for bit;
  4. the gated main path: the same world with daylight_compact, pack_once
      and stream_segments (stream kernel, no month kernel), its national
      curves against the main path's;
@@ -434,6 +453,9 @@ DOT_K = 8
 DOT_FORM_OPS = 3
 #: bytes of pre-formed operands a torch.bmm yardstick call may take
 BMM_BYTES = 12 << 30
+#: alternated pairs of each row's logged kernel-vs-bmm A/B (6 until [3o]
+#: needed the room; the row's library_ms is its own median of 5 calls)
+BMM_AB_PAIRS = 3
 #: the month kernel's logged A/B at the most periods a tariff may carry
 AB_PERIODS = 10
 
@@ -532,6 +554,13 @@ def kernel_specs(bk, mk) -> dict:
                                     f"{bp}:343"),
         "bucket_sums_month_signed_ranks": (("ranks", "month_signed"), *month, 9, RTOL,
                                            "month", f"{bp}:343"),
+        # [3o] (a): rank 0 of the gang's relaunched attempt (two ranks sharing
+        # the card under the automatic chunk; a chunk's first
+        # RANKS_CAPTURE_ROWS rows; launches: both ranks' of that attempt)
+        "bucket_sums_month_gang": (("gang", "month"), *month, 6, RTOL, "month",
+                                   f"{bp}:343"),
+        "bucket_sums_month_signed_gang": (("gang", "month_signed"), *month, 9, RTOL,
+                                          "month", f"{bp}:343"),
         "bucket_sums_stream": (("gated", "stream"), *stream, 6, RTOL, "stream",
                                f"{bp}:840"),
         "bucket_sums_stream_signed": (("gated", "stream_signed"), *stream, 9,
@@ -772,17 +801,21 @@ def dropped_period_caught(ref, rtol=RTOL) -> tuple[int, int, int]:
             int((flagged_whole & must).sum()))
 
 
-#: timed calls of a plain version (after its warm-up) in [9]'s rows: its
-#: time is the yardstick the kernel is read against, 65-1,500 ms a call
-#: (one call since [3n] took the room of the others)
+#: timed calls of a plain version in [9]'s rows, after the correctness
+#: check's call on the same operands (its warm-up since [3o] took the room
+#: of a separate one): its time is the yardstick the kernel is read
+#: against, 65-1,500 ms a call (one call since [3n] took the room of the
+#: others)
 PLAIN_REPS = 1
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` launches timed with CUDA events, after a warm-up."""
+def time_ms(fn, reps: int = 5, warm: bool = True) -> float:
+    """Median of ``reps`` launches timed with CUDA events, after a warm-up
+    (``warm=False``: the caller has just run ``fn`` on the same operands)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -971,11 +1004,11 @@ def bmm_yardstick(args, kernel, what: str, cols=None, rtol=DOT_RTOL) -> float:
                                              f"{what}")
                 del got, want
                 ms, bmm_ms, wins = ab_ms(lambda: kernel(*part),
-                                         lambda: torch.bmm(a, m))
+                                         lambda: torch.bmm(a, m), pairs=BMM_AB_PAIRS)
                 log(f"    {what} vs torch.bmm of pre-formed relu(net) and M [{width} "
                     f"columns] (TF32, the contraction alone) on agents 0-{a1 - 1}: "
-                    f"kernel {ms:.3f} ms | bmm {bmm_ms:.3f} ms (medians of 6 "
-                    f"alternated pairs; kernel faster in {wins})")
+                    f"kernel {ms:.3f} ms | bmm {bmm_ms:.3f} ms (medians of "
+                    f"{BMM_AB_PAIRS} alternated pairs; kernel faster in {wins})")
             total += time_ms(lambda: torch.bmm(a, m))
             calls += 1
             del a, m
@@ -1193,7 +1226,8 @@ def check_and_time(captures: dict, specs: dict, hour_lanes: dict,
         p = got[0].shape[-1] // 12
         del got, ref
         ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain(*args), reps=PLAIN_REPS)
+        # the check above ran the plain version on these operands: its warm-up
+        plain_ms = time_ms(lambda: plain(*args), reps=PLAIN_REPS, warm=False)
         library_ms, note = None, ""
         if src == "dot":
             b_ms, b_by, note = dot_bound_ms(args, out_bytes)
@@ -1406,7 +1440,9 @@ def dispatch_row(ops: tuple, launches: int) -> dict:
     del got, ref
     n, hours = ops[0].shape
     ms = time_ms(lambda: dispatch.dispatch_battery(*ops))
-    plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops), reps=PLAIN_REPS)
+    # the check above ran the plain loop on these operands: its warm-up
+    plain_ms = time_ms(lambda: dispatch.dispatch_battery_plain(*ops), reps=PLAIN_REPS,
+                       warm=False)
     mhz = sm_clock_mhz_under(lambda: dispatch.dispatch_battery(*ops))
     t_bytes = 4.0 * (6 * n * hours + 3 * n) / PEAK_BYTES_PER_S * 1e3
     t_ops = float(n) * hours * DISPATCH_OPS / PEAK_F32_FLOPS * 1e3
@@ -1994,8 +2030,9 @@ def national_path(presets, whole_per_year: dict, keep: dict | None = None) -> fl
     further first year holds the first launches, past row 65,535, against
     the plain versions (:func:`held_year`). ``keep``: a dict the run's
     per-agent outputs (``parallel.launch.COLLECT_FIELDS``, each year's
-    ``[N]`` rows fetched by the callback) and row ids go into, for [3n]
-    (b). Returns the run's agent-years a second over its years."""
+    ``[N]`` rows fetched by the callback), row ids and first year's
+    wall (``first_year_s``) go into, for [3n] (b). Returns the run's
+    agent-years a second over its years."""
     import torch
 
     from dgen_tpu_torch.parallel.launch import COLLECT_FIELDS
@@ -2045,7 +2082,8 @@ def national_path(presets, whole_per_year: dict, keep: dict | None = None) -> fl
     if keep is not None:
         for f in COLLECT_FIELDS:
             keep[f] = [t.cpu().numpy() for t in keep[f]]
-        keep.update(agent_id=sim.host_agent_id, mask=sim.host_mask, years=sim.years)
+        keep.update(agent_id=sim.host_agent_id, mask=sim.host_mask, years=sim.years,
+                    first_year_s=rec["year_s"][0])
     ys = rec["year_s"]
     carry = ys[1:]
     log(f"    per-year s {ys}: first year {ys[0]:.3f} s, carry years "
@@ -3694,11 +3732,11 @@ SWEEP_END_YEAR = 2014
 #: the per-agent fields the two modes of a sweep or an ensemble, and a
 #: sweep and its single runs, must give bit for bit (by agent_id)
 SWEEP_FIELDS = ("system_kw", "npv", "payback_period", "number_of_adopters", "batt_kwh")
-#: (b): [3c]'s world, S = 3 ITC levels over 3 model years
+#: (b): [3c]'s world, S = 3 ITC levels over 2 model years (3 until [3o])
 SWEEP_ITCS = (0.30, 0.10, 0.0)
-SWEEP_SMALL_END_YEAR = 2018
+SWEEP_SMALL_END_YEAR = 2016
 #: (c): E = 8 members under DEFAULT_DRAWS, a cohort of 2,048 rows that
-#: enters in 2015 (alive from the 2016 model year), 3 model years
+#: enters in 2015 (alive from the 2016 model year), 2 model years
 ENS_MEMBERS = 8
 ENS_COHORT_ROWS = 2048
 ENS_COHORT_YEAR = 2015.0
@@ -5853,6 +5891,11 @@ RANKS_SMALL_AGENTS = 32_768
 #: (the footprint model, which over-counts ~1.6x, sizes a 1,048,576-agent
 #: run's chunk at 87,424 rows for a whole 80 GB card; a rank has half)
 RANKS_CHUNK = 32_768
+#: (b) runs [3d]'s first model year only since [3o] (a) holds two ranks
+#: sharing the card against both of [3d]'s years (a depth cut for time)
+RANKS_SHARED_END_YEAR = 2014
+#: what [3d]'s kept dict holds beside the per-agent outputs
+NATIONAL_KEPT_META = ("agent_id", "mask", "years", "first_year_s")
 #: (c): the run outputs and the 2 -> 1 resume
 RANKS_OUTPUT_AGENTS = 131_072
 RANKS_OUTPUT_CHUNK = 16_384
@@ -5888,59 +5931,30 @@ def free_card(device) -> None:
 
 
 def spawn_ranks(tag: str, work: str, world: int, args: list, env_extra=None,
-                rank_args=None) -> list:
-    """``world`` processes of the port's rank entry point
-    (``python -m dgen_tpu_torch.parallel.launch``) on a localhost
-    rendezvous, ``args`` their arguments and ``rank_args[r]`` rank r's
-    own; returns each rank's JSON record. A rank that fails, or outlives
+                rank_args=None, module="dgen_tpu_torch.parallel.launch",
+                argv=()) -> list:
+    """``world`` processes of the port's rank entry point (``python -m
+    dgen_tpu_torch.parallel.launch``, or ``module``) on a localhost
+    rendezvous (``parallel.launch.spawn_local_ranks``), ``args`` (and
+    ``argv``) their arguments and ``rank_args[r]`` rank r's own; returns
+    each rank's JSON record. A rank that fails, or outlives
     RANKS_TIMEOUT_S, fails the phase: every rank is then stopped and the
     failed one's log tail raised."""
     import os
-    import socket
 
-    os.makedirs(work, exist_ok=True)
-    root = os.path.dirname(os.path.abspath(__file__))
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    env = {**os.environ, "DGEN_COORDINATOR": f"127.0.0.1:{port}",
-           "DGEN_NUM_PROCESSES": str(world),
-           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
-                                         if p),
-           **(env_extra or {})}
-    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(world)]
-    cmd = [sys.executable, "-m", "dgen_tpu_torch.parallel.launch", *args]
-    procs = [subprocess.Popen(cmd + list((rank_args or {}).get(r, ())), cwd=root,
-                              env={**env, "DGEN_PROCESS_ID": str(r)}, stdout=logs[r],
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    t0 = time.perf_counter()
+    from dgen_tpu_torch.parallel.launch import spawn_local_ranks
+
+    phase = "[3n]" if module.endswith("launch") else "[3o]"
     try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            if time.perf_counter() - t0 > RANKS_TIMEOUT_S:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    recs, failed = [], []
-    for r, (p, f) in enumerate(zip(procs, logs)):
-        f.seek(0)
-        text = f.read()
-        f.close()
-        if p.returncode != 0:
-            failed.append(f"rank {r} exit {p.returncode}: {text[-2500:]}")
-            continue
-        recs.append(json.loads(text.strip().splitlines()[-1]))
-    if failed:
-        raise AssertionError(f"[3n] {tag}: " + " | ".join(failed))
+        recs = spawn_local_ranks([sys.executable, "-m", module, *args, *argv], world, work,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 env=env_extra, rank_args=rank_args,
+                                 timeout_s=RANKS_TIMEOUT_S)
+    except RuntimeError as e:
+        raise AssertionError(f"{phase} {tag}: {e}") from None
     for rec in recs:
         if rec["imports_jax"] or rec["imports_dgen_tpu"]:
-            raise AssertionError(f"[3n] {tag}: rank {rec['rank']} imported jax")
+            raise AssertionError(f"{phase} {tag}: rank {rec['rank']} imported jax")
     return recs
 
 
@@ -6044,13 +6058,15 @@ def ranks_one_nccl(presets, work: str, card: str, *, n_agents=RANKS_SMALL_AGENTS
     return dict(rec=rec, wall=wall)
 
 
-def ranks_shared_card(work: str, national: dict, single_rate: float, card: str, *,
+def ranks_shared_card(work: str, national: dict, card: str, *,
                       chunk=RANKS_CHUNK, device="cuda") -> dict:
     """[3n] (b): two ranks sharing the card over gloo, national-all-sector
-    at its full width (524,288 agents a rank), 2 years, RANKS_CHUNK rows a
-    chunk set by hand; each rank's per-year wall, peak allocated bytes and
-    launches, agent-years/s over both ranks beside [3d]'s (a record: two
-    ranks on one card share its SMs), and the per-agent outputs against
+    at its full width (524,288 agents a rank), [3d]'s first model year
+    (RANKS_SHARED_END_YEAR), RANKS_CHUNK rows a chunk set by hand; each
+    rank's per-year wall, peak allocated bytes and launches, a
+    first-year rate (agents over the slower rank's wall) beside [3d]'s
+    first year's (a record: two ranks on one card share its SMs), and
+    the per-agent outputs against
     [3d]'s single-process run of the same world (``national``), by agent
     id at the JAX package's bound, battery units equal. Rank 0 keeps its
     first launches (RANKS_CAPTURE_ROWS rows) for [9]."""
@@ -6067,7 +6083,7 @@ def ranks_shared_card(work: str, national: dict, single_rate: float, card: str, 
     paths = [os.path.join(work, f"b{r}.npz") for r in range(2)]
     cap_path = os.path.join(work, "b_capture.pt")
     recs = spawn_ranks("(b)", os.path.join(work, "b"), 2, [
-        "--preset", NATIONAL, "--end-year", str(NATIONAL_END_YEAR),
+        "--preset", NATIONAL, "--end-year", str(RANKS_SHARED_END_YEAR),
         "--agents", str(int(np.sum(national["mask"] > 0))), "--device", device,
         "--no-export", "--no-checkpoint"],
         {"DGEN_TPU_AGENT_CHUNK": str(chunk)},
@@ -6081,14 +6097,17 @@ def ranks_shared_card(work: str, national: dict, single_rate: float, card: str, 
         for key in ("month", "month_signed", "dispatch"):
             if cuda and not rec["launches"][key]:
                 raise AssertionError(f"[3n] (b) rank {rec['rank']} launched no {key}")
-    ref = sim_by_id({f: np.stack(national[f]) for f in national
-                     if f not in ("agent_id", "mask", "years")},
+    n_years = len(recs[0]["years"])
+    ref = sim_by_id({f: np.stack(national[f])[:n_years] for f in national
+                     if f not in NATIONAL_KEPT_META},
                     national["agent_id"], national["mask"])
     got = ranks_by_id(paths)
     differ = ranks_parity("(b)", got, ref)
     n_real = sum(r["agents"] for r in recs)
-    run_s = max(r["run_s"] for r in recs)
-    rate = n_real * len(recs[0]["years"]) / run_s
+    if n_years != 1:
+        raise AssertionError(f"[3n] (b) ran {n_years} years; its rate is a first year's")
+    rate = n_real / max(r["year_s"][0] for r in recs)
+    single_rate = n_real / national["first_year_s"]
     total = sum(int(np.asarray(ref[f]).size) for f in ref if f != "agent_id")
     for rec in recs:
         log(f"[3n] (b) rank {rec['rank']} of 2 over {rec['backend']} on "
@@ -6097,9 +6116,9 @@ def ranks_shared_card(work: str, national: dict, single_rate: float, card: str, 
             f"{rec['run_s']} s, built in {rec['build_s']} s), peak allocated "
             f"{(rec['max_memory_allocated'] or 0) / 2**30:.2f} GiB (modeled step "
             f"{rec['modeled_step_bytes'] / 2**30:.2f} GiB), launches {rec['launches']}")
-    log(f"    both ranks: {n_real} agents, {rate:.1f} agent-years/s over the slower "
-        f"rank's run (a record, not a claim: the ranks share the card's SMs) beside "
-        f"[3d]'s {single_rate:.1f} in this run; {held / 2**30:.2f} GiB of this "
+    log(f"    both ranks: {n_real} agents, {rate:.1f} agent-years/s in the first year "
+        f"(the slower rank's wall; a record, not a claim: the ranks share the card's "
+        f"SMs) beside [3d]'s first year's {single_rate:.1f} in this run; {held / 2**30:.2f} GiB of this "
         f"process's earlier phases held on the card; per agent against [3d]: "
         f"{differ} of {total} values not bit-equal, every "
         f"battery unit equal ({card})")
@@ -6231,7 +6250,7 @@ def ranks_outputs(presets, RunConfig, work: str, card: str, *,
                 resume_differ=resume_differ, wall=wall)
 
 
-def multi_rank(presets, RunConfig, national: dict, single_rate: float, card: str) -> dict:
+def multi_rank(presets, RunConfig, national: dict, card: str) -> dict:
     """[3n]: the multi-rank run on one card, (a)-(c), in a temporary
     directory it removes. Returns (b)'s launches and first launches for
     [9], and the figures."""
@@ -6242,7 +6261,7 @@ def multi_rank(presets, RunConfig, national: dict, single_rate: float, card: str
     work = tempfile.mkdtemp(prefix="dgen-ranks-")
     try:
         a = ranks_one_nccl(presets, work, card)
-        b = ranks_shared_card(work, national, single_rate, card)
+        b = ranks_shared_card(work, national, card)
         c = ranks_outputs(presets, RunConfig, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6250,6 +6269,237 @@ def multi_rank(presets, RunConfig, national: dict, single_rate: float, card: str
     log(f"[3n] the multi-rank run (a)-(c): {wall:.3f} s ({card})")
     return dict(launches=b.pop("launches"), capture=b.pop("capture"), a=a, b=b, c=c,
                 wall=wall)
+
+
+# ---------------------------------------------------------------------------
+# [3o]: the rank gang
+# ---------------------------------------------------------------------------
+
+#: (a): the gang's ranks, the kill, the gang's limits
+GANG_RANKS = 2
+GANG_KILL = "gang_worker_kill@2:kill"
+GANG_TIMEOUT_S = 600
+#: (b): the sweep on two ranks
+GANG_SWEEP_AGENTS = 32_768
+GANG_SWEEP_ITC = "0.3,0.0"
+
+
+def gang_national(national: dict, card: str, work: str, *,
+                  device="cuda") -> dict:
+    """[3o] (a): national-all-sector at its full width (the agents of
+    [3d]'s run, ``national``) for 2 model years as a gang of GANG_RANKS
+    ranks sharing the card under the GangSupervisor, each rank's chunk
+    automatic (its share of the card), rank 1 killed at its second year's
+    export: the supervisor must tear the gang down and relaunch it from
+    the merged manifest frontier (2014), the ranks resuming from the 2014
+    checkpoint parts. The merged export (every rank's ``year=<Y>-p<r>``
+    parts) must equal [3d]'s per-agent bits in both years, every battery
+    unit equal, and ``GangManifest.verify`` be clean. Logs the detection
+    wall, the teardown and relaunch walls, each rank's peak allocated
+    bytes against its budget, and the card's free memory before the first
+    spawn and before the relaunch. Rank 0 of the final attempt keeps its
+    first launches (RANKS_CAPTURE_ROWS rows) for [9]."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dgen_tpu_torch.config import GangConfig
+    from dgen_tpu_torch.io.export import AGENT_OUTPUT_FIELDS
+    from dgen_tpu_torch.resilience.gang import GangCrashLoop, GangSupervisor
+    from dgen_tpu_torch.resilience.gangdrill import _read_rows
+    from dgen_tpu_torch.resilience.manifest import GangManifest
+    from dgen_tpu_torch.resilience.supervisor import RetryPolicy
+
+    t0 = time.perf_counter()
+    free_card(device)
+    run_dir = os.path.join(work, "gang")
+    cap_path = os.path.join(work, "gang_capture.pt")
+    years = [int(y) for y in national["years"]]
+    n_real = int(np.sum(national["mask"] > 0))
+
+    def env_for(i, attempt):
+        env = {}
+        if i == 0:
+            env.update(DGEN_GANG_CAPTURE=cap_path,
+                       DGEN_GANG_CAPTURE_ROWS=str(RANKS_CAPTURE_ROWS))
+        if i == 1 and attempt == 0:
+            env["DGEN_TPU_FAULTS"] = GANG_KILL
+        return env
+
+    sup = GangSupervisor(
+        run_dir, years,
+        config=GangConfig(n_processes=GANG_RANKS, platform=torch.device(device).type,
+                          boot_timeout_s=GANG_TIMEOUT_S, stall_timeout_s=GANG_TIMEOUT_S,
+                          poll_interval_s=0.1, max_restarts=2),
+        policy=RetryPolicy(backoff_base_s=0.05), env_for=env_for,
+        worker_env={"DGEN_PRESET": NATIONAL, "DGEN_AGENTS": str(n_real),
+                    "DGEN_END_YEAR": str(years[-1])},
+        gang_dir=os.path.join(work, "gang-ranks"))
+
+    def tail(i):
+        path = os.path.join(sup.gang_dir, f"worker-{i}.log")
+        with open(path, "rb") as f:
+            return f.read()[-2500:].decode("utf-8", "replace")
+
+    try:
+        rep = sup.run()
+    except GangCrashLoop as e:
+        raise AssertionError(f"[3o] (a) {e} | rank 0: {tail(0)} | rank 1: {tail(1)}") from e
+    wall = time.perf_counter() - t0
+
+    died = rep.attempts[0] if rep.attempts else None
+    if not (rep.succeeded and rep.restarts == 1 and died.reason == "worker_exit"
+            and died.worker == 1 and died.exit_code == 77):
+        raise AssertionError(f"[3o] (a) the gang did not recover from the kill once: "
+                             f"{rep.to_json()} | rank 0: {tail(0)} | rank 1: {tail(1)}")
+    done = sorted(rep.done, key=lambda d: d["process"])
+    for d in done:
+        if d["imports_jax"] or d["imports_dgen_tpu"]:
+            raise AssertionError(f"[3o] (a) rank {d['process']} imported jax")
+        if d["resumed_after"] != years[0] or d["years_run"] != years[1:]:
+            raise AssertionError(f"[3o] (a) rank {d['process']} resumed after "
+                                 f"{d['resumed_after']}, ran {d['years_run']}")
+        for key in ("month", "month_signed", "dispatch"):
+            if device == "cuda" and not d["launches"][key]:
+                raise AssertionError(f"[3o] (a) rank {d['process']} launched no {key}")
+    verify = GangManifest(run_dir).verify()
+    if not verify.ok or verify.years_complete != years:
+        raise AssertionError(f"[3o] (a) the merged manifest: {verify.to_json()}")
+    ref = sim_by_id({f: np.stack(national[f]) for f in national
+                     if f not in NATIONAL_KEPT_META},
+                    national["agent_id"], national["mask"])
+    differ = total = 0
+    d_out = os.path.join(run_dir, "agent_outputs")
+    for yi, y in enumerate(years):
+        got = _read_rows([os.path.join(d_out, n) for n in sorted(os.listdir(d_out))
+                          if n.startswith(f"year={y}-p") and n.endswith(".npz")])
+        if not np.array_equal(got["agent_id"], ref["agent_id"]):
+            raise AssertionError(f"[3o] (a) {y}: the parts' agents are not [3d]'s")
+        for f in AGENT_OUTPUT_FIELDS:
+            a, b = np.asarray(got[f], np.float32), np.asarray(ref[f][yi], np.float32)
+            n = int((a.view(np.uint32) != b.view(np.uint32)).sum())
+            differ += n
+            total += a.size
+            if f in ("new_batt_adopters", "batt_adopters_cum") and n:
+                raise AssertionError(f"[3o] (a) {y}: a battery unit moved ({f})")
+    if differ:
+        raise AssertionError(f"[3o] (a) {differ} of {total} exported values differ "
+                             f"from [3d]'s bits")
+    gib = lambda b: "n/a" if b is None else f"{b / 2**30:.2f} GiB"
+    log(f"[3o] (a) the gang at {n_real} agents x {years}: {GANG_RANKS} ranks sharing "
+        f"the card over {done[0].get('backend')}, rank 1 killed ({GANG_KILL}): "
+        f"detected in <= {died.detect_s} s (the gap since the last poll that saw it "
+        f"alive), teardown {died.teardown_s} s, the killed attempt {died.wall_s:.3f} s; "
+        f"relaunch wall (detection to every rank's first year) {rep.relaunch_wall_s} s, "
+        f"recovery wall {rep.recovery_wall_s:.3f} s; the gang {wall:.3f} s in all ({card})")
+    log(f"    card free before the first spawn {[gib(b) for b in rep.card_free_before or []]}, "
+        f"before the relaunch "
+        f"{[(gib(b), c['waited_s']) for c in rep.card_free_relaunch for b in c['free'] or []]}"
+        f" (free, seconds waited)")
+    for d in done:
+        log(f"    rank {d['process']}: {d['agents']} agents in {d['rows']} rows, automatic "
+            f"chunk {d['agent_chunk']}, resumed after {d['resumed_after']}, ran "
+            f"{d['years_run']} in {d['run_s']} s; peak allocated "
+            f"{gib(d['max_memory_allocated'])} against its budget "
+            f"{gib(d['memory_budget_bytes'])} (0.8 of its share "
+            f"{gib(d['card_share_bytes'])}; modeled step {gib(d['modeled_step_bytes'])}); "
+            f"launches {d['launches']}")
+    log(f"    merged export against [3d]: {differ} of {total} values not bit-equal, "
+        f"every battery unit equal; merged manifest verify ok, years {verify.years_complete}")
+    capture = {k: tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in v)
+               for k, v in torch.load(cap_path).items()}
+    launches = {}
+    for d in done:
+        for k, v in d["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(report=rep.to_json(), launches=launches, capture=capture, wall=wall,
+                differ=differ)
+
+
+def gang_sweep(card: str, work: str, *, n_agents=GANG_SWEEP_AGENTS, device="cuda") -> dict:
+    """[3o] (b): the sweep CLI (``python -m dgen_tpu_torch.sweep``) as two
+    ranks sharing the card: national-all-sector at ``n_agents``, 2 model
+    years, S = 2 (ITC 0.3 and 0), batteries attached at RANKS_ATTACH; the
+    gathered results (rank 0's ``--collect``) against the single-process
+    sweep of the same world in this process, per agent id, bit for bit."""
+    import os
+
+    import numpy as np
+
+    from dgen_tpu_torch.sweep import SweepSimulation
+    from dgen_tpu_torch.sweep import __main__ as cli
+
+    t0 = time.perf_counter()
+    free_card(device)
+    argv = ["--preset", NATIONAL, "--agents", str(n_agents), "--end-year",
+            str(NATIONAL_END_YEAR), "--itc", GANG_SWEEP_ITC, "--attachment-rate",
+            str(RANKS_ATTACH), "--device", device]
+    out = os.path.join(work, "sweep.npz")
+    recs = spawn_ranks("(b) sweep", os.path.join(work, "sweep"), GANG_RANKS, [],
+                       rank_args={0: ["--collect", out]}, module="dgen_tpu_torch.sweep",
+                       argv=argv)
+    if any(r.get("groups") and any(g["mode"] != "loop" for g in r["groups"]) for r in recs):
+        raise AssertionError(f"[3o] (b) the ranked sweep did not loop: {recs}")
+    ranked_s = time.perf_counter() - t0
+    args = cli.parser().parse_args(argv)
+    pop, cfg, members, labels, with_hourly = cli.build_sweep(args, device)
+    from dgen_tpu_torch.config import RunConfig
+
+    res = SweepSimulation(pop.table, pop.profiles, pop.tariffs, members, cfg,
+                          RunConfig(sizing_iters=args.sizing_iters), with_hourly=with_hourly,
+                          labels=labels, device=device).run()
+    del pop
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    differ = total = 0
+    for s in range(len(members)):
+        a = sim_by_id({k.split("/", 1)[1]: v for k, v in got.items()
+                       if k.startswith(f"{s}/")}, got["agent_id"], got["mask"])
+        b = sim_by_id(res.runs[s].agent, res.host_agent_id, res.host_mask)
+        if not np.array_equal(a["agent_id"], b["agent_id"]):
+            raise AssertionError(f"[3o] (b) scenario {s}: the ranks' agents differ")
+        for f in b:
+            if f == "agent_id":
+                continue
+            n = int((np.asarray(a[f]).view(np.uint32)
+                     != np.asarray(b[f]).view(np.uint32)).sum())
+            differ += n
+            total += np.asarray(b[f]).size
+    if differ:
+        raise AssertionError(f"[3o] (b) {differ} of {total} values of the ranked sweep "
+                             f"differ from the single-process sweep's bits")
+    for r in recs:
+        for key in ("month", "month_signed", "dispatch"):
+            if device == "cuda" and not r["launches"][key]:
+                raise AssertionError(f"[3o] (b) rank {r['rank']} launched no {key}")
+    wall = time.perf_counter() - t0
+    log(f"[3o] (b) the sweep CLI on {GANG_RANKS} ranks sharing the card: {NATIONAL} at "
+        f"{n_agents} agents x {cfg.model_years}, S = {len(members)} ({labels}), the "
+        f"scenario-major loop (chunk {recs[0].get('agent_chunk')}), {ranked_s:.3f} s with "
+        f"the ranks' boot; against the single-process sweep: {differ} of {total} "
+        f"per-agent values not bit-equal; launches a rank "
+        f"{[r['launches'] for r in recs]}; {wall:.3f} s ({card})")
+    return dict(recs=recs, differ=differ, wall=wall)
+
+
+def rank_gang(national: dict, card: str) -> dict:
+    """[3o]: (a) the gang at national width through a killed rank and (b)
+    the sweep on two ranks, in a temporary directory it removes. Returns
+    (a)'s launches and first launches for [9], and the figures."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="dgen-gang-")
+    try:
+        a = gang_national(national, card, work)
+        b = gang_sweep(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"[3o] the rank gang (a)-(b): {wall:.3f} s ({card})")
+    return dict(launches=a.pop("launches"), capture=a.pop("capture"), a=a, b=b, wall=wall)
 
 
 def main(argv=None) -> int:
@@ -6410,12 +6660,18 @@ def main(argv=None) -> int:
 
     phase_s["3m"] = lap()
     # --- 3n: the multi-rank run ---
-    ranks = multi_rank(presets, RunConfig, national, single_rate, card)
+    ranks = multi_rank(presets, RunConfig, national, card)
     runs["ranks"] = dict(launches=ranks["launches"], capture=ranks["capture"])
-    del national
     torch.cuda.empty_cache()
 
     phase_s["3n"] = lap()
+    # --- 3o: the rank gang ---
+    gang = rank_gang(national, card)
+    runs["gang"] = dict(launches=gang["launches"], capture=gang["capture"])
+    del national
+    torch.cuda.empty_cache()
+
+    phase_s["3o"] = lap()
     # --- 4: the gated main path ---
     gsim = build(MAIN_AGENTS, MAIN_END_YEAR, GATED)
     lay = gsim._daylight
@@ -6539,7 +6795,7 @@ def main(argv=None) -> int:
         f"{RTOL}, {DOT_RTOL} for the TF32 tensor-core kernels, {BF16_RTOL:.4e} "
         f"for bf16 sums, atol {ATOL_FRAC} x the agent's max|plain|) "
         f"and times (median of 5 CUDA-event launches after a warm-up, {PLAIN_REPS} "
-        f"for a plain version):")
+        f"for a plain version after the check's call):")
     captures = {k: v["capture"] for k, v in runs.items()}
     hour_lanes = {k: v.get("hour_lanes") for k, v in runs.items()}
     micro_library = micro_library_ms(captures["micro"]["variant"], mk)
@@ -6571,7 +6827,7 @@ def main(argv=None) -> int:
     p1_rows(mixed["c"].pop("capture"), bk, p1_launches(mixed["b"]))
     oracle_dispatch = captures["oracle"]["dispatch"]
     serve_dispatch = {k: captures[k]["dispatch"] for k in ("serve1", "serve64", "fleet",
-                                                            "ingest", "ranks")}
+                                                            "ingest", "ranks", "gang")}
     del captures
     for v in runs.values():
         v.pop("capture", None)
@@ -6596,7 +6852,10 @@ def main(argv=None) -> int:
                        f"ingest path; a chunk's first {INGEST_CAPTURE_ROWS} rows):",
              "ranks": f"  the battery dispatch kernel on [3n] (b)'s rank 0's first "
                       f"dispatch (two ranks sharing the card; a chunk's first "
-                      f"{RANKS_CAPTURE_ROWS} rows):"}.get(
+                      f"{RANKS_CAPTURE_ROWS} rows):",
+             "gang": f"  the battery dispatch kernel on [3o] (a)'s rank 0's first "
+                     f"dispatch of the relaunched attempt (a chunk's first "
+                     f"{RANKS_CAPTURE_ROWS} rows):"}.get(
             key, f"  the battery dispatch kernel on [3k] (a)'s first dispatch at bucket "
                  f"{key[5:]} (the serving path):"))
         r = dispatch_row(ops, runs[key]["launches"]["dispatch"])

@@ -15,7 +15,9 @@ run's ``seed``. ``ServeConfig`` is the serving stack's (buckets, queue,
 HTTP, answer surface, result cache), with the JAX package's
 ``DGEN_TPU_SERVE_*`` switches and validation, and ``FleetConfig`` the
 serving fleet's (replicas, breakers, shedding, drain, autoscaling), with
-its ``DGEN_TPU_FLEET_*`` switches. Other knobs arrive with the slices that
+its ``DGEN_TPU_FLEET_*`` switches, and ``GangConfig`` the rank gang's
+(ranks, liveness bounds, restarts, the shrink plan), with its
+``DGEN_TPU_GANG_*`` switches. Other knobs arrive with the slices that
 port them.
 
 ``RunConfig.from_env`` reads the JAX package's ``DGEN_TPU_*`` switches
@@ -561,4 +563,121 @@ class FleetConfig:
             raw = env(f"DGEN_TPU_FLEET_{name}")
             if field not in overrides and raw:
                 overrides[field] = conv(raw)
+        return cls(**overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class GangConfig:
+    """Settings of the rank gang's supervisor
+    (:mod:`dgen_tpu_torch.resilience.gang`): how many rank processes a
+    multi-rank run starts, when a rank counts as stalled, how many
+    restarts of the whole gang the crash-loop breaker allows, and the
+    shrink plan a lost rank falls back to. Env prefix
+    ``DGEN_TPU_GANG_*`` (:meth:`from_env`). The fields and their checks
+    are the JAX package's; in the port a process is one rank, so:
+
+    * ``n_processes``: ranks (world size, ``DGEN_NUM_PROCESSES``);
+    * ``devices_per_process``: ranks per host, the second axis of
+      ``parallel.mesh.default_mesh_shape`` (the supervisor hands it to
+      every rank as ``DGEN_CPU_DEVICES``); ``total_devices``, when set,
+      overrides it at each launch as ``total_devices / n_processes``;
+    * ``platform``: the ranks' device, ``"cuda"`` (the default: ranks
+      on the host's cards, several sharing one where there are more
+      ranks than cards) or ``"cpu"`` (gloo); ``""`` leaves it to the
+      worker's own ``DGEN_PLATFORM``.
+
+    A multi-rank run is all-or-nothing: one dead or stalled rank leaves
+    its peers at their next collective, so recovery tears the whole gang
+    down and relaunches it from the manifest frontier."""
+
+    #: rank processes of the gang
+    n_processes: int = 2
+    #: ranks per host (the mesh's second axis); ``total_devices`` (when
+    #: set and divisible) overrides it per launch
+    devices_per_process: int = 1
+    total_devices: Optional[int] = None
+    #: the ranks' device: "cuda", "cpu", or "" (the worker's own)
+    platform: str = "cuda"
+    #: a freshly spawned gang must heartbeat its first completed year
+    #: (boot, process group, world build, first year) within this wall
+    boot_timeout_s: float = 600.0
+    #: once a rank has heartbeat a year, a heartbeat older than this
+    #: marks it stalled; a floor: the supervisor scales the live bound to
+    #: GangSupervisor.STALL_GRACE_FACTOR x the slowest year-over-year gap
+    stall_timeout_s: float = 120.0
+    #: supervisor monitor cadence
+    poll_interval_s: float = 0.2
+    #: crash-loop breaker: more than this many gang deaths inside
+    #: ``restart_window_s`` stop restarts at the current rank count (the
+    #: shrink plan, if any, then takes over)
+    max_restarts: int = 3
+    restart_window_s: float = 600.0
+    #: rank counts to drop to, in order, when the breaker trips: the run
+    #: resumes from the manifest frontier at P' ranks instead of dying
+    shrink_plan: Tuple[int, ...] = ()
+    #: SIGTERM drain bound: the ranks get this long to agree on a save
+    #: year and exit before the supervisor kills them
+    drain_timeout_s: float = 60.0
+    #: rendezvous host (the ranks are children of the supervisor)
+    coordinator_host: str = "127.0.0.1"
+
+    def __post_init__(self) -> None:
+        _check(self.n_processes >= 1, "n_processes must be >= 1")
+        _check(self.devices_per_process >= 1, "devices_per_process must be >= 1")
+        _check(self.total_devices is None or self.total_devices >= 1,
+               "total_devices must be None or >= 1")
+        _check(self.platform in ("", "cpu", "cuda"),
+               "platform must be 'cuda', 'cpu' or ''")
+        _check(self.boot_timeout_s > 0, "boot_timeout_s must be > 0")
+        _check(self.stall_timeout_s > 0, "stall_timeout_s must be > 0")
+        _check(self.poll_interval_s > 0, "poll_interval_s must be > 0")
+        _check(self.max_restarts >= 0, "max_restarts must be >= 0")
+        _check(self.restart_window_s > 0, "restart_window_s must be > 0")
+        plan = self.shrink_plan
+        _check(all(1 <= p < self.n_processes for p in plan)
+               and all(a > b for a, b in zip(plan, plan[1:])),
+               "shrink_plan must be strictly decreasing process counts "
+               "below n_processes")
+        if self.total_devices is not None:
+            # a plan entry that does not divide total_devices would fall
+            # back to devices_per_process and change the grid mid-run:
+            # fail at construction, not at the relaunch that needed it
+            _check(all(self.total_devices % p == 0 for p in (self.n_processes, *plan)),
+                   "total_devices must divide evenly at n_processes and every "
+                   "shrink_plan entry (the global mesh size must stay constant "
+                   "through an elastic shrink)")
+        _check(self.drain_timeout_s > 0, "drain_timeout_s must be > 0")
+
+    def devices_for(self, n_processes: int) -> int:
+        """Ranks per host for a launch at ``n_processes`` ranks:
+        ``total_devices`` split evenly when set and divisible, else
+        ``devices_per_process``."""
+        total = self.total_devices
+        if total is not None and total % n_processes == 0:
+            return total // n_processes
+        return self.devices_per_process
+
+    @classmethod
+    def from_env(cls, **overrides) -> "GangConfig":
+        """The JAX package's switches: DGEN_TPU_GANG_PROCESSES,
+        _DEVICES_PER_PROCESS, _TOTAL_DEVICES, _PLATFORM, _BOOT_TIMEOUT_S,
+        _STALL_TIMEOUT_S, _MAX_RESTARTS, _SHRINK_PLAN (a comma list, e.g.
+        "2,1"), _DRAIN_TIMEOUT_S; an explicit keyword wins over its
+        switch."""
+        env = os.environ.get
+        for field, name, conv in (
+                ("n_processes", "PROCESSES", int),
+                ("devices_per_process", "DEVICES_PER_PROCESS", int),
+                ("total_devices", "TOTAL_DEVICES", int),
+                ("platform", "PLATFORM", str),
+                ("boot_timeout_s", "BOOT_TIMEOUT_S", float),
+                ("stall_timeout_s", "STALL_TIMEOUT_S", float),
+                ("max_restarts", "MAX_RESTARTS", int),
+                ("drain_timeout_s", "DRAIN_TIMEOUT_S", float)):
+            raw = env(f"DGEN_TPU_GANG_{name}")
+            if field not in overrides and raw:
+                overrides[field] = conv(raw)
+        raw = env("DGEN_TPU_GANG_SHRINK_PLAN")
+        if "shrink_plan" not in overrides and raw:
+            overrides["shrink_plan"] = tuple(int(p) for p in raw.split(",") if p.strip())
         return cls(**overrides)

@@ -1,6 +1,7 @@
 """Monte-Carlo ensembles and dynamic agent populations over one placed
 table (port of ``dgen_tpu/ensemble``): E seed-deterministic members
-against one table and one copy of the profile banks on the card.
+against one table and one copy of the profile banks on the card, or on
+each rank's shard of them (``EnsembleSimulation(ranks=)``).
 
 * :mod:`~dgen_tpu_torch.ensemble.draws`: per-member stochastic axes
   (Bass p/q, retail and wholesale price paths, technology costs), pure

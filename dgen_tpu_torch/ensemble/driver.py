@@ -1,6 +1,6 @@
 """The ensemble driver: E Monte-Carlo members against one placed table
-and one copy of the banks on the card, with dynamic cohort populations
-(port of ``dgen_tpu/ensemble/driver.py``).
+and one copy of the banks on the card (or each rank's shard of it), with
+dynamic cohort populations (port of ``dgen_tpu/ensemble/driver.py``).
 
 It rides the sweep engine: :func:`~dgen_tpu_torch.sweep.plan.plan_sweep`
 budgets the member axis through its ``n_members`` term, and execution
@@ -26,8 +26,15 @@ the checkpoint directory as a JSON sidecar (:data:`STATS_FILE`), so a
 resumed run reports the full horizon, and a sidecar of another
 configuration (mode, E, quantiles) is ignored.
 
-Not ported: the ensemble on a mesh (``ROADMAP.md`` item 7) and the
-retrace guard (item 12).
+On several ranks (``ranks=``, a ``parallel.mesh.RankTopology``; every
+rank constructs and runs the ensemble) it runs member-major loop mode
+over each rank's shard: each member steps the multi-rank year step, its
+per-member aggregates are summed over the ranks before the host fetch,
+its checkpoints are one part a rank, and the members' per-agent results
+are gathered over the ranks with their agent ids, as the sweep's are
+(``sweep.driver.gather_ranks``).
+
+Not ported: the retrace guard (``ROADMAP.md`` item 12).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from dgen_tpu_torch.sweep.driver import (
     agent_fields,
     bank_nbytes,
     collect_year,
+    gather_ranks,
     group_step_kwargs,
     stacked_carry,
     sweep_year_step,
@@ -111,8 +119,9 @@ class EnsembleSimulation:
     the base Simulation is built on the potential-population mask and
     the year's aliveness re-derived each year. ``quantiles``: the
     per-year quantile levels. ``max_vmap_members``: the planner's width
-    cap. ``mesh`` other than None raises ``NotImplementedError``. Other
-    parameters are Simulation's.
+    cap. ``ranks``: the run's ``parallel.mesh.RankTopology``; on more
+    than one rank the ensemble loops over this rank's shard (module
+    docstring). Other parameters are Simulation's.
     """
 
     def __init__(
@@ -128,18 +137,18 @@ class EnsembleSimulation:
         seed: Optional[int] = None,
         draws: Optional[DrawSpec] = None,
         entry_year: Union[CohortSchedule, np.ndarray, None] = None,
-        mesh=None,
         with_hourly: bool = False,
         econ_years: int = 25,
         quantiles: Sequence[float] = estats.DEFAULT_QUANTILES,
         max_vmap_members: Optional[int] = None,
         plan: Optional[SweepPlan] = None,
         device="cuda",
+        ranks=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "an ensemble on a mesh is not ported: the port runs on one card "
-                "(ROADMAP.md item 7, multi-GPU)")
+        #: the run's rank topology when it has more than one rank, else None
+        self.ranks = ranks if ranks is not None and ranks.distributed else None
+        if self.ranks is not None:
+            device = self.ranks.device
         self.device = resolve_device(device)
         self.n_members = int(n_members) if n_members is not None else _env_int(ENV_MEMBERS, 1)
         if self.n_members < 1:
@@ -181,13 +190,13 @@ class EnsembleSimulation:
             sizing_iters=rc.sizing_iters, bank_bf16=rc.bf16_banks,
             bank_quant=rc.quant_banks, max_vmap_scenarios=max_vmap_members,
             cluster=rc.cluster_tariffs, agent_pad_multiple=rc.agent_pad_multiple,
-            n_members=self.n_members, device=self.device,
+            n_members=self.n_members, device=self.device, mesh=self.ranks,
         )
         if self.plan.agent_chunk is not None and rc.agent_chunk is None:
             rc = dataclasses.replace(rc, agent_chunk=self.plan.agent_chunk)
         self.base = Simulation(table, profiles, tariffs, inputs, scenario, rc,
                                with_hourly=with_hourly, econ_years=econ_years,
-                               device=self.device)
+                               device=self.device, ranks=self.ranks)
         self.years = self.base.years
         self.bank_bytes_shared = bank_nbytes(self.base.profiles)
         group = self.plan.groups[0]
@@ -262,7 +271,8 @@ class EnsembleSimulation:
                     st_curves[m][:] = np.asarray(v, np.float64)
 
         def persist() -> None:
-            if not checkpoint_dir:
+            # the sums are every rank's: rank 0 writes them
+            if not checkpoint_dir or (self.ranks is not None and self.ranks.rank):
                 return
             atomic_write_json(self._stats_path(checkpoint_dir), {
                 "mode": "loop", "n_members": E, "quantiles": list(self.quantiles),
@@ -280,20 +290,23 @@ class EnsembleSimulation:
                 sib = self.base.with_inputs(member, net_billing=self.net_billing,
                                             timing_ctx=self.labels[mi])
             mdir = ckpt.member_dir(checkpoint_dir, mi) if checkpoint_dir else None
-            rows = sib.checkpoint_rows
             start_idx = 0
             carry = sib.init_carry()
             if resume and mdir:
                 last = ckpt.latest_year(mdir)
+                if self.ranks is not None:
+                    # every rank resumes at rank 0's year
+                    last = int(self.ranks.broadcast(torch.tensor(
+                        [-1 if last is None else last], dtype=torch.int64))[0])
+                    last = None if last < 0 else last
                 if last is not None and last not in years:
                     raise ValueError(f"checkpointed year {last} of member {mi} is not on "
                                      f"the year grid {years}; refusing to resume")
                 if last is not None:
-                    _, carry = ckpt.restore_year(mdir, self.base.table.n_agents, last,
-                                                 device=self.device, rows=rows)
+                    carry = sib._restore_carry(mdir, last)
                     start_idx = years.index(last) + 1
                     logger.info("ensemble member %d: resuming after year %d", mi, last)
-            writer = ckpt.Writer(mdir, rows=rows) if mdir else None
+            writer = sib.checkpoint_writer(mdir) if mdir else None
             collected: Dict[str, list] = {k: [] for k in fields}
             hourly: List[np.ndarray] = []
             try:
@@ -307,6 +320,10 @@ class EnsembleSimulation:
                         carry, outs = sib.step(carry, yi, first_year=(yi == 0))
                     nat, st = estats.member_aggregates(outs, alive, state_idx,
                                                        n_states=n_states)
+                    if self.ranks is not None:
+                        # this rank's partial sums, summed over the ranks
+                        nat = {k: self.ranks.all_reduce(v) for k, v in nat.items()}
+                        st = {k: self.ranks.all_reduce(v) for k, v in st.items()}
                     # a scalar block a (member, year): O(quantiles) traffic
                     host = to_host({"nat": nat, "st": st})
                     for k, v in host["nat"].items():
@@ -449,14 +466,17 @@ class EnsembleSimulation:
         else:
             results, stats = self._run_loop(collect, checkpoint_dir, resume)
         rep_q = self.base.quarantine_report
+        mask, ids = self.base.host_mask, self.base.host_agent_id
+        if self.ranks is not None:
+            results, mask, ids = gather_ranks(self.ranks, results, mask, ids)
         return SweepResults(
             labels=list(self.labels),
             baseline=0,
             runs=results,
             plan=self.plan,
             bank_bytes_shared=self.bank_bytes_shared,
-            host_mask=self.base.host_mask,
-            host_agent_id=self.base.host_agent_id,
+            host_mask=mask,
+            host_agent_id=ids,
             quarantine=(rep_q.summary()
                         if rep_q is not None and not rep_q.is_clean else None),
             quantiles=stats,

@@ -223,19 +223,21 @@ def latest_year(directory: str, scenario: Optional[str] = None) -> Optional[int]
 
 
 def latest_valid_year(directory: str, n_agents: int, max_year: Optional[int] = None,
-                      device="cuda", rows: Optional[np.ndarray] = None,
+                      device="cuda", rows=None,
                       scenario: Optional[str] = None,
                       n_scenarios: Optional[int] = None) -> Optional[int]:
     """The newest committed year that restores (walking back past one
     that does not), optionally capped at ``max_year``; None when nothing
     restores. Each candidate is validated by a full restore onto
     ``device`` (``rows``, ``scenario`` and ``n_scenarios`` as
-    :func:`restore_year` takes them)."""
+    :func:`restore_year` takes them; ``rows`` may also be a callable
+    ``year -> rows``, as ``Simulation.restore_rows`` gives them)."""
     for y in reversed(valid_years(directory, scenario=scenario)):
         if max_year is not None and y > max_year:
             continue
         try:
-            restore_year(directory, n_agents, y, device=device, rows=rows,
+            restore_year(directory, n_agents, y, device=device,
+                         rows=rows(y) if callable(rows) else rows,
                          scenario=scenario, n_scenarios=n_scenarios)
         except Exception as e:  # noqa: BLE001 — any failure: not valid
             logger.warning("checkpoint year %d under %s does not restore (%r); "

@@ -806,6 +806,17 @@ def card_memory_bytes(device: torch.device) -> Optional[int]:
     return torch.cuda.get_device_properties(device).total_memory
 
 
+def rank_memory_bytes(device: torch.device, ranks=None) -> Optional[int]:
+    """This rank's share of its card's memory: :func:`card_memory_bytes`
+    divided by the ranks that share the card (``RankTopology.
+    ranks_per_card``; the whole card for one process or a rank with a
+    card of its own), None off a card."""
+    total = card_memory_bytes(device)
+    if total is None or ranks is None:
+        return total
+    return total // ranks.ranks_per_card
+
+
 def auto_agent_chunk(n_agents: int, *, memory_bytes: Optional[int],
                      **footprint) -> int:
     """The streaming chunk from the memory budget: 0 (whole table) when
@@ -1124,14 +1135,15 @@ class Simulation:
 
     def _resolve_chunk(self) -> int:
         """The run's streaming chunk: the configured one, or with none
-        configured the one the card's memory gives (0 on the CPU), sized
-        against this rank's share of the table."""
+        configured the one this rank's share of its card's memory gives
+        (:func:`rank_memory_bytes`; 0 on the CPU), sized against this
+        rank's share of the table."""
         chunk = self.run_config.agent_chunk
         if chunk is not None:
             return chunk
         world = self.ranks.world_size if self.ranks else 1
         chunk = auto_agent_chunk(-(-self.table.n_agents // world),
-                                 memory_bytes=card_memory_bytes(self.device),
+                                 memory_bytes=rank_memory_bytes(self.device, self.ranks),
                                  **self._footprint())
         if chunk:
             logger.info("auto agent_chunk: %d rows (%d agents exceed the "
@@ -1187,7 +1199,7 @@ class Simulation:
         n = self.table.n_agents
         modeled = modeled_step_bytes(self._per_agent_bytes,
                                      self._agent_chunk or n, n)
-        total = card_memory_bytes(self.device)
+        total = rank_memory_bytes(self.device, self.ranks)
         if total is None:
             return modeled
         budget = _MEMORY_BUDGET_FRAC * total
@@ -1196,12 +1208,12 @@ class Simulation:
             raise MemoryError(
                 f"{n} agents model {floor / 2**30:.1f} GiB per year step at a "
                 f"{_CHUNK_FLOOR_ROWS}-row chunk, over {_MEMORY_BUDGET_FRAC:.0%} "
-                f"of the card's {total / 2**30:.1f} GiB"
+                f"of this rank's {total / 2**30:.1f} GiB of the card"
             )
         if modeled > budget:
             logger.warning(
-                "agent_chunk=%s models %.1f GiB per year step, over %.0f%% of the "
-                "card's %.1f GiB; agent_chunk=None derives a chunk that fits",
+                "agent_chunk=%s models %.1f GiB per year step, over %.0f%% of this "
+                "rank's %.1f GiB of the card; agent_chunk=None derives a chunk that fits",
                 self.run_config.agent_chunk, modeled / 2**30,
                 100 * _MEMORY_BUDGET_FRAC, total / 2**30)
         return modeled
@@ -1401,6 +1413,18 @@ class Simulation:
         shard = (self.ranks.rank, self.ranks.world_size) if self.ranks else None
         return ckpt.Writer(checkpoint_dir, rows=self.checkpoint_rows, shard=shard)
 
+    def restore_rows(self, checkpoint_dir: str, year: int) -> Optional[np.ndarray]:
+        """The agent ids ``year``'s checkpoint restores onto in this run:
+        :attr:`checkpoint_rows`, or :attr:`agent_rows` where those are None
+        and the ranks of a multi-rank run wrote the year (one unclustered
+        process resuming it by agent id)."""
+        from dgen_tpu_torch.parallel import elastic
+
+        rows = self.checkpoint_rows
+        if rows is None and elastic.is_sharded(checkpoint_dir, year):
+            rows = self.agent_rows
+        return rows
+
     def _restore_carry(self, checkpoint_dir: str, year: int) -> SimCarry:
         """The carry checkpointed for ``year`` in this run's row order: a
         year the ranks of a multi-rank run wrote is moved onto these rows
@@ -1408,12 +1432,9 @@ class Simulation:
         (``parallel.elastic``)."""
         from dgen_tpu_torch.parallel import elastic
 
-        rows = self.checkpoint_rows
-        if rows is None and elastic.is_sharded(checkpoint_dir, year):
-            rows = self.agent_rows
         return elastic.restore_resharded(checkpoint_dir, self.table.n_agents * (
             self.ranks.world_size if self.ranks else 1), year, topo=self.ranks,
-            device=self.device, rows=rows)[1]
+            device=self.device, rows=self.restore_rows(checkpoint_dir, year))[1]
 
     def _sync(self) -> None:
         """Wait for the work queued on the run's card (no-op on the CPU)."""

@@ -80,7 +80,7 @@ def resume_year_for(
     frontier: Optional[int],
     topo=None,
     device="cuda",
-    rows: Optional[np.ndarray] = None,
+    rows=None,
     scenario: Optional[str] = None,
 ) -> Optional[int]:
     """The year a restarted run re-enters at: the newest checkpoint that
@@ -89,7 +89,8 @@ def resume_year_for(
     back past corrupt or torn years. None (no frontier, or nothing
     restorable at or below it) means start from scratch. Every rank
     evaluates this against the same directory in the same order, so the
-    ranks agree on the year."""
+    ranks agree on the year. ``rows``: the agent ids of this rank's rows,
+    or a callable ``year -> rows`` (``Simulation.restore_rows``)."""
     if frontier is None:
         return None
     from dgen_tpu_torch.io import checkpoint as ckpt

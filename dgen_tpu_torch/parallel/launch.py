@@ -15,7 +15,9 @@ never talk to each other. The port's equivalents:
 * :func:`main` (``python -m dgen_tpu_torch.parallel.launch``): one rank's
   run, with the exporter's per-rank parts and per-rank checkpoints;
 * :func:`run_with_recovery`: checkpoint-granular retries of one process,
-  none on a multi-rank run (the ranks are restarted together).
+  none on a multi-rank run (the ranks are restarted together);
+* :func:`spawn_local_ranks`: a world of rank processes on this host on a
+  fresh localhost rendezvous, for harnesses that drive one.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ import contextlib
 import json
 import logging
 import os
+import socket
+import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -103,6 +107,7 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     device="cuda",
+    local_size: Optional[int] = None,
 ):
     """Start this process's rank of a multi-rank run.
 
@@ -111,16 +116,19 @@ def initialize_multihost(
     omitted, and ``DGEN_TPU_MESH`` for the (hosts, devices) grid. Returns
     False when no coordinator is configured (one process), else the
     rank's ``parallel.mesh.RankTopology`` (its device on ``device``'s
-    type; NCCL when every local rank has a card, gloo otherwise). A
-    missing or non-integer variable raises ``ValueError`` naming it."""
+    type; NCCL when every local rank has a card, gloo otherwise).
+    ``local_size``: ranks per host, the grid's second axis (default:
+    ``parallel.mesh.default_mesh_shape``'s). A missing or non-integer
+    variable raises ``ValueError`` naming it."""
     coordinator = coordinator or os.environ.get("DGEN_COORDINATOR")
     if not coordinator:
         return False
     num_processes = _env_int(num_processes, "DGEN_NUM_PROCESSES", coordinator)
     process_id = _env_int(process_id, "DGEN_PROCESS_ID", coordinator)
-    from dgen_tpu_torch.parallel.mesh import init_ranks
+    from dgen_tpu_torch.parallel.mesh import default_mesh_shape, init_ranks
 
-    return init_ranks(coordinator, num_processes, process_id, device=device)
+    return init_ranks(coordinator, num_processes, process_id, device=device,
+                      mesh_shape=default_mesh_shape(num_processes, local_size))
 
 
 def shard_states_from_env() -> Optional[List[str]]:
@@ -175,6 +183,59 @@ COLLECT_FIELDS = (
     "system_kw_cum", "market_value", "new_batt_adopters", "batt_adopters_cum",
     "batt_kw_cum", "batt_kwh_cum", "carbon_intensity_t_per_kwh", "avoided_co2_t",
 )
+
+
+def spawn_local_ranks(cmd: Sequence[str], world: int, work: str, *, cwd: str,
+                      env: Optional[Dict[str, str]] = None,
+                      rank_args: Optional[Dict[int, Sequence[str]]] = None,
+                      timeout_s: float = 3600.0) -> List[dict]:
+    """``world`` processes of ``cmd`` on this host, on a fresh localhost
+    rendezvous (``DGEN_COORDINATOR``, ``DGEN_NUM_PROCESSES``,
+    ``DGEN_PROCESS_ID``, and ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``: every rank
+    is a child here), run in ``cwd`` with ``cwd`` on their ``PYTHONPATH``,
+    ``env`` over the inherited environment and ``rank_args[r]`` appended to
+    rank r's command; rank r's output goes to ``work/rank<r>.log``. Returns
+    each rank's record, the JSON object on its log's last line. When a rank
+    fails, or the ranks outlive ``timeout_s``, every rank is stopped and
+    RuntimeError names each rank that did not exit 0 with its log's tail."""
+    os.makedirs(work, exist_ok=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = {**os.environ, "DGEN_COORDINATOR": f"127.0.0.1:{port}",
+            "DGEN_NUM_PROCESSES": str(world), "LOCAL_WORLD_SIZE": str(world),
+            "PYTHONPATH": os.pathsep.join(p for p in (cwd, os.environ.get("PYTHONPATH"))
+                                          if p),
+            **(env or {})}
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen(list(cmd) + list((rank_args or {}).get(r, ())), cwd=cwd,
+                              env={**base, "DGEN_PROCESS_ID": str(r), "LOCAL_RANK": str(r)},
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() - t0 > timeout_s):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    recs, failed = [], []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}: {text[-2500:]}")
+        else:
+            recs.append(json.loads(text.strip().splitlines()[-1]))
+    if failed:
+        raise RuntimeError(" | ".join(failed))
+    return recs
 
 
 def _parser():

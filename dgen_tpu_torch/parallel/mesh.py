@@ -115,6 +115,10 @@ class RankTopology:
     local_rank: int
     device: torch.device
     backend: Optional[str] = None
+    #: ranks on this rank's host where its launcher says so
+    #: (``LOCAL_WORLD_SIZE``: a supervisor's local children, ``torchrun``);
+    #: 0 means the grid's devices axis
+    local_world: int = 0
 
     @property
     def world_size(self) -> int:
@@ -127,6 +131,16 @@ class RankTopology:
     @property
     def distributed(self) -> bool:
         return self.world_size > 1
+
+    @property
+    def ranks_per_card(self) -> int:
+        """How many ranks share this rank's card: the host's local ranks
+        over its cards, rounded up (1 off a card, and for a rank with a
+        card of its own)."""
+        if self.device.type != "cuda":
+            return 1
+        local = int(self.local_world or self.devices)
+        return max(1, -(-local // max(torch.cuda.device_count(), 1)))
 
     @staticmethod
     def single(device="cuda") -> "RankTopology":
@@ -225,7 +239,11 @@ def init_ranks(coordinator: str, world_size: int, rank: int, device="cuda",
     """Start this rank's process group over ``tcp://<coordinator>`` and
     return its topology. The rank's device is chosen first (its local
     index modulo the host's cards), then the backend (NCCL when every
-    local rank has a card of its own, gloo otherwise), which is logged."""
+    local rank has a card of its own, gloo otherwise), which is logged.
+    The local index and the ranks on the host are the grid's (``rank %
+    D`` and ``D``) unless the launcher sets ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` (as ``torchrun`` and the gang supervisor do):
+    ranks of a one-host gang share the host's cards whatever the grid."""
     import datetime
     import inspect
 
@@ -234,9 +252,10 @@ def init_ranks(coordinator: str, world_size: int, rank: int, device="cuda",
     h, d = mesh_shape or default_mesh_shape(world_size)
     if h * d != world_size:
         raise ValueError(f"mesh shape {h}x{d} does not cover {world_size} ranks")
-    local = rank % d
+    local = int(os.environ.get("LOCAL_RANK", "").strip() or rank % d)
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "").strip() or d)
     dev = rank_device(local, device)
-    backend = choose_backend(dev, d)
+    backend = choose_backend(dev, local_world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     kw = {}
@@ -252,7 +271,7 @@ def init_ranks(coordinator: str, world_size: int, rank: int, device="cuda",
                 "" if backend == "nccl" or dev.type != "cuda"
                 else " (ranks share a card: collectives go through the host)")
     return RankTopology(hosts=h, devices=d, rank=int(rank), local_rank=local,
-                        device=dev, backend=backend)
+                        device=dev, backend=backend, local_world=local_world)
 
 
 def shutdown() -> None:

@@ -30,8 +30,14 @@ cpu``).
         python -m dgen_tpu_torch.resilience drill --serve-fleet --layers --agents 64
         python -m dgen_tpu_torch.resilience drill --serve-scale --agents 64
 
-    The JAX package's ``--gang`` drill is not ported and raises
-    ``NotImplementedError``.
+    ``--gang`` runs the rank gang's drill (:mod:`.gangdrill`): a clean
+    gang of ``--gang-processes`` ranks, one rank killed mid-year, one
+    stalled (``--no-gang-stall`` skips it; it needs ``--end-year`` 2018 or
+    later, the default there), and a stop then a resume at
+    ``--gang-shrink`` ranks (0 skips it), every round's parts equal to the
+    clean gang's bit for bit and the merged manifest verifying::
+
+        python -m dgen_tpu_torch.resilience drill --gang --device cpu --agents 96
 """
 
 from __future__ import annotations
@@ -85,12 +91,6 @@ def _cmd_verify(args) -> int:
     return 0 if ok else 1
 
 
-#: the JAX package's drills that the port does not have -> ROADMAP.md item
-_UNPORTED_DRILLS = {
-    "gang": "item 7 (multi-GPU)",
-}
-
-
 def _print_record(rec: dict) -> int:
     rec.pop("supervisor_events", None)   # the event detail is for logs
     print(json.dumps(rec, indent=1))
@@ -100,12 +100,15 @@ def _print_record(rec: dict) -> int:
 def _cmd_drill(args) -> int:
     from dgen_tpu_torch.resilience.drill import DRILL_SPECS, run_drill
 
-    for flag, item in _UNPORTED_DRILLS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: that drill is not ported; it comes "
-                f"with ROADMAP.md {item}")
-    end_year = args.end_year or 2016
+    end_year = args.end_year or (2018 if args.gang else 2016)
+    if args.gang:
+        from dgen_tpu_torch.resilience.gangdrill import run_gang_drill
+
+        root = args.root or tempfile.mkdtemp(prefix="dgen-gang-drill-")
+        return _print_record(run_gang_drill(
+            root, processes=args.gang_processes, shrink_to=args.gang_shrink,
+            total_devices=args.gang_devices or None, agents=args.agents,
+            end_year=end_year, stall=not args.no_gang_stall, device=args.device))
     if args.serve_scale:
         from dgen_tpu_torch.resilience.fleetdrill import run_scale_drill
 
@@ -143,7 +146,7 @@ def _cmd_drill(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m dgen_tpu_torch.resilience",
-        description="fault-injected, self-healing run supervision on one card")
+        description="fault-injected, self-healing run supervision")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def device_arg(p):
@@ -202,12 +205,20 @@ def main(argv=None) -> int:
     drl.add_argument("--requests", type=int, default=80,
                      help="fleet drill: client requests")
     drl.add_argument("--gang", action="store_true",
-                     help="the JAX package's gang drill; not ported (raises)")
-    # the JAX package's settings of that drill, accepted so that its command
-    # lines reach the NotImplementedError above
-    for flag in ("--gang-processes", "--gang-shrink", "--gang-devices"):
-        drl.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    drl.add_argument("--no-gang-stall", action="store_true", help=argparse.SUPPRESS)
+                     help="the rank gang's drill instead: a gang of rank processes "
+                          "with a rank killed mid-year, a rank stalled, and a P -> P' "
+                          "resharded resume; every rank's parts equal to an "
+                          "uninterrupted gang's bit for bit, the merged manifest "
+                          "verifying (--end-year 2018 or later for the stall round)")
+    drl.add_argument("--gang-processes", type=int, default=4,
+                     help="gang drill: ranks P")
+    drl.add_argument("--gang-shrink", type=int, default=2,
+                     help="gang drill: ranks P' of the resumed round (0 skips it)")
+    drl.add_argument("--gang-devices", type=int, default=0,
+                     help="gang drill: ranks over all hosts kept through the "
+                          "shrink (0: one a process); sets the ranks a host")
+    drl.add_argument("--no-gang-stall", action="store_true",
+                     help="gang drill: skip the heartbeat-stall round")
     device_arg(drl)
     drl.set_defaults(fn=_cmd_drill)
 

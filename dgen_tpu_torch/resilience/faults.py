@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the run supervisor's recovery
-drills (port of ``dgen_tpu/resilience/faults.py``, single process).
+"""Deterministic fault injection for the supervisors' recovery drills
+(port of ``dgen_tpu/resilience/faults.py``).
 
 Every recovery path (checkpoint resume, host-I/O pipeline error
 surfacing, OOM chunk degradation, export re-emission, load-time
@@ -39,13 +39,10 @@ halves the landed file, then raises; ``hang`` sleeps
 ``DGEN_TPU_FAULT_HANG_S`` seconds and carries on; ``corrupt`` returns to
 the caller, which damages its data deterministically and carries on.
 
-The sites are those of the single-process run path, the sweep, the
-serving stack and the serving fleet's front that the port has. A spec
-naming one of the JAX package's other sites (input reads, the
-multi-process gang) raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it; a
-name neither package knows is refused with ``ValueError``, as in the
-JAX package.
+The sites are the JAX package's: the run path, input reads, the sweep,
+the serving stack and fleet, and the rank gang (a rank dying mid-year, a
+rank's heartbeat stalling, the per-year stop barrier failing). A name
+the JAX package does not know is refused with ``ValueError``, as there.
 
 The uninstalled fast path is one module-global ``None`` check per site.
 """
@@ -142,14 +139,29 @@ SITES: Dict[str, str] = {
         "before a year step (caught only by the health sentinel's breach "
         "-> attribute -> quarantine escalation)"
     ),
+    "gang_worker_kill": (
+        "resilience.gangworker per-year export callback: a rank process "
+        "dying mid-year (``kill``: preemption or an OOM kill with "
+        "collectives in flight); the gang supervisor must tear down and "
+        "relaunch the WHOLE gang from the manifest frontier"
+    ),
+    "gang_heartbeat_stall": (
+        "resilience.gang.write_heartbeat: a rank stalling instead of dying "
+        "(``hang``: a wedged device, a paging storm); the process stays "
+        "alive, so only the supervisor's heartbeat staleness check can "
+        "catch it"
+    ),
+    "gang_barrier": (
+        "resilience.gangworker.StopFlag.should_stop: the gang's per-year "
+        "stop and emergency-checkpoint barrier failing (a collective error "
+        "at the year boundary); the rank dies and the supervisor restarts "
+        "the gang"
+    ),
 }
 
-#: the JAX package's other sites -> the ROADMAP.md item that ports them
-UNPORTED_SITES: Dict[str, str] = {
-    "gang_worker_kill": "item 7 (multi-GPU)",
-    "gang_heartbeat_stall": "item 7 (multi-GPU)",
-    "gang_barrier": "item 7 (multi-GPU)",
-}
+#: the JAX package's sites the port does not have -> the ROADMAP.md item
+#: that ports them (none left)
+UNPORTED_SITES: Dict[str, str] = {}
 
 KINDS = ("error", "oom", "kill", "truncate", "hang", "corrupt")
 

@@ -1,6 +1,6 @@
 """Crash-consistent run manifests: the content-hashed, per-year artifact
-ledger of a run directory (port of ``dgen_tpu/resilience/manifest.py``
-without the gang's merged ledger).
+ledger of a run directory, and the merged view over a multi-rank run's
+shard ledgers (port of ``dgen_tpu/resilience/manifest.py``).
 
 A run directory's ``.npz`` partitions say which files exist; they cannot
 say whether a file is complete, whether all of a year's surfaces landed,
@@ -28,10 +28,13 @@ committed years are themselves the truth.
 A multi-rank run keeps crash consistency without coordination on the
 write path: every rank owns a **shard ledger** (``manifest-p<i>.json``, a
 :class:`RunManifest` with ``shard=i``) of the artifacts it wrote, each
-completed year stamped with the world size that wrote it;
-:func:`discover_shards` lists them. The merge that decides a multi-rank
-year's completeness (the JAX package's ``GangManifest``) is not ported
-(``ROADMAP.md`` item 7b).
+completed year stamped with the world size that wrote it
+(:func:`discover_shards` lists them), and :class:`GangManifest` merges
+them read-side: a year is complete only when every rank of the year's
+writing epoch marked it complete and its artifacts verify. The gang
+supervisor's resume frontier (:meth:`GangManifest.frontier`) is the
+merged ``complete_through``; its checkpoint hashes and notes go to the
+coordinator ledger ``manifest-gang.json``.
 """
 
 from __future__ import annotations
@@ -41,11 +44,14 @@ import hashlib
 import json
 import os
 import re
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from dgen_tpu_torch.utils.atomic import atomic_write_json
 
 MANIFEST_NAME = "manifest.json"
+#: the coordinator ledger of a multi-rank run (checkpoint hashes and
+#: notes; the per-year artifact truth stays in the shard ledgers)
+GANG_MANIFEST_NAME = "manifest-gang.json"
 _SHARD_RE = re.compile(r"^manifest-p(\d+)\.json$")
 _VERSION = 1
 
@@ -349,24 +355,245 @@ class RunManifest:
         return stem.endswith(f"-p{self.shard}")
 
 
+class GangManifest:
+    """The merged view over a multi-rank run's shard ledgers (module
+    docstring).
+
+    The write path stays per rank (each rank touches only its own
+    ``manifest-p<i>.json``); the merge happens read-side, on whatever
+    process asks: a year is complete only when the ledgers of all the
+    ``n_processes`` ranks stamped on that year (its writing epoch) mark it
+    complete and its artifacts verify. Checkpoint hashes and notes live in
+    the coordinator ledger (``manifest-gang.json``), written by the gang
+    supervisor after the run, never contended with the ranks."""
+
+    def __init__(self, run_dir: str) -> None:
+        self.run_dir = run_dir
+        self.path = os.path.join(run_dir, GANG_MANIFEST_NAME)
+        self.shards: Dict[int, RunManifest] = {
+            i: RunManifest(run_dir, shard=i) for i in discover_shards(run_dir)}
+        self._checkpoints: Dict[int, dict] = {}
+        #: a multi-rank year's checkpoint parts: year -> [{dir, sha256,
+        #: bytes}] in rank order (``checkpoints`` keeps one-process years,
+        #: as the JAX package's coordinator ledger does)
+        self._checkpoint_parts: Dict[int, List[dict]] = {}
+        self.notes: List[str] = []
+        if os.path.isfile(self.path):
+            try:
+                with open(self.path) as f:
+                    doc = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                doc = {}
+            for y, rec in (doc.get("checkpoints") or {}).items():
+                self._checkpoints[int(y)] = rec
+            for y, recs in (doc.get("checkpoint_parts") or {}).items():
+                self._checkpoint_parts[int(y)] = list(recs)
+            self.notes = list(doc.get("notes") or [])
+
+    # -- merged queries -------------------------------------------------
+
+    def year_epoch(self, year: int) -> Optional[Tuple[int, List[int]]]:
+        """(world size, ranks holding the year) of ``year``'s writing
+        epoch, or None when no rank recorded it or the ranks' stamps
+        disagree (a torn mix of gang sizes is not complete)."""
+        holders: List[int] = []
+        epochs = set()
+        for i, m in self.shards.items():
+            rec = m._years.get(int(year))
+            if rec is None:
+                continue
+            holders.append(i)
+            epochs.add(int(rec.get("n_processes") or 0))
+        if not holders or len(epochs) != 1:
+            return None
+        n = epochs.pop()
+        return (n, holders) if n > 0 else None
+
+    def _year_complete(self, year: int, deep: bool = True) -> bool:
+        epoch = self.year_epoch(year)
+        if epoch is None:
+            return False
+        n, holders = epoch
+        if sorted(holders) != list(range(n)):
+            return False   # a peer's part never landed
+        for i in range(n):
+            m = self.shards[i]
+            if not m._years[int(year)].get("complete"):
+                return False
+            if deep and not m._year_ok(int(year)):
+                return False
+        return True
+
+    def frontier(self, years: Sequence[int], deep: bool = True) -> Optional[int]:
+        """The gang's resume frontier: the latest model year through which
+        every rank's exports are durably and verifiably on disk (the
+        merged ``complete_through``). None: restart from scratch."""
+        out: Optional[int] = None
+        for y in years:
+            if not self._year_complete(int(y), deep=deep):
+                break
+            out = int(y)
+        return out
+
+    def complete_years(self, deep: bool = False) -> List[int]:
+        ys = sorted({y for m in self.shards.values() for y in m._years})
+        return [y for y in ys if self._year_complete(y, deep=deep)]
+
+    # -- coordinator recording ------------------------------------------
+
+    def _entry(self, step_dir: str) -> dict:
+        digest, nbytes = _hash_tree(step_dir)
+        rel = (os.path.relpath(step_dir, self.run_dir)
+               if step_dir.startswith(self.run_dir) else step_dir)
+        return {"dir": rel, "sha256": digest, "bytes": nbytes}
+
+    def record_checkpoints(self, ckpt_dir: str, years: Sequence[int]) -> None:
+        """After the run: hash each committed checkpoint year (a one-process
+        year's directory, or the parts of a multi-rank year's newest
+        commit) into the coordinator ledger."""
+        from dgen_tpu_torch.io.checkpoint import year_parts
+
+        for y in years:
+            parts = year_parts(ckpt_dir, int(y))
+            if not parts:
+                continue
+            if os.path.basename(parts[0]).isdigit():
+                self._checkpoints[int(y)] = self._entry(parts[0])
+            else:
+                self._checkpoint_parts[int(y)] = [self._entry(p) for p in parts]
+        self.flush()
+
+    def note(self, msg: str) -> None:
+        self.notes.append(msg)
+        self.flush()
+
+    def prune_after(self, frontier: Optional[int]) -> List[str]:
+        """Delete every artifact of years beyond the resume frontier: part
+        files on disk (any epoch's, ledgered or not) and the shard-ledger
+        records of them. The supervisor calls this before a relaunch, so
+        that a re-export (possibly at another gang size) starts clean: a
+        dead P = 4 epoch's ``-p2``/``-p3`` parts would otherwise double
+        rows under a P' = 2 re-export and wedge the merged completeness
+        check on mixed epoch stamps. ``frontier`` None prunes everything.
+        Returns the removed relpaths."""
+        removed: List[str] = []
+
+        def _rm(rel: str) -> None:
+            try:
+                os.remove(os.path.join(self.run_dir, rel))
+                removed.append(rel)
+            except OSError:
+                pass   # already gone: the sweep is best-effort
+
+        for m in self.shards.values():
+            drop = [y for y in m._years if frontier is None or y > int(frontier)]
+            for y in drop:
+                for rel in m._years[y]["artifacts"]:
+                    _rm(rel)
+                del m._years[y]
+            if drop:
+                m.flush()
+        # leftovers no ledger holds (a writer killed between its rename
+        # and its record) and stale tmp siblings of the pruned years
+        for d in SURFACE_DIRS:
+            root = os.path.join(self.run_dir, d)
+            if not os.path.isdir(root):
+                continue
+            for name in sorted(os.listdir(root)):
+                year = _part_year(name)
+                if year is not None and (frontier is None or year > int(frontier)):
+                    _rm(os.path.join(d, name))
+        return removed
+
+    def flush(self) -> None:
+        os.makedirs(self.run_dir, exist_ok=True)
+        atomic_write_json(
+            self.path,
+            {"version": _VERSION,
+             "checkpoints": {str(y): self._checkpoints[y]
+                             for y in sorted(self._checkpoints)},
+             "checkpoint_parts": {str(y): self._checkpoint_parts[y]
+                                  for y in sorted(self._checkpoint_parts)},
+             "notes": self.notes},
+            indent=2)
+
+    # -- audit ----------------------------------------------------------
+
+    def _checkpoint_bad(self, meta: dict, deep: bool) -> bool:
+        step_dir = meta["dir"] if os.path.isabs(meta["dir"]) else \
+            os.path.join(self.run_dir, meta["dir"])
+        if not os.path.isdir(step_dir):
+            return True
+        return deep and _hash_tree(step_dir)[0] != meta["sha256"]
+
+    def verify(self, deep: bool = True) -> VerifyReport:
+        """One merged audit over every shard ledger and the coordinator's
+        checkpoint entries: each rank's missing and corrupt artifacts, the
+        merged complete years, and the unrecorded and stale-tmp sweep
+        against the union of every rank's recorded artifacts (a peer's
+        parts are not unrecorded because this ledger did not write them)."""
+        rep = VerifyReport(run_dir=self.run_dir)
+        bad_rels = set()
+        recorded = set()
+        for i in sorted(self.shards):
+            m = self.shards[i]
+            sub = m.verify(deep=deep)
+            rep.missing.extend(sub.missing)
+            rep.corrupt.extend(sub.corrupt)
+            bad_rels.update(sub.missing)
+            bad_rels.update(sub.corrupt)
+            recorded.update(m._run_artifacts)
+            for y in m._years:
+                recorded.update(m._years[y]["artifacts"])
+        # the shards' verdicts above already checked every artifact
+        rep.years_complete = [
+            y for y in self.complete_years(deep=False)
+            if not any(rel in bad_rels for m in self.shards.values()
+                       for rel in m._years.get(y, {}).get("artifacts", {}))]
+        for y, meta in self._checkpoints.items():
+            if self._checkpoint_bad(meta, deep):
+                rep.bad_checkpoints.append(y)
+        for y, metas in self._checkpoint_parts.items():
+            if any(self._checkpoint_bad(meta, deep) for meta in metas):
+                rep.bad_checkpoints.append(y)
+        for d in SURFACE_DIRS:
+            root = os.path.join(self.run_dir, d)
+            if not os.path.isdir(root):
+                continue
+            for name in sorted(os.listdir(root)):
+                rel = os.path.join(d, name)
+                if name.endswith(".tmp"):
+                    rep.stale_tmp.append(rel)
+                elif name.endswith(PART_SUFFIX) and rel not in recorded:
+                    rep.unrecorded.append(rel)
+        return rep
+
+
 def verify_run_dir(run_dir: str, deep: bool = True) -> List[VerifyReport]:
-    """Audit a run directory, or each manifested subdirectory of it.
-    Raises FileNotFoundError when no manifest is found."""
+    """Audit a run directory: a one-process run's manifest, a multi-rank
+    run's shard ledgers as one merged report (:class:`GangManifest`), or
+    each such subdirectory of a sweep's directory. Raises
+    FileNotFoundError when no manifest is found."""
     reports: List[VerifyReport] = []
-    shards = discover_shards(run_dir)
-    if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)) or shards:
-        if os.path.isfile(os.path.join(run_dir, MANIFEST_NAME)):
-            reports.append(RunManifest(run_dir).verify(deep=deep))
-        reports.extend(RunManifest(run_dir, shard=i).verify(deep=deep) for i in shards)
-    else:
+
+    def audit(d: str) -> bool:
+        if os.path.isfile(os.path.join(d, MANIFEST_NAME)):
+            reports.append(RunManifest(d).verify(deep=deep))
+            return True
+        if discover_shards(d):
+            reports.append(GangManifest(d).verify(deep=deep))
+            return True
+        return False
+
+    if not audit(run_dir):
         for name in sorted(os.listdir(run_dir)):
             sub = os.path.join(run_dir, name)
-            if os.path.isfile(os.path.join(sub, MANIFEST_NAME)):
-                reports.append(RunManifest(sub).verify(deep=deep))
+            if os.path.isdir(sub):
+                audit(sub)
     if not reports:
         raise FileNotFoundError(
-            f"no {MANIFEST_NAME} under {run_dir} (not a manifested run "
-            "directory: run it under the resilience supervisor, or pass an "
-            "exporter a RunManifest)"
+            f"no {MANIFEST_NAME} (nor manifest-p*.json shard ledgers) under "
+            f"{run_dir} (not a manifested run directory: run it under the "
+            "resilience supervisor, or pass an exporter a RunManifest)"
         )
     return reports

@@ -1,5 +1,6 @@
 """The sweep driver: S scenarios against one copy of the agent table and
-profile banks on one card (port of ``dgen_tpu/sweep/driver.py``).
+profile banks on one card, or on each rank's shard of it (port of
+``dgen_tpu/sweep/driver.py``).
 
 The banks and the table are placed once, by the base
 :class:`~dgen_tpu_torch.models.simulation.Simulation`, and only the small
@@ -25,9 +26,17 @@ ScenarioInputs` carry a scenario axis. Per planner group
   sibling runs the single-scenario year step over the shared table and
   banks, the memory bounded by the single-scenario chunk.
 
-Not ported: the sweep on a mesh (``ROADMAP.md`` item 7) and the
-retrace guard (``guard_retrace``, item 12: PyTorch compiles nothing to
-retrace).
+On several ranks (``ranks=``, a ``parallel.mesh.RankTopology`` of more
+than one rank; every rank constructs the sweep and runs it) every group
+runs the scenario-major loop: each scenario steps the multi-rank year
+step over the rank's shard (``Simulation(ranks=)``), its exports and
+checkpoints one part a rank, and at the end each scenario's per-agent
+results are gathered over the ranks, rank by rank, with their agent ids
+(``SweepResults.host_agent_id``): every agent's values equal the
+single-process sweep's bit for bit.
+
+Not ported: the retrace guard (``guard_retrace``, ``ROADMAP.md`` item
+12: PyTorch compiles nothing to retrace).
 """
 
 from __future__ import annotations
@@ -159,8 +168,10 @@ class SweepSimulation:
     and checkpoint subdirectories; ``baseline``: the delta report's
     reference scenario; ``plan``: a precomputed SweepPlan (default:
     :func:`plan_sweep` on the card's memory); ``max_vmap_scenarios``:
-    the planner's width cap. ``mesh`` other than None raises
-    ``NotImplementedError``. Other parameters are Simulation's.
+    the planner's width cap. ``ranks``: the run's
+    ``parallel.mesh.RankTopology``; on more than one rank the sweep runs
+    on this rank's shard (module docstring), on the rank's device. Other
+    parameters are Simulation's.
     """
 
     def __init__(
@@ -171,7 +182,6 @@ class SweepSimulation:
         scenarios: Union[Sequence[ScenarioInputs], ScenarioStack],
         scenario: ScenarioConfig,
         run_config: Optional[RunConfig] = None,
-        mesh=None,
         with_hourly: bool = False,
         econ_years: int = 25,
         labels: Optional[Sequence[str]] = None,
@@ -179,11 +189,12 @@ class SweepSimulation:
         plan: Optional[SweepPlan] = None,
         max_vmap_scenarios: Optional[int] = None,
         device="cuda",
+        ranks=None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sweep on a mesh is not ported: the port runs on one card "
-                "(ROADMAP.md item 7, multi-GPU)")
+        #: the run's rank topology when it has more than one rank, else None
+        self.ranks = ranks if ranks is not None and ranks.distributed else None
+        if self.ranks is not None:
+            device = self.ranks.device
         if isinstance(scenarios, ScenarioStack):
             members = [scenarios.scenario(i) for i in range(scenarios.n_scenarios)]
         else:
@@ -209,17 +220,20 @@ class SweepSimulation:
             sizing_iters=rc.sizing_iters, bank_bf16=rc.bf16_banks,
             bank_quant=rc.quant_banks, max_vmap_scenarios=max_vmap_scenarios,
             cluster=rc.cluster_tariffs, agent_pad_multiple=rc.agent_pad_multiple,
-            device=self.device,
+            device=self.device, mesh=self.ranks,
         )
         # the base Simulation does the one-time work (validation, flags,
         # daylight layout, narrowed banks, padding, cluster layout,
         # placement) with the planner's S-aware chunk, so a vmap group's
         # S x chunk rows fit
+        if self.ranks is not None and any(g.mode == MODE_VMAP for g in self.plan.groups):
+            raise ValueError("a sweep on several ranks runs the scenario-major loop: "
+                             "a vmap group cannot be planned for it")
         if self.plan.agent_chunk is not None and rc.agent_chunk is None:
             rc = dataclasses.replace(rc, agent_chunk=self.plan.agent_chunk)
         self.base = Simulation(table, profiles, tariffs, members[baseline], scenario, rc,
                                with_hourly=with_hourly, econ_years=econ_years,
-                               device=self.device)
+                               device=self.device, ranks=self.ranks)
         self.years = self.base.years
         #: bytes of profile bank on the card, uploaded once for the sweep;
         #: every sibling shares the same tensors
@@ -278,7 +292,8 @@ class SweepSimulation:
         quarantine = rep_q.summary() if rep_q is not None and not rep_q.is_clean else None
         return RunExporter(os.path.join(run_dir, f"scenario={self.labels[i]}"),
                            self.base.host_agent_id, self.base.host_mask, device=self.device,
-                           meta=scenario_meta(self.labels, i, self.baseline, quarantine))
+                           meta=scenario_meta(self.labels, i, self.baseline, quarantine),
+                           ranks=self.ranks)
 
     def _run_group_vmap(self, group: ScenarioGroup, collect: bool,
                         checkpoint_dir: Optional[str], resume: bool, label: str,
@@ -449,17 +464,42 @@ class SweepSimulation:
             if pool is not None:
                 pool.close()
         rep_q = self.base.quarantine_report
+        runs = [results[i] for i in range(self.n_scenarios)]
+        mask, ids = self.base.host_mask, self.base.host_agent_id
+        if self.ranks is not None:
+            runs, mask, ids = gather_ranks(self.ranks, runs, mask, ids)
         return SweepResults(
             labels=list(self.labels),
             baseline=self.baseline,
-            runs=[results[i] for i in range(self.n_scenarios)],
+            runs=runs,
             plan=self.plan,
             bank_bytes_shared=self.bank_bytes_shared,
-            host_mask=self.base.host_mask,
-            host_agent_id=self.base.host_agent_id,
+            host_mask=mask,
+            host_agent_id=ids,
             quarantine=(rep_q.summary()
                         if rep_q is not None and not rep_q.is_clean else None),
         )
+
+
+def _gather_rows(ranks, x: np.ndarray, axis: int = 0) -> np.ndarray:
+    """Every rank's ``x`` (rows on ``axis``, equal shapes), concatenated on
+    that axis in rank order."""
+    t = torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, axis, 0)))
+    return np.moveaxis(ranks.all_gather(t).numpy(), 0, axis)
+
+
+def gather_ranks(ranks, runs: List[SimResults], host_mask: np.ndarray,
+                 host_agent_id: np.ndarray) -> tuple:
+    """(runs, host_mask, host_agent_id) over every rank's rows, rank by
+    rank: each run's per-agent ``[Y, N]`` arrays gathered over the ranks
+    (a collective: every rank calls it; rows are their second axis), the
+    state-hourly aggregate (the same on every rank) kept as it is."""
+    out = []
+    for r in runs:
+        agent = {k: _gather_rows(ranks, v, axis=1) for k, v in sorted(r.agent.items())}
+        out.append(dataclasses.replace(r, agent=agent))
+    return (out, _gather_rows(ranks, np.asarray(host_mask)),
+            _gather_rows(ranks, np.asarray(host_agent_id)))
 
 
 def scenario_meta(labels: Sequence[str], i: int, baseline: int, quarantine) -> dict:

@@ -1,7 +1,6 @@
-"""Sweep planner (port of ``dgen_tpu/sweep/plan.py`` on one device):
-group scenarios so each group shares one set of static year-step
-arguments, and budget the batched scenario axis against the port's
-device-memory model.
+"""Sweep planner (port of ``dgen_tpu/sweep/plan.py``): group scenarios
+so each group shares one set of static year-step arguments, and budget
+the batched scenario axis against the port's device-memory model.
 
 Scenarios of a sweep run against one table and one copy of the profile
 banks on the card; only the small ``[Y, ...]`` trajectory tensors of
@@ -31,8 +30,12 @@ JAX package's 50 x 4), ``_MEMORY_BUDGET_FRAC`` of the card's memory
 is counted S-wide (S x E with ensemble members). A plan that cannot fit
 even a floor-sized chunk raises :class:`SweepBudgetError`.
 
-One device only: a mesh other than ``None`` raises
-``NotImplementedError`` (the sweep on a mesh is ``ROADMAP.md`` item 7).
+On several ranks (``mesh``: the run's ``parallel.mesh.RankTopology``,
+the port's mesh) every group runs the scenario-major loop over each
+rank's shard, as the JAX package's planner loops on a mesh of more than
+one device: the single-scenario multi-rank year step as it is, its chunk
+budgeted against this rank's share of its card
+(``models.simulation.rank_memory_bytes``) and its shard's rows.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from dgen_tpu_torch.models.scenario import ScenarioInputs, validate_scenario_statics
 from dgen_tpu_torch.models.simulation import (
@@ -48,8 +52,8 @@ from dgen_tpu_torch.models.simulation import (
     _MEMORY_BUDGET_FRAC,
     _PERSISTENT_ROW_BYTES,
     auto_agent_chunk,
-    card_memory_bytes,
     per_agent_step_bytes,
+    rank_memory_bytes,
     run_static_flags,
     table_static_cache,
 )
@@ -113,9 +117,9 @@ class SweepPlan:
     hbm_bytes: Optional[int]
     #: modeled peak step bytes per (agent x scenario) row
     per_agent_bytes: int
-    #: (hosts, devices): always (1, 1), one card
+    #: (hosts, devices) of the ranks: (1, 1) for one process
     mesh_shape: Tuple[int, int] = (1, 1)
-    #: the same as hbm_bytes on one card
+    #: hbm_bytes over every rank (the same as hbm_bytes for one process)
     global_hbm_bytes: Optional[int] = None
     #: ensemble members riding each scenario: every width decision was
     #: made at ``S * n_members`` rows
@@ -149,11 +153,13 @@ def plan_sweep(
 ) -> SweepPlan:
     """Plan an S-scenario sweep over one shared population.
 
-    ``hbm_bytes``: the card's memory; ``-1`` reads ``device`` (default:
-    the table's device) through ``card_memory_bytes``, which gives None
-    off a card; None means unknown, and the modes then follow the width
-    cap :data:`DEFAULT_MAX_VMAP_SCENARIOS` (``max_vmap_scenarios``
-    overrides it). ``cluster``: budget a tariff-clustered layout, whose
+    ``hbm_bytes``: the card's memory a process (a rank) plans for; ``-1``
+    reads ``device`` (default: the table's device, or the ranks') through
+    ``rank_memory_bytes``, this rank's share of its card, None off a card;
+    None means unknown, and the modes then follow the width cap
+    :data:`DEFAULT_MAX_VMAP_SCENARIOS` (``max_vmap_scenarios`` overrides
+    it). ``mesh``: the ranks' ``parallel.mesh.RankTopology``; on more
+    than one rank every group loops over the rank's shard of the table. ``cluster``: budget a tariff-clustered layout, whose
     segments add up to one ``agent_pad_multiple`` of rows a live
     cluster. ``n_members``: ensemble members a scenario; every width
     decision is made at ``S * n_members`` rows. ``enforce_budget=False``
@@ -161,17 +167,21 @@ def plan_sweep(
 
     Raises :class:`~dgen_tpu_torch.models.scenario.ScenarioStackError`
     when scenarios disagree on a static field, :class:`SweepBudgetError`
-    when not even the floor chunk fits, and ``NotImplementedError`` for
-    a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sweep on a mesh is not ported: the port runs on one card "
-            "(ROADMAP.md item 7, multi-GPU)")
+    when not even the floor chunk fits, and ``TypeError`` for a mesh that
+    is no ``RankTopology``."""
+    from dgen_tpu_torch.parallel.mesh import RankTopology
+
+    if mesh is not None and not isinstance(mesh, RankTopology):
+        raise TypeError(f"mesh must be a parallel.mesh.RankTopology, not "
+                        f"{type(mesh).__name__}")
+    ranked = mesh is not None and mesh.distributed
     scenarios = list(scenarios)
     validate_scenario_statics(scenarios)
     n_members = max(int(n_members), 1)
     if hbm_bytes == -1:
-        hbm_bytes = card_memory_bytes(device if device is not None else table.mask.device)
+        dev = (mesh.device if mesh is not None else
+               device if device is not None else table.mask.device)
+        hbm_bytes = rank_memory_bytes(torch.device(dev), mesh)
     max_vmap = (max_vmap_scenarios if max_vmap_scenarios is not None
                 else DEFAULT_MAX_VMAP_SCENARIOS)
 
@@ -183,13 +193,16 @@ def plan_sweep(
         by_flag.setdefault(nb, []).append(i)
 
     n_rows = table.n_agents
+    world = mesh.world_size if ranked else 1
     if cluster and not rate_switch:
         from dgen_tpu_torch.ops.tariffcluster import analyze_bank
 
         plan_c = analyze_bank(tariffs)
         tidx = table.tariff_idx.cpu().numpy()
         live = np.unique(plan_c.cluster_of_tariff[tidx[table.mask.cpu().numpy() > 0]])
-        n_rows += len(live) * int(agent_pad_multiple)
+        n_rows += len(live) * int(agent_pad_multiple) * world
+    # a rank's shard of the rows
+    n_rows = -(-n_rows // world)
 
     footprint = dict(sizing_iters=sizing_iters, econ_years=econ_years,
                      n_periods=tariffs.max_periods, with_hourly=with_hourly,
@@ -217,7 +230,16 @@ def plan_sweep(
     for nb, idxs in by_flag.items():
         s = len(idxs)
         w = s * n_members
-        if hbm_bytes is None:
+        if ranked:
+            # several ranks: the scenario-major loop over each rank's shard,
+            # the single-scenario multi-rank year step as it is
+            mode = MODE_LOOP
+            if hbm_bytes is not None:
+                check_chunk_floor(s)
+                c = auto_agent_chunk(n_rows, memory_bytes=hbm_bytes, **footprint)
+                if c:
+                    chunk = c if chunk is None else min(chunk, c)
+        elif hbm_bytes is None:
             mode = MODE_VMAP if w <= max_vmap else MODE_LOOP
         else:
             # (S x E) x N rows against the card, the persistent [S*E, N]
@@ -247,6 +269,7 @@ def plan_sweep(
         agent_chunk=chunk,
         hbm_bytes=hbm_bytes,
         per_agent_bytes=per_agent,
-        global_hbm_bytes=hbm_bytes,
+        mesh_shape=mesh.shape if mesh is not None else (1, 1),
+        global_hbm_bytes=hbm_bytes * world if hbm_bytes is not None else None,
         n_members=n_members,
     )

@@ -650,8 +650,15 @@ def test_resilience_cli_runs_the_fleet_drills_and_refuses_the_gang(monkeypatch, 
         ("scale", dict(agents=16, end_year=2016, device="cpu")),
     ]
     assert "supervisor_events" not in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["drill", "--gang", "--gang-processes", "4", "--device", "cpu"])
+    # the gang drill is ported now: --gang routes to it with its settings
+    from dgen_tpu_torch.resilience import gangdrill
+
+    gang = []
+    monkeypatch.setattr(gangdrill, "run_gang_drill",
+                        lambda root, **kw: gang.append(kw) or {"ok": True})
+    assert main(["drill", "--gang", "--gang-processes", "4", "--device", "cpu"]) == 0
+    assert gang == [dict(processes=4, shrink_to=2, total_devices=None, agents=96,
+                         end_year=2018, stall=True, device="cpu")]
 
 
 def test_fleet_entry_points_default_to_the_card():

@@ -129,6 +129,36 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         demand.compile_demand_tariff(d_flat_prices=[[5.0] * 12])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calibrate.build_world(16)
+    # the rank gang's entry points: a rank, the gang drill, the scaling
+    # harness (each raises before it spawns or binds anything)
+    import signal
+    import tempfile
+
+    from dgen_tpu_torch.resilience import __main__ as resilience_cli
+    from dgen_tpu_torch.resilience import gangworker
+    from dgen_tpu_torch.tools import bench_scale
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resilience_cli.main(["drill", "--gang", "--root", tempfile.mkdtemp()])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_scale.main([])
+    gang_dir = tempfile.mkdtemp()
+    env = {"DGEN_COORDINATOR": "127.0.0.1:1", "DGEN_NUM_PROCESSES": "1",
+           "DGEN_PROCESS_ID": "0", "DGEN_GANG_DIR": gang_dir, "DGEN_RUN_DIR": gang_dir}
+    old = {k: os.environ.get(k) for k in (*env, "DGEN_PLATFORM")}
+    handler = signal.getsignal(signal.SIGTERM)
+    os.environ.update(env)
+    os.environ.pop("DGEN_PLATFORM", None)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gangworker.main()
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():

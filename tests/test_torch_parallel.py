@@ -291,9 +291,12 @@ def test_shard_ledgers_and_export_parts(tmp_path):
         m.mark_year_complete(2014)
     assert export._part_name(2014) == "year=2014.npz"
     assert man.discover_shards(run_dir) == jman.discover_shards(run_dir) == [0, 1]
+    # one merged report over the shard ledgers, as the JAX package gives
     reps = man.verify_run_dir(run_dir)
-    assert len(reps) == 2 and all(r.ok and not r.unrecorded for r in reps)
-    assert all(r.years_complete == [2014] for r in reps)
+    jreps = jman.verify_run_dir(run_dir)
+    assert len(reps) == len(jreps) == 1
+    assert reps[0].ok and not reps[0].unrecorded and reps[0].years_complete == [2014]
+    assert jreps[0].ok and jreps[0].years_complete == [2014]
     m0 = man.RunManifest(run_dir, shard=0)
     assert m0.complete_through([2014, 2016]) == 2014
     assert m0._years[2014]["n_processes"] == 2
@@ -412,3 +415,63 @@ def test_chip_smoke_3n_parity_checker_catches_a_moved_value_and_unit():
     moved["new_batt_adopters"][1, 6] -= 1
     with pytest.raises(AssertionError, match="battery unit moved"):
         cs.ranks_parity("t", moved, want)
+
+
+def test_automatic_chunk_budgets_this_ranks_share_of_its_card(monkeypatch):
+    """Ranks that share a card each plan their chunk for their share of it:
+    ``card_memory_bytes`` over ``ceil(local ranks / cards)``. At the H100
+    80GB HBM3's 79.18 GiB (as torch reports it) one process of
+    national-all-sector's 1,048,576 agents plans 87,424-row chunks and each
+    of two ranks sharing the card 43,648 rows (the chunks the card showed,
+    PERF.md); planning for the whole card, each rank would take 87,552
+    rows and the two would model more than the card holds."""
+    from types import SimpleNamespace
+
+    from dgen_tpu_torch import presets
+    from dgen_tpu_torch.config import RunConfig
+    from dgen_tpu_torch.models import simulation as sm
+
+    total = int(79.18 * 2**30)
+    monkeypatch.setattr(sm, "card_memory_bytes",
+                        lambda dev: total if dev.type == "cuda" else None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cuda = torch.device("cuda", 0)
+
+    def topo(devices, rank=0, dev=cuda):
+        return mesh.RankTopology(hosts=1, devices=devices, rank=rank, local_rank=rank,
+                                 device=dev)
+
+    assert topo(1).ranks_per_card == 1 and topo(2).ranks_per_card == 2
+    # a one-host gang on a grid of one rank a host: its launcher's
+    # LOCAL_WORLD_SIZE says how many share the host's card
+    assert mesh.RankTopology(hosts=2, devices=1, rank=1, local_rank=1, device=cuda,
+                             local_world=2).ranks_per_card == 2
+    assert sm.rank_memory_bytes(cuda) == sm.rank_memory_bytes(cuda, topo(1)) == total
+    assert sm.rank_memory_bytes(cuda, topo(2, 1)) == total // 2
+    assert sm.rank_memory_bytes(torch.device("cpu"), topo(2, 0, torch.device("cpu"))) is None
+    # a rank with a card of its own sees the whole card; four on two cards, half
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert sm.rank_memory_bytes(cuda, topo(2)) == total
+    assert sm.rank_memory_bytes(cuda, topo(4, 3)) == total // 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+    fp = presets.build("national-all-sector", n_agents=64, end_year=2016,
+                       device="cpu")[0]._footprint()
+
+    def chunk(ranks):
+        fake = SimpleNamespace(run_config=RunConfig(), ranks=ranks, device=cuda,
+                               table=SimpleNamespace(n_agents=1_048_576),
+                               _footprint=lambda: fp)
+        return sm.Simulation._resolve_chunk(fake)
+
+    assert chunk(None) == 87_424
+    assert chunk(topo(2)) == chunk(topo(2, 1)) == 43_648
+    per = sm.per_agent_step_bytes(**fp)
+    budget = sm._MEMORY_BUDGET_FRAC * total
+    assert 2 * sm.modeled_step_bytes(per, 43_648, 524_288) <= budget
+    whole_card = sm.auto_agent_chunk(524_288, memory_bytes=total, **fp)
+    assert whole_card == 87_552
+    assert 2 * sm.modeled_step_bytes(per, whole_card, 524_288) > total
+    # an explicit chunk is the caller's, shared card or not
+    fake = SimpleNamespace(run_config=RunConfig(agent_chunk=32_768), ranks=topo(2))
+    assert sm.Simulation._resolve_chunk(fake) == 32_768

@@ -161,8 +161,16 @@ def test_install_from_env_and_from_env_leave_the_spec_to_the_supervisor(monkeypa
         assert faults.active() is reg and reg.clauses[0].site == "ckpt_save"
     finally:
         faults.install(None)
+    # the gang's sites are ported: a spec naming one installs
     monkeypatch.setenv("DGEN_TPU_FAULTS", "gang_barrier@1")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    try:
+        reg = faults.install_from_env()
+        assert faults.active() is reg and reg.clauses[0].site == "gang_barrier"
+    finally:
+        faults.install(None)
+    # a site neither package knows is refused
+    monkeypatch.setenv("DGEN_TPU_FAULTS", "no_such_site@1")
+    with pytest.raises(ValueError, match="no_such_site"):
         faults.install_from_env()
     assert faults.active() is None
 
@@ -397,16 +405,21 @@ def test_verify_cli_exit_codes(tmp_path):
     assert none.returncode != 0
 
 
-def test_cli_refuses_the_unported_drills():
-    from dgen_tpu_torch.resilience.__main__ import _UNPORTED_DRILLS, main
+def test_cli_refuses_the_unported_drills(monkeypatch):
+    from dgen_tpu_torch.resilience import __main__ as cli
+    from dgen_tpu_torch.resilience import gangdrill
 
-    # the serving-fleet drills are ported (tests/test_torch_fleet.py); the
-    # gang drill is the one left
-    assert _UNPORTED_DRILLS == {"gang": "item 7 (multi-GPU)"}
-    for args, item in ((["--gang", "--gang-processes", "4"], "item 7"),
-                       (["--gang", "--serve-fleet"], "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["drill", *args, "--device", "cpu"])
+    # every drill of the JAX package's CLI is ported now (the fleet's in
+    # tests/test_torch_fleet.py, the gang's in tests/test_torch_gang_drill.py):
+    # none is refused, and --gang wins over the other drills as in JAX
+    assert not hasattr(cli, "_UNPORTED_DRILLS")
+    seen = []
+    monkeypatch.setattr(gangdrill, "run_gang_drill",
+                        lambda root, **kw: seen.append(kw) or {"ok": False})
+    for args in (["--gang", "--gang-processes", "4"], ["--gang", "--serve-fleet"]):
+        assert cli.main(["drill", *args, "--device", "cpu"]) == 1
+    assert [kw["processes"] for kw in seen] == [4, 4]
+    assert all(kw["end_year"] == 2018 and kw["device"] == "cpu" for kw in seen)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,8 @@ a tripled retail price, so systems pay back within it and agents adopt.
 
 Not here: the JAX package's retrace tests
 (``test_sweep_steady_state_compiles_once_per_group``): PyTorch compiles
-nothing to retrace, and the guard is ``ROADMAP.md`` item 12; and the
-sweep on a mesh (item 7).
+nothing to retrace, and the guard is ``ROADMAP.md`` item 12. The sweep on
+ranks is tests/test_torch_sweep_ranks.py's.
 """
 
 import dataclasses as dc
@@ -273,8 +273,19 @@ def test_plan_budget_modes_and_error(tpop):
     # the member axis counts like the scenario axis
     assert plan_sweep(members[:1], years, hbm_bytes=None, n_members=9,
                       **kw).groups[0].mode == MODE_LOOP
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a mesh is the ranks' RankTopology (tests/test_torch_sweep_ranks.py runs
+    # them): on two ranks every group loops over a rank's shard, its chunk
+    # from the rank's share of the card
+    from dgen_tpu_torch.parallel.mesh import RankTopology
+
+    with pytest.raises(TypeError, match="RankTopology"):
         plan_sweep(members, years, mesh=object(), **kw)
+    two = RankTopology(hosts=1, devices=2, rank=0, local_rank=0,
+                       device=torch.device("cpu"))
+    ranked = plan_sweep(members, years, mesh=two, hbm_bytes=256 * 1024**3, **kw)
+    assert [g.mode for g in ranked.groups] == [MODE_LOOP]
+    assert ranked.mesh_shape == (1, 2) and ranked.global_hbm_bytes == 512 * 1024**3
+    assert ranked.agent_chunk == 0
 
 
 # ---------------------------------------------------------------------------
