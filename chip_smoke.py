@@ -429,6 +429,7 @@ SOURCES = {
     "micro_mask": "dgen_tpu_torch/csrc/microbench_mask.cu",
     "micro_dot": "dgen_tpu_torch/csrc/microbench_dot.cu",
     "micro_pre": "dgen_tpu_torch/csrc/microbench_pre.cu",
+    "micro_mnet": "dgen_tpu_torch/csrc/microbench_mnet.cu",
     "dispatch": "dgen_tpu_torch/csrc/battery_dispatch.cu",
 }
 #: float32 operations of one (agent, hour) of the dispatch: two subtracts,
@@ -598,11 +599,11 @@ def kernel_specs(bk, mk) -> dict:
         "microbench_mnet": (("micro", "mnet"),
                             *micro_pair(mk.mnet_sums, mk.mask_product_plain,
                                         n_args=4),
-                            6, DOT_RTOL, "micro_pre", f"{mb}:493"),
+                            6, DOT_RTOL, "micro_mnet", f"{mb}:493"),
         "microbench_mnet_hi": (("micro", "mnet_hi"),
                                *micro_pair(mk.mnet_sums, mk.mask_product_plain,
                                            n_args=4),
-                               6, RTOL, "micro_pre", f"{mb}:493"),
+                               6, RTOL, "micro_mnet", f"{mb}:493"),
         # the engine kernels on narrow streams
         "bucket_sums_month_bf16": (("bf16", "month/bfloat16"), *month, 6, BF16_RTOL,
                                    "month", f"{bp}:343"),

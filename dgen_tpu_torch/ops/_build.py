@@ -106,8 +106,9 @@ _TEMPLATE_ARGS = {
                        ("dot", ("dot", "none")), ("net", ("fma", "bcast")),
                        ("col_tiles", ())),
     "monthdot_kernel": (("col_tiles", ()),),
-    "mask_product_kernel": (("mode", ("monthdot_pre", "mnet", "mnet_hi")),
-                            ("col_tiles", ())),
+    "monthmask_g_kernel": (("periods", ()), ("spt", ())),
+    "mask_product_kernel": (("col_tiles", ()),),
+    "mnet_kernel": (("col_tiles", ()), ("hi", ())),
 }
 #: mangled type arguments -> dtype names (a later bfloat16 argument is a
 #: substitution, S<n>_, of the first)

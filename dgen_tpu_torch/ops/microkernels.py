@@ -10,8 +10,11 @@ question about where a bucket-sums kernel's time goes:
     periods, the last period as ``total - others``; no one-hot, no
     product. The subtraction is part of the function: its float32
     cancellation is what the JAX kernel returns too.
-  * :func:`sums_monthmask_g`: the same arithmetic with ``g_block``
-    agents per block of threads.
+  * :func:`sums_monthmask_g`: the same function with ``g_block``
+    agents per block of threads, walked once a month: relu(net) formed
+    once per (scale, hour) feeds the total, the sell sum and the masked
+    sums (``pos * mask``), several scales a thread, the streams staged
+    asynchronously.
   * :func:`sums_variant` (``csrc/microbench_dot.cu``): the one-hot
     tensor-core kernel over hour chunks (``wgmma`` m64nNk8 TF32, N the
     ``b_pad`` columns, relu(net) in registers and M in shared memory)
@@ -32,9 +35,10 @@ question about where a bucket-sums kernel's time goes:
     M [N, c_pad, 8760] (:func:`build_mask_cols`: P - 1 period one-hots,
     ones, the sell rate), so the kernel forms only relu(net); the last
     period is the month total minus the others.
-  * :func:`sums_mnet`: the same with net itself a rank-1 tensor-core
-    product ``(1, -s) x (load; gen)``; ``hi=True`` runs both products in
-    3xTF32 (float32-level), ``hi=False`` in plain TF32.
+  * :func:`sums_mnet` (``csrc/microbench_mnet.cu``): the same with net
+    itself a rank-1 tensor-core product ``(1, -s) x (load; gen)``, one
+    block per agent's scales; ``hi=True`` runs both products in 3xTF32
+    (float32-level), ``hi=False`` in plain TF32.
 
 Decisions that hold for all six:
 

@@ -240,6 +240,21 @@ def _micro_args(x):
     return x["load"], x["gen"], x["sell"], x["bucket"], x["scales"]
 
 
+#: scale counts of the micro-benchmark's kernels: one row, a ragged row
+#: tile, one warpgroup, the tool's 250, and 300 (two blocks of an agent's
+#: scales in the tensor-core kernels)
+MICRO_R = [1, 17, 25, 64, 250, 300]
+
+
+def _first_rows_equal(fn, args, kwargs, got, k):
+    """The first ``k`` agents launched alone give the same bits as their
+    rows of the launch over all agents."""
+    part = fn(*(t[:k] for t in args), **kwargs)
+    torch.cuda.synchronize()
+    for a, b in zip(part, got):
+        assert torch.equal(a, b[:k])
+
+
 def _micro_check(key, fn, plain, x, kwargs, rtol):
     before = bk.LAUNCHES[key]
     got = fn(*_micro_args(x), **kwargs)
@@ -264,17 +279,18 @@ def test_monthmask_kernel_matches_plain(cuda, p, r):
 
 
 @pytest.mark.parametrize("p", [1, 2, 3, 10])
-@pytest.mark.parametrize("r", [25, 250])
-@pytest.mark.parametrize("g_block", [4, 8])
+@pytest.mark.parametrize("r", MICRO_R)
+@pytest.mark.parametrize("g_block", [1, 2, 4, 8])
 def test_monthmask_g_kernel_matches_plain(cuda, p, r, g_block):
+    """Every scale tile width the launcher picks (1 to 8 scales a thread,
+    one or several blocks of a group) against the plain version; the
+    first agents alone equal their rows of the whole launch bit for
+    bit."""
     x = _inputs(cuda, 40, r, p, seed=9)
-    _micro_check("monthmask_g", mk.sums_monthmask_g, mk.sums_monthmask_g_plain, x,
-                 dict(n_periods=p, g_block=g_block), 1e-4)
-
-
-#: scale counts of the micro-benchmark's tensor-core kernels: one row, a
-#: ragged row tile, one warpgroup, the tool's 250, and 300 (two blocks)
-MICRO_R = [1, 17, 25, 64, 250, 300]
+    kwargs = dict(n_periods=p, g_block=g_block)
+    got = _micro_check("monthmask_g", mk.sums_monthmask_g, mk.sums_monthmask_g_plain,
+                       x, kwargs, 1e-4)
+    _first_rows_equal(mk.sums_monthmask_g, _micro_args(x), kwargs, got, 2 * g_block)
 
 
 @pytest.mark.parametrize("p", PERIODS)
@@ -464,25 +480,27 @@ def test_monthdot_pre_kernel_matches_plain(cuda, p, c_pad, r):
 
 @pytest.mark.parametrize("hi", [False, True])
 @pytest.mark.parametrize("p,c_pad", PRE_CASES)
-@pytest.mark.parametrize("r", [25, 250])
+@pytest.mark.parametrize("r", MICRO_R)
 def test_mnet_kernel_matches_plain(cuda, hi, p, c_pad, r):
     """TF32 at the tensor-core tolerance; 3xTF32 (hi) at the month
-    kernel's float32 one."""
+    kernel's float32 one; the first agents alone equal their rows of the
+    whole launch bit for bit."""
     x = _inputs(cuda, 21, r, p, seed=15)
     m = mk.build_mask_cols(x["sell"], x["period"], p, c_pad)
     key = "mnet_hi" if hi else "mnet"
     before = bk.LAUNCHES[key]
-    got = mk.sums_mnet(x["load"], x["gen"], x["sell"], x["bucket"], x["scales"],
-                       n_periods=p, c_pad=c_pad, hi=hi, prebuilt=m)
+    args = (x["load"], x["gen"], m, x["scales"])
+    got = mk.mnet_sums(*args, n_periods=p, hi=hi)
     torch.cuda.synchronize()
     assert bk.LAUNCHES[key] == before + 1
-    ref = mk.mask_product_plain(x["load"], x["gen"], m, x["scales"], n_periods=p)
+    ref = mk.mask_product_plain(*args, n_periods=p)
     if hi:
         _close(got, ref)
     else:
         _close(got, ref, rtol=5e-3)
         for g, rf in zip(got, ref):
             torch.testing.assert_close(g, rf, rtol=5e-3, atol=2.0)
+    _first_rows_equal(mk.mnet_sums, args, dict(n_periods=p, hi=hi), got, 3)
 
 
 def test_mask_kernels_refuse_what_they_do_not_take(cuda):
@@ -1046,3 +1064,62 @@ def test_serving_answers_do_not_depend_on_the_bucket(cuda, rate_switch_frac):
         for f, want in ref.items():
             got = np.concatenate([p[f] for p in parts])
             assert got.tobytes() == want.tobytes(), (bucket, f)
+
+
+def _nonfinite_rows(x):
+    """_nonfinite_load (agent 1's load NaN on three lanes, agent 4's +Inf
+    on one) and agent 6's gen +Inf on one hour with its first scale 0:
+    that (agent, scale) row alone of agent 6 is NaN (0 x inf), its other
+    scales see -inf there and relu gives 0."""
+    x = _nonfinite_load(x)
+    gen, scales = x["gen"].clone(), x["scales"].clone()
+    gen[6, 4000] = float("inf")
+    scales[6, 0] = 0.0
+    return {**x, "gen": gen, "scales": scales}
+
+
+def _bad_rows(sums):
+    imp, sell = sums
+    return ~(torch.isfinite(imp).all(dim=2) & torch.isfinite(sell))
+
+
+@pytest.mark.parametrize("r", [25, 250])
+@pytest.mark.parametrize("kernel,p,arg", [
+    ("monthmask_g", 3, 1), ("monthmask_g", 3, 8), ("monthmask_g", 10, 4),
+    ("mnet", 3, 8), ("mnet", 10, 16), ("mnet_hi", 3, 8), ("mnet_hi", 10, 16)],
+    ids=lambda v: str(v))
+def test_micro_kernels_carry_nan_and_inf_to_the_plain_versions_rows(cuda, kernel, p,
+                                                                     arg, r):
+    """A NaN or +Inf load hour and a +Inf gen hour make the same (agent,
+    scale) rows non-finite as in the plain version, and no others (arg:
+    g_block, or c_pad); the finite rows within the kernel's tolerance.
+    The month-mask kernel forms every sum as the plain version does
+    (pos x mask), so its NaN, +Inf and -Inf positions are the plain
+    version's too; 3xTF32 may turn an infinite sum into NaN (inf x the
+    small part 0 of a one), within the same rows."""
+    x = _nonfinite_rows(_inputs(cuda, 16, r, p, seed=6))
+    if kernel == "monthmask_g":
+        args, kw = _micro_args(x), dict(n_periods=p, g_block=arg)
+        got, ref = mk.sums_monthmask_g(*args, **kw), mk.sums_monthmask_g_plain(*args, **kw)
+        rtol = 1e-4
+    else:
+        m = mk.build_mask_cols(x["sell"], x["period"], p, arg)
+        args = (x["load"], x["gen"], m, x["scales"])
+        got = mk.mnet_sums(*args, n_periods=p, hi=kernel == "mnet_hi")
+        ref = mk.mask_product_plain(*args, n_periods=p)
+        rtol = 1e-4 if kernel == "mnet_hi" else 5e-3
+    torch.cuda.synchronize()
+    bad = _bad_rows(ref)
+    assert bool(bad[1].all() and bad[4].all() and bad[6, 0])
+    assert not bool(bad[6, 1:].any()) and int(bad.sum()) == 2 * r + 1
+    assert torch.equal(_bad_rows(got), bad)
+    if kernel == "monthmask_g":
+        for g, rf in zip(got, ref):
+            for what in (torch.isnan, torch.isposinf, torch.isneginf):
+                assert torch.equal(what(g), what(rf)), what.__name__
+    def finite_rows(sums):
+        imp, sell = sums
+        return (torch.where(bad[..., None], 0.0, imp), torch.where(bad, 0.0, sell))
+
+    _close(finite_rows(got), finite_rows(ref), rtol=rtol)
+

@@ -184,6 +184,41 @@ def test_prebuilt_mask_variants_match_the_jax_tool(jtool, interpret, name, p, c_
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("name", ["monthmask_g", "mnet", "mnet_hi"])
+def test_plain_versions_carry_nonfinite_hours_to_the_jax_tools_rows(jtool, interpret,
+                                                                    name):
+    """A NaN load hour (agent 1) and an infinite gen hour of an agent whose
+    first scale is 0 (agent 2) make the same (agent, scale) rows
+    non-finite in the plain versions the kernels are held to as in the JAX
+    tool, run in the Pallas interpreter: all of agent 1's and agent 2's
+    first alone (0 x inf; its other scales see -inf and relu 0); the
+    other rows as the parity tests hold them."""
+    p = 2
+    x = make_inputs(p, seed=70)
+    x["load"][1, 4000] = np.nan
+    x["gen"][2, 5000] = np.inf
+    x["scales"][2, 0] = 0.0
+    jargs, targs = both(x)
+    if name == "monthmask_g":
+        ref = jtool.sums_monthmask_g(*jargs, n_periods=p, g_block=2)
+        got = mk.sums_monthmask_g_plain(*targs, n_periods=p, g_block=2)
+    else:
+        ref = jtool.sums_mnet(*jargs, n_periods=p, hi=name == "mnet_hi")
+        m = mk.build_mask_cols(targs[2], targs[3] % p, p, 8)
+        got = mk.mask_product_plain(targs[0], targs[1], m, targs[4], n_periods=p)
+    ref = np.asarray(ref)
+    ref_bad = ~(np.isfinite(ref[:, :R, :12 * p]).all(axis=2)
+                & np.isfinite(ref[:, :R, -1]))
+    got_bad = ~(torch.isfinite(got[0]).all(dim=2) & torch.isfinite(got[1])).numpy()
+    want = np.zeros((N, R), bool)
+    want[1] = True
+    want[2, 0] = True
+    np.testing.assert_array_equal(ref_bad, want)
+    np.testing.assert_array_equal(got_bad, want)
+    fine = [a for a in range(N) if a not in (1, 2)]
+    hold([g[fine] for g in got], ref[fine], p)
+
+
 def test_mask_cols_refuse_a_c_pad_below_p_plus_one(jtool):
     x = make_inputs(3)
     sell, period = torch.from_numpy(x["sell"]), torch.from_numpy(x["bucket"] % 3)

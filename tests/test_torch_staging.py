@@ -130,7 +130,7 @@ def test_library_path_covers_the_staging_header(tmp_path, monkeypatch):
     assert sorted(p.rsplit("/", 1)[1] for p in _build.sources()) == [
         "battery_dispatch.cu", "bucket_sums.cu", "bucket_sums_dot.cu",
         "bucket_sums_stream.cu", "microbench_dot.cu", "microbench_mask.cu",
-        "microbench_pre.cu"]
+        "microbench_mnet.cu", "microbench_pre.cu"]
 
 
 def test_kernel_resources_name_the_redesigned_kernels():
@@ -163,3 +163,21 @@ def test_kernel_resources_name_the_micro_tensor_core_kernels():
         "variant_kernel<build=onehot,dot=dot,net=fma,col_tiles=8>",
         "variant_kernel<build=hbm,dot=none,net=bcast,col_tiles=0>",
         "monthdot_kernel<col_tiles=2>"]
+
+
+def test_kernel_resources_name_the_redesigned_micro_mask_kernels():
+    """The grouped month-mask kernel's periods and scales a thread, the
+    rank-1-net kernel's n8 tiles and precision, and the prebuilt-mask
+    kernel's n8 tiles print by name."""
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__c8cfa117_"
+        f"{name}{targs}EEvPKfS2_S2_' for 'sm_90a'" for name, targs in (
+            ("18monthmask_g_kernel", "ILi2ELi8E"),
+            ("18monthmask_g_kernel", "ILi10ELi4E"),
+            ("11mnet_kernel", "ILi1ELb0E"),
+            ("11mnet_kernel", "ILi2ELb1E"),
+            ("19mask_product_kernel", "ILi1E")))
+    assert [r["kernel"] for r in _build.kernel_resources(log)] == [
+        "monthmask_g_kernel<periods=2,spt=8>", "monthmask_g_kernel<periods=10,spt=4>",
+        "mnet_kernel<col_tiles=1>", "mnet_kernel<col_tiles=2,hi>",
+        "mask_product_kernel<col_tiles=1>"]
